@@ -1,0 +1,26 @@
+"""kafka_assignment_optimizer_tpu_torch — the Kafka partition-reassignment
+optimizer on an NVIDIA GPU, in PyTorch with hand-written CUDA kernels.
+
+The port of ``kafka_assignment_optimizer_tpu`` (JAX + Pallas), module for
+module at the same relative paths, held against it in the tests. This
+package imports neither JAX nor the reference package.
+
+- ``models``  — cluster/assignment model, the solver-neutral instance
+- ``solvers`` — the sweep annealing engine on the card
+- ``ops``     — scoring in plain PyTorch, and the CUDA kernels' wrappers
+- ``csrc``    — the CUDA C++ kernel sources (built with nvcc at first use)
+- ``prng``    — threefry2x32 random bits, equal to the reference's
+"""
+
+from .api import OptimizeResult, optimize  # noqa: F401
+from .models.cluster import (  # noqa: F401
+    Assignment,
+    MoveReport,
+    PartitionAssignment,
+    Topology,
+    move_diff,
+    parse_broker_list,
+)
+from .models.instance import ProblemInstance, build_instance  # noqa: F401
+
+__version__ = "0.1.0"

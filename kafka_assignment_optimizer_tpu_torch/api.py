@@ -1,0 +1,95 @@
+"""High-level entry point: ``optimize()`` — parse, build the model, solve,
+decode, diff (the reference package's ``api.optimize``, call for call).
+
+The solve runs on the card unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Sequence
+
+from .models.cluster import Assignment, MoveReport, Topology, move_diff
+from .models.instance import ProblemInstance, build_instance
+from .solvers.base import SolveResult, get_solver
+
+
+@dataclass
+class OptimizeResult:
+    """The plan, the move diff vs the current assignment, and solver
+    telemetry."""
+
+    assignment: Assignment
+    moves: MoveReport
+    solve: SolveResult
+    instance: ProblemInstance = field(repr=False, default=None)
+    wall_clock_s: float = 0.0
+
+    @property
+    def replica_moves(self) -> int:
+        return self.moves.replica_moves
+
+    def report(self) -> dict:
+        viol = self.instance.violations(self.solve.a)
+        return {
+            "solver": self.solve.solver,
+            "replica_moves": self.moves.replica_moves,
+            "leader_changes": self.moves.leader_changes,
+            "objective_weight": self.instance.preservation_weight(
+                self.solve.a),
+            # the unconstrained per-partition optimum (the reference's
+            # LP-tightened bound is not part of this package yet)
+            "objective_upper_bound": self.instance.max_weight(),
+            "violations": viol,
+            "feasible": all(v == 0 for v in viol.values()),
+            "proven_optimal": self.solve.optimal,
+            "solver_wall_clock_s": round(self.solve.wall_clock_s, 4),
+            "total_wall_clock_s": round(self.wall_clock_s, 4),
+            "brokers": self.instance.num_brokers,
+            "partitions": self.instance.num_parts,
+            "racks": self.instance.num_racks,
+            **{f"solver_{k}": v for k, v in self.solve.stats.items()
+               if isinstance(v, (int, float, str, bool))},
+        }
+
+
+def optimize(
+    current: Assignment | str | dict,
+    broker_list: Sequence[int],
+    topology: Topology | dict | None = None,
+    target_rf: int | dict | None = None,
+    solver: str = "auto",
+    instance: ProblemInstance | None = None,
+    **solver_kwargs,
+) -> OptimizeResult:
+    """Compute a minimal-move, constraint-satisfying reassignment plan.
+
+    Arguments mirror the reference package's ``optimize``: the current
+    assignment (JSON text, dict, or :class:`Assignment`), the target
+    broker list, the broker->rack topology, and optionally a new
+    replication factor. ``device`` (a solver keyword) picks the solve
+    device: the card by default, ``"cpu"`` on request.
+    """
+    t0 = time.perf_counter()
+    if isinstance(current, str):
+        current = Assignment.from_json(current)
+    elif isinstance(current, dict):
+        current = Assignment.from_dict(current)
+    if isinstance(topology, dict):
+        topology = Topology.from_dict(topology)
+    inst = (
+        instance if instance is not None
+        else build_instance(current, broker_list, topology, target_rf)
+    )
+    t_build = time.perf_counter()
+    result = get_solver(solver)(inst, **solver_kwargs)
+    result.stats["build_s"] = round(t_build - t0, 4)
+    plan = inst.decode(result.a)
+    return OptimizeResult(
+        assignment=plan,
+        moves=move_diff(current, plan),
+        solve=result,
+        instance=inst,
+        wall_clock_s=time.perf_counter() - t0,
+    )

@@ -1,0 +1,84 @@
+"""CLI — reassignment JSON in, optimized plan out.
+
+Usage:
+    python -m kafka_assignment_optimizer_tpu_torch \\
+        --input current.json --broker-list 0-18 --topology topology.json \\
+        [--seed 0] [--batch 8] [--sweeps 128] [--device cuda|cpu] [--report]
+
+Reads the current assignment from ``--input`` or stdin, writes the plan
+(same dialect) to stdout and, with ``--report``, a solve report to
+stderr. Exit codes: 0 feasible plan, 3 infeasible plan, 2 error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+from .api import optimize
+from .models.cluster import Assignment, Topology, parse_broker_list
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="kafka_assignment_optimizer_tpu_torch",
+        description="Minimal-move, rack-aware Kafka partition reassignment "
+        "optimizer on an NVIDIA GPU (PyTorch + CUDA).",
+    )
+    ap.add_argument("--input", "-i",
+                    help="current assignment JSON file (default: stdin)")
+    ap.add_argument("--broker-list", required=True,
+                    help="target brokers, e.g. '0,1,2' or '0-18'")
+    ap.add_argument(
+        "--topology",
+        help="broker->rack map: JSON file, inline JSON, or 'even-odd' "
+        "(the upstream demo topology). Default: one rack.",
+    )
+    ap.add_argument("--solver", default="auto", help="auto | tpu")
+    ap.add_argument("--report", action="store_true",
+                    help="print the solve report to stderr")
+    ap.add_argument("--indent", type=int, default=2,
+                    help="output JSON indent")
+    ap.add_argument("--seed", type=int, default=0, help="search RNG seed")
+    ap.add_argument("--batch", type=int, help="annealing chains")
+    ap.add_argument("--sweeps", type=int, help="annealing sweeps")
+    ap.add_argument("--device", default="cuda",
+                    help="solve device: cuda (default) or cpu")
+    return ap
+
+
+def load_topology(spec: str | None, broker_ids: list[int]) -> Topology | None:
+    if spec is None:
+        return None
+    if spec == "even-odd":
+        return Topology.even_odd(broker_ids)
+    path = Path(spec)
+    text = path.read_text() if path.exists() else spec
+    return Topology.from_json(text)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        text = Path(args.input).read_text() if args.input else sys.stdin.read()
+        current = Assignment.from_json(text)
+        brokers = parse_broker_list(args.broker_list)
+        all_ids = sorted(set(brokers) | set(current.broker_ids()))
+        topology = load_topology(args.topology, all_ids)
+        kw = {"seed": args.seed, "device": args.device}
+        if args.batch:
+            kw["batch"] = args.batch
+        if args.sweeps:
+            kw["sweeps"] = args.sweeps
+        res = optimize(current, brokers, topology, solver=args.solver, **kw)
+    except (ValueError, KeyError, OSError, RuntimeError) as e:
+        msg = e.args[0] if e.args and isinstance(e.args[0], str) else e
+        print(f"error: {msg}", file=sys.stderr)
+        return 2
+    print(res.assignment.to_json(indent=args.indent))
+    rep = res.report()
+    if args.report:
+        print(json.dumps(rep, indent=2, default=str), file=sys.stderr)
+    return 0 if rep["feasible"] else 3

@@ -1,0 +1,58 @@
+// Shared device helpers of the sweep kernels. Every float operation that
+// takes part in an accept decision is written with an explicit rounding
+// intrinsic (and the sources are built with --fmad=false), so the kernels
+// round exactly as the plain PyTorch versions do.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define KAO_MAX_R 16  // largest replica-slot count the kernels take
+
+// integer band-violation magnitude of count c vs [lo, hi]
+__device__ __forceinline__ int band_pen(int c, int lo, int hi) {
+  return max(c - hi, 0) + max(lo - c, 0);
+}
+
+// uint32 bits -> uniform float32 in [0, 1) from the top 24 bits: the
+// int -> float conversion is exact, the scale a power of two
+__device__ __forceinline__ float u01(uint32_t bits) {
+  return __fmul_rn((float)(bits >> 8), 5.9604644775390625e-08f);
+}
+
+// floor(u * hi) clamped to hi - 1: the float32 product truncated toward
+// zero, exactly as the reference's _rand_idx casts it
+__device__ __forceinline__ int rand_idx(float u, int hi) {
+  return min((int)__fmul_rn(u, (float)hi), hi - 1);
+}
+
+// the Metropolis test: delta >= 0, or u < exp(delta / max(temp, 1e-6))
+__device__ __forceinline__ bool metropolis(float delta, float u, float temp) {
+  return delta >= 0.f || u < expf(__fdiv_rn(delta, fmaxf(temp, 1e-6f)));
+}
+
+// max-accumulate a non-negative float into a priority map: the int bit
+// patterns of non-negative floats order as the floats do, so an integer
+// atomicMax is exact and independent of the order of the updates
+__device__ __forceinline__ void map_max(float* map, float v) {
+  atomicMax(reinterpret_cast<int*>(map), __float_as_int(v));
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// block-wide sum of v; the result is valid in thread 0
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = threadIdx.x < (blockDim.x >> 5) ? scratch[threadIdx.x] : 0;
+  if (warp == 0) v = warp_sum(v);
+  __syncthreads();
+  return v;
+}
+
+#define KAO_THREADS 256

@@ -1,0 +1,147 @@
+"""B1: exact chain scoring and histograms — the CUDA kernel and its plain
+PyTorch version.
+
+Replaces ``kafka_assignment_optimizer_tpu/ops/score_pallas.py:55``
+(``_score_kernel``, reached through ``score_batch_pallas``). The sweep
+runs it at every chunk entry and every snapshot resync, and the engine
+at seed scoring and final selection and verification.
+
+On the card the cost is bytes: one read of ``a[N, P, R]`` plus R
+gathered weights per (chain, partition); see ``csrc/score.cu`` for the
+design. :func:`score` launches the kernel for a CUDA tensor and runs
+:func:`score_plain` for a CPU tensor; both return ``(out [N, 8], cnt
+[N, B+1], lcnt [N, B+1], rcnt [N, K+1])`` with ``out[:, :5] = (weight,
+pen_broker, pen_leader, pen_rack, pen_part_rack)`` and zeros after.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..solvers.tpu.arrays import ModelArrays, band_pen
+from . import kernels
+from .kernels import check
+
+
+def _count(idx: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-chain histogram of ``idx [N, ...]`` over ``width`` buckets."""
+    idx = idx.reshape(idx.shape[0], -1)
+    out = torch.zeros(idx.shape[0], width, dtype=torch.int32,
+                      device=idx.device)
+    return out.scatter_add_(
+        1, idx.long(), torch.ones(idx.shape, dtype=torch.int32,
+                                  device=idx.device))
+
+
+def histograms(m: ModelArrays, a: torch.Tensor):
+    """Exact per-chain histograms. a: [N, P, R] -> (flat, racks, cnt
+    [N, B+1], lcnt [N, B+1], rcnt [N, K+1])."""
+    B = m.num_brokers
+    K1 = m.rack_lo.shape[0]
+    flat = torch.where(m.slot_valid[None], a, B)
+    cnt = _count(flat, B + 1)
+    lcnt = _count(flat[:, :, 0], B + 1)
+    racks = m.rack_of[flat.long()]
+    rcnt = _count(racks, K1)
+    return flat, racks, cnt, lcnt, rcnt
+
+
+def div_overflow(m: ModelArrays, racks: torch.Tensor) -> torch.Tensor:
+    """Rack-diversity penalty: a slot overflows when its same-rack rank
+    among the earlier slots of its partition reaches the cap. [N]."""
+    R = racks.shape[-1]
+    same = racks[..., :, None] == racks[..., None, :]  # [N, P, R, R]
+    iota = torch.arange(R, device=racks.device)
+    tri = (iota[:, None] > iota[None, :])[None, None]
+    rank = (same & tri).sum(-1, dtype=torch.int32)
+    over = m.slot_valid[None] & (rank >= m.part_rack_hi[None, :, None])
+    return over.sum((1, 2), dtype=torch.int32)
+
+
+def weight(m: ModelArrays, a: torch.Tensor) -> torch.Tensor:
+    """Exact preservation weight per chain. [N] int32."""
+    N, P, R = a.shape
+    rows = torch.arange(P, device=a.device)[None, :]
+    wl = m.w_lead[rows, a[:, :, 0].long()]
+    w = torch.where(m.slot_valid[None, :, 0], wl, 0).sum(1, dtype=torch.int32)
+    if R > 1:
+        wf = m.w_foll[rows[..., None], a[:, :, 1:].long()]
+        w = w + torch.where(m.slot_valid[None, :, 1:], wf, 0).sum(
+            (1, 2), dtype=torch.int32)
+    return w
+
+
+def score_plain(m: ModelArrays, a: torch.Tensor):
+    """The plain version of B1: ``(out [N, 8], cnt, lcnt, rcnt)``."""
+    flat, racks, cnt, lcnt, rcnt = histograms(m, a)
+    B, K = m.num_brokers, m.num_racks
+
+    def band(x, lo, hi):
+        return band_pen(x, lo, hi).sum(1, dtype=torch.int32)
+
+    out = torch.zeros(a.shape[0], 8, dtype=torch.int32, device=a.device)
+    out[:, 0] = weight(m, a)
+    out[:, 1] = band(cnt[:, :B], m.broker_band[0], m.broker_band[1])
+    out[:, 2] = band(lcnt[:, :B], m.leader_band[0], m.leader_band[1])
+    out[:, 3] = band(rcnt[:, :K], m.rack_lo[None, :K], m.rack_hi[None, :K])
+    out[:, 4] = div_overflow(m, racks)
+    return out, cnt, lcnt, rcnt
+
+
+def score(m: ModelArrays, a: torch.Tensor):
+    """B1 on ``a [N, P, R]``: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if a.device.type == "cpu":
+        return score_plain(m, a)
+    N, P, R = a.shape
+    B1 = m.num_brokers + 1
+    K1 = m.rack_lo.shape[0]
+    dev = a.device
+    if R > 16:
+        raise ValueError(f"B1 takes at most 16 replica slots, got {R}")
+    check("a", a, torch.int32, (N, P, R), dev)
+    check("slot_valid", m.slot_valid, torch.bool, (P, R), dev)
+    check("w_lead", m.w_lead, torch.int32, (P, B1), dev)
+    check("w_foll", m.w_foll, torch.int32, (P, B1), dev)
+    check("rack_of", m.rack_of, torch.int32, (B1,), dev)
+    check("part_rack_hi", m.part_rack_hi, torch.int32, (P,), dev)
+    check("rack_lo", m.rack_lo, torch.int32, (K1,), dev)
+    check("rack_hi", m.rack_hi, torch.int32, (K1,), dev)
+    if (2 * B1 + K1) * 4 > 227 * 1024:
+        raise ValueError(f"B1 histograms of {B1} brokers exceed shared memory")
+    out = torch.zeros(N, 8, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(N, B1, dtype=torch.int32, device=dev)
+    lcnt = torch.zeros(N, B1, dtype=torch.int32, device=dev)
+    rcnt = torch.zeros(N, K1, dtype=torch.int32, device=dev)
+    blo, bhi, llo, lhi = m.bands()
+    kernels.SCORE(
+        a.data_ptr(), m.slot_valid.data_ptr(), m.w_lead.data_ptr(),
+        m.w_foll.data_ptr(), m.rack_of.data_ptr(),
+        m.part_rack_hi.data_ptr(), m.rack_lo.data_ptr(),
+        m.rack_hi.data_ptr(), blo, bhi, llo, lhi, N, P, R, B1, K1,
+        out.data_ptr(), cnt.data_ptr(), lcnt.data_ptr(), rcnt.data_ptr(),
+    )
+    return out, cnt, lcnt, rcnt
+
+
+def _scores_of(out, cnt, lcnt, rcnt):
+    pen = out[:, 1:5].sum(1, dtype=torch.int32)
+    return out[:, 0], pen, cnt, lcnt, rcnt
+
+
+def full_scores(m: ModelArrays, a: torch.Tensor):
+    """(weight [N], penalty [N], cnt, lcnt, rcnt) — exact, from scratch,
+    in plain PyTorch: the snapshot scorer and histogram resync of the
+    plain sweep bundle."""
+    return _scores_of(*score_plain(m, a))
+
+
+def full_scores_cuda(m: ModelArrays, a: torch.Tensor):
+    """:func:`full_scores` through the B1 kernel."""
+    return _scores_of(*score(m, a))
+
+
+def chain_scores(m: ModelArrays, a: torch.Tensor):
+    """(weight [N], penalty [N]) — exact, from scratch."""
+    w, pen, _cnt, _lcnt, _rcnt = full_scores(m, a)
+    return w, pen

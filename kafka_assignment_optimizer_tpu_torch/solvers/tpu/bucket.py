@@ -1,0 +1,101 @@
+"""Shape bucketing: the canonical padded shape a model is lowered to.
+
+A copy of the partition and max-RF ladders of
+``kafka_assignment_optimizer_tpu.solvers.tpu.bucket``. The padded shape
+is part of the search trajectory (the random bits are drawn per padded
+row, and exchange partners pair across padded rows), so the port pads
+exactly as the reference does and both replay the same ladder.
+
+Padded rows are inert by construction (``arrays.from_instance``): rf=0,
+slot_valid false, zero weights, zero diversity caps; every proposal on
+them is rejected, and the returned plan is sliced back to the real shape
+before any host-side oracle sees it. The broker and rack axes are never
+padded: their band penalties are global.
+
+Config:
+
+- ``KAO_BUCKETS=off``           disable bucketing (raw shapes).
+- ``KAO_BUCKETS=64,1024,16384`` override the partition ladder with an
+  explicit comma list (instances above the largest rung keep their raw
+  partition count).
+"""
+
+from __future__ import annotations
+
+import os
+
+# partition ladder: geometric from 32 up — 1.5x below 1024 partitions,
+# 1.25x from there, rounded to multiples of 8 (256 from 4096 up)
+_LADDER_BASE = 32
+_LADDER_GROWTH_SMALL = 1.5
+_LADDER_GROWTH_BIG = 1.25
+_LADDER_BIG_AT = 1024
+_LADDER_ALIGN = 8
+_LADDER_TILE_AT = 4096
+_LADDER_TILE = 256
+
+# max-RF ladder: one rung per common value, then multiples of 4
+_RF_LADDER = (1, 2, 3, 4, 5, 6, 8)
+
+
+def _round_up(v: int, align: int) -> int:
+    return -(-int(v) // align) * align
+
+
+def enabled() -> bool:
+    return os.environ.get("KAO_BUCKETS", "").lower() not in (
+        "off", "0", "none", "false",
+    )
+
+
+def _custom_ladder() -> list[int] | None:
+    """Explicit partition ladder from ``KAO_BUCKETS``, or None."""
+    raw = os.environ.get("KAO_BUCKETS", "")
+    if not raw or raw.lower() in ("on", "1", "true"):
+        return None
+    try:
+        rungs = sorted({int(x) for x in raw.split(",") if x.strip()})
+    except ValueError:
+        return None  # malformed override: fall back to the default ladder
+    return rungs or None
+
+
+def _next_rung(v: int) -> int:
+    growth = (
+        _LADDER_GROWTH_SMALL if v < _LADDER_BIG_AT else _LADDER_GROWTH_BIG
+    )
+    align = _LADDER_TILE if v >= _LADDER_TILE_AT else _LADDER_ALIGN
+    return _round_up(v * growth, align)
+
+
+def part_bucket(num_parts: int) -> int:
+    """Smallest ladder rung >= num_parts (identity when bucketing is
+    disabled; instances above a custom ladder's top rung stay raw)."""
+    p = int(num_parts)
+    if not enabled():
+        return p
+    custom = _custom_ladder()
+    if custom is not None:
+        for rung in custom:
+            if rung >= p:
+                return rung
+        return p
+    v = _LADDER_BASE
+    while v < p:
+        v = _next_rung(v)
+    return v
+
+
+def rf_bucket(max_rf: int) -> int:
+    r = int(max_rf)
+    if not enabled():
+        return r
+    for rung in _RF_LADDER:
+        if rung >= r:
+            return rung
+    return _round_up(r, 4)
+
+
+def bucket_shape(inst) -> tuple[int, int]:
+    """(partition-bucket, rf-bucket) for a ProblemInstance."""
+    return part_bucket(inst.num_parts), rf_bucket(inst.max_rf)

@@ -1,0 +1,312 @@
+"""Synthetic scenario generators: the port's copy of the two scenarios its
+checks drive.
+
+- ``demo``         the upstream README example (golden: exactly 1 move);
+- ``adversarial``  256 brokers / 8 racks / 10k partitions, half the
+  topics at RF 2 and half at RF 4, member sets drawn by seeded shuffle,
+  one broker decommissioned — the at-scale row that reaches the sweep
+  engine.
+
+Copied from ``kafka_assignment_optimizer_tpu.utils.gen``; the same seed
+gives the same scenario in both packages.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..models.cluster import (
+    Assignment,
+    PartitionAssignment,
+    Topology,
+    demo_assignment,
+    demo_broker_list,
+    demo_topology,
+)
+
+@dataclass
+class Scenario:
+    """One benchmark configuration: the optimizer's full input tuple plus
+    bookkeeping the harness uses to judge plan quality."""
+
+    name: str
+    current: Assignment
+    broker_list: list[int]
+    topology: Topology
+    target_rf: int | None = None
+    # a provable lower bound on replica moves for any feasible plan; when
+    # ``lb_tight`` the bound is known achievable, so the harness's quality
+    # gate requires moves == min_moves_lb (e.g. leader_only: exactly 0)
+    min_moves_lb: int = 0
+    lb_tight: bool = False
+    notes: str = ""
+
+    @property
+    def kwargs(self) -> dict:
+        return dict(
+            current=self.current,
+            broker_list=self.broker_list,
+            topology=self.topology,
+            target_rf=self.target_rf,
+        )
+
+
+def _rack_interleaved(broker_ids: list[int], topology: Topology) -> list[int]:
+    """Order brokers round-robin across racks."""
+    by_rack: dict[str, list[int]] = {}
+    for b in broker_ids:
+        by_rack.setdefault(topology.rack(b), []).append(b)
+    lanes = [sorted(v) for _, v in sorted(by_rack.items())]
+    out: list[int] = []
+    i = 0
+    while len(out) < len(broker_ids):
+        for lane in lanes:
+            if i < len(lane):
+                out.append(lane[i])
+        i += 1
+    return out
+
+
+
+def _mod_topology(broker_ids: list[int], n_racks: int) -> Topology:
+    return Topology.from_dict(
+        {str(b): f"rack{b % n_racks}" for b in broker_ids}
+    )
+
+
+def demo() -> Scenario:
+    """The upstream README's worked example
+    (``README.md:27-91``): 20 brokers, even/odd AZs, 10 partitions RF=2,
+    decommission broker 19. Known optimum: exactly 1 replica move."""
+    return Scenario(
+        name="demo",
+        current=demo_assignment(),
+        broker_list=demo_broker_list(),  # 0..18 (19 removed)
+        topology=demo_topology(),
+        min_moves_lb=1,
+        lb_tight=True,
+        notes="golden: optimal plan moves exactly 1 replica (README.md:85-91)",
+    )
+
+
+
+def _scatter_assignment(
+    broker_ids: list[int],
+    topology: Topology,
+    topic_rf: list[tuple[str, int, int]],
+    rng,
+) -> Assignment:
+    """Exactly balanced but SHUFFLED placement: per-broker totals are
+    floor/ceil(R/B) and every partition is rack-diverse, yet member
+    sets are drawn by seeded shuffle so essentially every partition is
+    its own symmetry class (the opposite of ``balanced_assignment``'s
+    round-robin windows, which collapse 50-500x under
+    ``_member_classes``). ``topic_rf`` is [(topic, n_parts, rf)]."""
+    B = len(broker_ids)
+    rack = {b: topology.rack(b) for b in broker_ids}
+    rfs = [rf for _, n, rf in topic_rf for _ in range(n)]
+    R = sum(rfs)
+    lo, n_hi = R // B, R % B
+    counts = {b: lo for b in broker_ids}
+    # ceil brokers spread rack-interleaved so rack totals stay balanced
+    for b in _rack_interleaved(broker_ids, topology)[:n_hi]:
+        counts[b] += 1
+    supply = [b for b in broker_ids for _ in range(counts[b])]
+    rng.shuffle(supply)
+    starts = [0]
+    for r in rfs:
+        starts.append(starts[-1] + r)
+    # forward repair: ensure each partition's slots are distinct
+    # brokers in distinct racks, swapping offenders with any later slot
+    # that fits (later partitions are untouched regions, so a forward
+    # swap can only be re-examined, never silently corrupted)
+    n_slots = len(supply)
+    for p in range(len(rfs)):
+        s, e = starts[p], starts[p + 1]
+        for j in range(s, e):
+            used_b = set(supply[s:j])
+            used_r = {rack[x] for x in supply[s:j]}
+            if supply[j] not in used_b and rack[supply[j]] not in used_r:
+                continue
+            for k in range(e, n_slots):
+                if (supply[k] not in used_b
+                        and rack[supply[k]] not in used_r):
+                    supply[j], supply[k] = supply[k], supply[j]
+                    break
+            else:
+                # tail starvation: trade with an earlier partition where
+                # both stay valid (rare; seeded, so exercised in tests)
+                if not _backward_slot_trade(
+                    supply, starts, rfs, rack, p, j
+                ):
+                    raise RuntimeError(
+                        "scatter repair failed; change the seed"
+                    )
+    # leaders: greedy least-loaded, then rebalanced into the band that
+    # is valid BOTH before and after any single-broker removal
+    n_p = len(rfs)
+    reps = [supply[starts[p]:starts[p + 1]] for p in range(n_p)]
+    lcnt = {b: 0 for b in broker_ids}
+    leads = []
+    for rr in reps:
+        ld = min(rr, key=lambda b: (lcnt[b], b))
+        lcnt[ld] += 1
+        leads.append(ld)
+    if B > 1:
+        # the surviving-cluster floor is the stricter target, but it is
+        # only reachable when B brokers can all carry it
+        lo_t = n_p // (B - 1)
+        if lo_t * B > n_p:
+            lo_t = n_p // B
+        # ceil(n_p/B) is the stricter (pre-removal) ceiling of the two
+        hi_t = max(-(-n_p // B), lo_t)
+    else:
+        lo_t = hi_t = n_p
+    def promote(p, nb):
+        lcnt[leads[p]] -= 1
+        lcnt[nb] += 1
+        leads[p] = nb
+
+    for _ in range(4 * n_p):
+        if all(lo_t <= lcnt[b] <= hi_t for b in broker_ids):
+            break
+        changed = False
+        for p, rr in enumerate(reps):
+            ld = leads[p]
+            if lcnt[ld] > hi_t:
+                cand = [b for b in rr if lcnt[b] < hi_t]
+            elif lcnt[ld] > lo_t:
+                cand = [b for b in rr if lcnt[b] < lo_t]
+            else:
+                continue
+            if cand:
+                promote(p, min(cand, key=lambda b: (lcnt[b], b)))
+                changed = True
+        if all(lo_t <= lcnt[b] <= hi_t for b in broker_ids):
+            break
+        if changed:
+            continue
+        # single promotions are stuck: augment through an at-bound
+        # intermediary W (U gains via A, W compensates via B — the
+        # 2-hop chains some seeds need when every deficit broker only
+        # appears in partitions whose leaders sit exactly on a bound)
+        contains: dict[int, list[int]] = {b: [] for b in broker_ids}
+        for p, rr in enumerate(reps):
+            for b in rr:
+                contains[b].append(p)
+        for U in [b for b in broker_ids if lcnt[b] < lo_t]:
+            done = False
+            for A in contains[U]:
+                W = leads[A]
+                for Bp in contains[W]:
+                    V = leads[Bp]
+                    if V != W and lcnt[V] > lo_t:
+                        promote(Bp, W)  # W compensates first
+                        promote(A, U)
+                        done = changed = True
+                        break
+                if done:
+                    break
+        for V in [b for b in broker_ids if lcnt[b] > hi_t]:
+            done = False
+            for Bp in [p for p in range(n_p) if leads[p] == V]:
+                for W in reps[Bp]:
+                    if W == V:
+                        continue
+                    for A in [p for p in contains[W] if leads[p] == W]:
+                        X = [b for b in reps[A]
+                             if b != W and lcnt[b] < hi_t]
+                        if X:
+                            promote(A, min(X))  # W sheds first
+                            promote(Bp, W)
+                            done = changed = True
+                            break
+                    if done:
+                        break
+                if done:
+                    break
+        if not changed:
+            raise RuntimeError(
+                "leader rebalance stalled; change the seed"
+            )
+    if not all(lo_t <= lcnt[b] <= hi_t for b in broker_ids):
+        raise RuntimeError("leader rebalance did not converge")
+    parts = []
+    i = 0
+    for topic, n, _rf in topic_rf:
+        for p in range(n):
+            rr = reps[i]
+            ld = leads[i]
+            parts.append(PartitionAssignment(
+                topic=topic, partition=p,
+                replicas=[ld] + [b for b in rr if b != ld],
+            ))
+            i += 1
+    return Assignment(partitions=parts)
+
+
+def _backward_slot_trade(supply, starts, rfs, rack, p, j) -> bool:
+    """Swap ``supply[j]`` with a slot of an earlier partition such that
+    both partitions end up valid. Returns True on success."""
+    s, e = starts[p], starts[p + 1]
+    used_b = set(supply[s:j])
+    used_r = {rack[x] for x in supply[s:j]}
+    for q in range(p):
+        qs, qe = starts[q], starts[q + 1]
+        for k in range(qs, qe):
+            cand = supply[k]
+            if cand in used_b or rack[cand] in used_r:
+                continue
+            q_others = [supply[x] for x in range(qs, qe) if x != k]
+            give = supply[j]
+            if give in q_others:
+                continue
+            if rack[give] in {rack[x] for x in q_others}:
+                continue
+            supply[j], supply[k] = supply[k], supply[j]
+            return True
+    return False
+
+
+def adversarial(
+    n_brokers: int = 256, n_racks: int = 8,
+    n_topics_low: int = 50, n_topics_high: int = 50,
+    parts_per_topic: int = 100, rf_low: int = 2, rf_high: int = 4,
+    seed: int = 7,
+) -> Scenario:
+    """Constructor-proof decommission at headline scale: 256 brokers / 8
+    racks / 10k partitions with per-partition RF asymmetry (half the
+    topics RF=2, half RF=4) and seeded-shuffled member sets, so every
+    partition is its own symmetry class and caps stay slack. The sweep
+    annealer has to close to the bound on the device: this row is the
+    at-scale exercise of the search engine, not of a host constructor."""
+    import numpy as _np
+
+    all_brokers = list(range(n_brokers))
+    remove = n_brokers - 1
+    topo = _mod_topology(all_brokers, n_racks)
+    topic_rf = (
+        [(f"lo{i}", parts_per_topic, rf_low)
+         for i in range(n_topics_low)]
+        + [(f"hi{i}", parts_per_topic, rf_high)
+           for i in range(n_topics_high)]
+    )
+    current = _scatter_assignment(
+        all_brokers, topo, topic_rf, _np.random.default_rng(seed)
+    )
+    lb = sum(
+        1 for p in current.partitions for b in p.replicas if b == remove
+    )
+    return Scenario(
+        name="adversarial",
+        current=current,
+        broker_list=[b for b in all_brokers if b != remove],
+        topology=topo,
+        min_moves_lb=lb,
+        lb_tight=True,
+        notes=(
+            f"shuffled mixed-RF decommission of broker {remove} "
+            f"({lb} replicas): every partition its own symmetry class, "
+            "caps slack -> annealer must close to the bound on-chip"
+        ),
+    )
