@@ -109,16 +109,22 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def gathered(P_rows: int, B1: int, *idx) -> int:
-    """Bytes of the distinct (partition, broker) entries of one [P, B+1]
-    int32 table that the given broker indices [N, P] address."""
+def gathered(B1: int, *reads) -> int:
+    """Bytes of the distinct weight-table entries that ``reads`` address.
+    Each read is ``(table, b, mask)``: ``table`` is 0 for ``w_lead`` and 1
+    for ``w_foll`` (an int or an [N, P] tensor), ``b`` the broker indices
+    [N, P], and ``mask`` (broadcast to [N, P]) the entries read. Both
+    tables are [P, B+1] int32."""
     import torch
 
-    keys = torch.cat([
-        (torch.arange(P_rows, device=b.device)[None, :] * B1 + b.long())
-        .reshape(-1) for b in idx
-    ])
-    return int(torch.unique(keys).numel()) * 4
+    keys = []
+    for table, b, mask in reads:
+        P = b.shape[1]
+        k = ((torch.as_tensor(table, device=b.device) * P
+              + torch.arange(P, device=b.device)[None, :]) * B1 + b.long())
+        mask = torch.as_tensor(mask, device=b.device)
+        keys.append(k[torch.broadcast_to(mask, k.shape)])
+    return int(torch.unique(torch.cat(keys)).numel()) * 4
 
 
 def main() -> int:
@@ -258,8 +264,9 @@ def main() -> int:
     lib = timed(lambda: torch.bincount(keys_b, minlength=N * B1), torch)
     b1_bytes = (nbytes(a, m.slot_valid, m.part_rack_hi, m.rack_of,
                        m.rack_lo, m.rack_hi)
-                + gathered(Pp, B1, a[:, :, 0]) * 2
-                + gathered(Pp, B1, *(a[:, :, r] for r in range(1, Rp)))
+                + gathered(B1, (0, a[:, :, 0], m.slot_valid[None, :, 0]),
+                           *((1, a[:, :, r], m.slot_valid[None, :, r])
+                             for r in range(1, Rp)))
                 + nbytes(*kout))
     report(kernels.SCORE, err, timed(lambda: score(m, a), torch),
            timed(lambda: score_plain(m, a), torch), b1_bytes,
@@ -272,11 +279,19 @@ def main() -> int:
     kx = [t.to(torch.int32) if t.dtype == torch.bool else t for t in kp]
     px = [t.to(torch.int32) if t.dtype == torch.bool else t for t in pp]
     err = check_equal("B2", kx + [kmo, kmi], px + [pmo, pmi])
-    b_old = torch.where(pp.is_lsw, pp.b_lead, pp.b_at_s)
-    need = (pp.b_new, b_old, pp.b_at_s, pp.b_lead)
+    # weights are needed for legal proposals only: a replace reads its
+    # slot's table at the old and new broker, a leader swap both tables
+    # at the leader and the promoted follower
+    in_row = ((a == pp.b_new[..., None]) & m.slot_valid[None]).any(-1)
+    legal = torch.where(pp.is_lsw, m.rf > 1, ~in_row) & (m.rf > 0)
+    rep_, lsw = legal & ~pp.is_lsw, legal & pp.is_lsw
+    tbl = (pp.s != 0).to(torch.int64)
     b2_bytes = (nbytes(a, m.a0, m.rf, m.slot_valid, m.part_rack_hi,
                        m.rack_of, m.rack_lo, m.rack_hi, cnt, lcnt, rcnt)
-                + NP * 7 * 8 + 2 * gathered(Pp, B1, *need)
+                + NP * 7 * 8
+                + gathered(B1, (tbl, pp.b_new, rep_), (tbl, pp.b_at_s, rep_),
+                           (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
+                           (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw))
                 + nbytes(*kx, kmo, kmi))
     report(kernels.PROPOSE, err,
            timed(lambda: propose_site_cuda(m, a, bits, temp, cnt, lcnt,
@@ -318,7 +333,9 @@ def main() -> int:
     _m, _a, _l, s_own, lead_other, b_other = hargs
     b4_bytes = (nbytes(a, m.slot_valid, m.part_rack_hi, m.rack_of, lcnt,
                        s_own, lead_other, b_other)
-                + 2 * gathered(Pp, B1, ph[0], b_other)
+                # one table per element: w_lead where the own slot leads
+                + gathered(B1, ((s_own != 0).to(torch.int64), b_other, True),
+                           ((s_own != 0).to(torch.int64), ph[0], True))
                 + nbytes(*(t.to(torch.int32) for t in kh)))
     report(kernels.EXCHANGE, err,
            timed(lambda: exchange_halves_cuda(*hargs, **hkw), torch),
@@ -359,7 +376,7 @@ def main() -> int:
     temps = arrays.geometric_temps(2.0, 0.02, 16)
     trajectories = {}
     for scorer in ("cuda", "torch"):
-        step = sweep.make_sweep_stepper_fn(N, scorer=scorer, migrate=True)
+        step = sweep.make_sweep_stepper_fn(N, scorer=scorer)
         st = init_sweep_state(m, seed_t, prng.PRNGKey(0), N)
         seq = []
         t0 = time.perf_counter()
@@ -377,7 +394,7 @@ def main() -> int:
             if not torch.equal(x, y):
                 fail(f"trajectory chunk {i}: state leaf {j} differs between "
                      "the cuda and torch bundles")
-    step = sweep.make_sweep_stepper_fn(N, scorer="cuda", migrate=True)
+    step = sweep.make_sweep_stepper_fn(N, scorer="cuda")
     st = init_sweep_state(m, seed_t, prng.PRNGKey(0), N)
     events, wall = profiled(lambda: step(m, st, temps), torch)
     busy_s = sum(us for _n, us in events) / 1e6

@@ -156,7 +156,7 @@ def solve_tpu(
     chunks = _build_chunks(inst, rounds, t_hi, t_lo)
     # the reference's one-device mesh: one shard holding every chain,
     # with the snapshot-boundary best migration its mesh path runs
-    stepper = make_sweep_stepper_fn(batch, scorer=scorer, migrate=True)
+    stepper = make_sweep_stepper_fn(batch, scorer=scorer)
     state = init_sweep_state(m, seed_dev, key, batch)
     t_lower = _sync(dev)
 

@@ -769,7 +769,7 @@ def _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a):
 
 
 def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                          scorer: str = "torch", migrate: bool = False):
+                          scorer: str = "torch"):
     """The state-carrying core of the sweep engine: ``(m, state, temps)
     -> (state', best_a [P, R], best_key, curve [sweeps])`` with state =
     (a [N, P, R], best_k [N], best_mv [N], best_a [N, P, R], key).
@@ -777,14 +777,11 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
     The reference's ``lax.scan`` becomes a Python loop with the same
     cadences: exchange on odd sweeps, compound every ``COMPOUND_EVERY``,
     an exact snapshot every ``snapshot_every`` sweeps and at the last
-    one, with fewest moves breaking key ties. The full state (the RNG
-    key included) threads through chunk boundaries, so a run cut into
-    chunks whose length is a multiple of ``snapshot_every`` replays the
-    uncut run exactly.
-
-    ``migrate`` adds the snapshot-boundary best migration the reference
-    runs on its device mesh (its ``axis_name`` path) with one device; off,
-    the stepper is the reference's ``axis_name=None`` stepper. Neither
+    one, with fewest moves breaking key ties, followed by the best
+    migration the reference runs on its device mesh (its ``axis_name``
+    path) with one device. The full state (the RNG key included) threads
+    through chunk boundaries, so a run cut into chunks whose length is a
+    multiple of ``snapshot_every`` replays the uncut run exactly. Neither
     the state tensors passed in nor their views are written in place."""
     sc = _make_scorer(scorer)
 
@@ -815,9 +812,8 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
                 best_mv = torch.where(improved, mv, best_mv)
                 best_k = torch.where(improved, k, best_k)
                 best_a = torch.where(improved[:, None, None], a, best_a)
-                if migrate:
-                    a, cnt, lcnt, rcnt, best_k, best_mv, best_a = _migrate(
-                        a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a)
+                a, cnt, lcnt, rcnt, best_k, best_mv, best_a = _migrate(
+                    a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a)
             curve.append(best_k.max())
         tied = best_k == best_k.max()
         top = first_argmin(torch.where(tied, best_mv, _IMAX))
@@ -830,12 +826,11 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
 
 
 def make_sweep_solver_fn(n_chains: int, snapshot_every: int = 8,
-                         scorer: str = "torch", migrate: bool = False):
+                         scorer: str = "torch"):
     """``(m, a_seed [P, R], key, temps) -> (best_a, best_key, curve)``:
     the seed broadcast to ``n_chains`` independent chains, then one
     stepper run."""
-    stepper = make_sweep_stepper_fn(n_chains, snapshot_every, scorer,
-                                    migrate)
+    stepper = make_sweep_stepper_fn(n_chains, snapshot_every, scorer)
     full = _make_scorer(scorer).full
 
     def solve(m: ModelArrays, a_seed: torch.Tensor, key, temps):

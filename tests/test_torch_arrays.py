@@ -60,6 +60,14 @@ def chains(inst, mj, rng, n):
     return a.astype(np.int32)
 
 
+def fast_jit(fn, **kw):
+    """``jax.jit`` at the lowest XLA backend optimization level: the
+    reference functions run on tiny shapes, where only the compile
+    time counts."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0},
+                   **kw)
+
+
 def assert_same(x, y, what=""):
     """Exact equality of a JAX/numpy value and a torch/numpy value."""
     if isinstance(y, torch.Tensor):
@@ -75,13 +83,14 @@ def test_prng_matches_jax_random(seed):
     assert_same(jax.random.split(kj), prng.split(kt), "split")
     assert_same(jax.random.split(kj, 5), prng.split(kt, 5), "split 5")
     assert_same(jax.random.fold_in(kj, 7), prng.fold_in(kt, 7), "fold_in")
-    for shape in [(), (3,), (4, 5, 8), (2, 7, 4)]:
+    for shape in [(), (3,), (4, 5, 8)]:
         bj = np.asarray(jax.random.bits(kj, shape, jnp.uint32))
         assert_same(bj.astype(np.int64), prng.bits(kt, shape), "bits")
         assert_same(bj.astype(np.int64), prng.bits(kt, shape, "cpu"),
                     "bits on a torch device")
+    # one compile per shape: the (6,) cases share theirs
     for shape, lo, hi in [((), 1, 5), ((), 1, 2), ((8, 1), 0, 74),
-                          ((4,), 3, 3), ((5,), 0, 2**31 - 1),
+                          ((6,), 3, 3), ((6,), 0, 2**31 - 1),
                           ((6,), -5, 2**30 + 3)]:
         rj = np.asarray(jax.random.randint(kj, shape, lo, hi))
         assert_same(rj, prng.randint(kt, shape, lo, hi), "randint")

@@ -119,7 +119,7 @@ def test_cuda_bundle_replays_torch_bundle(card, case):
     temps = arrays.geometric_temps(2.0, 0.02, 16)
     runs = []
     for scorer in ("cuda", "torch"):
-        step = sweep.make_sweep_stepper_fn(4, scorer=scorer, migrate=True)
+        step = sweep.make_sweep_stepper_fn(4, scorer=scorer)
         st = init_sweep_state(m, seed, prng.PRNGKey(9), 4)
         outs = []
         for chunk in (temps[:8], temps[8:]):

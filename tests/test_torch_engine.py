@@ -4,6 +4,7 @@ against the reference's, the device rules (the card unless the caller
 asks for the CPU; never a silent fallback), and the import boundary: the
 port and ``chip_smoke.py`` never import JAX or the JAX package."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -121,16 +122,20 @@ def test_cli_demo(tmp_path, capsys, monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and solving on the CPU loads neither JAX nor
-    the JAX package."""
+    """Importing the port, solving on the CPU, and importing and running
+    chip_smoke.py without a card load neither JAX nor the JAX package."""
     code = (
         "import sys\n"
+        "import torch\n"
         "import kafka_assignment_optimizer_tpu_torch as k\n"
         "from kafka_assignment_optimizer_tpu_torch.utils import gen\n"
         "s = gen.demo()\n"
         "r = k.optimize(s.current, s.broker_list, s.topology, "
         "device='cpu', sweeps=8)\n"
         "assert r.report()['feasible']\n"
+        "import chip_smoke\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "assert chip_smoke.main() != 0\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'kafka_assignment_optimizer_tpu'"
         " or n.startswith('kafka_assignment_optimizer_tpu.')]\n"
@@ -142,11 +147,16 @@ def test_port_never_imports_jax():
 
 
 def test_chip_smoke_refuses_without_the_card(monkeypatch, capsys):
-    """chip_smoke.py imports no JAX, and exits non-zero without printing
-    a result when there is no card."""
-    text = (REPO / "chip_smoke.py").read_text()
-    assert "import jax" not in text
-    assert "kafka_assignment_optimizer_tpu." not in text
+    """chip_smoke.py imports nothing but the standard library, torch,
+    numpy and the port (at any depth, lazy imports included), and exits
+    non-zero without printing a result when there is no card."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = {al.name.split(".")[0] for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for al in node.names}
+    roots |= {node.module.split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module}
+    assert roots - set(sys.stdlib_module_names) == {
+        "torch", "numpy", "kafka_assignment_optimizer_tpu_torch"}
     import chip_smoke
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

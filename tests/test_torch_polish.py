@@ -13,10 +13,9 @@ from kafka_assignment_optimizer_tpu.solvers.tpu.polish import (
 )
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu.polish import polish
 
-from tests.test_torch_arrays import assert_same, pair
+from tests.test_torch_arrays import assert_same, fast_jit, pair
 
-_J_POLISH = jax.jit(jax_polish, static_argnames=("max_moves",),
-                    compiler_options={"xla_backend_optimization_level": 0})
+_J_POLISH = fast_jit(jax_polish, static_argnames=("max_moves",))
 
 
 def _candidates(inst, rng, n):

@@ -22,7 +22,7 @@ from kafka_assignment_optimizer_tpu.solvers.tpu import sweep as jsweep
 from kafka_assignment_optimizer_tpu_torch.ops import score as tscore
 from kafka_assignment_optimizer_tpu_torch.ops import score_cuda
 
-from tests.test_torch_arrays import assert_same, chains, pair
+from tests.test_torch_arrays import assert_same, chains, fast_jit, pair
 
 
 @pytest.mark.parametrize("case", [
@@ -36,20 +36,20 @@ def test_score_matches_xla_scorer_and_oracle(case, rng):
     a[1] = rng.integers(0, inst.num_brokers, size=a.shape[1:])  # infeasible
     aj, at = jnp.asarray(a), torch.from_numpy(a)
 
-    ref = jax.jit(jax_score_batch)(aj, mj)
+    ref = fast_jit(jax_score_batch)(aj, mj)
     got = tscore.score_batch(at, mt)
     for f in ref._fields:
         assert_same(getattr(ref, f), getattr(got, f), f)
-    assert_same(jax.jit(jax_moves)(aj, mj), tscore.moves_batch(at, mt), "moves")
-    one_j = jax.jit(jax_score_one)(aj[2], mj)
+    assert_same(fast_jit(jax_moves)(aj, mj), tscore.moves_batch(at, mt), "moves")
+    one_j = fast_jit(jax_score_one)(aj[2], mj)
     one_t = tscore.score_one(at[2], mt)
     for f in one_j._fields:
         assert_same(getattr(one_j, f), getattr(one_t, f), f)
-    assert int(jax.jit(jax_moves_one)(aj[2], mj)) == int(
+    assert int(fast_jit(jax_moves_one)(aj[2], mj)) == int(
         tscore.moves_one(at[2], mt))
 
     # B1's plain version == the sweep's from-scratch scorer
-    for x, y in zip(jax.jit(jsweep._full_scores_xla)(mj, aj),
+    for x, y in zip(fast_jit(jsweep._full_scores_xla)(mj, aj),
                     score_cuda.full_scores(mt, at)):
         assert_same(x, y)
     out, cnt, lcnt, rcnt = score_cuda.score(mt, at)  # CPU: plain version

@@ -4,7 +4,7 @@ Same inputs (seeded numpy populations, the JAX model leaves carried over
 with ``from_numpy``, the same threefry keys) through the reference and
 the port, compared with EXACT equality: the site proposal records and
 sweep, the exchange halves and sweep, the compound sweep, and the
-stepper over two chunks (plain and with the one-device migration). The
+stepper over two chunks (with the one-device best migration). The
 kernel wrappers run their plain versions here (CPU tensors); the card
 holds the kernels to these same functions (chip_smoke.py)."""
 
@@ -22,28 +22,29 @@ from kafka_assignment_optimizer_tpu_torch.ops import propose_cuda, thin_cuda
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep as ts
 
-from tests.test_torch_arrays import assert_same, chains, pair
+from tests.test_torch_arrays import assert_same, chains, fast_jit, pair
 
 # a padded bucket (8 inert rows, one invalid slot column) exercises the
 # empty-row paths of every proposal
 BUCKET = (48, 4)
 
 # the reference functions, jitted once per module: every test below uses
-# one model shape, so each compiles once and the temperatures are data.
-# The lowest XLA backend optimization level only shortens the compiles.
-_FAST = {"xla_backend_optimization_level": 0}
-
-
-def _jit(fn):
-    return jax.jit(fn, compiler_options=_FAST)
-
-
+# one model shape, so each compiles once and the temperatures are data
+_jit = fast_jit
+_J_SCORES = _jit(js.chain_scores)
+_J_MOVES = _jit(jmoves)
 _J_HISTS = _jit(js._histograms)
 _J_PROPOSE = _jit(js.propose_site)
 _J_SITE = _jit(js._site_sweep_delta)
 _J_HALVES = _jit(js._exchange_halves_xla)
 _J_EXCH = _jit(js._exchange_sweep_delta)
 _J_COMP = _jit(js._compound_sweep_delta)
+
+# the reference's mesh path with one device: its stepper under a named
+# axis of size 1 (the port's engine runs the same one-device migration)
+N_STEP = 3
+_J_STEP = _jit(jax.vmap(js.make_sweep_stepper_fn(N_STEP, axis_name="x"),
+                        in_axes=(None, 0, None), axis_name="x"))
 
 
 def _setup(rng, n=5):
@@ -144,41 +145,32 @@ def _seed_state(inst, mj, n_chains, key_seed=5):
     seed = jnp.asarray(jarrays.pad_candidate(
         np.asarray(chains(inst, mj, np.random.default_rng(1), 1)[0]), mj))
     a = jnp.broadcast_to(seed, (n_chains, *seed.shape))
-    w0, p0 = _jit(js.chain_scores)(mj, a)
-    return (a, js.best_key(w0, p0), _jit(jmoves)(a, mj), a,
+    w0, p0 = _J_SCORES(mj, a)
+    return (a, js.best_key(w0, p0), _J_MOVES(a, mj), a,
             jax.random.PRNGKey(key_seed))
 
 
-@pytest.mark.parametrize("migrate", [False, True])
-def test_stepper_two_chunks_match_reference(rng, migrate):
-    """The port's stepper replays the JAX stepper over two chunks: same
-    populations, bests, move counts, snapshots, key, top plan and curve.
-    ``migrate`` is the reference's mesh path with one device (its
-    stepper under a named axis of size 1)."""
+@pytest.mark.parametrize("key_seed", [5, 6])
+def test_stepper_two_chunks_match_reference(rng, key_seed):
+    """The port's stepper replays the reference's one-device mesh
+    stepper over two chunks: same populations, bests, move counts,
+    snapshots, key, top plan and curve. Both seeds share one compile of
+    the reference."""
     inst, mj, mt, *_ = _setup(rng)
-    N = 3
-    state_j = _seed_state(inst, mj, N)
+    state_j = _seed_state(inst, mj, N_STEP, key_seed)
     temps = np.asarray(jarrays.geometric_temps(2.0, 0.02, 16))
-    if migrate:
-        stj = jax.vmap(js.make_sweep_stepper_fn(N, axis_name="x"),
-                       in_axes=(None, 0, None), axis_name="x")
-        sj = jax.tree.map(lambda x: x[None], state_j)
-    else:
-        stj = js.make_sweep_stepper_fn(N, scorer="xla")
-        sj = state_j
-    stj = _jit(stj)
-    stt = ts.make_sweep_stepper_fn(N, scorer="torch", migrate=migrate)
+    sj = jax.tree.map(lambda x: x[None], state_j)
+    stt = ts.make_sweep_stepper_fn(N_STEP, scorer="torch")
     st = arrays.state_from_numpy(tuple(np.asarray(x) for x in state_j),
                                  "cpu")
-    lead = (0,) if migrate else ()
     for chunk in (temps[:8], temps[8:]):
-        sj, top_aj, top_kj, cv_j = stj(mj, sj, jnp.asarray(chunk))
+        sj, top_aj, top_kj, cv_j = _J_STEP(mj, sj, jnp.asarray(chunk))
         st, top_at, top_kt, cv_t = stt(mt, st, chunk)
         for x, y in zip(sj, st):
-            assert_same(np.asarray(x)[lead], y)
-        assert_same(np.asarray(top_aj)[lead], top_at)
-        assert_same(np.asarray(top_kj)[lead], top_kt)
-        assert_same(np.asarray(cv_j)[lead], cv_t)
+            assert_same(np.asarray(x)[0], y)
+        assert_same(np.asarray(top_aj)[0], top_at)
+        assert_same(np.asarray(top_kj)[0], top_kt)
+        assert_same(np.asarray(cv_j)[0], cv_t)
 
     # chunking changes nothing: the uncut run lands on the same state
     st0 = arrays.state_from_numpy(tuple(np.asarray(x) for x in state_j),
@@ -190,8 +182,9 @@ def test_stepper_two_chunks_match_reference(rng, migrate):
 
 def test_delta_stepper_matches_from_scratch_loop(rng):
     """The carried-histogram stepper equals the explicit from-scratch
-    loop (every sweep rebuilds the histograms), as the reference pins
-    its own delta engine; an odd tail exercises the final snapshot."""
+    loop (every sweep rebuilds the histograms, every snapshot migrates
+    the best chain), as the reference pins its own delta engine; an odd
+    tail exercises the final snapshot."""
     inst, mj, mt, *_ = _setup(rng)
     N, snap, sweeps = 3, 4, 17
     state_j = _seed_state(inst, mj, N)
@@ -220,6 +213,9 @@ def test_delta_stepper_matches_from_scratch_loop(rng):
             bmv_r = torch.where(imp, mv, bmv_r)
             bk_r = torch.where(imp, k, bk_r)
             ba_r = torch.where(imp[:, None, None], a_r, ba_r)
+            _f, _r, c, lc, rc = ts.histograms(mt, a_r)
+            a_r, _c, _l, _rc, bk_r, bmv_r, ba_r = ts._migrate(
+                a_r, c, lc, rc, k, mv, bk_r, bmv_r, ba_r)
         curve_r.append(int(bk_r.max()))
     for x, y in zip((a, bk, bmv, ba), (a_r, bk_r, bmv_r, ba_r)):
         assert torch.equal(x, y)
