@@ -6,18 +6,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. header — the card's name and power limit, torch/CUDA versions;
+1. header — the card's name and power limit, torch/CUDA versions, the
+   max SM clock behind the INT32 rate the bounds use;
 2. build — every CUDA kernel from ``csrc/`` (one nvcc per source, all at
    once), timed;
-3. kernel check — B1-B6 against their plain PyTorch versions on the card
-   at the shapes of the main path (the ``adversarial`` scenario: 8
-   chains, 10,000 partitions padded to the 10,240-row bucket, RF up to
-   4, 256 brokers with one removed); exact equality; kernel, plain and
-   library times in CUDA events, and each kernel's bound;
-4. trajectory check — 2 chunks of 8 sweeps through the ``cuda`` bundle
+3. kernel check — B1, the fused site sweep (B2+B3) and B4-B6 against
+   their plain PyTorch versions on the card at the shapes of the main
+   path (the ``adversarial`` scenario: 8 chains, 10,000 partitions
+   padded to the 10,240-row bucket, RF up to 4, 256 brokers with one
+   removed); exact equality; kernel, plain and library times in CUDA
+   events, device time under the profiler, and each kernel's bound. The
+   site sweep is checked at two temperatures and must be one device
+   activity per call; its operations bound counts threefry's integer
+   instructions in the SASS that ``cuobjdump`` shows;
+4. sweep times — median wall ms of one site, exchange and compound sweep
+   and one snapshot through the ``cuda`` bundle, synchronized around
+   each call;
+5. trajectory check — 2 chunks of 8 sweeps through the ``cuda`` bundle
    and through the ``torch`` bundle, both on the card, from one state;
    the states must be equal after every chunk;
-5. main path — ``optimize`` on the demo (1 move, feasible, weight at
+6. main path — ``optimize`` on the demo (1 move, feasible, weight at
    the unconstrained optimum), then on ``adversarial`` at the card
    defaults (8 chains x 128 sweeps), feasible by the numpy oracle, with
    every kernel's launch count > 0.
@@ -29,13 +37,17 @@ The last two lines of stdout are the ``kernels`` JSON line and
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-ALU_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+INT32_LANES_PER_SM = 64  # Hopper issues 64 INT32 operations a clock per SM
 REPS = 20  # launches per timed window
 WINDOWS = 5  # windows per time (the median is kept)
 
@@ -66,8 +78,7 @@ def timed(fn, torch) -> float:
 # the __global__ functions each wrapper launches, for the profiler's view
 KERNEL_FUNCS = {
     "B1 score": ("score_rows", "score_bands"),
-    "B2 propose": ("propose_site",),
-    "B3 site finish": ("site_finish",),
+    "B2+B3 site sweep": ("site_sweep",),
     "B4 exchange halves": ("exchange_halves",),
     "B5 exchange maps": ("exch_maps",),
     "B6 exchange finish": ("exch_finish",),
@@ -127,6 +138,182 @@ def gathered(B1: int, *reads) -> int:
     return int(torch.unique(torch.cat(keys)).numel()) * 4
 
 
+def smi(query: str) -> str:
+    """One line of ``nvidia-smi --query-gpu=<query>`` for the first card
+    (empty when nvidia-smi gives nothing)."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0] if out else ""
+
+
+def header(torch) -> float:
+    """Print the card's name and power limit, the versions and the max
+    SM clock; return the card's INT32 issue rate in operations/s."""
+    print(smi("name,power.limit")
+          or f"{torch.cuda.get_device_name(0)}, power limit not read")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    clock = smi("clocks.max.sm")
+    if not clock.endswith(" MHz"):
+        fail(f"max SM clock not read (nvidia-smi said {clock!r})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * INT32_LANES_PER_SM * float(clock.split()[0]) * 1e6
+    print(f"INT32 issue rate: {sms} SMs x {INT32_LANES_PER_SM} lanes x "
+          f"{clock} = {rate:.6g} ops/s")
+    return rate
+
+
+def sweep_times(torch, m, a, reps: int = 20) -> dict:
+    """Median wall ms of one site, exchange and compound sweep and one
+    snapshot (exact rescore, best update, migration) through the
+    ``cuda`` bundle on population ``a``, synchronized around each call;
+    also the wall of one draw of the site sweep's random words the
+    plain way, for scale."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+
+    sc = sweep._make_scorer("cuda")
+    _f, _r, cnt, lcnt, rcnt = sc.hists(m, a)
+    w, pen, *_h = sc.full(m, a)
+    best = (sweep.best_key(w, pen), sweep.moves_batch(a, m), a.clone())
+    temp = float(np.float32(0.5))
+    key = prng.PRNGKey(5)
+    calls = {
+        "site": lambda k: sc.site_step(m, a, cnt, lcnt, rcnt, k, temp),
+        "exchange": lambda k: sc.exch_step(m, a, cnt, lcnt, rcnt, k, temp),
+        "compound": lambda k: sc.comp_step(m, a, cnt, lcnt, rcnt, k, temp),
+        "snapshot": lambda k: sweep.snapshot_step(sc, m, a, *best),
+        "site bits draw": lambda k: prng.bits(k, (*a.shape[:2], 8),
+                                              a.device),
+    }
+    out = {}
+    for name, fn in calls.items():
+        walls = []
+        for i in range(reps + 3):
+            k = prng.fold_in(key, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = statistics.median(walls[3:]) * 1e3
+    return out
+
+
+def adversarial_population(torch, dev, N: int = 8):
+    """The adversarial scenario lowered to its bucket on ``dev``, and N
+    chains of its greedy seed with one seeded random slot change per
+    partition: ``(inst, m, seed [P, R] numpy, a [N, P, R])``."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        arrays,
+        bucket,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
+        greedy_seed,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    scen = gen.adversarial()
+    inst = build_instance(scen.current, scen.broker_list, scen.topology)
+    Pp, Rp = bucket.bucket_shape(inst)
+    m = arrays.from_instance(inst, dev, num_parts=Pp, max_rf=Rp)
+    rng = np.random.default_rng(0)
+    seed_np = arrays.pad_candidate(greedy_seed(inst), m)
+    a_np = np.broadcast_to(seed_np, (N, Pp, Rp)).copy()
+    sl = rng.integers(0, inst.max_rf, size=(N, inst.num_parts))
+    bk = rng.integers(0, inst.num_brokers, size=(N, inst.num_parts))
+    a_np[np.arange(N)[:, None], np.arange(inst.num_parts)[None, :], sl] = bk
+    valid_np = np.asarray(m.slot_valid.cpu())
+    a_np[~np.broadcast_to(valid_np, a_np.shape)] = inst.num_brokers
+    return scen, inst, m, seed_np, torch.from_numpy(a_np).to(dev)
+
+
+# the seven threefry words of one partition, as csrc/site.cu draws them;
+# compiled to a cubin and never launched: its SASS is counted
+THREEFRY_PROBE = r"""
+#include "site.cu"
+__global__ void threefry_words(uint32_t k0, uint32_t k1, uint64_t i0,
+                               uint32_t* out) {
+  const uint64_t i = i0 + threadIdx.x;
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+#pragma unroll
+  for (int j = 0; j < 7; ++j)
+    out[7 * threadIdx.x + j] = threefry_word(k0, k1, k2, i * 8 + j);
+}
+"""
+# SASS that moves no data through the integer lanes: memory, control,
+# constant and special-register loads, register moves
+NOT_ALU = {"LDC", "LDG", "STG", "S2R", "CS2R", "EXIT", "BRA", "RET", "NOP",
+           "MOV", "BAR"}
+
+
+def sass_opcodes(kernels, binary: str, fn: str) -> list[tuple[str, str]]:
+    """``(opcode, modifiers)`` of every SASS instruction of the functions
+    whose name contains ``fn`` in ``binary`` (a cubin or a library), as
+    ``cuobjdump`` from the toolkit beside nvcc lists them."""
+    nvcc = kernels._nvcc()
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", binary],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    out, name = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            continue
+        hit = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
+        if hit and name is not None and fn in name:
+            out.append(hit.groups())
+    return out
+
+
+def alu_ops(opcodes) -> dict:
+    """The vector ALU instructions among ``opcodes`` (no memory, control,
+    constant or special-register loads, moves or uniform-datapath ones),
+    by opcode."""
+    ops: dict = {}
+    for op, mods in opcodes:
+        if not (op in NOT_ALU or op.startswith("U")
+                or (op == "IMAD" and ".MOV" in mods)):
+            ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def threefry_ops(kernels) -> tuple[int, dict]:
+    """Integer instructions a thread issues for its partition's seven
+    threefry words: the vector ALU instructions in the SASS of
+    ``THREEFRY_PROBE``, built with the kernels' nvcc flags. Returns
+    ``(count, {opcode: count})``."""
+    nvcc = kernels._nvcc()
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "threefry_probe.cu")
+        with open(src, "w") as f:
+            f.write(THREEFRY_PROBE)
+        cubin = os.path.join(tmp, "threefry_probe.cubin")
+        subprocess.run([nvcc, *flags, "-cubin", "-I", str(kernels.CSRC),
+                        "-o", cubin, src], check=True, capture_output=True,
+                       timeout=300)
+        ops = alu_ops(sass_opcodes(kernels, cubin, "threefry_words"))
+    count = sum(ops.values())
+    if count < 7 * 60:  # 20 rounds of add, rotate, xor a word at least
+        fail(f"threefry SASS count {count} is below 7 x 60: parse failed "
+             f"({ops})")
+    return count, ops
+
+
 def main() -> int:
     import torch
 
@@ -136,54 +323,37 @@ def main() -> int:
     import numpy as np
 
     from kafka_assignment_optimizer_tpu_torch import optimize, prng
-    from kafka_assignment_optimizer_tpu_torch.models.instance import (
-        build_instance,
-    )
     from kafka_assignment_optimizer_tpu_torch.ops import kernels
-    from kafka_assignment_optimizer_tpu_torch.ops.propose_cuda import (
-        exchange_halves_cuda,
-        propose_site_cuda,
-        propose_site_plain,
-    )
-    from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
-        score,
-        score_plain,
-    )
-    from kafka_assignment_optimizer_tpu_torch.ops.thin_cuda import (
-        exch_finish_cuda,
-        exch_maps_cuda,
-        site_finish_cuda,
-    )
-    from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
-        init_sweep_state,
-    )
-    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
-        arrays,
-        bucket,
-        sweep,
-    )
-    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
-        greedy_seed,
-    )
-    from kafka_assignment_optimizer_tpu_torch.utils import gen
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. header ------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
+    int32_ops_per_s = header(torch)
+
+    from kafka_assignment_optimizer_tpu_torch.ops.propose_cuda import (
+        exchange_halves_cuda,
     )
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
-        f"{torch.cuda.get_device_name(0)}, power limit not read")
-    print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} "
-          f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
+    from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
+        score,
+        score_plain,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops.site_cuda import (
+        site_step_cuda,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops.thin_cuda import (
+        exch_finish_cuda,
+        exch_maps_cuda,
+    )
+    from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
+        init_sweep_state,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        arrays,
+        sweep,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -194,50 +364,43 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
 
     # ---- 3. kernel check at the main path's shapes -----------------------
-    scen = gen.adversarial()
-    inst = build_instance(scen.current, scen.broker_list, scen.topology)
-    Pp, Rp = bucket.bucket_shape(inst)
-    m = arrays.from_instance(inst, dev, num_parts=Pp, max_rf=Rp)
-    N, B1, K1 = 8, m.num_brokers + 1, m.rack_lo.shape[0]
-    rng = np.random.default_rng(0)
-    seed_np = arrays.pad_candidate(greedy_seed(inst), m)
-    a_np = np.broadcast_to(seed_np, (N, Pp, Rp)).copy()
-    sl = rng.integers(0, inst.max_rf, size=(N, inst.num_parts))
-    bk = rng.integers(0, inst.num_brokers, size=(N, inst.num_parts))
-    a_np[np.arange(N)[:, None], np.arange(inst.num_parts)[None, :], sl] = bk
-    valid_np = np.asarray(m.slot_valid.cpu())
-    a_np[~np.broadcast_to(valid_np, a_np.shape)] = inst.num_brokers
-    a = torch.from_numpy(a_np).to(dev)
+    N = 8
+    scen, inst, m, seed_np, a = adversarial_population(torch, dev, N)
+    Pp, Rp = m.a0.shape
+    B1, K1 = m.num_brokers + 1, m.rack_lo.shape[0]
     _f, _r, cnt, lcnt, rcnt = sweep.histograms(m, a)
     temp = float(np.float32(0.5))
-    key = prng.PRNGKey(1)
-    bits = prng.bits(key, (N, Pp, 8), dev)
     print(f"kernel shapes: N={N} P={Pp} (instance {inst.num_parts}) "
           f"R={Rp} B+1={B1} K+1={K1}")
 
     rows = []
     device_us = {}
 
-    def report(k, ok_outs, ms, plain_ms, bytes_, ops, library_ms, call):
+    def report(k, ok_outs, ms, plain_ms, bytes_, int_ops, fp_ops,
+               library_ms, call):
         events, _wall = profiled(call, torch, REPS)
         mine = [us for name, us in events
                 if any(f in name for f in KERNEL_FUNCS[k.name])]
-        device_us[k.name] = sum(mine) / REPS if mine else None
-        bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3
-        bound_by = ("bytes" if bytes_ / HBM_BYTES_PER_S
-                    >= ops / ALU_OPS_PER_S else "operations")
+        # a device time only where the profiler saw every launch
+        device_us[k.name] = (sum(mine) / REPS if len(mine)
+                             == REPS * len(KERNEL_FUNCS[k.name]) else None)
+        t_bytes = bytes_ / HBM_BYTES_PER_S
+        t_ops = max(int_ops / int32_ops_per_s, fp_ops / FP32_OPS_PER_S)
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
         rows.append({
             "name": k.name, "route": "cuda",
             "source": f"kafka_assignment_optimizer_tpu_torch/csrc/"
                       f"{k.source}.cu",
-            "replaces": k.replaces.split(" ")[0], "launches": 0,
-            "max_abs_err": ok_outs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "replaces": " + ".join(r.split(" ")[0] for r in k.replaces),
+            "launches": 0, "max_abs_err": ok_outs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
         })
         print(f"  {k.name}: exact (max_abs_err {ok_outs}); kernel {ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {bytes_} bytes, {ops} ops), library "
+              f"({bound_by}: {bytes_} bytes, {int_ops} INT32 ops, {fp_ops} "
+              "FP32 ops), library "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
               "device (profiler) "
               + ("not measured" if device_us[k.name] is None
@@ -270,51 +433,65 @@ def main() -> int:
                 + nbytes(*kout))
     report(kernels.SCORE, err, timed(lambda: score(m, a), torch),
            timed(lambda: score_plain(m, a), torch), b1_bytes,
-           NP * Rp * (12 + 2 * Rp), lib, lambda: score(m, a))
+           NP * Rp * (12 + 2 * Rp), 0, lib, lambda: score(m, a))
 
-    # B2 — site proposals + thinning maps
-    kp, kmo, kmi = propose_site_cuda(m, a, bits, temp, cnt, lcnt, rcnt)
-    pp, pmo, pmi = propose_site_plain(m, a, bits, temp, cnt, lcnt, rcnt)
-    torch.cuda.synchronize()
-    kx = [t.to(torch.int32) if t.dtype == torch.bool else t for t in kp]
-    px = [t.to(torch.int32) if t.dtype == torch.bool else t for t in pp]
-    err = check_equal("B2", kx + [kmo, kmi], px + [pmo, pmi])
-    # weights are needed for legal proposals only: a replace reads its
-    # slot's table at the old and new broker, a leader swap both tables
-    # at the leader and the promoted follower
+    # B2+B3 — the fused site sweep, at two temperatures, against the
+    # plain site sweep
+    key = prng.PRNGKey(1)
+    err = 0.0
+    for t in (temp, float(np.float32(0.02))):
+        ref = sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, t)
+        got = site_step_cuda(m, a, cnt, lcnt, rcnt, key, t)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"B2+B3 (temp {t})", got, ref))
+        print(f"  (site sweep at temp {t:.4g}: "
+              f"{int((ref[0] != a).any(-1).sum())} partitions changed)")
+    events, _w = profiled(
+        lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp), torch)
+    if len(events) != 1 or "site_sweep" not in events[0][0]:
+        fail(f"one site_step_cuda call made {len(events)} device "
+             f"activities ({[n for n, _us in events]}), expected one "
+             "site_sweep launch")
+    # the bytes: each input once, the distinct a0 entries and weights the
+    # proposals read (a replace its slot's table at the old and new
+    # broker, a leader swap both tables at both brokers, legal proposals
+    # only), each output once; no random words and no records
+    bits = prng.bits(key, (N, Pp, 8), dev)
+    pp = sweep.propose_site(m, a, bits, temp,
+                            hists=sweep._carried(cnt, lcnt, rcnt))
+    s_orig = sweep._rand_idx(arrays.u01(bits[..., 3]), Rp)
+    a0_read = int(torch.unique(torch.arange(Pp, device=dev)[None] * Rp
+                               + s_orig).numel()) * 4
     in_row = ((a == pp.b_new[..., None]) & m.slot_valid[None]).any(-1)
     legal = torch.where(pp.is_lsw, m.rf > 1, ~in_row) & (m.rf > 0)
     rep_, lsw = legal & ~pp.is_lsw, legal & pp.is_lsw
     tbl = (pp.s != 0).to(torch.int64)
-    b2_bytes = (nbytes(a, m.a0, m.rf, m.slot_valid, m.part_rack_hi,
-                       m.rack_of, m.rack_lo, m.rack_hi, cnt, lcnt, rcnt)
-                + NP * 7 * 8
-                + gathered(B1, (tbl, pp.b_new, rep_), (tbl, pp.b_at_s, rep_),
-                           (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
-                           (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw))
-                + nbytes(*kx, kmo, kmi))
-    report(kernels.PROPOSE, err,
-           timed(lambda: propose_site_cuda(m, a, bits, temp, cnt, lcnt,
-                                           rcnt), torch),
-           timed(lambda: propose_site_plain(m, a, bits, temp, cnt, lcnt,
-                                            rcnt), torch),
-           b2_bytes, NP * (150 + 8 * Rp), None,
-           lambda: propose_site_cuda(m, a, bits, temp, cnt, lcnt, rcnt))
-
-    # B3 — site finish (keep, apply, histogram deltas)
-    kf = site_finish_cuda(m, a, pp, pmo, pmi)
-    pf = sweep.site_finish(m, a, pp, pmo, pmi)
-    torch.cuda.synchronize()
-    err = check_equal("B3", kf, pf)
-    kept = int((kf[0] != a).any(-1).sum())
-    print(f"  (site sweep at temp {temp}: {int((pp.prio > 0).sum())} "
-          f"accepted, {kept} partitions changed)")
-    b3_bytes = (nbytes(a, *px, m.rf, m.rack_of, pmo, pmi) + nbytes(*kf))
-    report(kernels.SITE_FINISH, err,
-           timed(lambda: site_finish_cuda(m, a, pp, pmo, pmi), torch),
-           timed(lambda: sweep.site_finish(m, a, pp, pmo, pmi), torch),
-           b3_bytes, NP * (20 + 4 * Rp), None,
-           lambda: site_finish_cuda(m, a, pp, pmo, pmi))
+    site_out = site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp)
+    site_bytes = (nbytes(a, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
+                         m.rack_lo, m.rack_hi, cnt, lcnt, rcnt)
+                  + a0_read
+                  + gathered(B1, (tbl, pp.b_new, rep_),
+                             (tbl, pp.b_at_s, rep_),
+                             (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
+                             (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw))
+                  + nbytes(*site_out))
+    # the operations: the seven threefry words of each partition that has
+    # replicas, counted in the SASS; the rest of the proposal is not
+    # counted, so the bound is below the least time. The float work: the
+    # scale multiply of each of the 7 uniforms, the delta's multiply and
+    # subtract
+    tf_ops, tf_hist = threefry_ops(kernels)
+    real = N * int((m.rf > 0).sum())
+    print(f"  (threefry: {tf_ops} integer instructions for 7 words in the "
+          f"SASS: {json.dumps(tf_hist, sort_keys=True)})")
+    site_int = real * tf_ops
+    report(kernels.SITE, err,
+           timed(lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
+                 torch),
+           timed(lambda: sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key,
+                                                 temp), torch),
+           site_bytes, site_int, real * 9, None,
+           lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp))
 
     # B4 — exchange halves, on the inputs the main path hands it
     captured = {}
@@ -340,7 +517,7 @@ def main() -> int:
     report(kernels.EXCHANGE, err,
            timed(lambda: exchange_halves_cuda(*hargs, **hkw), torch),
            timed(lambda: sweep.exchange_halves(*hargs, **hkw), torch),
-           b4_bytes, NP * (40 + 8 * Rp), None,
+           b4_bytes, NP * (40 + 8 * Rp), 0, None,
            lambda: exchange_halves_cuda(*hargs, **hkw))
 
     # B5 — exchange maps
@@ -353,7 +530,7 @@ def main() -> int:
                  torch),
            timed(lambda: sweep.exch_maps(ep.tok_out, ep.tok_in, ep.prio, B1),
                  torch),
-           nbytes(ep.tok_out, ep.tok_in, ep.prio, *km), NP * 4, None,
+           nbytes(ep.tok_out, ep.tok_in, ep.prio, *km), NP * 4, 0, None,
            lambda: exch_maps_cuda(ep.tok_out, ep.tok_in, ep.prio, B1))
 
     # B6 — exchange finish (keep, apply, leader delta)
@@ -368,10 +545,14 @@ def main() -> int:
     report(kernels.EXCH_FINISH, err,
            timed(lambda: exch_finish_cuda(*fargs), torch),
            timed(lambda: sweep.exch_finish(*fargs), torch),
-           nbytes(*fargs) + nbytes(*ke), NP * (12 + 2 * Rp), None,
+           nbytes(*fargs) + nbytes(*ke), NP * (12 + 2 * Rp), 0, None,
            lambda: exch_finish_cuda(*fargs))
 
-    # ---- 4. trajectory check: cuda bundle vs torch bundle ---------------
+    # ---- 4. sweep times --------------------------------------------------
+    print("sweep times (cuda bundle, median wall ms, synchronized): "
+          + json.dumps(sweep_times(torch, m, a)))
+
+    # ---- 5. trajectory check: cuda bundle vs torch bundle ---------------
     seed_t = torch.from_numpy(seed_np).to(dev)
     temps = arrays.geometric_temps(2.0, 0.02, 16)
     trajectories = {}
@@ -402,7 +583,7 @@ def main() -> int:
                if any(f in n for fs in KERNEL_FUNCS.values() for f in fs))
     print("ladder (cuda bundle, 16 sweeps, one chunk, profiled): wall "
           f"{wall:.4f} s, device busy {busy_s:.4f} s "
-          f"({busy_s / wall:.3f} of wall; B1-B6 {ours / 1e6:.4f} s, "
+          f"({busy_s / wall:.3f} of wall; kernels {ours / 1e6:.4f} s, "
           f"{len(events)} device activities)" if events else
           "ladder device busy share: not measured (no device activity "
           "seen by the profiler)")
@@ -412,7 +593,7 @@ def main() -> int:
           f"{trajectories['torch'][1]:.3f} s wall; {moved} "
           "chain-partitions off the seed)")
 
-    # ---- 5. main path ---------------------------------------------------
+    # ---- 6. main path ---------------------------------------------------
     demo = gen.demo()
     res = optimize(demo.current, demo.broker_list, demo.topology,
                    solver="tpu")

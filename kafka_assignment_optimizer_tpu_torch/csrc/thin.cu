@@ -1,11 +1,4 @@
-// B3: site-sweep conflict thinning + apply + histogram deltas, and
-// B5/B6: the same two stages for the pair-exchange move.
-//
-// B3 replaces kafka_assignment_optimizer_tpu/ops/thin_pallas.py:59
-// (_site_finish_kernel): keep a proposal iff its priority is positive and
-// equals both of its chain's map maxima (the out and in tokens), apply
-// the kept replaces and leader swaps, and produce the exact cnt/lcnt/rcnt
-// deltas of the kept moves.
+// B5/B6: exchange conflict thinning, apply and leader-histogram delta.
 //
 // B5 replaces kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247
 // (_exch_maps_kernel): the per-chain max-priority maps over the exchange
@@ -22,70 +15,9 @@
 // accumulators; here a kept move adds +1/-1 with integer atomics straight
 // into [N, B+1] (exact, order-free), and only kept moves touch them. The
 // maps need a grid-wide max before the keep test, hence B5 then B6 as two
-// launches.
+// launches. (The site sweep's pair of the same two stages is one launch
+// with its maps in a thread-block cluster: site.cu.)
 #include "common.cuh"
-
-__global__ void site_finish(
-    const int* __restrict__ a, const int* __restrict__ islsw,
-    const int* __restrict__ s_, const int* __restrict__ bnew,
-    const int* __restrict__ blead, const int* __restrict__ bats,
-    const float* __restrict__ prio, const int* __restrict__ rf,
-    const int* __restrict__ rack_of, const float* __restrict__ m_out,
-    const float* __restrict__ m_in, int N, int P, int R, int B1, int K1,
-    int* __restrict__ a_new, int* __restrict__ d_cnt,
-    int* __restrict__ d_lcnt, int* __restrict__ d_rcnt) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  if (p >= P) return;
-  const size_t i = (size_t)n * P + p;
-  const int* row = a + i * R;
-  int* out = a_new + i * R;
-  const bool is_lsw = islsw[i] != 0;
-  const int s = s_[i], b_new = bnew[i], b_lead = blead[i], b_at_s = bats[i];
-  const float pr = prio[i];
-  const int tok_out = is_lsw ? b_lead : b_at_s;
-  const int tok_in = is_lsw ? b_at_s : b_new;
-  const bool keep = pr > 0.f && pr == m_out[(size_t)n * B1 + tok_out] &&
-                    pr == m_in[(size_t)n * B1 + tok_in];
-  for (int r = 0; r < R; ++r) {
-    int v = row[r];
-    if (keep) {
-      if (is_lsw)
-        v = r == 0 ? b_at_s : (r == s ? b_lead : v);
-      else if (r == s)
-        v = b_new;
-    }
-    out[r] = v;
-  }
-  if (keep && rf[p] > 0) {
-    if (!is_lsw) {
-      atomicAdd(&d_cnt[(size_t)n * B1 + b_at_s], -1);
-      atomicAdd(&d_cnt[(size_t)n * B1 + b_new], 1);
-      atomicAdd(&d_rcnt[(size_t)n * K1 + rack_of[b_at_s]], -1);
-      atomicAdd(&d_rcnt[(size_t)n * K1 + rack_of[b_new]], 1);
-    }
-    if (is_lsw || s == 0) {
-      atomicAdd(&d_lcnt[(size_t)n * B1 + tok_out], -1);
-      atomicAdd(&d_lcnt[(size_t)n * B1 + tok_in], 1);
-    }
-  }
-}
-
-// a_new is fully written; d_cnt, d_lcnt and d_rcnt arrive zeroed
-extern "C" int kao_site_finish(const int* a, const int* islsw, const int* s,
-                               const int* bnew, const int* blead,
-                               const int* bats, const float* prio,
-                               const int* rf, const int* rack_of,
-                               const float* m_out, const float* m_in, int N,
-                               int P, int R, int B1, int K1, int* a_new,
-                               int* d_cnt, int* d_lcnt, int* d_rcnt,
-                               cudaStream_t stream) {
-  dim3 grid((P + KAO_THREADS - 1) / KAO_THREADS, N);
-  site_finish<<<grid, KAO_THREADS, 0, stream>>>(
-      a, islsw, s, bnew, blead, bats, prio, rf, rack_of, m_out, m_in, N, P,
-      R, B1, K1, a_new, d_cnt, d_lcnt, d_rcnt);
-  return (int)cudaGetLastError();
-}
 
 __global__ void exch_maps(const int* __restrict__ tok_out,
                           const int* __restrict__ tok_in,

@@ -36,7 +36,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("score", "propose", "thin")
+SOURCES = ("score", "propose", "thin", "site")
 HEADERS = ("common.cuh",)
 
 _LOCK = threading.Lock()
@@ -104,15 +104,17 @@ def library(name: str) -> ctypes.CDLL:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint32
 F = ctypes.c_float
 
 
 class Kernel:
-    """One hand-written kernel: where it lives, what it replaces, its C
-    entry point and its launch count."""
+    """One hand-written kernel: where it lives, the TPU kernels it
+    replaces (``"file:line function"`` each), its C entry point and its
+    launch count."""
 
-    def __init__(self, name: str, source: str, symbol: str, replaces: str,
-                 argtypes: list):
+    def __init__(self, name: str, source: str, symbol: str,
+                 replaces: tuple[str, ...], argtypes: list):
         self.name = name
         self.source = source
         self.symbol = symbol
@@ -152,45 +154,64 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: not contiguous")
 
 
+def check_model(m) -> None:
+    """Check the ``ModelArrays`` tables the sweep kernels read, once per
+    model (the result is cached on it, as its host scalars are)."""
+    if m.__dict__.get("_kernel_checked"):
+        return
+    P, R = m.a0.shape
+    B1 = m.num_brokers + 1
+    K1 = m.rack_lo.shape[0]
+    dev = m.a0.device
+    if R > 16:
+        raise ValueError(f"the kernels take at most 16 replica slots, got {R}")
+    check("a0", m.a0, torch.int32, (P, R), dev)
+    check("rf", m.rf, torch.int32, (P,), dev)
+    check("slot_valid", m.slot_valid, torch.bool, (P, R), dev)
+    check("part_rack_hi", m.part_rack_hi, torch.int32, (P,), dev)
+    check("w_lead", m.w_lead, torch.int32, (P, B1), dev)
+    check("w_foll", m.w_foll, torch.int32, (P, B1), dev)
+    check("rack_of", m.rack_of, torch.int32, (B1,), dev)
+    check("rack_lo", m.rack_lo, torch.int32, (K1,), dev)
+    check("rack_hi", m.rack_hi, torch.int32, (K1,), dev)
+    object.__setattr__(m, "_kernel_checked", True)
+
+
 # the C signatures: pointers, then ints/floats, then the stream (added
 # by Kernel.__call__)
 SCORE = Kernel(
     "B1 score", "score", "kao_score",
-    "kafka_assignment_optimizer_tpu/ops/score_pallas.py:55 _score_kernel",
+    ("kafka_assignment_optimizer_tpu/ops/score_pallas.py:55 _score_kernel",),
     [P] * 8 + [I] * 9 + [P] * 4 + [P],
 )
-PROPOSE = Kernel(
-    "B2 propose", "propose", "kao_propose_site",
-    "kafka_assignment_optimizer_tpu/ops/propose_pallas.py:66 "
-    "_propose_kernel",
-    [P] * 14 + [I] * 4 + [F, F] + [I] * 5 + [P] * 8 + [P],
-)
-SITE_FINISH = Kernel(
-    "B3 site finish", "thin", "kao_site_finish",
-    "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:59 "
-    "_site_finish_kernel",
-    [P] * 11 + [I] * 5 + [P] * 4 + [P],
+SITE = Kernel(
+    "B2+B3 site sweep", "site", "kao_site_sweep",
+    ("kafka_assignment_optimizer_tpu/ops/propose_pallas.py:66 "
+     "_propose_kernel",
+     "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:59 "
+     "_site_finish_kernel"),
+    [P] * 13 + [U, U, F, F] + [I] * 9 + [P] * 5 + [P],
 )
 EXCHANGE = Kernel(
     "B4 exchange halves", "propose", "kao_exchange_halves",
-    "kafka_assignment_optimizer_tpu/ops/propose_pallas.py:424 "
-    "_exchange_kernel",
+    ("kafka_assignment_optimizer_tpu/ops/propose_pallas.py:424 "
+     "_exchange_kernel",),
     [P] * 10 + [I] * 6 + [P] * 5 + [P],
 )
 EXCH_MAPS = Kernel(
     "B5 exchange maps", "thin", "kao_exch_maps",
-    "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247 "
-    "_exch_maps_kernel",
+    ("kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247 "
+     "_exch_maps_kernel",),
     [P] * 3 + [I] * 3 + [P] * 2 + [P],
 )
 EXCH_FINISH = Kernel(
     "B6 exchange finish", "thin", "kao_exch_finish",
-    "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 "
-    "_exch_finish_kernel",
+    ("kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 "
+     "_exch_finish_kernel",),
     [P] * 8 + [I] * 4 + [P] * 2 + [P],
 )
 
-KERNELS = (SCORE, PROPOSE, SITE_FINISH, EXCHANGE, EXCH_MAPS, EXCH_FINISH)
+KERNELS = (SCORE, SITE, EXCHANGE, EXCH_MAPS, EXCH_FINISH)
 
 
 def reset_counts() -> None:

@@ -1,11 +1,10 @@
-"""B3 (site finish), B5 (exchange maps) and B6 (exchange finish): the CUDA
-kernels and their plain PyTorch versions, and the two kernel-path sweep
-steps that chain them.
+"""B5 (exchange maps) and B6 (exchange finish): the CUDA kernels and their
+plain PyTorch versions, and the kernel-path exchange sweep that chains
+them with B4.
 
-B3 replaces ``kafka_assignment_optimizer_tpu/ops/thin_pallas.py:59``
-(``_site_finish_kernel``); B5 ``thin_pallas.py:247``
+B5 replaces ``kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247``
 (``_exch_maps_kernel``); B6 ``thin_pallas.py:277``
-(``_exch_finish_kernel``). All three are bound on the card by bytes (one
+(``_exch_finish_kernel``). Both are bound on the card by bytes (one
 record and one row per thread); see ``csrc/thin.cu``. Each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
 tensors.
@@ -15,50 +14,15 @@ from __future__ import annotations
 
 import torch
 
-from .. import prng
 from ..solvers.tpu.arrays import ModelArrays
 from ..solvers.tpu.sweep import (
-    SiteProposals,
     exch_finish as exch_finish_plain,
     exch_maps as exch_maps_plain,
     propose_exchange,
-    site_finish as site_finish_plain,
 )
 from . import kernels
 from .kernels import check
-from .propose_cuda import exchange_halves_cuda, propose_site_cuda
-
-
-def site_finish_cuda(m: ModelArrays, a, p: SiteProposals, m_out, m_in):
-    """B3: ``(a_new, d_cnt, d_lcnt, d_rcnt)`` of one site sweep."""
-    if a.device.type == "cpu":
-        return site_finish_plain(m, a, p, m_out, m_in)
-    N, P, R = a.shape
-    B1 = m.num_brokers + 1
-    K1 = m.rack_lo.shape[0]
-    dev = a.device
-    is_lsw = p.is_lsw.to(torch.int32).contiguous()
-    check("a", a, torch.int32, (N, P, R), dev)
-    for name, t in (("s", p.s), ("b_new", p.b_new), ("b_lead", p.b_lead),
-                    ("b_at_s", p.b_at_s)):
-        check(name, t, torch.int32, (N, P), dev)
-    check("prio", p.prio, torch.float32, (N, P), dev)
-    check("m_out", m_out, torch.float32, (N, B1), dev)
-    check("m_in", m_in, torch.float32, (N, B1), dev)
-    check("rf", m.rf, torch.int32, (P,), dev)
-    check("rack_of", m.rack_of, torch.int32, (B1,), dev)
-    a_new = torch.empty_like(a)
-    d_cnt = torch.zeros(N, B1, dtype=torch.int32, device=dev)
-    d_lcnt = torch.zeros(N, B1, dtype=torch.int32, device=dev)
-    d_rcnt = torch.zeros(N, K1, dtype=torch.int32, device=dev)
-    kernels.SITE_FINISH(
-        a.data_ptr(), is_lsw.data_ptr(), p.s.data_ptr(), p.b_new.data_ptr(),
-        p.b_lead.data_ptr(), p.b_at_s.data_ptr(), p.prio.data_ptr(),
-        m.rf.data_ptr(), m.rack_of.data_ptr(), m_out.data_ptr(),
-        m_in.data_ptr(), N, P, R, B1, K1, a_new.data_ptr(),
-        d_cnt.data_ptr(), d_lcnt.data_ptr(), d_rcnt.data_ptr(),
-    )
-    return a_new, d_cnt, d_lcnt, d_rcnt
+from .propose_cuda import exchange_halves_cuda
 
 
 def exch_maps_cuda(tok_out, tok_in, prio, width: int):
@@ -102,16 +66,6 @@ def exch_finish_cuda(a, s_own, b_other, tok_out, tok_in, prio, m_out,
         d_lcnt.data_ptr(),
     )
     return a_new, d_lcnt
-
-
-def site_step_cuda(m: ModelArrays, a, cnt, lcnt, rcnt, key, temp: float):
-    """One site sweep through B2 then B3, updating the carried
-    histograms: the kernel path of ``sweep._site_sweep_delta``."""
-    N, P = a.shape[:2]
-    bits = prng.bits(key, (N, P, 8), a.device)
-    p, m_out, m_in = propose_site_cuda(m, a, bits, temp, cnt, lcnt, rcnt)
-    a2, d_cnt, d_lcnt, d_rcnt = site_finish_cuda(m, a, p, m_out, m_in)
-    return a2, cnt + d_cnt, lcnt + d_lcnt, rcnt + d_rcnt
 
 
 def exchange_step_cuda(m: ModelArrays, a, cnt, lcnt, rcnt, key,

@@ -18,8 +18,8 @@ Every function here is the plain PyTorch formulation, written to
 reproduce the reference's integer and float32 arithmetic exactly: with
 the random bits of ``prng`` the port replays the reference trajectory
 bit for bit. The ``"cuda"`` scorer bundle swaps the hot stages for the
-hand-written kernels of ``ops`` (B1-B6), which reproduce these functions
-exactly on the card.
+hand-written kernels of ``ops`` (B1, the fused site sweep B2+B3, and
+B4-B6), which reproduce these functions exactly on the card.
 """
 
 from __future__ import annotations
@@ -288,7 +288,7 @@ def _site_hist_deltas(m: ModelArrays, p: SiteProposals, keep):
 def site_finish(m: ModelArrays, a: torch.Tensor, p: SiteProposals,
                 m_out, m_in):
     """Thin, apply and delta-count one site sweep: ``(a_new, d_cnt,
-    d_lcnt, d_rcnt)``. The plain version of B3."""
+    d_lcnt, d_rcnt)``."""
     keep = _thin_keep(m, p, m_out, m_in)
     return (_apply_site(a, p, keep), *_site_hist_deltas(m, p, keep))
 
@@ -311,7 +311,8 @@ def _carried(cnt, lcnt, rcnt):
 def _site_sweep_delta(m: ModelArrays, a: torch.Tensor, cnt, lcnt, rcnt,
                       key, temp: float):
     """One site sweep against CARRIED histograms, updating the carry
-    from the kept moves (bit-identical to the from-scratch form)."""
+    from the kept moves (bit-identical to the from-scratch form). The
+    plain version of the fused site-sweep kernel (B2+B3)."""
     N, P = a.shape[:2]
     bits = prng.bits(key, (N, P, 8), a.device)
     p = propose_site(m, a, bits, temp, hists=_carried(cnt, lcnt, rcnt))
@@ -721,9 +722,10 @@ def _on_card(fn):
 
 def _make_scorer(scorer: str) -> ScorerBundle:
     """``"torch"``: the plain PyTorch formulation (this module).
-    ``"cuda"``: the hand-written kernels B1-B6 (``ops``); the compound
-    sweep has no kernel and runs the same code in both bundles. Both
-    yield bit-identical trajectories."""
+    ``"cuda"``: the hand-written kernels (``ops``): B1 for the scores and
+    histograms, one fused launch (B2+B3) per site sweep, B4-B6 for the
+    exchange sweep; the compound sweep has no kernel and runs the same
+    code in both bundles. Both yield bit-identical trajectories."""
     if scorer == "torch":
         return ScorerBundle(histograms, full_scores, _site_sweep_delta,
                             _exchange_sweep_delta, _compound_sweep_delta)
@@ -731,7 +733,8 @@ def _make_scorer(scorer: str) -> ScorerBundle:
         raise ValueError(f"unknown scorer {scorer!r}; expected 'torch' or "
                          "'cuda'")
     from ...ops.score_cuda import full_scores_cuda, score
-    from ...ops.thin_cuda import exchange_step_cuda, site_step_cuda
+    from ...ops.site_cuda import site_step_cuda
+    from ...ops.thin_cuda import exchange_step_cuda
 
     def hists(m: ModelArrays, a: torch.Tensor):
         flat = torch.where(m.slot_valid[None], a, m.num_brokers)
@@ -766,6 +769,22 @@ def _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a):
     best_a = best_a.index_copy(
         0, dst[None], torch.where(take, a[dst], best_a[dst])[None])
     return a, cnt, lcnt, rcnt, best_k, best_mv, best_a
+
+
+def snapshot_step(sc: ScorerBundle, m: ModelArrays, a, best_k, best_mv,
+                  best_a):
+    """The stepper's snapshot: an exact rescore through bundle ``sc``
+    (its histograms overwrite the carried ones), each chain's best kept
+    (fewest moves breaks key ties), then the one-device best migration.
+    Returns ``(a, cnt, lcnt, rcnt, best_k, best_mv, best_a)``."""
+    w, pen, cnt, lcnt, rcnt = sc.full(m, a)
+    k = best_key(w, pen)
+    mv = moves_batch(a, m)
+    improved = (k > best_k) | ((k == best_k) & (mv < best_mv))
+    best_mv = torch.where(improved, mv, best_mv)
+    best_k = torch.where(improved, k, best_k)
+    best_a = torch.where(improved[:, None, None], a, best_a)
+    return _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a)
 
 
 def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
@@ -804,16 +823,8 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
                 step = sc.site_step
             a, cnt, lcnt, rcnt = step(m, a, cnt, lcnt, rcnt, sub, temp)
             if i % snapshot_every == snapshot_every - 1 or i == sweeps - 1:
-                # exact resync: overwrite the carried histograms
-                w, pen, cnt, lcnt, rcnt = sc.full(m, a)
-                k = best_key(w, pen)
-                mv = moves_batch(a, m)
-                improved = (k > best_k) | ((k == best_k) & (mv < best_mv))
-                best_mv = torch.where(improved, mv, best_mv)
-                best_k = torch.where(improved, k, best_k)
-                best_a = torch.where(improved[:, None, None], a, best_a)
-                a, cnt, lcnt, rcnt, best_k, best_mv, best_a = _migrate(
-                    a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a)
+                a, cnt, lcnt, rcnt, best_k, best_mv, best_a = snapshot_step(
+                    sc, m, a, best_k, best_mv, best_a)
             curve.append(best_k.max())
         tied = best_k == best_k.max()
         top = first_argmin(torch.where(tied, best_mv, _IMAX))

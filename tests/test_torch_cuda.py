@@ -1,7 +1,8 @@
-"""PyTorch port, on the card: every CUDA kernel (B1-B6) against its plain
-PyTorch version on small seeded instances — padded bucket rows, RF 1 and
-mixed RF included — and the ``cuda`` sweep bundle against the ``torch``
-bundle over 16 sweeps. Exact equality throughout.
+"""PyTorch port, on the card: every CUDA kernel (B1, the fused site sweep
+B2+B3, B4-B6) against its plain PyTorch version on small seeded
+instances — padded bucket rows, RF 1 and mixed RF included — and the
+``cuda`` sweep bundle against the ``torch`` bundle over 16 sweeps. Exact
+equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -23,8 +24,13 @@ from kafka_assignment_optimizer_tpu_torch.models.cluster import (
 from kafka_assignment_optimizer_tpu_torch.models.instance import (
     build_instance,
 )
-from kafka_assignment_optimizer_tpu_torch.ops import kernels, propose_cuda
-from kafka_assignment_optimizer_tpu_torch.ops import score_cuda, thin_cuda
+from kafka_assignment_optimizer_tpu_torch.ops import (
+    kernels,
+    propose_cuda,
+    score_cuda,
+    site_cuda,
+    thin_cuda,
+)
 from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
     init_sweep_state,
 )
@@ -33,10 +39,15 @@ from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import greedy_seed
 
 pytestmark = pytest.mark.cuda
 
+# B+1 is below the site sweep's 8 CTAs per chain in the last case and no
+# multiple of 8 in any; the fourth case's 2,500 partitions are no
+# multiple of a CTA's threads
 CASES = [
     dict(nb=14, npart=40, rfs=(3,), nr=3, drop=1, bucket=(48, 4)),
     dict(nb=8, npart=13, rfs=(1,), nr=2, drop=0, bucket=None),
     dict(nb=20, npart=70, rfs=(2, 4), nr=5, drop=2, bucket=(80, 5)),
+    dict(nb=30, npart=2_500, rfs=(3, 2), nr=4, drop=1, bucket=None),
+    dict(nb=6, npart=24, rfs=(2, 3), nr=2, drop=1, bucket=(32, 3)),
 ]
 
 
@@ -86,14 +97,9 @@ def test_kernels_equal_plain_versions(card, case, temp):
     t = float(np.float32(temp))
     _equal(score_cuda.score(m, a), score_cuda.score_plain(m, a))
     _f, _r, cnt, lcnt, rcnt = sweep.histograms(m, a)
-    bits = prng.bits(prng.PRNGKey(3), (*a.shape[:2], 8), card)
-    kp, kmo, kmi = propose_cuda.propose_site_cuda(m, a, bits, t, cnt, lcnt,
-                                                  rcnt)
-    pp, pmo, pmi = propose_cuda.propose_site_plain(m, a, bits, t, cnt,
-                                                   lcnt, rcnt)
-    _equal(list(kp) + [kmo, kmi], list(pp) + [pmo, pmi])
-    _equal(thin_cuda.site_finish_cuda(m, a, pp, pmo, pmi),
-           sweep.site_finish(m, a, pp, pmo, pmi))
+    key = prng.PRNGKey(3)
+    ref = sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, t)
+    _equal(site_cuda.site_step_cuda(m, a, cnt, lcnt, rcnt, key, t), ref)
 
     seen = {}
 

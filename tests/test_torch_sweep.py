@@ -15,10 +15,15 @@ import pytest
 import torch
 
 from kafka_assignment_optimizer_tpu.ops.score import moves_batch as jmoves
+from kafka_assignment_optimizer_tpu.ops.thin_pallas import site_step_pallas
 from kafka_assignment_optimizer_tpu.solvers.tpu import arrays as jarrays
 from kafka_assignment_optimizer_tpu.solvers.tpu import sweep as js
 from kafka_assignment_optimizer_tpu_torch import prng
-from kafka_assignment_optimizer_tpu_torch.ops import propose_cuda, thin_cuda
+from kafka_assignment_optimizer_tpu_torch.ops import (
+    propose_cuda,
+    site_cuda,
+    thin_cuda,
+)
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep as ts
 
@@ -39,6 +44,9 @@ _J_SITE = _jit(js._site_sweep_delta)
 _J_HALVES = _jit(js._exchange_halves_xla)
 _J_EXCH = _jit(js._exchange_sweep_delta)
 _J_COMP = _jit(js._compound_sweep_delta)
+# the JAX package's two site-sweep Pallas kernels, run as its own CPU
+# tests run them
+_J_SITE_PALLAS = _jit(lambda *args: site_step_pallas(*args, interpret=True))
 
 # the reference's mesh path with one device: its stepper under a named
 # axis of size 1 (the port's engine runs the same one-device migration)
@@ -76,21 +84,36 @@ def test_site_records_and_sweep_delta_match(rng, temp):
     assert 0 < int((pt.prio > 0).sum()) < pt.prio.numel()
 
     hj, ht = _hists(mj, mt, aj, at)
-    # B2's wrapper on CPU tensors: the plain records + thinning maps
-    pw, m_out, m_in = propose_cuda.propose_site_cuda(mt, at, bt, float(t32),
-                                                     *ht)
+    # the records against carried histograms, as the site sweep draws
+    # them, and their thinning maps
+    pc = ts.propose_site(mt, at, bt, float(t32), hists=ts._carried(*ht))
     for f in pj._fields:
-        assert_same(getattr(pj, f), getattr(pw, f), f)
-    assert_same(m_out, ts.site_maps(mt, pt)[0])
+        assert_same(getattr(pj, f), getattr(pc, f), f)
+    assert_same(ts.site_maps(mt, pc)[0], ts.site_maps(mt, pt)[0])
 
     outj = _J_SITE(mj, aj, *hj, jax.random.PRNGKey(11), t32)
     outt = ts._site_sweep_delta(mt, at, *ht, prng.PRNGKey(11), float(t32))
-    outw = thin_cuda.site_step_cuda(mt, at, *ht, prng.PRNGKey(11),
+    outw = site_cuda.site_step_cuda(mt, at, *ht, prng.PRNGKey(11),
                                     float(t32))
     for x, y, z in zip(outj, outt, outw):
         assert_same(x, y)
         assert_same(x, z)
     assert (outt[0].numpy() != a).any()
+
+
+def test_site_step_matches_reference_pallas_kernels(rng):
+    """The fused site sweep's wrapper on CPU tensors against the JAX
+    package's two Pallas kernels chained (``site_step_pallas``) in
+    interpret mode: one instance, one key, one temperature."""
+    inst, mj, mt, a, aj, at = _setup(rng)
+    t32 = np.float32(0.3)
+    hj, ht = _hists(mj, mt, aj, at)
+    outj = _J_SITE_PALLAS(mj, aj, *hj, jax.random.PRNGKey(13), t32)
+    outw = site_cuda.site_step_cuda(mt, at, *ht, prng.PRNGKey(13),
+                                    float(t32))
+    for x, y in zip(outj, outw):
+        assert_same(x, y)
+    assert (outw[0].numpy() != a).any()
 
 
 @pytest.mark.parametrize("temp", [2.0, 0.02])
