@@ -10,18 +10,21 @@ Phases (any failure exits non-zero; nothing is caught):
    max SM clock behind the INT32 rate the bounds use;
 2. build — every CUDA kernel from ``csrc/`` (one nvcc per source, all at
    once), timed;
-3. kernel check — B1, the fused site sweep (B2+B3) and B4-B6 against
-   their plain PyTorch versions on the card at the shapes of the main
-   path (the ``adversarial`` scenario: 8 chains, 10,000 partitions
-   padded to the 10,240-row bucket, RF up to 4, 256 brokers with one
-   removed); exact equality; kernel, plain and library times in CUDA
-   events, device time under the profiler, and each kernel's bound. The
-   site sweep is checked at two temperatures and must be one device
-   activity per call; its operations bound counts threefry's integer
-   instructions in the SASS that ``cuobjdump`` shows;
+3. kernel check — B1, the fused site sweep (B2+B3), the fused exchange
+   proposal (B4+B5) and B6 against their plain PyTorch versions on the
+   card at the shapes of the main path (the ``adversarial`` scenario: 8
+   chains, 10,000 partitions padded to the 10,240-row bucket, RF up to
+   4, 256 brokers with one removed); exact equality; kernel, plain and
+   library times in CUDA events, device time under the profiler, and
+   each kernel's bound. The two fused kernels are checked at two
+   temperatures; the site sweep must be one device activity per call,
+   and an exchange sweep through the ``cuda`` bundle at most five, with
+   no ``prng`` draw on the device. Their operations bounds count
+   threefry's integer instructions in the SASS that ``cuobjdump`` shows;
 4. sweep times — median wall ms of one site, exchange and compound sweep
    and one snapshot through the ``cuda`` bundle, synchronized around
-   each call;
+   each call, and of the plain random draws that the fused kernels
+   replace;
 5. trajectory check — 2 chunks of 8 sweeps through the ``cuda`` bundle
    and through the ``torch`` bundle, both on the card, from one state;
    the states must be equal after every chunk;
@@ -79,8 +82,7 @@ def timed(fn, torch) -> float:
 KERNEL_FUNCS = {
     "B1 score": ("score_rows", "score_bands"),
     "B2+B3 site sweep": ("site_sweep",),
-    "B4 exchange halves": ("exchange_halves",),
-    "B5 exchange maps": ("exch_maps",),
+    "B4+B5 exchange propose": ("exchange_propose",),
     "B6 exchange finish": ("exch_finish",),
 }
 
@@ -171,11 +173,16 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
     """Median wall ms of one site, exchange and compound sweep and one
     snapshot (exact rescore, best update, migration) through the
     ``cuda`` bundle on population ``a``, synchronized around each call;
-    also the wall of one draw of the site sweep's random words the
-    plain way, for scale."""
+    also, for scale, the wall of the plain draws that the fused kernels
+    make in registers: the site sweep's random words, and the exchange
+    sweep's words and pairing; and of the host key derivation that the
+    exchange kernel's wrapper keeps."""
     import numpy as np
 
     from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.ops.exchange_cuda import (
+        host_keys,
+    )
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
     sc = sweep._make_scorer("cuda")
@@ -191,6 +198,9 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
         "snapshot": lambda k: sweep.snapshot_step(sc, m, a, *best),
         "site bits draw": lambda k: prng.bits(k, (*a.shape[:2], 8),
                                               a.device),
+        "exchange draws": lambda k: exchange_draws(k, *a.shape[:2],
+                                                   a.device),
+        "exchange host keys": lambda k: host_keys(k, a.shape[1]),
     }
     out = {}
     for name, fn in calls.items():
@@ -204,6 +214,18 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
             walls.append(time.perf_counter() - t0)
         out[name] = statistics.median(walls[3:]) * 1e3
     return out
+
+
+def exchange_draws(key, N: int, P: int, device):
+    """The random draws of one plain exchange proposal
+    (``sweep.propose_exchange``): the words ``bits [N, P, 4]`` and the
+    pairing."""
+    from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+
+    kd, kbits = prng.split(key)
+    return (prng.bits(kbits, (N, P, 4), device),
+            sweep._pair_partners(kd, N, P, device))
 
 
 def adversarial_population(torch, dev, N: int = 8):
@@ -239,7 +261,8 @@ def adversarial_population(torch, dev, N: int = 8):
     return scen, inst, m, seed_np, torch.from_numpy(a_np).to(dev)
 
 
-# the seven threefry words of one partition, as csrc/site.cu draws them;
+# the seven threefry words of one partition, as csrc/site.cu draws them
+# (common.cuh's threefry_word, which csrc/exchange.cu draws too);
 # compiled to a cubin and never launched: its SASS is counted
 THREEFRY_PROBE = r"""
 #include "site.cu"
@@ -332,8 +355,9 @@ def main() -> int:
     # ---- 1. header ------------------------------------------------------
     int32_ops_per_s = header(torch)
 
-    from kafka_assignment_optimizer_tpu_torch.ops.propose_cuda import (
-        exchange_halves_cuda,
+    from kafka_assignment_optimizer_tpu_torch.ops.exchange_cuda import (
+        exch_finish_cuda,
+        exchange_propose_cuda,
     )
     from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
         score,
@@ -341,10 +365,6 @@ def main() -> int:
     )
     from kafka_assignment_optimizer_tpu_torch.ops.site_cuda import (
         site_step_cuda,
-    )
-    from kafka_assignment_optimizer_tpu_torch.ops.thin_cuda import (
-        exch_finish_cuda,
-        exch_maps_cuda,
     )
     from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
         init_sweep_state,
@@ -493,60 +513,111 @@ def main() -> int:
            site_bytes, site_int, real * 9, None,
            lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp))
 
-    # B4 — exchange halves, on the inputs the main path hands it
-    captured = {}
+    # B4+B5 — the fused exchange proposal, at two temperatures, against
+    # the plain proposal and its maps
+    key = prng.PRNGKey(2)
 
-    def capture(*args, **kw):
-        captured["args"], captured["kw"] = args, kw
-        return sweep.exchange_halves(*args, **kw)
+    def propose(t):
+        rec, m_out, m_in = exchange_propose_cuda(m, a, lcnt, key, t)
+        return (*rec, m_out, m_in)
 
-    ep = sweep.propose_exchange(m, a, prng.PRNGKey(2), temp, halves=capture,
-                                lcnt=lcnt)
-    hargs, hkw = captured["args"], captured["kw"]
-    kh = exchange_halves_cuda(*hargs, **hkw)
-    ph = sweep.exchange_halves(*hargs, **hkw)
-    torch.cuda.synchronize()
-    err = check_equal("B4", kh, ph)
-    _m, _a, _l, s_own, lead_other, b_other = hargs
-    b4_bytes = (nbytes(a, m.slot_valid, m.part_rack_hi, m.rack_of, lcnt,
-                       s_own, lead_other, b_other)
-                # one table per element: w_lead where the own slot leads
-                + gathered(B1, ((s_own != 0).to(torch.int64), b_other, True),
-                           ((s_own != 0).to(torch.int64), ph[0], True))
-                + nbytes(*(t.to(torch.int32) for t in kh)))
-    report(kernels.EXCHANGE, err,
-           timed(lambda: exchange_halves_cuda(*hargs, **hkw), torch),
-           timed(lambda: sweep.exchange_halves(*hargs, **hkw), torch),
-           b4_bytes, NP * (40 + 8 * Rp), 0, None,
-           lambda: exchange_halves_cuda(*hargs, **hkw))
+    def propose_plain(t):
+        pr, m_out, m_in = sweep.exchange_propose(m, a, lcnt, key, t)
+        return (pr.s, pr.b_other, pr.tok_out, pr.tok_in, pr.prio, m_out,
+                m_in)
 
-    # B5 — exchange maps
-    km = exch_maps_cuda(ep.tok_out, ep.tok_in, ep.prio, B1)
-    pm = sweep.exch_maps(ep.tok_out, ep.tok_in, ep.prio, B1)
-    torch.cuda.synchronize()
-    err = check_equal("B5", km, pm)
-    report(kernels.EXCH_MAPS, err,
-           timed(lambda: exch_maps_cuda(ep.tok_out, ep.tok_in, ep.prio, B1),
-                 torch),
-           timed(lambda: sweep.exch_maps(ep.tok_out, ep.tok_in, ep.prio, B1),
-                 torch),
-           nbytes(ep.tok_out, ep.tok_in, ep.prio, *km), NP * 4, 0, None,
-           lambda: exch_maps_cuda(ep.tok_out, ep.tok_in, ep.prio, B1))
+    err = 0.0
+    for t in (temp, float(np.float32(0.02))):
+        ref = propose_plain(t)
+        got = propose(t)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"B4+B5 (temp {t})", got, ref))
+        print(f"  (exchange proposal at temp {t:.4g}: "
+              f"{int((ref[4] > 0).sum())} accepted halves, "
+              f"{int((ref[2] != B1 - 1).sum())} moving leadership)")
+    got = propose(temp)
+    ref = propose_plain(temp)
+    sc = sweep._make_scorer("cuda")
+    # one exchange sweep through the cuda bundle: no prng draw on the
+    # device, and at most five device activities (the maps' zero fill,
+    # the fused proposal, B6's zero fill, B6, the lcnt add)
+    drawn = []
 
-    # B6 — exchange finish (keep, apply, leader delta)
-    fargs = (a, ep.s, ep.b_other, ep.tok_out, ep.tok_in, ep.prio, *pm)
-    ke = exch_finish_cuda(*fargs)
-    pe = sweep.exch_finish(*fargs)
+    def spy(fn, at: int):  # ``at``: the position of fn's device argument
+        def call(*args, **kw):
+            if kw.get("device", args[at] if len(args) > at else None) \
+                    is not None:
+                drawn.append(fn.__name__)
+            return fn(*args, **kw)
+        return call
+
+    bits_fn, randint_fn = prng.bits, prng.randint
+    prng.bits, prng.randint = spy(bits_fn, 2), spy(randint_fn, 4)
+    try:
+        sc.exch_step(m, a, cnt, lcnt, rcnt, key, temp)
+    finally:
+        prng.bits, prng.randint = bits_fn, randint_fn
+    if drawn:
+        fail(f"one exchange sweep drew {drawn} on the device")
+    events, _w = profiled(
+        lambda: sc.exch_step(m, a, cnt, lcnt, rcnt, key, temp), torch)
+    names = [n for n, _us in events]
+    if (len(events) > 5
+            or sum("exchange_propose" in n for n in names) != 1
+            or sum("exch_finish" in n for n in names) != 1):
+        fail(f"one exchange sweep made {len(events)} device activities "
+             f"({names}), expected at most five with one exchange_propose "
+             "and one exch_finish launch")
+    print(f"  (one exchange sweep through the cuda bundle: {len(events)} "
+          f"device activities, no prng draw on the device: {names})")
+    # the library yardstick of the maps: one scatter_reduce_ amax over
+    # both token sets side by side
+    idx = torch.cat([ref[2], ref[3] + B1], 1).long()
+    src = torch.cat([ref[4], ref[4]], 1)
+    lib_maps = torch.zeros(N, 2 * B1, dtype=torch.float32, device=dev)
+    lib_maps.scatter_reduce_(1, idx, src, "amax")
+    if not torch.equal(lib_maps, torch.cat([ref[5], ref[6]], 1)):
+        fail("the scatter_reduce_ yardstick disagrees with the maps")
+    lib = timed(lambda: lib_maps.scatter_reduce_(1, idx, src, "amax"), torch)
+    # counted from the records: the bytes are each input once, the
+    # weights an accepted pair's sides read (its slot's table at the
+    # broker it gives and at the one it takes), each output once. The
+    # operations are threefry words at the SASS count of one word: a slot
+    # word for each partition that has replicas, a priority word for each
+    # accepted pair, two a chain for the phase; the float work is the
+    # scale multiply of each word's uniform. Left out, so that the bound
+    # stays below the least time: the weights of rejected legal pairs,
+    # the Metropolis words, the slot words of wrapped partners
+    s_own, b_other, acc = got[0], got[1], got[4] > 0
+    b_own = a.gather(2, s_own.clamp(min=0)[..., None].long())[..., 0]
+    tbl = (s_own != 0).to(torch.int64)
+    ex_bytes = (nbytes(a, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
+                       lcnt)
+                + gathered(B1, (tbl, b_other, acc), (tbl, b_own, acc))
+                + nbytes(*got))
+    n_words = real + int(acc.sum()) // 2 + 2 * N
+    print(f"  (exchange: at least {n_words} threefry words, "
+          f"{tf_ops / 7:.4g} integer instructions a word)")
+    report(kernels.EXCHANGE, err, timed(lambda: propose(temp), torch),
+           timed(lambda: propose_plain(temp), torch), ex_bytes,
+           round(n_words * tf_ops / 7), n_words, lib,
+           lambda: propose(temp))
+
+    # B6 — exchange finish (keep, apply, leader delta), fed by the fused
+    # kernel's records and maps
+    fargs = tuple(got)
+    ke = exch_finish_cuda(a, *fargs)
+    pe = sweep.exch_finish(a, *fargs)
     torch.cuda.synchronize()
     err = check_equal("B6", ke, pe)
-    print(f"  (exchange sweep at temp {temp}: {int((ep.prio > 0).sum())} "
+    print(f"  (exchange sweep at temp {temp}: {int((ref[4] > 0).sum())} "
           f"accepted halves, {int((ke[0] != a).any(-1).sum())} partitions "
           "changed)")
     report(kernels.EXCH_FINISH, err,
-           timed(lambda: exch_finish_cuda(*fargs), torch),
-           timed(lambda: sweep.exch_finish(*fargs), torch),
-           nbytes(*fargs) + nbytes(*ke), NP * (12 + 2 * Rp), 0, None,
-           lambda: exch_finish_cuda(*fargs))
+           timed(lambda: exch_finish_cuda(a, *fargs), torch),
+           timed(lambda: sweep.exch_finish(a, *fargs), torch),
+           nbytes(a, *fargs) + nbytes(*ke), NP * (12 + 2 * Rp), 0, None,
+           lambda: exch_finish_cuda(a, *fargs))
 
     # ---- 4. sweep times --------------------------------------------------
     print("sweep times (cuda bundle, median wall ms, synchronized): "
@@ -625,6 +696,12 @@ def main() -> int:
     for name, n in counts.items():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
+    # one fused proposal and one B6 an exchange sweep: sweeps 1, 5, 9, ...
+    n_exch = st["rounds"] // 4
+    for k in (kernels.EXCHANGE, kernels.EXCH_FINISH):
+        if counts[k.name] != n_exch:
+            fail(f"{k.name}: {counts[k.name]} launches on the main path, "
+                 f"expected one an exchange sweep ({n_exch})")
     print(f"adversarial: feasible, {res.replica_moves} moves (lower bound "
           f"{st['moves_lb']}, seed {st['seed_moves']}), weight "
           f"{res.solve.objective} (unconstrained optimum "

@@ -55,4 +55,32 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
   return v;
 }
 
+// four threefry2x32 rounds with rotations r0..r3
+__device__ __forceinline__ void tf_rounds(uint32_t& x0, uint32_t& x1, int r0,
+                                          int r1, int r2, int r3) {
+  x0 += x1; x1 = __funnelshift_l(x1, x1, r0) ^ x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, r1) ^ x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, r2) ^ x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, r3) ^ x0;
+}
+
+// a jax.random.bits word at flat counter c under key (k0, k1), k2 the key
+// schedule's third word: threefry2x32 of (c >> 32, c), outputs xor-ed
+__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1,
+                                                  uint32_t k2, uint64_t c) {
+  uint32_t x0 = (uint32_t)(c >> 32) + k0;
+  uint32_t x1 = (uint32_t)c + k1;
+  tf_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k1; x1 += k2 + 1u;
+  tf_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k2; x1 += k0 + 2u;
+  tf_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k0; x1 += k1 + 3u;
+  tf_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k1; x1 += k2 + 4u;
+  tf_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+
 #define KAO_THREADS 256

@@ -1,49 +1,19 @@
-// B5/B6: exchange conflict thinning, apply and leader-histogram delta.
+// B6: exchange keep test, apply and leader-histogram delta.
 //
-// B5 replaces kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247
-// (_exch_maps_kernel): the per-chain max-priority maps over the exchange
-// proposals' leadership tokens.
-//
-// B6 replaces kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277
+// Replaces kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277
 // (_exch_finish_kernel): the exchange keep test (token B bypasses its
 // map), the apply, and the leader-histogram delta (replica and rack
-// totals are exchange-invariant).
+// totals are exchange-invariant). Its records and maps come from the
+// fused exchange proposal (exchange.cu, B4+B5).
 //
-// What bounds them on Hopper: bytes — each thread reads one record and
+// What bounds it on Hopper: bytes — each thread reads one record and
 // one row and writes one row; the rest is a few integer operations. The
-// TPU kernels folded the histogram deltas into 128-lane one-hot
+// TPU kernel folded the histogram delta into 128-lane one-hot
 // accumulators; here a kept move adds +1/-1 with integer atomics straight
-// into [N, B+1] (exact, order-free), and only kept moves touch them. The
-// maps need a grid-wide max before the keep test, hence B5 then B6 as two
-// launches. (The site sweep's pair of the same two stages is one launch
-// with its maps in a thread-block cluster: site.cu.)
+// into [N, B+1] (exact, order-free), and only kept moves touch it. The
+// keep test needs the chain's finished maps, a grid-wide dependency on the
+// proposal launch, hence a launch of its own.
 #include "common.cuh"
-
-__global__ void exch_maps(const int* __restrict__ tok_out,
-                          const int* __restrict__ tok_in,
-                          const float* __restrict__ prio, int N, int P,
-                          int B1, float* __restrict__ m_out,
-                          float* __restrict__ m_in) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  if (p >= P) return;
-  const size_t i = (size_t)n * P + p;
-  const float pr = prio[i];
-  if (pr > 0.f) {
-    map_max(&m_out[(size_t)n * B1 + tok_out[i]], pr);
-    map_max(&m_in[(size_t)n * B1 + tok_in[i]], pr);
-  }
-}
-
-// m_out and m_in arrive zeroed
-extern "C" int kao_exch_maps(const int* tok_out, const int* tok_in,
-                             const float* prio, int N, int P, int B1,
-                             float* m_out, float* m_in, cudaStream_t stream) {
-  dim3 grid((P + KAO_THREADS - 1) / KAO_THREADS, N);
-  exch_maps<<<grid, KAO_THREADS, 0, stream>>>(tok_out, tok_in, prio, N, P,
-                                               B1, m_out, m_in);
-  return (int)cudaGetLastError();
-}
 
 __global__ void exch_finish(const int* __restrict__ a,
                             const int* __restrict__ s_own,

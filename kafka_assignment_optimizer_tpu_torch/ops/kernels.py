@@ -36,7 +36,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("score", "propose", "thin", "site")
+SOURCES = ("score", "site", "exchange", "thin")
 HEADERS = ("common.cuh",)
 
 _LOCK = threading.Lock()
@@ -193,16 +193,12 @@ SITE = Kernel(
     [P] * 13 + [U, U, F, F] + [I] * 9 + [P] * 5 + [P],
 )
 EXCHANGE = Kernel(
-    "B4 exchange halves", "propose", "kao_exchange_halves",
+    "B4+B5 exchange propose", "exchange", "kao_exchange_propose",
     ("kafka_assignment_optimizer_tpu/ops/propose_pallas.py:424 "
-     "_exchange_kernel",),
-    [P] * 10 + [I] * 6 + [P] * 5 + [P],
-)
-EXCH_MAPS = Kernel(
-    "B5 exchange maps", "thin", "kao_exch_maps",
-    ("kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247 "
-     "_exch_maps_kernel",),
-    [P] * 3 + [I] * 3 + [P] * 2 + [P],
+     "_exchange_kernel",
+     "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247 "
+     "_exch_maps_kernel"),
+    [P] * 8 + [U] * 6 + [F, F] + [I] * 7 + [P] * 2 + [P],
 )
 EXCH_FINISH = Kernel(
     "B6 exchange finish", "thin", "kao_exch_finish",
@@ -211,7 +207,7 @@ EXCH_FINISH = Kernel(
     [P] * 8 + [I] * 4 + [P] * 2 + [P],
 )
 
-KERNELS = (SCORE, SITE, EXCHANGE, EXCH_MAPS, EXCH_FINISH)
+KERNELS = (SCORE, SITE, EXCHANGE, EXCH_FINISH)
 
 
 def reset_counts() -> None:

@@ -10,13 +10,14 @@ compare whole runs.
 
 Keys are numpy ``uint32[2]`` arrays and live on the host: deriving a key
 is two 32-bit words of arithmetic, and scalars drawn from keys (the
-exchange stride) are needed on the host anyway. ``bits`` for a large
-shape runs on the device when given one.
+exchange stride) are needed on the host anyway. Host draws run on Python
+ints, a word at a time (every host draw of the program is a word or
+two); ``bits`` for a large shape runs on the device when given one.
 
-Arithmetic is done in int64 and masked to 32 bits (``& 0xFFFFFFFF``):
-torch has no unsigned 32-bit shifts on every device, and one code path
-then serves numpy arrays and torch tensors alike. The returned bits are
-int64 values in ``[0, 2**32)``.
+Arithmetic is masked to 32 bits (``& 0xFFFFFFFF``), on torch int64
+tensors on a device (torch has no unsigned 32-bit shifts on every
+device), so that one code path serves Python ints and tensors alike.
+The returned bits are int64 values in ``[0, 2**32)``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def _rotl(x, r: int):
 
 def _threefry2x32(k0: int, k1: int, x0, x1):
     """Threefry-2x32 (20 rounds) of the count pair ``(x0, x1)`` under key
-    ``(k0, k1)``. ``x0``/``x1`` are int64 arrays (numpy or torch) of
+    ``(k0, k1)``. ``x0``/``x1`` are Python ints or torch int64 tensors of
     values in ``[0, 2**32)``; returns the two output words likewise."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
@@ -58,20 +59,18 @@ def _key_words(key) -> tuple[int, int]:
     return int(k[0]), int(k[1])
 
 
-def _counts(n: int, device):
-    """The flat 64-bit iota as (hi, lo) 32-bit words."""
-    if device is None:
-        c = np.arange(n, dtype=np.int64)
-    else:
-        c = torch.arange(n, dtype=torch.int64, device=device)
-    return c >> 32, c & _MASK
-
-
 def _hash(key, shape, device=None):
+    """The two output words at the flat 64-bit counters of ``shape``: numpy
+    int64 arrays when ``device`` is None, else torch tensors on it."""
     k0, k1 = _key_words(key)
     shape = tuple(int(s) for s in shape)
-    hi, lo = _counts(math.prod(shape), device)
-    o0, o1 = _threefry2x32(k0, k1, hi, lo)
+    n = math.prod(shape)
+    if device is None:
+        out = np.array([_threefry2x32(k0, k1, c >> 32, c & _MASK)
+                        for c in range(n)], dtype=np.int64).reshape(n, 2)
+        return out[:, 0].reshape(shape), out[:, 1].reshape(shape)
+    c = torch.arange(n, dtype=torch.int64, device=device)
+    o0, o1 = _threefry2x32(k0, k1, c >> 32, c & _MASK)
     return o0.reshape(shape), o1.reshape(shape)
 
 
@@ -89,7 +88,7 @@ def split(key, num: int = 2) -> np.ndarray:
 def fold_in(key, data: int) -> np.ndarray:
     """``jax.random.fold_in(key, data)``."""
     k0, k1 = _key_words(key)
-    o0, o1 = _threefry2x32(k0, k1, np.int64(0), np.int64(int(data) & _MASK))
+    o0, o1 = _threefry2x32(k0, k1, 0, int(data) & _MASK)
     return np.array([o0, o1], dtype=np.uint32)
 
 

@@ -18,8 +18,9 @@ Every function here is the plain PyTorch formulation, written to
 reproduce the reference's integer and float32 arithmetic exactly: with
 the random bits of ``prng`` the port replays the reference trajectory
 bit for bit. The ``"cuda"`` scorer bundle swaps the hot stages for the
-hand-written kernels of ``ops`` (B1, the fused site sweep B2+B3, and
-B4-B6), which reproduce these functions exactly on the card.
+hand-written kernels of ``ops`` (B1, the fused site sweep B2+B3, the
+fused exchange proposal B4+B5 and B6), which reproduce these functions
+exactly on the card.
 """
 
 from __future__ import annotations
@@ -342,14 +343,21 @@ class ExchangeProposals(NamedTuple):
     prio: torch.Tensor     # [N, P] float32, 0 where rejected
 
 
+def _pair_stride(key, P: int):
+    """The host half of the pairing: the stride ``d`` (a shift amount,
+    drawn on the host) and the key of the per-chain phases,
+    ``randint(kph, (N, 1), 0, 2 * d)``."""
+    kd, kph = prng.split(key)
+    return int(prng.randint(kd, (), 1, max(P // 2, 2))), kph
+
+
 def _pair_partners(key, N: int, P: int, device):
     """Involution pairing by random stride ``d`` (shared by all chains)
     with a per-chain random phase: alternating d-blocks pair p with p+d
-    (lower blocks) or p-d (upper blocks). ``d`` is drawn on the host (it
-    is a shift amount); the phases on the device. Returns (d, is_lower
-    [N, P], pair_valid [N, P])."""
-    kd, kph = prng.split(key)
-    d = int(prng.randint(kd, (), 1, max(P // 2, 2)))
+    (lower blocks) or p-d (upper blocks). ``d`` is drawn on the host; the
+    phases on the device. Returns (d, is_lower [N, P], pair_valid [N,
+    P])."""
+    d, kph = _pair_stride(key, P)
     phase = prng.randint(kph, (N, 1), 0, 2 * d, device=device)
     p_idx = torch.arange(P, device=device)[None, :]
     is_lower = ((p_idx + phase) // d) % 2 == 0
@@ -380,8 +388,9 @@ def exchange_halves(m: ModelArrays, a, lcnt, s_own, lead_other, b_other,
                     b_own=None):
     """Per-partition half of a pair-exchange delta, from the OWN row only
     (plus the pair-level leader-count term, identical on both sides).
-    The plain version of B4. Returns (b_own, dw_own, ddiv_own,
-    dlcnt_pair, legal_own)."""
+    The plain form of B4's half, which the fused exchange kernel
+    evaluates for both sides of a pair. Returns (b_own, dw_own,
+    ddiv_own, dlcnt_pair, legal_own)."""
     N, P, R = a.shape
     B = m.num_brokers
     rows = _rows(P, a.device)
@@ -427,7 +436,7 @@ def propose_exchange(m: ModelArrays, a, key, temp: float, halves=None,
     the stride pairing and ``bits [N, P, 4]`` (slot-lower, slot-upper,
     metropolis, prio); the pair's shared draws are the LOWER side's
     bits, so both halves reach identical decisions. ``halves`` computes
-    the per-partition half-deltas (:func:`exchange_halves`, or B4)."""
+    the per-partition half-deltas (:func:`exchange_halves` by default)."""
     N, P, R = a.shape
     B = m.num_brokers
     dev = a.device
@@ -475,9 +484,16 @@ def propose_exchange(m: ModelArrays, a, key, temp: float, halves=None,
 
 
 def exch_maps(tok_out, tok_in, prio, width: int):
-    """Per-chain max-priority maps over the leadership tokens: the plain
-    version of B5."""
+    """Per-chain max-priority maps over the leadership tokens."""
     return _max_map(tok_out, prio, width), _max_map(tok_in, prio, width)
+
+
+def exchange_propose(m: ModelArrays, a, lcnt, key, temp: float):
+    """One exchange proposal against the carried leader histograms and
+    its thinning maps: ``(ExchangeProposals, m_out, m_in)``. The plain
+    version of the fused exchange kernel (B4+B5)."""
+    p = propose_exchange(m, a, key, temp, lcnt=lcnt)
+    return (p, *exch_maps(p.tok_out, p.tok_in, p.prio, m.num_brokers + 1))
 
 
 def exch_finish(a, s_own, b_other, tok_out, tok_in, prio, m_out, m_in):
@@ -512,11 +528,13 @@ def exchange_sweep(m: ModelArrays, a, key, temp: float):
 def _exchange_sweep_delta(m: ModelArrays, a, cnt, lcnt, rcnt, key,
                           temp: float):
     """Exchange sweep against the carried leader histograms. Replica and
-    rack totals are exchange-invariant; only leadership units move."""
+    rack totals are exchange-invariant; only leadership units move. The
+    plain version of the cuda bundle's exchange step (B4+B5, then B6)."""
     if a.shape[1] < 2:
         return a, cnt, lcnt, rcnt
-    prop = propose_exchange(m, a, key, temp, lcnt=lcnt)
-    a2, d_lcnt = exchange_thin_apply(m, a, prop)
+    p, m_out, m_in = exchange_propose(m, a, lcnt, key, temp)
+    a2, d_lcnt = exch_finish(a, p.s, p.b_other, p.tok_out, p.tok_in, p.prio,
+                             m_out, m_in)
     return a2, cnt, lcnt + d_lcnt, rcnt
 
 
@@ -723,9 +741,10 @@ def _on_card(fn):
 def _make_scorer(scorer: str) -> ScorerBundle:
     """``"torch"``: the plain PyTorch formulation (this module).
     ``"cuda"``: the hand-written kernels (``ops``): B1 for the scores and
-    histograms, one fused launch (B2+B3) per site sweep, B4-B6 for the
-    exchange sweep; the compound sweep has no kernel and runs the same
-    code in both bundles. Both yield bit-identical trajectories."""
+    histograms, one fused launch (B2+B3) per site sweep, and per exchange
+    sweep one fused launch (B4+B5) and B6; the compound sweep has no
+    kernel and runs the same code in both bundles. Both yield
+    bit-identical trajectories."""
     if scorer == "torch":
         return ScorerBundle(histograms, full_scores, _site_sweep_delta,
                             _exchange_sweep_delta, _compound_sweep_delta)
@@ -733,8 +752,8 @@ def _make_scorer(scorer: str) -> ScorerBundle:
         raise ValueError(f"unknown scorer {scorer!r}; expected 'torch' or "
                          "'cuda'")
     from ...ops.score_cuda import full_scores_cuda, score
+    from ...ops.exchange_cuda import exchange_step_cuda
     from ...ops.site_cuda import site_step_cuda
-    from ...ops.thin_cuda import exchange_step_cuda
 
     def hists(m: ModelArrays, a: torch.Tensor):
         flat = torch.where(m.slot_valid[None], a, m.num_brokers)

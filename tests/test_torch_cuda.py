@@ -1,8 +1,10 @@
 """PyTorch port, on the card: every CUDA kernel (B1, the fused site sweep
-B2+B3, B4-B6) against its plain PyTorch version on small seeded
-instances — padded bucket rows, RF 1 and mixed RF included — and the
-``cuda`` sweep bundle against the ``torch`` bundle over 16 sweeps. Exact
-equality throughout.
+B2+B3, the fused exchange proposal B4+B5, B6) against its plain PyTorch
+version on small seeded instances — padded bucket rows, RF 1 and mixed
+RF included — the fused exchange proposal also at 2, 3 and 5 partitions
+(partners off the end in every sweep) and at the main path's bucket, and
+the ``cuda`` sweep bundle against the ``torch`` bundle over 16 sweeps.
+Exact equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -25,11 +27,10 @@ from kafka_assignment_optimizer_tpu_torch.models.instance import (
     build_instance,
 )
 from kafka_assignment_optimizer_tpu_torch.ops import (
+    exchange_cuda,
     kernels,
-    propose_cuda,
     score_cuda,
     site_cuda,
-    thin_cuda,
 )
 from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
     init_sweep_state,
@@ -101,21 +102,46 @@ def test_kernels_equal_plain_versions(card, case, temp):
     ref = sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, t)
     _equal(site_cuda.site_step_cuda(m, a, cnt, lcnt, rcnt, key, t), ref)
 
-    seen = {}
+    rec, m_out, m_in = _equal_proposal(m, a, lcnt, prng.PRNGKey(5), t)
+    fargs = (a, *rec, m_out, m_in)
+    _equal(exchange_cuda.exch_finish_cuda(*fargs), sweep.exch_finish(*fargs))
+    _equal(exchange_cuda.exchange_step_cuda(m, a, cnt, lcnt, rcnt, key, t),
+           sweep._exchange_sweep_delta(m, a, cnt, lcnt, rcnt, key, t))
+    torch.cuda.synchronize()
 
-    def capture(*args, **kw):
-        seen["args"] = args
-        return sweep.exchange_halves(*args, **kw)
 
-    ep = sweep.propose_exchange(m, a, prng.PRNGKey(5), t, halves=capture,
-                                lcnt=lcnt)
-    _equal(propose_cuda.exchange_halves_cuda(*seen["args"]),
-           sweep.exchange_halves(*seen["args"]))
-    B1 = m.num_brokers + 1
-    maps = thin_cuda.exch_maps_cuda(ep.tok_out, ep.tok_in, ep.prio, B1)
-    _equal(maps, sweep.exch_maps(ep.tok_out, ep.tok_in, ep.prio, B1))
-    fargs = (a, ep.s, ep.b_other, ep.tok_out, ep.tok_in, ep.prio, *maps)
-    _equal(thin_cuda.exch_finish_cuda(*fargs), sweep.exch_finish(*fargs))
+def _equal_proposal(m, a, lcnt, key, t):
+    """The fused exchange proposal against ``sweep.exchange_propose``:
+    all five records and both maps. Returns the kernel's."""
+    rec, m_out, m_in = exchange_cuda.exchange_propose_cuda(m, a, lcnt, key, t)
+    p, r_out, r_in = sweep.exchange_propose(m, a, lcnt, key, t)
+    _equal((*rec, m_out, m_in),
+           (p.s, p.b_other, p.tok_out, p.tok_in, p.prio, r_out, r_in))
+    return rec, m_out, m_in
+
+
+# the fused exchange proposal at partition counts where most sweeps have
+# partitions whose partner falls off the end (2, 3, 5), the padded bucket
+# of CASES[0], and the main path's bucket (10,240 rows, RF up to 4, with
+# 240 padded rows)
+EXCH_CASES = [
+    dict(nb=4, npart=2, rfs=(2,), nr=2, drop=0, bucket=None),
+    dict(nb=8, npart=3, rfs=(2, 3), nr=2, drop=1, bucket=None),
+    dict(nb=8, npart=5, rfs=(3,), nr=3, drop=1, bucket=None),
+    CASES[0],
+    dict(nb=256, npart=10_000, rfs=(2, 4), nr=8, drop=1,
+         bucket=(10_240, 4)),
+]
+
+
+@pytest.mark.parametrize("case", EXCH_CASES)
+@pytest.mark.parametrize("temp", [2.0, 0.05])
+def test_exchange_proposal_equals_plain_version(card, case, temp):
+    m, a, _seed = _model(case, card)
+    _f, _r, _cnt, lcnt, _rcnt = sweep.histograms(m, a)
+    t = float(np.float32(temp))
+    for i in range(4):
+        _equal_proposal(m, a, lcnt, prng.PRNGKey(40 + i), t)
     torch.cuda.synchronize()
 
 

@@ -38,6 +38,9 @@ def test_registry_names_every_tpu_kernel():
     site = kernels.SITE.replaces
     assert [r.split()[1] for r in site] == ["_propose_kernel",
                                             "_site_finish_kernel"]
+    exch = kernels.EXCHANGE.replaces
+    assert [r.split()[1] for r in exch] == ["_exchange_kernel",
+                                            "_exch_maps_kernel"]
 
 
 def test_registry_sources_exist():

@@ -3,10 +3,10 @@
 Same inputs (seeded numpy populations, the JAX model leaves carried over
 with ``from_numpy``, the same threefry keys) through the reference and
 the port, compared with EXACT equality: the site proposal records and
-sweep, the exchange halves and sweep, the compound sweep, and the
-stepper over two chunks (with the one-device best migration). The
-kernel wrappers run their plain versions here (CPU tensors); the card
-holds the kernels to these same functions (chip_smoke.py)."""
+sweep, the exchange halves, records, maps and sweep, the compound sweep,
+and the stepper over two chunks (with the one-device best migration).
+The kernel wrappers run their plain versions here (CPU tensors); the
+card holds the kernels to these same functions (chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,15 +15,14 @@ import pytest
 import torch
 
 from kafka_assignment_optimizer_tpu.ops.score import moves_batch as jmoves
-from kafka_assignment_optimizer_tpu.ops.thin_pallas import site_step_pallas
+from kafka_assignment_optimizer_tpu.ops.thin_pallas import (
+    exchange_step_pallas,
+    site_step_pallas,
+)
 from kafka_assignment_optimizer_tpu.solvers.tpu import arrays as jarrays
 from kafka_assignment_optimizer_tpu.solvers.tpu import sweep as js
 from kafka_assignment_optimizer_tpu_torch import prng
-from kafka_assignment_optimizer_tpu_torch.ops import (
-    propose_cuda,
-    site_cuda,
-    thin_cuda,
-)
+from kafka_assignment_optimizer_tpu_torch.ops import exchange_cuda, site_cuda
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep as ts
 
@@ -43,10 +42,14 @@ _J_PROPOSE = _jit(js.propose_site)
 _J_SITE = _jit(js._site_sweep_delta)
 _J_HALVES = _jit(js._exchange_halves_xla)
 _J_EXCH = _jit(js._exchange_sweep_delta)
+_J_PROPOSE_EXCH = _jit(lambda m, a, lcnt, key, temp: js.propose_exchange(
+    m, a, key, temp, lcnt=lcnt))
 _J_COMP = _jit(js._compound_sweep_delta)
 # the JAX package's two site-sweep Pallas kernels, run as its own CPU
 # tests run them
 _J_SITE_PALLAS = _jit(lambda *args: site_step_pallas(*args, interpret=True))
+_J_EXCH_PALLAS = _jit(
+    lambda *args: exchange_step_pallas(*args, interpret=True))
 
 # the reference's mesh path with one device: its stepper under a named
 # axis of size 1 (the port's engine runs the same one-device migration)
@@ -137,19 +140,106 @@ def test_exchange_halves_and_sweep_delta_match(rng, temp):
                     jnp.asarray(lead_other.numpy()),
                     jnp.asarray(b_other.numpy()))
     got = ts.exchange_halves(*seen["args"])
-    wrapped = propose_cuda.exchange_halves_cuda(*seen["args"])
-    for x, y, z in zip(ref, got, wrapped):
+    for x, y in zip(ref, got):
         assert_same(x, y)
-        assert_same(x, z)
 
     assert 0 < int((pt.prio > 0).sum())
 
     outj = _J_EXCH(mj, aj, *hj, key_j, t32)
     outt = ts._exchange_sweep_delta(mt, at, *ht, key_t, float(t32))
-    outw = thin_cuda.exchange_step_cuda(mt, at, *ht, key_t, float(t32))
+    outw = exchange_cuda.exchange_step_cuda(mt, at, *ht, key_t, float(t32))
     for x, y, z in zip(outj, outt, outw):
         assert_same(x, y)
         assert_same(x, z)
+
+
+@pytest.mark.parametrize("temp", [2.0, 0.02])
+def test_exchange_step_matches_reference_pallas_kernels(rng, temp):
+    """The exchange sweep's wrapper on CPU tensors against the JAX
+    package's exchange sweep through its three Pallas kernels
+    (``exchange_step_pallas``) in interpret mode."""
+    inst, mj, mt, a, aj, at = _setup(rng)
+    t32 = np.float32(temp)
+    hj, ht = _hists(mj, mt, aj, at)
+    outj = _J_EXCH_PALLAS(mj, aj, *hj, jax.random.PRNGKey(15), t32)
+    outw = exchange_cuda.exchange_step_cuda(mt, at, *ht, prng.PRNGKey(15),
+                                            float(t32))
+    for x, y in zip(outj, outw):
+        assert_same(x, y)
+    assert (outw[0].numpy() != a).any()
+
+
+@pytest.mark.parametrize("P", [2, 5, 48, 10_240])
+def test_exchange_host_keys_give_the_reference_pairing(P):
+    """The fused exchange kernel's pairing: the wrapper's host draws
+    (``exchange_cuda.host_keys``) and the kernel's uint32 phase arithmetic
+    (mirrored here in numpy: the randint's two words at counter n) give
+    the reference's stride and lower sides (``_pair_partners``)."""
+    N = 8
+    for i in range(3):
+        key = 7 * P + i
+        kj, kt = jax.random.PRNGKey(key), prng.PRNGKey(key)
+        kd_j, _kb = jax.random.split(kj)
+        d_j, low_j, valid_j = js._pair_partners(kd_j, N, P)
+        kbits, d, k_hi, k_lo = exchange_cuda.host_keys(kt, P)
+        assert d == int(d_j) and 1 <= d < max(P // 2, 2)
+        assert_same(jax.random.split(kj)[1], kbits)
+        hi = prng.bits(k_hi, (N,)).astype(np.uint32)
+        lo = prng.bits(k_lo, (N,)).astype(np.uint32)
+        span = np.uint32(2 * d)
+        mul = np.uint32((1 << 16) % (2 * d))
+        mul = np.uint32(int(mul) * int(mul) % (2 * d))
+        with np.errstate(over="ignore"):
+            phase = ((hi % span) * mul + lo % span) % span
+        p_idx = np.arange(P)[None, :]
+        low = ((p_idx + phase.astype(np.int64)[:, None]) // d) % 2 == 0
+        assert_same(low_j, low)
+        partner = np.where(low, p_idx + d, p_idx - d)
+        assert_same(valid_j, (partner >= 0) & (partner < P))
+
+
+def _np_max_map(tok, prio, width):
+    out = np.zeros((tok.shape[0], width), np.float32)
+    np.maximum.at(out, (np.arange(tok.shape[0])[:, None], tok), prio)
+    return out
+
+
+# odd partition counts, unbucketed, where every sweep has partitions whose
+# partner falls off the end; and the padded bucket of _setup
+@pytest.mark.parametrize("shape", [dict(npart=3, bucket=None),
+                                   dict(npart=5, bucket=None),
+                                   dict(npart=40, bucket=BUCKET)])
+def test_exchange_propose_matches_reference(rng, shape):
+    """``sweep.exchange_propose`` (the fused kernel's plain version) and
+    its wrapper on CPU tensors: the records against the JAX
+    ``propose_exchange`` with its XLA halves, the maps against a numpy
+    max over those records; three keys, two temperatures."""
+    inst, mj, mt = pair(rng, nb=10, npart=shape["npart"], rf=3, nr=3,
+                        drop=1, bucket=shape["bucket"])
+    a = chains(inst, mj, rng, 6)
+    aj, at = jnp.asarray(a), torch.from_numpy(a)
+    hj, ht = _hists(mj, mt, aj, at)
+    B1 = inst.num_brokers + 1
+    accepted = 0
+    for i, temp in enumerate((2.0, 0.02, 2.0)):
+        t32 = np.float32(temp)
+        pj = _J_PROPOSE_EXCH(mj, aj, hj[1], jax.random.PRNGKey(30 + i), t32)
+        pt, m_out, m_in = ts.exchange_propose(mt, at, ht[1],
+                                              prng.PRNGKey(30 + i),
+                                              float(t32))
+        for f in pj._fields:
+            assert_same(getattr(pj, f), getattr(pt, f), f)
+        prio = np.asarray(pj.prio)
+        assert_same(_np_max_map(np.asarray(pj.tok_out), prio, B1), m_out)
+        assert_same(_np_max_map(np.asarray(pj.tok_in), prio, B1), m_in)
+        rec, w_out, w_in = exchange_cuda.exchange_propose_cuda(
+            mt, at, ht[1], prng.PRNGKey(30 + i), float(t32))
+        for f, x in zip(("s", "b_other", "tok_out", "tok_in", "prio"), rec):
+            assert_same(getattr(pj, f), x, f)
+        assert_same(m_out, w_out)
+        assert_same(m_in, w_in)
+        accepted += int((pt.prio > 0).sum())
+    assert accepted > 0
 
 
 def test_compound_sweep_delta_matches(rng):
