@@ -10,21 +10,26 @@ Phases (any failure exits non-zero; nothing is caught):
    max SM clock behind the INT32 rate the bounds use;
 2. build — every CUDA kernel from ``csrc/`` (one nvcc per source, all at
    once), timed;
-3. kernel check — B1, the fused site sweep (B2+B3), the fused exchange
-   proposal (B4+B5) and B6 against their plain PyTorch versions on the
-   card at the shapes of the main path (the ``adversarial`` scenario: 8
-   chains, 10,000 partitions padded to the 10,240-row bucket, RF up to
-   4, 256 brokers with one removed); exact equality; kernel, plain and
-   library times in CUDA events, device time under the profiler, and
-   each kernel's bound. The two fused kernels are checked at two
-   temperatures; the site sweep must be one device activity per call,
-   and an exchange sweep through the ``cuda`` bundle at most five, with
-   no ``prng`` draw on the device. Their operations bounds count
-   threefry's integer instructions in the SASS that ``cuobjdump`` shows;
+3. kernel check — B1 (with its move count), the fused site sweep
+   (B2+B3) and the fused exchange sweep (B4+B5+B6) against their plain
+   PyTorch versions on the card at the shapes of the main path (the
+   ``adversarial`` scenario: 8 chains, 10,000 partitions padded to the
+   10,240-row bucket, RF up to 4, 256 brokers with one removed); exact
+   equality; kernel, plain and library times in CUDA events, device time
+   under the profiler, and each kernel's bound; B1 also at 1 chain, the
+   verification call. The two fused kernels are checked at two
+   temperatures, the exchange sweep's records and maps too. A B1 call, a
+   site sweep and an exchange sweep through the ``cuda`` bundle must each
+   launch their kernel once (the wrapper's count) and make no other
+   device activity that the profiler sees, the exchange sweep with no
+   ``prng`` draw on the device. The fused kernels' operations bounds
+   count threefry's integer instructions in the SASS that ``cuobjdump``
+   shows;
 4. sweep times — median wall ms of one site, exchange and compound sweep
    and one snapshot through the ``cuda`` bundle, synchronized around
    each call, and of the plain random draws that the fused kernels
-   replace;
+   replace; the device activities and device ms of one B1 call, exchange
+   sweep and snapshot;
 5. trajectory check — 2 chunks of 8 sweeps through the ``cuda`` bundle
    and through the ``torch`` bundle, both on the card, from one state;
    the states must be equal after every chunk;
@@ -80,10 +85,9 @@ def timed(fn, torch) -> float:
 
 # the __global__ functions each wrapper launches, for the profiler's view
 KERNEL_FUNCS = {
-    "B1 score": ("score_rows", "score_bands"),
+    "B1 score": ("score_grid",),
     "B2+B3 site sweep": ("site_sweep",),
-    "B4+B5 exchange propose": ("exchange_propose",),
-    "B6 exchange finish": ("exch_finish",),
+    "B4+B5+B6 exchange sweep": ("exchange_sweep",),
 }
 
 
@@ -105,6 +109,24 @@ def profiled(fn, torch, reps: int = 1):
     events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
               if e.device_type == DeviceType.CUDA]
     return events, wall
+
+
+def one_launch(what: str, fn, kernel, func: str, torch) -> list[str]:
+    """Fail unless each call of ``fn`` launches ``kernel`` once and makes
+    no other device activity: the wrapper's launch count over REPS + 1
+    calls, and the names of all that the profiler sees of REPS of them
+    (its count of a window's activities has been seen to be off now and
+    then, so it counts nothing here). Returns those names."""
+    before = kernel.launches
+    events, _w = profiled(fn, torch, REPS)  # REPS + 1 calls
+    names = sorted({n for n, _us in events})
+    launched = kernel.launches - before
+    if launched != REPS + 1 or not names or any(func not in n
+                                                for n in names):
+        fail(f"{REPS + 1} calls of {what} launched {kernel.name} {launched} "
+             f"times and made the device activities {names}, expected one "
+             f"{func} launch a call and nothing else")
+    return names
 
 
 def max_abs_err(xs, ys, torch) -> float:
@@ -187,8 +209,8 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
 
     sc = sweep._make_scorer("cuda")
     _f, _r, cnt, lcnt, rcnt = sc.hists(m, a)
-    w, pen, *_h = sc.full(m, a)
-    best = (sweep.best_key(w, pen), sweep.moves_batch(a, m), a.clone())
+    out, *_h = sc.full(m, a)
+    best = (sweep.out_key(out), out[:, 5], a.clone())
     temp = float(np.float32(0.5))
     key = prng.PRNGKey(5)
     calls = {
@@ -214,6 +236,37 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
             walls.append(time.perf_counter() - t0)
         out[name] = statistics.median(walls[3:]) * 1e3
     return out
+
+
+def call_activities(torch, m, a) -> dict:
+    """Device activities of one call and their summed device ms, under
+    the profiler over REPS calls: B1 on ``a`` and on its first chain, one
+    exchange sweep and one snapshot through the ``cuda`` bundle."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+
+    sc = sweep._make_scorer("cuda")
+    _f, _r, cnt, lcnt, rcnt = sc.hists(m, a)
+    out, *_h = sc.full(m, a)
+    best = (sweep.out_key(out), out[:, 5], a.clone())
+    a1 = a[:1].clone()
+    temp = float(np.float32(0.5))
+    key = prng.PRNGKey(5)
+    calls = {
+        "B1 call": lambda: sc.full(m, a),
+        "B1 call N=1": lambda: sc.full(m, a1),
+        "exchange sweep": lambda: sc.exch_step(m, a, cnt, lcnt, rcnt, key,
+                                               temp),
+        "snapshot": lambda: sweep.snapshot_step(sc, m, a, *best),
+    }
+    res = {}
+    for name, fn in calls.items():
+        events, _w = profiled(fn, torch, REPS)
+        res[name] = {"activities": len(events) / REPS,
+                     "device_ms": sum(us for _n, us in events) / REPS / 1e3}
+    return res
 
 
 def exchange_draws(key, N: int, P: int, device):
@@ -356,9 +409,9 @@ def main() -> int:
     int32_ops_per_s = header(torch)
 
     from kafka_assignment_optimizer_tpu_torch.ops.exchange_cuda import (
-        exch_finish_cuda,
-        exchange_propose_cuda,
+        exchange_sweep_cuda,
     )
+    from kafka_assignment_optimizer_tpu_torch.ops.score import moves_batch
     from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
         score,
         score_plain,
@@ -380,8 +433,11 @@ def main() -> int:
     kernels.build_all()
     for src in kernels.SOURCES:
         kernels.library(src)
+    nvcc_version = subprocess.run(
+        [kernels._nvcc(), "--version"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[-1]
     print(f"build: {len(kernels.SOURCES)} sources in "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"{time.perf_counter() - t0:.3f} s ({nvcc_version})")
 
     # ---- 3. kernel check at the main path's shapes -----------------------
     N = 8
@@ -436,18 +492,41 @@ def main() -> int:
 
     NP = N * Pp
     print("kernel check:")
-    # B1 — score
+    # B1 — score, with the move count in out[:, 5]; one launch a call
     kout = score(m, a)
     pout = score_plain(m, a)
     torch.cuda.synchronize()
     err = check_equal("B1", kout, pout)
+    if not torch.equal(kout[0][:, 5], moves_batch(a, m)):
+        fail("B1: out[:, 5] differs from moves_batch")
+    one_launch("B1", lambda: score(m, a), kernels.SCORE, "score_grid", torch)
+    # what a snapshot ran beside B1 before the count was folded in
+    ev_mv, _w = profiled(lambda: moves_batch(a, m), torch, REPS)
+    print(f"  (moves_batch, no longer on the cuda path: "
+          f"{len(ev_mv) // REPS} device activities, "
+          f"{sum(us for _n, us in ev_mv) / REPS / 1e3:.5f} ms of device time "
+          "a call)")
+    # the verification call: one chain
+    a1 = a[:1].clone()
+    err = max(err, check_equal("B1 (N=1)", score(m, a1), score_plain(m, a1)))
+    ev1, _w = profiled(lambda: score(m, a1), torch, REPS)
+    dev1 = [us for n, us in ev1 if "score_grid" in n]
+    print(f"  (B1: one device activity a call; moves {kout[0][:, 5].tolist()}"
+          f"; at N=1 kernel {timed(lambda: score(m, a1), torch):.4f} ms, "
+          "device (profiler) "
+          + (f"{sum(dev1) / REPS / 1e3:.5f} ms)" if len(dev1) == REPS
+             else "not measured)"))
     flat = torch.where(m.slot_valid[None], a, m.num_brokers)
     keys_b = (torch.arange(N, device=dev)[:, None, None] * B1
               + flat).reshape(-1)
     lib = timed(lambda: torch.bincount(keys_b, minlength=N * B1), torch)
+    # the bytes: each input once, the distinct weight entries the valid
+    # slots read (w_lead at every valid slot for the moves, w_foll at the
+    # followers), each output once
     b1_bytes = (nbytes(a, m.slot_valid, m.part_rack_hi, m.rack_of,
                        m.rack_lo, m.rack_hi)
-                + gathered(B1, (0, a[:, :, 0], m.slot_valid[None, :, 0]),
+                + gathered(B1, *((0, a[:, :, r], m.slot_valid[None, :, r])
+                                 for r in range(Rp)),
                            *((1, a[:, :, r], m.slot_valid[None, :, r])
                              for r in range(1, Rp)))
                 + nbytes(*kout))
@@ -466,12 +545,9 @@ def main() -> int:
         err = max(err, check_equal(f"B2+B3 (temp {t})", got, ref))
         print(f"  (site sweep at temp {t:.4g}: "
               f"{int((ref[0] != a).any(-1).sum())} partitions changed)")
-    events, _w = profiled(
-        lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp), torch)
-    if len(events) != 1 or "site_sweep" not in events[0][0]:
-        fail(f"one site_step_cuda call made {len(events)} device "
-             f"activities ({[n for n, _us in events]}), expected one "
-             "site_sweep launch")
+    one_launch("site_step_cuda",
+               lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
+               kernels.SITE, "site_sweep", torch)
     # the bytes: each input once, the distinct a0 entries and weights the
     # proposals read (a replace its slot's table at the old and new
     # broker, a leader swap both tables at both brokers, legal proposals
@@ -513,34 +589,43 @@ def main() -> int:
            site_bytes, site_int, real * 9, None,
            lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp))
 
-    # B4+B5 — the fused exchange proposal, at two temperatures, against
-    # the plain proposal and its maps
+    # B4+B5+B6 — the fused exchange sweep, at two temperatures: its
+    # records and maps against the plain proposal, its a_new and lcnt'
+    # against the plain finish fed with the kernel's own records and
+    # against the plain sweep
     key = prng.PRNGKey(2)
 
-    def propose(t):
-        rec, m_out, m_in = exchange_propose_cuda(m, a, lcnt, key, t)
-        return (*rec, m_out, m_in)
+    def exch(t):
+        a2, l2, rec, m_out, m_in = exchange_sweep_cuda(m, a, lcnt, key, t)
+        return (a2, l2, *rec, m_out, m_in)
 
-    def propose_plain(t):
+    def exch_plain(t):
         pr, m_out, m_in = sweep.exchange_propose(m, a, lcnt, key, t)
-        return (pr.s, pr.b_other, pr.tok_out, pr.tok_in, pr.prio, m_out,
-                m_in)
+        rec = (pr.s, pr.b_other, pr.tok_out, pr.tok_in, pr.prio)
+        a2, d_lcnt = sweep.exch_finish(a, *rec, m_out, m_in)
+        return (a2, lcnt + d_lcnt, *rec, m_out, m_in)
 
     err = 0.0
     for t in (temp, float(np.float32(0.02))):
-        ref = propose_plain(t)
-        got = propose(t)
+        ref = exch_plain(t)
+        got = exch(t)
         torch.cuda.synchronize()
-        err = max(err, check_equal(f"B4+B5 (temp {t})", got, ref))
-        print(f"  (exchange proposal at temp {t:.4g}: "
-              f"{int((ref[4] > 0).sum())} accepted halves, "
-              f"{int((ref[2] != B1 - 1).sum())} moving leadership)")
-    got = propose(temp)
-    ref = propose_plain(temp)
+        err = max(err, check_equal(f"B4+B5+B6 (temp {t})", got, ref))
+        fin = sweep.exch_finish(a, *got[2:])
+        err = max(err, check_equal(f"B6 phase (temp {t})", got[:2],
+                                   (fin[0], lcnt + fin[1])))
+        whole = sweep._exchange_sweep_delta(m, a, cnt, lcnt, rcnt, key, t)
+        check_equal(f"exchange sweep (temp {t})", got[:2],
+                    (whole[0], whole[2]))
+        print(f"  (exchange sweep at temp {t:.4g}: "
+              f"{int((ref[6] > 0).sum())} accepted halves, "
+              f"{int((ref[4] != B1 - 1).sum())} moving leadership, "
+              f"{int((ref[0] != a).any(-1).sum())} partitions changed)")
+    got = exch(temp)
+    ref = exch_plain(temp)
     sc = sweep._make_scorer("cuda")
     # one exchange sweep through the cuda bundle: no prng draw on the
-    # device, and at most five device activities (the maps' zero fill,
-    # the fused proposal, B6's zero fill, B6, the lcnt add)
+    # device, and exactly one device activity, the fused launch
     drawn = []
 
     def spy(fn, at: int):  # ``at``: the position of fn's device argument
@@ -559,69 +644,53 @@ def main() -> int:
         prng.bits, prng.randint = bits_fn, randint_fn
     if drawn:
         fail(f"one exchange sweep drew {drawn} on the device")
-    events, _w = profiled(
-        lambda: sc.exch_step(m, a, cnt, lcnt, rcnt, key, temp), torch)
-    names = [n for n, _us in events]
-    if (len(events) > 5
-            or sum("exchange_propose" in n for n in names) != 1
-            or sum("exch_finish" in n for n in names) != 1):
-        fail(f"one exchange sweep made {len(events)} device activities "
-             f"({names}), expected at most five with one exchange_propose "
-             "and one exch_finish launch")
-    print(f"  (one exchange sweep through the cuda bundle: {len(events)} "
-          f"device activities, no prng draw on the device: {names})")
+    names = one_launch(
+        "an exchange sweep",
+        lambda: sc.exch_step(m, a, cnt, lcnt, rcnt, key, temp),
+        kernels.EXCHANGE, "exchange_sweep", torch)
+    print(f"  (one exchange sweep through the cuda bundle: one device "
+          f"activity, no prng draw on the device: {names})")
     # the library yardstick of the maps: one scatter_reduce_ amax over
     # both token sets side by side
-    idx = torch.cat([ref[2], ref[3] + B1], 1).long()
-    src = torch.cat([ref[4], ref[4]], 1)
+    idx = torch.cat([ref[4], ref[5] + B1], 1).long()
+    src = torch.cat([ref[6], ref[6]], 1)
     lib_maps = torch.zeros(N, 2 * B1, dtype=torch.float32, device=dev)
     lib_maps.scatter_reduce_(1, idx, src, "amax")
-    if not torch.equal(lib_maps, torch.cat([ref[5], ref[6]], 1)):
+    if not torch.equal(lib_maps, torch.cat([ref[7], ref[8]], 1)):
         fail("the scatter_reduce_ yardstick disagrees with the maps")
     lib = timed(lambda: lib_maps.scatter_reduce_(1, idx, src, "amax"), torch)
     # counted from the records: the bytes are each input once, the
     # weights an accepted pair's sides read (its slot's table at the
-    # broker it gives and at the one it takes), each output once. The
-    # operations are threefry words at the SASS count of one word: a slot
-    # word for each partition that has replicas, a priority word for each
-    # accepted pair, two a chain for the phase; the float work is the
-    # scale multiply of each word's uniform. Left out, so that the bound
-    # stays below the least time: the weights of rejected legal pairs,
-    # the Metropolis words, the slot words of wrapped partners
-    s_own, b_other, acc = got[0], got[1], got[4] > 0
+    # broker it gives and at the one it takes), each output once (a_new
+    # and lcnt'; the records and the maps are the kernel's scratch, written
+    # in phase 1 and read back in phase 2, a cost of its design and not of
+    # the function). The operations are threefry words
+    # at the SASS count of one word: a slot word for each partition that
+    # has replicas, a priority word for each accepted pair, two a chain
+    # for the phase; the float work is the scale multiply of each word's
+    # uniform. Left out, so that the bound stays below the least time: the
+    # weights of rejected legal pairs, the Metropolis words, the slot
+    # words of wrapped partners
+    s_own, b_other, acc = got[2], got[3], got[6] > 0
     b_own = a.gather(2, s_own.clamp(min=0)[..., None].long())[..., 0]
     tbl = (s_own != 0).to(torch.int64)
     ex_bytes = (nbytes(a, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
                        lcnt)
                 + gathered(B1, (tbl, b_other, acc), (tbl, b_own, acc))
-                + nbytes(*got))
+                + nbytes(*got[:2]))
     n_words = real + int(acc.sum()) // 2 + 2 * N
     print(f"  (exchange: at least {n_words} threefry words, "
           f"{tf_ops / 7:.4g} integer instructions a word)")
-    report(kernels.EXCHANGE, err, timed(lambda: propose(temp), torch),
-           timed(lambda: propose_plain(temp), torch), ex_bytes,
+    report(kernels.EXCHANGE, err, timed(lambda: exch(temp), torch),
+           timed(lambda: exch_plain(temp), torch), ex_bytes,
            round(n_words * tf_ops / 7), n_words, lib,
-           lambda: propose(temp))
-
-    # B6 — exchange finish (keep, apply, leader delta), fed by the fused
-    # kernel's records and maps
-    fargs = tuple(got)
-    ke = exch_finish_cuda(a, *fargs)
-    pe = sweep.exch_finish(a, *fargs)
-    torch.cuda.synchronize()
-    err = check_equal("B6", ke, pe)
-    print(f"  (exchange sweep at temp {temp}: {int((ref[4] > 0).sum())} "
-          f"accepted halves, {int((ke[0] != a).any(-1).sum())} partitions "
-          "changed)")
-    report(kernels.EXCH_FINISH, err,
-           timed(lambda: exch_finish_cuda(a, *fargs), torch),
-           timed(lambda: sweep.exch_finish(a, *fargs), torch),
-           nbytes(a, *fargs) + nbytes(*ke), NP * (12 + 2 * Rp), 0, None,
-           lambda: exch_finish_cuda(a, *fargs))
+           lambda: exch(temp))
 
     # ---- 4. sweep times --------------------------------------------------
     print("sweep times (cuda bundle, median wall ms, synchronized): "
           + json.dumps(sweep_times(torch, m, a)))
+    print("device activities a call (cuda bundle, profiler): "
+          + json.dumps(call_activities(torch, m, a)))
 
     # ---- 5. trajectory check: cuda bundle vs torch bundle ---------------
     seed_t = torch.from_numpy(seed_np).to(dev)
@@ -696,12 +765,12 @@ def main() -> int:
     for name, n in counts.items():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
-    # one fused proposal and one B6 an exchange sweep: sweeps 1, 5, 9, ...
+    # one fused launch an exchange sweep: sweeps 1, 5, 9, ...
     n_exch = st["rounds"] // 4
-    for k in (kernels.EXCHANGE, kernels.EXCH_FINISH):
-        if counts[k.name] != n_exch:
-            fail(f"{k.name}: {counts[k.name]} launches on the main path, "
-                 f"expected one an exchange sweep ({n_exch})")
+    if counts[kernels.EXCHANGE.name] != n_exch:
+        fail(f"{kernels.EXCHANGE.name}: {counts[kernels.EXCHANGE.name]} "
+             f"launches on the main path, expected one an exchange sweep "
+             f"({n_exch})")
     print(f"adversarial: feasible, {res.replica_moves} moves (lower bound "
           f"{st['moves_lb']}, seed {st['seed_moves']}), weight "
           f"{res.solve.objective} (unconstrained optimum "

@@ -83,4 +83,14 @@ __device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
+// the split cluster barrier: arrive (publishing this thread's shared
+// memory writes; all threads of a warp together) and wait (seeing every
+// CTA's; each thread on its own)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
 #define KAO_THREADS 256

@@ -1,62 +1,86 @@
-// B4+B5: one pair-exchange proposal per (chain, partition) and the chain's
-// thinning maps, in one launch.
+// B4+B5+B6: one whole exchange sweep in one cooperative launch: one
+// pair-exchange proposal per (chain, partition), the chain's thinning maps,
+// the keep test, the apply and the leader-histogram update.
 //
 // Replaces kafka_assignment_optimizer_tpu/ops/propose_pallas.py:424
-// (_exchange_kernel, the per-partition half-deltas) and
+// (_exchange_kernel, the per-partition half-deltas),
 // kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247 (_exch_maps_kernel,
-// the max-priority maps over the leadership tokens). It computes exactly
-// what sweep.exchange_propose(m, a, lcnt, key, temp) computes: the records
-// s, b_other, tok_out, tok_in and prio [N, P] that B6 (thin.cu) reads, and
-// the maps m_out, m_in [N, B+1], bit for bit.
+// the max-priority maps over the leadership tokens) and
+// kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 (_exch_finish_kernel,
+// keep, apply and the lcnt delta). It computes exactly what
+// sweep._exchange_sweep_delta(m, a, cnt, lcnt, rcnt, key, temp) computes:
+// a_new and lcnt' (replica and rack totals are exchange-invariant), bit for
+// bit, and leaves the records s, b_other, tok_out, tok_in, prio [N, P] and
+// the maps m_out, m_in [N, B+1] of sweep.exchange_propose in its scratch.
 //
 // Design, for Hopper:
 //
+// - Three phases behind two grid-wide barriers (cooperative_groups'
+//   this_grid().sync(), a cooperative launch). The keep test needs each
+//   chain's finished maps, a dependency across the whole chain; a grid
+//   barrier keeps it inside the launch, so an exchange sweep is one device
+//   activity: no zero fills, no second launch, no separate lcnt add.
+//     phase 0: zero the maps [2, N, B+1], copy lcnt into lcnt', and draw
+//              each chain's pairing phase once into a scratch [N];
+//              grid.sync()
+//     phase 1: the proposals and the maps (below); grid.sync()
+//     phase 2: the keep test for both sides of each pair (token B bypasses
+//              its map), the apply into a fully written a_new, and +1/-1
+//              atomics of the slot-0 difference straight into lcnt'.
+//   A cooperative grid must be resident as a whole: the launcher launches
+//   min(blocks needed, blocks resident) blocks (the occupancy API and the
+//   SM count), and every phase covers its work with a grid-stride loop, so
+//   every bucket size runs.
 // - The pairing in the launch. The reference keeps the pairing, the
 //   partner views and the combination of the halves in XLA because a TPU
 //   gather is slow; here a partner's row is one load. The stride d stays a
 //   host draw (a shift amount, known before the launch). Each chain's phase
-//   is jax.random.randint(kph, (N, 1), 0, 2d): thread 0 of each block hashes
-//   the randint's two words at counter n (the wrapper splits kph on the
-//   host) and does its uint32 arithmetic. Then partition p is on the lower
-//   side iff ((p + phase) / d) is even, and pairs with p + d (lower) or
-//   p - d (upper).
+//   is jax.random.randint(kph, (N, 1), 0, 2d): the randint's two words at
+//   counter n (the wrapper splits kph on the host) and its uint32
+//   arithmetic. Then partition p is on the lower side iff ((p + phase) / d)
+//   is even, and pairs with p + d (lower) or p - d (upper).
 // - Random words in registers. Word j of partition q is threefry2x32 of the
 //   64-bit counter (n*P + q)*4 + j with the outputs xor-ed, as prng.bits
 //   draws bits[N, P, 4]; a pair draws the words of its lower side. The
 //   Metropolis word is hashed only where the pair is legal and its delta
 //   negative, the priority word only where it is accepted. No bits tensor
 //   exists.
-// - No barrier. A pair's proposal depends only on its two rows, the carried
-//   lcnt and the tables, and the maps are an order-free integer atomicMax
-//   of the priority's bit pattern (exact for non-negative floats), so the
-//   launch is a plain grid over (partition block, chain) that keeps every
-//   SM busy. The keep test (B6) needs the finished maps and stays a second
-//   launch.
-// - One thread a pair: the lower side's thread evaluates both halves,
-//   writes both partitions' records (both sides carry the same tokens and
-//   priority) and updates the maps once; the upper side's thread has
-//   nothing to do.
+// - One thread a pair in phase 1: the lower side's thread evaluates both
+//   halves, writes both partitions' records (both sides carry the same
+//   tokens and priority) to a global scratch and updates the maps once, an
+//   order-free integer atomicMax of the priority's bit pattern (exact for
+//   non-negative floats); the upper side's thread has nothing to do. Phase
+//   2 reads the records back, one thread a partition.
 // - Token B (no leadership moves: the pair swaps followers, or leaders for
 //   leaders) bypasses its map in the keep test, but the reference's maps
 //   hold its maximum too; the lanes of a warp reduce it first
 //   (__reduce_max_sync), so one atomic a warp reaches the chain's entry B.
+//   A block's tile of partitions lies in one chain, so a warp does too.
 //
-// What bounds it on Hopper: INT32 operations (the threefry words, about 71
-// instructions each) against its bytes (a, the records, the gathered
-// weights). A partition whose partner falls off the end (pair_valid false)
-// is never accepted, but its records still follow the reference's rolls:
-// its b_other is the wrapped partner's slot value, drawn from that
-// partner's own pairing.
+// What bounds it on Hopper: bytes (a read, a_new written, the records, the
+// gathered weights) against INT32 operations (the threefry words, about 71
+// instructions each). A partition whose partner falls off the end
+// (pair_valid false) is never accepted, but its records still follow the
+// reference's rolls: its b_other is the wrapped partner's slot value, drawn
+// from that partner's own pairing.
 //
 // Arithmetic: built with --fmad=false; __fsub_rn/__fmul_rn/__fdiv_rn and
 // expf keep the Metropolis test equal to the plain version on the card.
 // An empty (padded) row draws slot -1, whose slot value is 0 (no wrap, as
 // the reference's _slot_value).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-// for timing (site_probe.py builds variants): the stages run (1: the
+namespace cg = cooperative_groups;
+
+// for timing (site_probe.py builds variants): the phases run (0: phase 0
+// only; 1: phases 0-1; 2: the whole sweep), the proposal's stages (1: the
 // pairing, the slots and the records of rejected proposals; 2: the whole
 // proposal), and cheap stand-ins for the threefry words (wrong results)
+#ifndef KAO_EXCH_PHASES
+#define KAO_EXCH_PHASES 2
+#endif
 #ifndef KAO_EXCH_STAGES
 #define KAO_EXCH_STAGES 2
 #endif
@@ -73,13 +97,17 @@ struct ExchArgs {
   const int* w_foll;        // [P, B1]
   const int* rack_of;       // [B1]
   const int* lcnt;          // [N, B1]
-  int* rec;    // [5, N, P]: s, b_other, tok_out, tok_in, prio (float bits)
-  int* maps;   // [2, N, B1] zeroed: m_out, m_in (float bits)
+  int* a_new;     // [N, P, R], every element written
+  int* lcnt_new;  // [N, B1]
+  int* rec;    // [5, N, P] scratch: s, b_other, tok_out, tok_in, prio bits
+  int* maps;   // [2, N, B1] scratch: m_out, m_in (float bits)
+  int* phase;  // [N] scratch: each chain's pairing phase
   uint32_t k0, k1;          // the key of the bits [N, P, 4]
   uint32_t h0, h1, l0, l1;  // the phase randint's keys: higher, lower word
   float temp, lam;
   int d, llo, lhi;
   int N, P, R, B1;
+  int nblk;  // partition tiles of KAO_THREADS a chain
 };
 
 // the word at counter c under key (k0, k1), k2 = k0 ^ k1 ^ 0x1BD11BDA
@@ -207,23 +235,21 @@ __device__ __forceinline__ void put(const ExchArgs& g, size_t i, int s,
   g.rec[4 * NP + i] = prio;
 }
 
-__global__ void __launch_bounds__(KAO_THREADS)
-    exchange_propose(const ExchArgs g) {
-  __shared__ int s_phase;
-  const int n = blockIdx.y, P = g.P, d = g.d, B = g.B1 - 1;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const uint32_t k2 = g.k0 ^ g.k1 ^ 0x1BD11BDAu;
-  if (threadIdx.x == 0) {  // randint(kph, (N, 1), 0, 2d)[n], in uint32
-    const uint32_t span = 2u * (uint32_t)d;
-    uint32_t mul = (1u << 16) % span;
-    mul = (mul * mul) % span;
-    const uint32_t hi = word(g.h0, g.h1, g.h0 ^ g.h1 ^ 0x1BD11BDAu, n);
-    const uint32_t lo = word(g.l0, g.l1, g.l0 ^ g.l1 ^ 0x1BD11BDAu, n);
-    s_phase = (int)(((hi % span) * mul + lo % span) % span);
-  }
-  __syncthreads();
-  const int phase = s_phase;
+// randint(kph, (N, 1), 0, 2d)[n], in uint32
+__device__ __forceinline__ int draw_phase(const ExchArgs& g, int n) {
+  const uint32_t span = 2u * (uint32_t)g.d;
+  uint32_t mul = (1u << 16) % span;
+  mul = (mul * mul) % span;
+  const uint32_t hi = word(g.h0, g.h1, g.h0 ^ g.h1 ^ 0x1BD11BDAu, n);
+  const uint32_t lo = word(g.l0, g.l1, g.l0 ^ g.l1 ^ 0x1BD11BDAu, n);
+  return (int)(((hi % span) * mul + lo % span) % span);
+}
 
+// phase 1 for partition p of chain n (p may be past the end: the lane
+// still joins its warp's reduction of token B)
+__device__ __forceinline__ void propose(const ExchArgs& g, uint32_t k2, int n,
+                                        int p, int phase) {
+  const int P = g.P, d = g.d, B = g.B1 - 1;
   int b_prio = 0;  // an accepted pair that moves no leadership: token B
   if (p < P) {
     const size_t i = (size_t)n * P + p;
@@ -258,19 +284,117 @@ __global__ void __launch_bounds__(KAO_THREADS)
   }
 }
 
-// One exchange proposal: grid (ceil(P / 256), N). rec is fully written;
-// maps arrive zeroed. Returns the CUDA error of the launch (0 on success).
-extern "C" int kao_exchange_propose(
+// phase 2 for partition p of chain n: keep, apply, lcnt' update
+__device__ __forceinline__ void finish(const ExchArgs& g, int n, int p) {
+  const int P = g.P, R = g.R, B1 = g.B1, B = B1 - 1;
+  const size_t NP = (size_t)g.N * P, i = (size_t)n * P + p;
+  const int* row = g.a + i * R;
+  int* out = g.a_new + i * R;
+  // every load before the first store, so that they are in flight together
+  const int pr = g.rec[4 * NP + i];
+  const int to = g.rec[2 * NP + i], ti = g.rec[3 * NP + i];
+  const int so = g.rec[i], bo = g.rec[NP + i];
+  int v[KAO_MAX_R];
+#pragma unroll
+  for (int r = 0; r < KAO_MAX_R; ++r)
+    if (r < R) v[r] = row[r];
+  const bool keep =
+      __int_as_float(pr) > 0.f &&
+      (to == B || pr == g.maps[(size_t)n * B1 + to]) &&
+      (ti == B || pr == g.maps[((size_t)g.N + n) * B1 + ti]);
+#pragma unroll
+  for (int r = 0; r < KAO_MAX_R; ++r)
+    if (r < R) out[r] = (keep && r == so) ? bo : v[r];
+  // exact leader-count delta: the slot-0 diff of the applied row
+  if (keep && so == 0 && bo != v[0]) {
+    atomicAdd(&g.lcnt_new[(size_t)n * B1 + bo], 1);
+    atomicAdd(&g.lcnt_new[(size_t)n * B1 + v[0]], -1);
+  }
+}
+
+__global__ void __launch_bounds__(KAO_THREADS)
+    exchange_sweep(const ExchArgs g) {
+  cg::grid_group grid = cg::this_grid();
+  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t NB1 = (size_t)g.N * g.B1;
+  const int tiles = g.N * g.nblk;
+
+  // ---- phase 0: maps, lcnt', the chains' phases -----------------------
+  for (size_t j = tid; j < 2 * NB1; j += stride) g.maps[j] = 0;
+  for (size_t j = tid; j < NB1; j += stride) g.lcnt_new[j] = g.lcnt[j];
+  for (size_t j = tid; j < (size_t)g.N; j += stride)
+    g.phase[j] = draw_phase(g, (int)j);
+  if (KAO_EXCH_PHASES < 1) return;
+  grid.sync();
+
+  // ---- phase 1: proposals (B4) and the chains' maps (B5) --------------
+  // a tile is one block's KAO_THREADS partitions of one chain, and its
+  // loop is uniform over the block, so a warp lies in one chain
+  const uint32_t k2 = g.k0 ^ g.k1 ^ 0x1BD11BDAu;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = t / g.nblk;
+    propose(g, k2, n, (t % g.nblk) * KAO_THREADS + threadIdx.x, g.phase[n]);
+  }
+  if (KAO_EXCH_PHASES < 2) return;
+  grid.sync();
+
+  // ---- phase 2: keep, apply, lcnt' (B6) --------------------------------
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = t / g.nblk, p = (t % g.nblk) * KAO_THREADS + threadIdx.x;
+    if (p < g.P) finish(g, n, p);
+  }
+}
+
+// One exchange sweep: a cooperative launch of min(N * ceil(P / KAO_THREADS)
+// tiles, the blocks resident on the card) blocks of KAO_THREADS threads.
+// a_new and lcnt_new are fully written; scratch holds the records
+// [5, N, P], the maps [2, N, B1] and the phases [N], in that order.
+// Returns the CUDA error of the occupancy queries or the launch (0 on
+// success).
+extern "C" int kao_exchange_sweep(
     const int* a, const int* rf, const uint8_t* valid, const int* part_rack_hi,
     const int* w_lead, const int* w_foll, const int* rack_of, const int* lcnt,
     uint32_t k0, uint32_t k1, uint32_t h0, uint32_t h1, uint32_t l0,
     uint32_t l1, float temp, float lam, int d, int llo, int lhi, int N, int P,
-    int R, int B1, int* rec, int* maps, cudaStream_t stream) {
-  const ExchArgs g{a,    rf,  valid, part_rack_hi, w_lead, w_foll, rack_of,
-                   lcnt, rec, maps,  k0,           k1,     h0,     h1,
-                   l0,   l1,  temp,  lam,          d,      llo,    lhi,
-                   N,    P,   R,     B1};
-  dim3 grid((P + KAO_THREADS - 1) / KAO_THREADS, N);
-  exchange_propose<<<grid, KAO_THREADS, 0, stream>>>(g);
+    int R, int B1, int* a_new, int* lcnt_new, int* scratch,
+    cudaStream_t stream) {
+  const int nblk = (P + KAO_THREADS - 1) / KAO_THREADS;
+  int* rec = scratch;
+  int* maps = rec + (size_t)5 * N * P;
+  int* phase = maps + (size_t)2 * N * B1;
+  const ExchArgs g{a,     rf,       valid, part_rack_hi, w_lead, w_foll,
+                   rack_of, lcnt,   a_new, lcnt_new,     rec,    maps,
+                   phase, k0,       k1,    h0,           h1,     l0,
+                   l1,    temp,     lam,   d,            llo,    lhi,
+                   N,     P,        R,     B1,           nblk};
+  // the resident grid, once per device
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, exchange_sweep, KAO_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(N * nblk, resident[dev]), 1, 1);
+  cfg.blockDim = dim3(KAO_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, exchange_sweep, g);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

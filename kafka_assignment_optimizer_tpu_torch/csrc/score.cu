@@ -1,109 +1,224 @@
-// B1: exact batched candidate scoring.
+// B1: exact batched candidate scoring, one cooperative launch.
 //
 // Replaces kafka_assignment_optimizer_tpu/ops/score_pallas.py:55
 // (_score_kernel): for candidates a[N, P, R] the preservation weight, the
 // replica/leader/rack band penalties, the per-partition rack-diversity
-// overflow, and the histograms cnt/lcnt [N, B+1] and rcnt [N, K+1].
+// overflow, and the histograms cnt/lcnt [N, B+1] and rcnt [N, K+1]. It
+// also writes out[n, 5], the chain's replica-move count (valid slots whose
+// broker has no leader weight for the partition): the count the
+// reference's XLA moves_batch (ops/score.py) computes beside the TPU
+// kernel, whose columns 5-7 stay zero. The plain version is
+// ops/score_cuda.py:score_plain.
 //
 // What bounds it on Hopper: bytes. It reads a[N, P, R] once and gathers
-// R weights per (chain, partition) from the [P, B+1] tables; the work per
-// element is a handful of integer operations. The TPU kernel streamed the
-// whole weight tables as one-hot products (about 10 MB each at 256
-// brokers x 10k partitions); here each thread gathers only the R entries
-// it needs. Histograms accumulate in shared memory with integer atomics
-// (exact and order-free) and are added to device memory once per block;
-// the band penalties need the finished histograms, so they come from a
-// second small launch with one block per chain.
+// the weights each valid slot needs from the [P, B+1] tables; the work per
+// slot is a handful of integer operations. The TPU kernel streamed the
+// whole weight tables as one-hot products; here each thread gathers only
+// the entries it needs, each in a cache line of its own, and the kernel
+// spreads the rows over every SM.
+//
+// Design, for Hopper: three phases behind two grid-wide barriers
+// (cooperative_groups' this_grid().sync(), a cooperative launch), so a call
+// is one device activity with no zero-filled outputs.
+//   phase 0: zero out, cnt, lcnt and rcnt; grid.sync()
+//   phase 1: a tile is KAO_THREADS partitions of one chain, one a thread.
+//            The weight, the diversity overflow and the moves add up in
+//            registers and reach out[n] with one atomic a block. cnt and
+//            lcnt count into the block's shared memory and each nonzero
+//            count reaches device memory with one atomic; where the two
+//            histograms do not fit in shared memory (about 29,000
+//            brokers), every slot adds straight into device memory.
+//            Invalid slots are not counted one by one: the slot_valid
+//            table is the same for every chain, so each warp adds its
+//            count of them to the null buckets cnt[B] and lcnt[B] once.
+//            grid.sync()
+//   phase 2: a block a chain: rcnt from cnt (a rack's count is its
+//            brokers' sum, the null bucket at rack_of[B] included), one
+//            atomic a nonzero broker count, then the three band penalties
+//            into out[n, 1:4].
+// A cooperative grid must be resident as a whole: the launcher launches
+// min(tiles, blocks resident) blocks (the occupancy API and the SM count),
+// and every phase covers its work with a grid-stride loop.
+//
+// Measured against it (PERF.md, the kernel table): one thread-block
+// cluster a chain with the counts in distributed shared memory (eight
+// chains hold only 64 SMs; slower at one chain, at par at eight), and the
+// same three phases as two launches beside one zero fill (at par).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-__global__ void score_rows(const int* __restrict__ a,
-                           const uint8_t* __restrict__ valid,
-                           const int* __restrict__ w_lead,
-                           const int* __restrict__ w_foll,
-                           const int* __restrict__ rack_of,
-                           const int* __restrict__ part_rack_hi, int P,
-                           int R, int B1, int K1, int* __restrict__ out,
-                           int* __restrict__ cnt, int* __restrict__ lcnt,
-                           int* __restrict__ rcnt) {
-  extern __shared__ int smem[];
-  int* s_cnt = smem;          // [B1]
-  int* s_lcnt = smem + B1;    // [B1]
-  int* s_rcnt = smem + 2 * B1;  // [K1]
-  __shared__ int scratch[32];
-  const int n = blockIdx.y;
-  const int B = B1 - 1;
-  for (int i = threadIdx.x; i < 2 * B1 + K1; i += blockDim.x) smem[i] = 0;
-  __syncthreads();
+namespace cg = cooperative_groups;
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int w = 0, over = 0;
-  if (p < P) {
-    const int* row = a + ((size_t)n * P + p) * R;
-    const uint8_t* vrow = valid + (size_t)p * R;
-    const int* wl = w_lead + (size_t)p * B1;
-    const int* wf = w_foll + (size_t)p * B1;
-    const int cap = part_rack_hi[p];
-    int rk[KAO_MAX_R];
-    for (int r = 0; r < R; ++r) {
-      const bool v = vrow[r] != 0;
-      const int b = v ? row[r] : B;
-      rk[r] = rack_of[b];
-      atomicAdd(&s_cnt[b], 1);
-      atomicAdd(&s_rcnt[rk[r]], 1);
-      if (r == 0) atomicAdd(&s_lcnt[b], 1);
-      if (v) {
-        w += r == 0 ? wl[row[0]] : wf[row[r]];
+// for timing only (site_probe.py builds variants): 0 leaves out phase 1's
+// rows (the launch, the barriers and the outputs only; wrong results)
+#ifndef KAO_SCORE_ROWS
+#define KAO_SCORE_ROWS 1
+#endif
+
+struct ScoreArgs {
+  const int* a;             // [N, P, R]
+  const uint8_t* valid;     // [P, R]
+  const int* w_lead;        // [P, B1]
+  const int* w_foll;        // [P, B1]
+  const int* rack_of;       // [B1]
+  const int* part_rack_hi;  // [P]
+  const int* rack_lo;       // [K1]
+  const int* rack_hi;       // [K1]
+  int blo, bhi, llo, lhi;
+  int N, P, R, B1, K1;
+  int nblk;   // tiles of KAO_THREADS partitions a chain
+  int local;  // count a tile into shared memory first (cnt and lcnt fit)
+  int* out;   // [N, 8]
+  int* cnt;   // [N, B1]
+  int* lcnt;  // [N, B1]
+  int* rcnt;  // [N, K1]
+};
+
+// RM: the most replica slots a row has (R <= RM), for the row's registers
+template <int RM>
+__global__ void __launch_bounds__(KAO_THREADS)
+    score_grid(const ScoreArgs g) {
+  extern __shared__ int smem[];  // [2 * B1]: a tile's cnt, lcnt (local)
+  __shared__ int scratch[32];
+  __shared__ int tot[3];  // a tile's weight, overflow, moves
+  cg::grid_group grid = cg::this_grid();
+  const int B1 = g.B1, K1 = g.K1, B = B1 - 1, R = g.R;
+  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t NB1 = (size_t)g.N * B1;
+
+  // ---- phase 0 ----------------------------------------------------------
+  for (size_t j = tid; j < (size_t)g.N * 8; j += stride) g.out[j] = 0;
+  for (size_t j = tid; j < NB1; j += stride) g.cnt[j] = g.lcnt[j] = 0;
+  for (size_t j = tid; j < (size_t)g.N * K1; j += stride) g.rcnt[j] = 0;
+  grid.sync();
+
+  // ---- phase 1: a tile a block; the loop is uniform over the block ------
+  const int k_null = g.rack_of[B];
+  const int lane = threadIdx.x & 31;
+  for (int t = blockIdx.x; KAO_SCORE_ROWS && t < g.N * g.nblk;
+       t += gridDim.x) {
+    const int n = t / g.nblk, p = (t % g.nblk) * KAO_THREADS + threadIdx.x;
+    int* cnt_n = g.cnt + (size_t)n * B1;
+    int* lcnt_n = g.lcnt + (size_t)n * B1;
+    // +v at broker j of cnt (l = 0) or lcnt (l = 1): into shared memory or
+    // device memory, each through its own kind of atomic
+    auto add = [&](int l, int j, int v) {
+      if (g.local)
+        atomicAdd(&smem[l * B1 + j], v);
+      else
+        atomicAdd(&(l ? lcnt_n : cnt_n)[j], v);
+    };
+    if (threadIdx.x < 3) tot[threadIdx.x] = 0;
+    if (g.local)
+      for (int j = threadIdx.x; j < 2 * B1; j += blockDim.x) smem[j] = 0;
+    __syncthreads();
+    const bool live = p < g.P;
+    const int* row = g.a + ((size_t)n * g.P + p) * R;
+    const uint8_t* vrow = g.valid + (size_t)p * R;
+    const int* wl = g.w_lead + (size_t)p * B1;
+    const int* wf = g.w_foll + (size_t)p * B1;
+    // every load of the row first, so that they are in flight together
+    bool v[RM];
+    int b[RM], k[RM], wt[RM], wlb[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const bool in = r < R && live;
+      const int raw = in ? row[r] : B;
+      v[r] = in && vrow[r] != 0;
+      b[r] = v[r] ? raw : B;
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      k[r] = v[r] ? g.rack_of[b[r]] : k_null;
+      wlb[r] = v[r] ? wl[b[r]] : 1;
+      wt[r] = r == 0 ? wlb[r] : (v[r] ? wf[b[r]] : 0);
+    }
+    const int cap = live ? g.part_rack_hi[p] : 0;
+    int w = 0, over = 0, mv = 0, inval = 0, inval_lead = 0;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (v[r]) {
+        w += wt[r];
+        mv += wlb[r] <= 0;
         // diversity: slot r overflows when its same-rack rank among the
         // earlier slots reaches the partition's cap
-        int rank = 0;
-        for (int q = 0; q < r; ++q) rank += rk[q] == rk[r];
-        over += rank >= cap;
+        int same = 0;
+#pragma unroll
+        for (int q = 0; q < r; ++q) same += k[q] == k[r];
+        over += same >= cap;
+        add(0, b[r], 1);
+        if (r == 0) add(1, b[r], 1);
+      } else if (r < R && live) {
+        ++inval;
+        inval_lead += r == 0;
       }
     }
+    // the invalid slots into the null buckets, one atomic a warp
+    inval = warp_sum(inval);
+    inval_lead = warp_sum(inval_lead);
+    if (lane == 0) {
+      if (inval) add(0, B, inval);
+      if (inval_lead) add(1, B, inval_lead);
+    }
+    // the weight, overflow and moves: a warp's sums into the block's, then
+    // one device atomic each
+    w = warp_sum(w);
+    over = warp_sum(over);
+    mv = warp_sum(mv);
+    if (lane == 0) {
+      if (w) atomicAdd(&tot[0], w);
+      if (over) atomicAdd(&tot[1], over);
+      if (mv) atomicAdd(&tot[2], mv);
+    }
+    __syncthreads();  // the block's counts and totals are final
+    if (threadIdx.x < 3 && tot[threadIdx.x])
+      atomicAdd(&g.out[n * 8 + (threadIdx.x == 0 ? 0 : 3 + threadIdx.x)],
+                tot[threadIdx.x]);
+    if (g.local) {
+      for (int j = threadIdx.x; j < 2 * B1; j += blockDim.x) {
+        const int c = smem[j];
+        if (c) atomicAdd(j < B1 ? &cnt_n[j] : &lcnt_n[j - B1], c);
+      }
+    }
+    __syncthreads();  // the next tile zeroes smem and tot
   }
-  w = block_sum(w, scratch);
-  over = block_sum(over, scratch);
-  if (threadIdx.x == 0) {
-    if (w) atomicAdd(&out[n * 8 + 0], w);
-    if (over) atomicAdd(&out[n * 8 + 4], over);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < B1; i += blockDim.x) {
-    if (s_cnt[i]) atomicAdd(&cnt[(size_t)n * B1 + i], s_cnt[i]);
-    if (s_lcnt[i]) atomicAdd(&lcnt[(size_t)n * B1 + i], s_lcnt[i]);
-  }
-  for (int i = threadIdx.x; i < K1; i += blockDim.x)
-    if (s_rcnt[i]) atomicAdd(&rcnt[(size_t)n * K1 + i], s_rcnt[i]);
-}
+  grid.sync();  // the counts are final
 
-__global__ void score_bands(const int* __restrict__ cnt,
-                            const int* __restrict__ lcnt,
-                            const int* __restrict__ rcnt,
-                            const int* __restrict__ rack_lo,
-                            const int* __restrict__ rack_hi, int blo,
-                            int bhi, int llo, int lhi, int B1, int K1,
-                            int* __restrict__ out) {
-  __shared__ int scratch[32];
-  const int n = blockIdx.x;
-  int pb = 0, pl = 0, pr = 0;
-  for (int b = threadIdx.x; b < B1 - 1; b += blockDim.x) {
-    pb += band_pen(cnt[(size_t)n * B1 + b], blo, bhi);
-    pl += band_pen(lcnt[(size_t)n * B1 + b], llo, lhi);
-  }
-  for (int k = threadIdx.x; k < K1 - 1; k += blockDim.x)
-    pr += band_pen(rcnt[(size_t)n * K1 + k], rack_lo[k], rack_hi[k]);
-  pb = block_sum(pb, scratch);
-  pl = block_sum(pl, scratch);
-  pr = block_sum(pr, scratch);
-  if (threadIdx.x == 0) {
-    out[n * 8 + 1] = pb;
-    out[n * 8 + 2] = pl;
-    out[n * 8 + 3] = pr;
+  // ---- phase 2: a block a chain ------------------------------------------
+  for (int n = blockIdx.x; n < g.N; n += gridDim.x) {
+    const int* cnt_n = g.cnt + (size_t)n * B1;
+    const int* lcnt_n = g.lcnt + (size_t)n * B1;
+    int* rcnt_n = g.rcnt + (size_t)n * K1;
+    int pb = 0, pl = 0, pr = 0;
+    for (int j = threadIdx.x; j < B1; j += blockDim.x) {
+      const int c = __ldcg(cnt_n + j);
+      if (c) atomicAdd(&rcnt_n[g.rack_of[j]], c);
+      if (j < B) {
+        pb += band_pen(c, g.blo, g.bhi);
+        pl += band_pen(__ldcg(lcnt_n + j), g.llo, g.lhi);
+      }
+    }
+    __syncthreads();  // the block's rack atomics are done
+    for (int k = threadIdx.x; k < K1 - 1; k += blockDim.x)
+      pr += band_pen(__ldcg(rcnt_n + k), g.rack_lo[k], g.rack_hi[k]);
+    pb = block_sum(pb, scratch);
+    pl = block_sum(pl, scratch);
+    pr = block_sum(pr, scratch);
+    if (threadIdx.x == 0) {
+      g.out[n * 8 + 1] = pb;
+      g.out[n * 8 + 2] = pl;
+      g.out[n * 8 + 3] = pr;
+    }
   }
 }
 
 // out [N, 8] = (weight, pen_broker, pen_leader, pen_rack, pen_part_rack,
-// 0, 0, 0); out, cnt, lcnt and rcnt arrive zeroed.
+// moves, 0, 0), cnt/lcnt [N, B1], rcnt [N, K1]: every entry written. A
+// cooperative launch of min(N * ceil(P / KAO_THREADS) tiles, the blocks
+// resident on the card) blocks of KAO_THREADS threads. Returns the CUDA
+// error of the attribute and occupancy calls or the launch (0 on success).
 extern "C" int kao_score(const int* a, const uint8_t* valid,
                          const int* w_lead, const int* w_foll,
                          const int* rack_of, const int* part_rack_hi,
@@ -111,18 +226,42 @@ extern "C" int kao_score(const int* a, const uint8_t* valid,
                          int bhi, int llo, int lhi, int N, int P, int R,
                          int B1, int K1, int* out, int* cnt, int* lcnt,
                          int* rcnt, cudaStream_t stream) {
-  const size_t shmem = (size_t)(2 * B1 + K1) * sizeof(int);
-  if (shmem > 48 * 1024) {
-    cudaFuncSetAttribute(score_rows,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)shmem);
+  const int nblk = (P + KAO_THREADS - 1) / KAO_THREADS;
+  // cnt and lcnt in shared memory where they fit beside the scratch
+  const bool local = 8 * (size_t)B1 + 4 * 35 <= 232448;
+  const size_t smem = local ? 8 * (size_t)B1 : 0;
+  const ScoreArgs g{a,    valid, w_lead, w_foll, rack_of, part_rack_hi,
+                    rack_lo, rack_hi, blo, bhi, llo, lhi,
+                    N,    P,     R,      B1,     K1,      nblk,
+                    local, out,  cnt,    lcnt,   rcnt};
+  void (*kernel)(const ScoreArgs) =
+      R <= 4 ? score_grid<4> : score_grid<KAO_MAX_R>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((P + KAO_THREADS - 1) / KAO_THREADS, N);
-  score_rows<<<grid, KAO_THREADS, shmem, stream>>>(
-      a, valid, w_lead, w_foll, rack_of, part_rack_hi, P, R, B1, K1, out,
-      cnt, lcnt, rcnt);
-  score_bands<<<N, KAO_THREADS, 0, stream>>>(cnt, lcnt, rcnt, rack_lo,
-                                             rack_hi, blo, bhi, llo, lhi, B1,
-                                             K1, out);
+  int dev = 0, per_sm = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      KAO_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(N * nblk, per_sm * sms), 1, 1);
+  cfg.blockDim = dim3(KAO_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, g);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

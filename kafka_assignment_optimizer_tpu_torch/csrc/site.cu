@@ -90,16 +90,6 @@ namespace cg = cooperative_groups;
 
 constexpr int C = KAO_SITE_CLUSTER;
 
-// the split cluster barrier: arrive (publishing this thread's shared
-// memory writes; all threads of a warp together) and wait (seeing every
-// CTA's; each thread on its own)
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
 struct SiteArgs {
   const int* a;             // [N, P, R]
   const int* a0;            // [P, R]

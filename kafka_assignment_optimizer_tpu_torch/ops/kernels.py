@@ -36,7 +36,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("score", "site", "exchange", "thin")
+SOURCES = ("score", "site", "exchange")
 HEADERS = ("common.cuh",)
 
 _LOCK = threading.Lock()
@@ -193,21 +193,17 @@ SITE = Kernel(
     [P] * 13 + [U, U, F, F] + [I] * 9 + [P] * 5 + [P],
 )
 EXCHANGE = Kernel(
-    "B4+B5 exchange propose", "exchange", "kao_exchange_propose",
+    "B4+B5+B6 exchange sweep", "exchange", "kao_exchange_sweep",
     ("kafka_assignment_optimizer_tpu/ops/propose_pallas.py:424 "
      "_exchange_kernel",
      "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:247 "
-     "_exch_maps_kernel"),
-    [P] * 8 + [U] * 6 + [F, F] + [I] * 7 + [P] * 2 + [P],
-)
-EXCH_FINISH = Kernel(
-    "B6 exchange finish", "thin", "kao_exch_finish",
-    ("kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 "
-     "_exch_finish_kernel",),
-    [P] * 8 + [I] * 4 + [P] * 2 + [P],
+     "_exch_maps_kernel",
+     "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 "
+     "_exch_finish_kernel"),
+    [P] * 8 + [U] * 6 + [F, F] + [I] * 7 + [P] * 3 + [P],
 )
 
-KERNELS = (SCORE, SITE, EXCHANGE, EXCH_FINISH)
+KERNELS = (SCORE, SITE, EXCHANGE)
 
 
 def reset_counts() -> None:

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..solvers.tpu.arrays import ModelArrays
-from .score_cuda import score_plain
+from .score_cuda import moves, score_plain
 
 
 class Score(NamedTuple):
@@ -57,11 +57,8 @@ def score_one(a: torch.Tensor, m: ModelArrays) -> Score:
 
 def moves_batch(a: torch.Tensor, m: ModelArrays) -> torch.Tensor:
     """Replica-move count vs the current assignment, per candidate
-    ``a[N, P, R]``: valid slots holding a broker with zero leader weight
-    were not assigned before. [N] int32."""
-    rows = torch.arange(m.num_parts, device=a.device)[None, :, None]
-    member = m.w_lead[rows, a.long()] > 0
-    return (~member & m.slot_valid[None]).sum((1, 2), dtype=torch.int32)
+    ``a[N, P, R]`` (B1's ``out[:, 5]``). [N] int32."""
+    return moves(m, a)
 
 
 def moves_one(a: torch.Tensor, m: ModelArrays) -> torch.Tensor:

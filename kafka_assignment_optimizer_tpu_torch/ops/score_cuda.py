@@ -6,12 +6,15 @@ Replaces ``kafka_assignment_optimizer_tpu/ops/score_pallas.py:55``
 runs it at every chunk entry and every snapshot resync, and the engine
 at seed scoring and final selection and verification.
 
-On the card the cost is bytes: one read of ``a[N, P, R]`` plus R
-gathered weights per (chain, partition); see ``csrc/score.cu`` for the
-design. :func:`score` launches the kernel for a CUDA tensor and runs
-:func:`score_plain` for a CPU tensor; both return ``(out [N, 8], cnt
-[N, B+1], lcnt [N, B+1], rcnt [N, K+1])`` with ``out[:, :5] = (weight,
-pen_broker, pen_leader, pen_rack, pen_part_rack)`` and zeros after.
+On the card the cost is bytes: one read of ``a[N, P, R]`` plus the
+gathered weights of each valid slot; see ``csrc/score.cu`` for the
+design (one cooperative launch, any broker count). :func:`score`
+launches the kernel for a CUDA tensor and runs :func:`score_plain` for a
+CPU tensor; both return ``(out [N, 8], cnt [N, B+1], lcnt [N, B+1], rcnt
+[N, K+1])`` with ``out[:, :6] = (weight, pen_broker, pen_leader,
+pen_rack, pen_part_rack, moves)`` and zeros after. The TPU kernel leaves
+column 5 zero; the reference computes the moves beside it in XLA
+(``ops/score.py::moves_batch``), and the port folds that count into B1.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from ..solvers.tpu.arrays import ModelArrays, band_pen
 from . import kernels
-from .kernels import check
+from .kernels import check, check_model
 
 
 def _count(idx: torch.Tensor, width: int) -> torch.Tensor:
@@ -71,6 +74,15 @@ def weight(m: ModelArrays, a: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def moves(m: ModelArrays, a: torch.Tensor) -> torch.Tensor:
+    """Replica-move count vs the current assignment per chain: valid
+    slots holding a broker with no leader weight for the partition were
+    not assigned before. [N] int32."""
+    rows = torch.arange(a.shape[1], device=a.device)[None, :, None]
+    member = m.w_lead[rows, a.long()] > 0
+    return (~member & m.slot_valid[None]).sum((1, 2), dtype=torch.int32)
+
+
 def score_plain(m: ModelArrays, a: torch.Tensor):
     """The plain version of B1: ``(out [N, 8], cnt, lcnt, rcnt)``."""
     flat, racks, cnt, lcnt, rcnt = histograms(m, a)
@@ -85,34 +97,26 @@ def score_plain(m: ModelArrays, a: torch.Tensor):
     out[:, 2] = band(lcnt[:, :B], m.leader_band[0], m.leader_band[1])
     out[:, 3] = band(rcnt[:, :K], m.rack_lo[None, :K], m.rack_hi[None, :K])
     out[:, 4] = div_overflow(m, racks)
+    out[:, 5] = moves(m, a)
     return out, cnt, lcnt, rcnt
 
 
 def score(m: ModelArrays, a: torch.Tensor):
-    """B1 on ``a [N, P, R]``: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    """B1 on ``a [N, P, R]``: the CUDA kernel for a CUDA tensor (one
+    launch, outputs in one uninitialized buffer that the kernel fills),
+    the plain version for a CPU tensor."""
     if a.device.type == "cpu":
         return score_plain(m, a)
-    N, P, R = a.shape
+    check_model(m)
+    N = a.shape[0]
+    P, R = m.a0.shape
     B1 = m.num_brokers + 1
     K1 = m.rack_lo.shape[0]
-    dev = a.device
-    if R > 16:
-        raise ValueError(f"B1 takes at most 16 replica slots, got {R}")
-    check("a", a, torch.int32, (N, P, R), dev)
-    check("slot_valid", m.slot_valid, torch.bool, (P, R), dev)
-    check("w_lead", m.w_lead, torch.int32, (P, B1), dev)
-    check("w_foll", m.w_foll, torch.int32, (P, B1), dev)
-    check("rack_of", m.rack_of, torch.int32, (B1,), dev)
-    check("part_rack_hi", m.part_rack_hi, torch.int32, (P,), dev)
-    check("rack_lo", m.rack_lo, torch.int32, (K1,), dev)
-    check("rack_hi", m.rack_hi, torch.int32, (K1,), dev)
-    if (2 * B1 + K1) * 4 > 227 * 1024:
-        raise ValueError(f"B1 histograms of {B1} brokers exceed shared memory")
-    out = torch.zeros(N, 8, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(N, B1, dtype=torch.int32, device=dev)
-    lcnt = torch.zeros(N, B1, dtype=torch.int32, device=dev)
-    rcnt = torch.zeros(N, K1, dtype=torch.int32, device=dev)
+    check("a", a, torch.int32, (N, P, R), m.a0.device)
+    buf = torch.empty(N * (8 + 2 * B1 + K1), dtype=torch.int32,
+                      device=a.device)
+    out, cnt, lcnt, rcnt = (
+        x.view(N, -1) for x in buf.split((8 * N, B1 * N, B1 * N, K1 * N)))
     blo, bhi, llo, lhi = m.bands()
     kernels.SCORE(
         a.data_ptr(), m.slot_valid.data_ptr(), m.w_lead.data_ptr(),
@@ -131,14 +135,8 @@ def _scores_of(out, cnt, lcnt, rcnt):
 
 def full_scores(m: ModelArrays, a: torch.Tensor):
     """(weight [N], penalty [N], cnt, lcnt, rcnt) — exact, from scratch,
-    in plain PyTorch: the snapshot scorer and histogram resync of the
-    plain sweep bundle."""
+    in plain PyTorch."""
     return _scores_of(*score_plain(m, a))
-
-
-def full_scores_cuda(m: ModelArrays, a: torch.Tensor):
-    """:func:`full_scores` through the B1 kernel."""
-    return _scores_of(*score(m, a))
 
 
 def chain_scores(m: ModelArrays, a: torch.Tensor):

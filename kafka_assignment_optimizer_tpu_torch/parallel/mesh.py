@@ -11,10 +11,9 @@ from __future__ import annotations
 import torch
 
 from .. import prng
-from ..ops.score import moves_batch
-from ..ops.score_cuda import full_scores_cuda
+from ..ops.score_cuda import score
 from ..solvers.tpu.arrays import ModelArrays
-from ..solvers.tpu.sweep import best_key
+from ..solvers.tpu.sweep import out_key
 
 
 def init_sweep_state(m: ModelArrays, a_seed: torch.Tensor, key,
@@ -24,12 +23,11 @@ def init_sweep_state(m: ModelArrays, a_seed: torch.Tensor, key,
     returns a plan that ranks below it. The population and snapshot
     leaves are two independent buffers (never two views of one
     broadcast): the stepper may later hand either to a kernel that
-    writes its output beside it. The seed is scored by B1 (its plain
-    version on the CPU)."""
+    writes its output beside it. The seed is scored, and its moves
+    counted, by B1 (its plain version on the CPU)."""
     a = a_seed.to(torch.int32)[None]
-    w, pen, _c, _l, _r = full_scores_cuda(m, a)
-    k0 = best_key(w, pen)[0]
-    mv0 = moves_batch(a, m)[0]
+    out, _c, _l, _r = score(m, a)
+    k0, mv0 = out_key(out)[0], out[0, 5]
     pop = a.repeat(n_chains, 1, 1)
     return (
         pop,

@@ -23,14 +23,13 @@ import torch
 
 from ... import prng
 from ...models.instance import ProblemInstance
-from ...ops.score import moves_batch
 from ...ops.score_cuda import score
 from ...parallel.mesh import init_sweep_state
 from ..base import SolveResult, register
 from . import arrays, bucket
 from .polish import polish
 from .seed import greedy_seed
-from .sweep import first_argmax, make_sweep_stepper_fn
+from .sweep import first_argmax, make_sweep_stepper_fn, out_key
 
 _IMIN = int(np.iinfo(np.int32).min)
 
@@ -88,14 +87,12 @@ def _sync(dev: torch.device) -> float:
 
 def _final_selection(m: arrays.ModelArrays,
                      pop_a: torch.Tensor) -> torch.Tensor:
-    """Exact rescore of the shard winners (B1 on the card), ranked by
-    feasibility, then weight, then fewest moves (first index on ties):
-    the reference's branch for an uncertified champion, which the caller
-    then polishes."""
+    """Exact rescore of the shard winners (B1 on the card, which also
+    counts the moves), ranked by feasibility, then weight, then fewest
+    moves (first index on ties): the reference's branch for an
+    uncertified champion, which the caller then polishes."""
     out, _cnt, _lcnt, _rcnt = score(m, pop_a)
-    pen = out[:, 1:5].sum(1, dtype=torch.int32)
-    primary = torch.where(pen == 0, out[:, 0], -pen - 1)
-    moves = moves_batch(pop_a, m)
+    primary, moves = out_key(out), out[:, 5]
     tied = primary == primary.max()
     return pop_a[first_argmax(torch.where(tied, -moves, _IMIN))]
 

@@ -31,8 +31,7 @@ import numpy as np
 import torch
 
 from ... import prng
-from ...ops.score import moves_batch
-from ...ops.score_cuda import _count, chain_scores, full_scores, histograms
+from ...ops.score_cuda import _count, chain_scores, histograms, score_plain
 from .arrays import SCALE_W, ModelArrays, band_pen, u01
 
 P_LSWAP = 0.15  # leadership-only proposals (zero replica movement)
@@ -87,6 +86,11 @@ def first_argmax(x: torch.Tensor) -> torch.Tensor:
 
 def best_key(w: torch.Tensor, pen: torch.Tensor) -> torch.Tensor:
     return torch.where(pen == 0, w, -pen - 1)
+
+
+def out_key(out: torch.Tensor) -> torch.Tensor:
+    """:func:`best_key` of B1's ``out [N, 8]``."""
+    return best_key(out[:, 0], out[:, 1:5].sum(1, dtype=torch.int32))
 
 
 class SiteProposals(NamedTuple):
@@ -712,8 +716,9 @@ class ScorerBundle(NamedTuple):
     """The sweep loop's implementations, resolved per scorer.
 
     - ``hists(m, a) -> (flat, racks, cnt, lcnt, rcnt)``
-    - ``full(m, a) -> (w, pen, cnt, lcnt, rcnt)`` — the snapshot scorer
-      and exact histogram resync in one pass
+    - ``full(m, a) -> (out [N, 8], cnt, lcnt, rcnt)`` — B1: the snapshot
+      scorer (weight, penalties, moves) and exact histogram resync in one
+      pass
     - ``site_step / exch_step / comp_step(m, a, cnt, lcnt, rcnt, key,
       temp) -> (a, cnt, lcnt, rcnt)``
     """
@@ -740,18 +745,18 @@ def _on_card(fn):
 
 def _make_scorer(scorer: str) -> ScorerBundle:
     """``"torch"``: the plain PyTorch formulation (this module).
-    ``"cuda"``: the hand-written kernels (``ops``): B1 for the scores and
-    histograms, one fused launch (B2+B3) per site sweep, and per exchange
-    sweep one fused launch (B4+B5) and B6; the compound sweep has no
+    ``"cuda"``: the hand-written kernels (``ops``): B1 for the scores,
+    moves and histograms, one fused launch (B2+B3) per site sweep, and one
+    fused launch (B4+B5+B6) per exchange sweep; the compound sweep has no
     kernel and runs the same code in both bundles. Both yield
     bit-identical trajectories."""
     if scorer == "torch":
-        return ScorerBundle(histograms, full_scores, _site_sweep_delta,
+        return ScorerBundle(histograms, score_plain, _site_sweep_delta,
                             _exchange_sweep_delta, _compound_sweep_delta)
     if scorer != "cuda":
         raise ValueError(f"unknown scorer {scorer!r}; expected 'torch' or "
                          "'cuda'")
-    from ...ops.score_cuda import full_scores_cuda, score
+    from ...ops.score_cuda import score
     from ...ops.exchange_cuda import exchange_step_cuda
     from ...ops.site_cuda import site_step_cuda
 
@@ -761,7 +766,7 @@ def _make_scorer(scorer: str) -> ScorerBundle:
         return flat, m.rack_of[flat.long()], cnt, lcnt, rcnt
 
     return ScorerBundle(
-        _on_card(hists), _on_card(full_scores_cuda),
+        _on_card(hists), _on_card(score),
         _on_card(site_step_cuda), _on_card(exchange_step_cuda),
         _on_card(_compound_sweep_delta),
     )
@@ -793,12 +798,12 @@ def _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a):
 def snapshot_step(sc: ScorerBundle, m: ModelArrays, a, best_k, best_mv,
                   best_a):
     """The stepper's snapshot: an exact rescore through bundle ``sc``
-    (its histograms overwrite the carried ones), each chain's best kept
-    (fewest moves breaks key ties), then the one-device best migration.
-    Returns ``(a, cnt, lcnt, rcnt, best_k, best_mv, best_a)``."""
-    w, pen, cnt, lcnt, rcnt = sc.full(m, a)
-    k = best_key(w, pen)
-    mv = moves_batch(a, m)
+    (its histograms overwrite the carried ones; B1's ``out[:, 5]`` is the
+    move count), each chain's best kept (fewest moves breaks key ties),
+    then the one-device best migration. Returns ``(a, cnt, lcnt, rcnt,
+    best_k, best_mv, best_a)``."""
+    out, cnt, lcnt, rcnt = sc.full(m, a)
+    k, mv = out_key(out), out[:, 5]
     improved = (k > best_k) | ((k == best_k) & (mv < best_mv))
     best_mv = torch.where(improved, mv, best_mv)
     best_k = torch.where(improved, k, best_k)
@@ -866,8 +871,8 @@ def make_sweep_solver_fn(n_chains: int, snapshot_every: int = 8,
     def solve(m: ModelArrays, a_seed: torch.Tensor, key, temps):
         P, R = a_seed.shape
         a = a_seed.to(torch.int32)[None].repeat(n_chains, 1, 1)
-        w0, p0, _c, _l, _r = full(m, a)
-        state = (a, best_key(w0, p0), moves_batch(a, m), a.clone(), key)
+        out, _c, _l, _r = full(m, a)
+        state = (a, out_key(out), out[:, 5], a.clone(), key)
         _, top_a, top_k, curve = stepper(m, state, temps)
         return top_a, top_k, curve
 

@@ -1,10 +1,11 @@
 """PyTorch port, on the card: every CUDA kernel (B1, the fused site sweep
-B2+B3, the fused exchange proposal B4+B5, B6) against its plain PyTorch
+B2+B3, the fused exchange sweep B4+B5+B6) against its plain PyTorch
 version on small seeded instances — padded bucket rows, RF 1 and mixed
-RF included — the fused exchange proposal also at 2, 3 and 5 partitions
-(partners off the end in every sweep) and at the main path's bucket, and
-the ``cuda`` sweep bundle against the ``torch`` bundle over 16 sweeps.
-Exact equality throughout.
+RF included — B1 also at 1 and 8 chains and at 30,000 brokers, the fused
+exchange sweep also at 2, 3 and 5 partitions (partners off the end in
+every sweep), at the main path's bucket and at a bucket of more blocks
+than the card holds at once, and the ``cuda`` sweep bundle against the
+``torch`` bundle over 16 sweeps. Exact equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -32,6 +33,7 @@ from kafka_assignment_optimizer_tpu_torch.ops import (
     score_cuda,
     site_cuda,
 )
+from kafka_assignment_optimizer_tpu_torch.ops import score as tscore
 from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
     init_sweep_state,
 )
@@ -60,7 +62,7 @@ def card():
     return torch.device("cuda")
 
 
-def _model(case, dev):
+def _model(case, dev, n=5):
     rng = np.random.default_rng(len(case["rfs"]) * 100 + case["npart"])
     parts = [
         PartitionAssignment("t", p, [int(b) for b in rng.choice(
@@ -76,7 +78,6 @@ def _model(case, dev):
         num_parts=case["bucket"][0], max_rf=case["bucket"][1])
     m = arrays.from_instance(inst, dev, **kw)
     seed = arrays.pad_candidate(greedy_seed(inst), m)
-    n = 5
     a = np.broadcast_to(seed, (n, *seed.shape)).copy()
     sl = rng.integers(0, inst.max_rf, size=(n, inst.num_parts))
     bk = rng.integers(0, inst.num_brokers, size=(n, inst.num_parts))
@@ -101,29 +102,45 @@ def test_kernels_equal_plain_versions(card, case, temp):
     key = prng.PRNGKey(3)
     ref = sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, t)
     _equal(site_cuda.site_step_cuda(m, a, cnt, lcnt, rcnt, key, t), ref)
-
-    rec, m_out, m_in = _equal_proposal(m, a, lcnt, prng.PRNGKey(5), t)
-    fargs = (a, *rec, m_out, m_in)
-    _equal(exchange_cuda.exch_finish_cuda(*fargs), sweep.exch_finish(*fargs))
     _equal(exchange_cuda.exchange_step_cuda(m, a, cnt, lcnt, rcnt, key, t),
            sweep._exchange_sweep_delta(m, a, cnt, lcnt, rcnt, key, t))
     torch.cuda.synchronize()
 
 
-def _equal_proposal(m, a, lcnt, key, t):
-    """The fused exchange proposal against ``sweep.exchange_propose``:
-    all five records and both maps. Returns the kernel's."""
-    rec, m_out, m_in = exchange_cuda.exchange_propose_cuda(m, a, lcnt, key, t)
+# B1 at 1 chain (the verification call) and 8 (the sweep's), and at more
+# brokers than B1's old shared-memory histograms took (29,000)
+@pytest.mark.parametrize("case", [
+    *CASES, dict(nb=30_001, npart=64, rfs=(3,), nr=8, drop=1, bucket=None)])
+@pytest.mark.parametrize("n", [1, 8])
+def test_score_equals_plain_version(card, case, n):
+    m, a, _seed = _model(case, card, n)
+    out = score_cuda.score(m, a)
+    ref = score_cuda.score_plain(m, a)
+    _equal(out, ref)
+    assert (out[0][:, 5] == tscore.moves_batch(a, m)).all()
+    torch.cuda.synchronize()
+
+
+def _equal_sweep(m, a, lcnt, key, t):
+    """The fused exchange sweep against its plain version: the five
+    records and both maps against ``sweep.exchange_propose``; phase 2 (a
+    and lcnt') against ``sweep.exch_finish`` fed with the kernel's own
+    records and maps."""
+    a2, lcnt2, rec, m_out, m_in = exchange_cuda.exchange_sweep_cuda(
+        m, a, lcnt, key, t)
     p, r_out, r_in = sweep.exchange_propose(m, a, lcnt, key, t)
     _equal((*rec, m_out, m_in),
            (p.s, p.b_other, p.tok_out, p.tok_in, p.prio, r_out, r_in))
-    return rec, m_out, m_in
+    f_a, d_lcnt = sweep.exch_finish(a, *rec, m_out, m_in)
+    _equal((a2, lcnt2), (f_a, lcnt + d_lcnt))
 
 
-# the fused exchange proposal at partition counts where most sweeps have
+# the fused exchange sweep at partition counts where most sweeps have
 # partitions whose partner falls off the end (2, 3, 5), the padded bucket
-# of CASES[0], and the main path's bucket (10,240 rows, RF up to 4, with
-# 240 padded rows)
+# of CASES[0], the main path's bucket (10,240 rows, RF up to 4, with 240
+# padded rows), and a bucket of 5 x 512 blocks of 256 partitions, more
+# than the 132 x 8 that an H100 holds at once (2,048 threads an SM): the
+# cooperative grid's loops take more than one turn
 EXCH_CASES = [
     dict(nb=4, npart=2, rfs=(2,), nr=2, drop=0, bucket=None),
     dict(nb=8, npart=3, rfs=(2, 3), nr=2, drop=1, bucket=None),
@@ -131,6 +148,8 @@ EXCH_CASES = [
     CASES[0],
     dict(nb=256, npart=10_000, rfs=(2, 4), nr=8, drop=1,
          bucket=(10_240, 4)),
+    dict(nb=30, npart=2_500, rfs=(3, 2), nr=4, drop=1,
+         bucket=(131_072, 4)),
 ]
 
 
@@ -138,10 +157,14 @@ EXCH_CASES = [
 @pytest.mark.parametrize("temp", [2.0, 0.05])
 def test_exchange_proposal_equals_plain_version(card, case, temp):
     m, a, _seed = _model(case, card)
-    _f, _r, _cnt, lcnt, _rcnt = sweep.histograms(m, a)
+    _f, _r, cnt, lcnt, rcnt = sweep.histograms(m, a)
     t = float(np.float32(temp))
     for i in range(4):
-        _equal_proposal(m, a, lcnt, prng.PRNGKey(40 + i), t)
+        key = prng.PRNGKey(40 + i)
+        _equal_sweep(m, a, lcnt, key, t)
+        _equal(
+            exchange_cuda.exchange_step_cuda(m, a, cnt, lcnt, rcnt, key, t),
+            sweep._exchange_sweep_delta(m, a, cnt, lcnt, rcnt, key, t))
     torch.cuda.synchronize()
 
 

@@ -29,6 +29,9 @@ from tests.test_torch_arrays import assert_same, chains, fast_jit, pair
     dict(nb=12, npart=20, rf=3, nr=3, drop=1),
     dict(nb=20, npart=33, rf=4, nr=5, drop=2, bucket=(48, 4)),
     dict(nb=6, npart=9, rf=1, nr=2, drop=0),
+    # B1 takes any broker count: its kernel counts in device memory above
+    # about 29,000 brokers, held on the card to this plain version
+    dict(nb=40_001, npart=12, rf=3, nr=4, drop=1),
 ])
 def test_score_matches_xla_scorer_and_oracle(case, rng):
     inst, mj, mt = pair(rng, **case)
@@ -56,7 +59,9 @@ def test_score_matches_xla_scorer_and_oracle(case, rng):
     assert_same(ref.weight, out[:, 0])
     assert_same(np.stack([ref.pen_broker, ref.pen_leader, ref.pen_rack,
                           ref.pen_part_rack], 1), out[:, 1:5])
-    assert (out[:, 5:] == 0).all()
+    # column 5: the moves, the reference's XLA moves_batch; zeros after
+    assert_same(fast_jit(jax_moves)(aj, mj), out[:, 5], "B1 moves")
+    assert (out[:, 6:] == 0).all()
 
     # the numpy oracle on the real (unpadded) rows
     for n in range(a.shape[0]):
@@ -81,3 +86,6 @@ def test_score_matches_pallas_interpret(rng):
     assert_same(ref.cnt, cnt)
     assert_same(ref.lcnt, lcnt)
     assert_same(ref.rcnt, rcnt)
+    # the Pallas kernel leaves the moves to XLA (columns 5-7 zero)
+    assert_same(jax_moves(jnp.asarray(a), mj), out[:, 5], "B1 moves")
+

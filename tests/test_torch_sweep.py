@@ -23,6 +23,7 @@ from kafka_assignment_optimizer_tpu.solvers.tpu import arrays as jarrays
 from kafka_assignment_optimizer_tpu.solvers.tpu import sweep as js
 from kafka_assignment_optimizer_tpu_torch import prng
 from kafka_assignment_optimizer_tpu_torch.ops import exchange_cuda, site_cuda
+from kafka_assignment_optimizer_tpu_torch.ops import score as tscore
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep as ts
 
@@ -210,8 +211,9 @@ def _np_max_map(tok, prio, width):
                                    dict(npart=5, bucket=None),
                                    dict(npart=40, bucket=BUCKET)])
 def test_exchange_propose_matches_reference(rng, shape):
-    """``sweep.exchange_propose`` (the fused kernel's plain version) and
-    its wrapper on CPU tensors: the records against the JAX
+    """``sweep.exchange_propose`` (the plain version of the fused
+    kernel's proposal phase) and the fused sweep's wrapper on CPU
+    tensors: the records against the JAX
     ``propose_exchange`` with its XLA halves, the maps against a numpy
     max over those records; three keys, two temperatures."""
     inst, mj, mt = pair(rng, nb=10, npart=shape["npart"], rf=3, nr=3,
@@ -232,7 +234,7 @@ def test_exchange_propose_matches_reference(rng, shape):
         prio = np.asarray(pj.prio)
         assert_same(_np_max_map(np.asarray(pj.tok_out), prio, B1), m_out)
         assert_same(_np_max_map(np.asarray(pj.tok_in), prio, B1), m_in)
-        rec, w_out, w_in = exchange_cuda.exchange_propose_cuda(
+        _a2, _l2, rec, w_out, w_in = exchange_cuda.exchange_sweep_cuda(
             mt, at, ht[1], prng.PRNGKey(30 + i), float(t32))
         for f, x in zip(("s", "b_other", "tok_out", "tok_in", "prio"), rec):
             assert_same(getattr(pj, f), x, f)
@@ -321,7 +323,7 @@ def test_delta_stepper_matches_from_scratch_loop(rng):
             a_r = ts.sweep_once(mt, a_r, sub, t)
         if i % snap == snap - 1 or i == sweeps - 1:
             k = ts.best_key(*ts.chain_scores(mt, a_r))
-            mv = ts.moves_batch(a_r, mt)
+            mv = tscore.moves_batch(a_r, mt)
             imp = (k > bk_r) | ((k == bk_r) & (mv < bmv_r))
             bmv_r = torch.where(imp, mv, bmv_r)
             bk_r = torch.where(imp, k, bk_r)
@@ -343,7 +345,7 @@ def test_solver_fn_is_the_stepper_from_the_broadcast_seed(rng):
     top_a, top_k, curve = ts.make_sweep_solver_fn(3)(mt, seed, key, temps)
     pop = seed[None].repeat(3, 1, 1)
     w, pen = ts.chain_scores(mt, pop)
-    state = (pop, ts.best_key(w, pen), ts.moves_batch(pop, mt), pop.clone(),
+    state = (pop, ts.best_key(w, pen), tscore.moves_batch(pop, mt), pop.clone(),
              key)
     _st, top_a2, top_k2, curve2 = ts.make_sweep_stepper_fn(3)(mt, state,
                                                               temps)
