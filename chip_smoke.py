@@ -33,10 +33,26 @@ Phases (any failure exits non-zero; nothing is caught):
 5. trajectory check — 2 chunks of 8 sweeps through the ``cuda`` bundle
    and through the ``torch`` bundle, both on the card, from one state;
    the states must be equal after every chunk;
-6. main path — ``optimize`` on the demo (1 move, feasible, weight at
-   the unconstrained optimum), then on ``adversarial`` at the card
-   defaults (8 chains x 128 sweeps), feasible by the numpy oracle, with
-   every kernel's launch count > 0.
+6. main path, each solve with the launch counts set to 0 just before
+   it and read just after —
+   (a) the reference's decisions at the defaults: the demo
+   (``construct``/``milp``, 1 move, proven), the demo through
+   ``"auto"`` (``milp``) and ``adversarial`` (``construct``/``reseat``,
+   117 moves, weight 59,802, proven), all certified on the host by the
+   constructor race with no kernel launched;
+   (b) ``adversarial`` with ``batch=8, rounds=128`` (knobs set turn the
+   reseat race off): 8 chains x 128 sweeps on the card, every kernel
+   launched (32 exchange launches), certified at final selection
+   (``final_cert`` ``ok``/``ok_reseat``) at 117 moves, weight 59,802;
+   (c) the chain engine (plain PyTorch replayed as CUDA graphs, 512
+   chains x 24 rounds x 256 steps) on a 40-partition random cluster:
+   feasible, B1 launched 3 times and equal to the numpy oracle on its
+   plan; its wall beside the card's power limit;
+   (d) the sweep->chain retry at its largest budget (512 chains x 24
+   rounds x 4P steps) on a 500-partition random cluster: one round as
+   CUDA graphs equal to the eager step loop, both timed; then the whole
+   24-round anneal the retry runs, feasible and equal to the numpy
+   oracle under B1.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -160,6 +176,25 @@ def gathered(B1: int, *reads) -> int:
         mask = torch.as_tensor(mask, device=b.device)
         keys.append(k[torch.broadcast_to(mask, k.shape)])
     return int(torch.unique(torch.cat(keys)).numel()) * 4
+
+
+def random_cluster(rng, n_brokers, n_parts, rf, n_racks, drop=0):
+    """A seeded random cluster: ``n_parts`` partitions of one topic, each
+    on ``rf`` distinct brokers, brokers in racks ``b % n_racks``, and the
+    last ``drop`` brokers decommissioned. Returns the port's
+    ``(current, broker_list, topology)``."""
+    from kafka_assignment_optimizer_tpu_torch.models.cluster import (
+        Assignment,
+        PartitionAssignment,
+        Topology,
+    )
+
+    parts = []
+    for p in range(n_parts):
+        reps = rng.choice(n_brokers, size=rf, replace=False).tolist()
+        parts.append(PartitionAssignment("t", p, [int(b) for b in reps]))
+    topo = Topology(rack_of={b: f"r{b % n_racks}" for b in range(n_brokers)})
+    return Assignment(partitions=parts), list(range(n_brokers - drop)), topo
 
 
 def smi(query: str) -> str:
@@ -734,24 +769,55 @@ def main() -> int:
           "chain-partitions off the seed)")
 
     # ---- 6. main path ---------------------------------------------------
+    # (a) defaulted solves take the reference's decisions: the host
+    # constructor race certifies both, and no kernel is launched
+    power = smi("name,power.limit") or torch.cuda.get_device_name(0)
     demo = gen.demo()
-    res = optimize(demo.current, demo.broker_list, demo.topology,
+    for label, kw in (("demo", {"solver": "tpu"}),
+                      ("demo auto", {"solver": "auto"})):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = optimize(demo.current, demo.broker_list, demo.topology, **kw)
+        wall = time.perf_counter() - t0
+        rep = res.report()
+        expect = {"solver": "tpu", "solver_engine": "construct",
+                  "solver_construct_path": "milp"} if label == "demo" \
+            else {"solver": "milp"}
+        got = {k: rep.get(k) for k in expect}
+        if got != expect or not rep["feasible"] or not \
+                rep["proven_optimal"] or res.replica_moves != 1:
+            fail(f"{label}: expected {expect}, 1 move, proven; got {rep}")
+        print(f"{label}: {got}, 1 move, proven optimal, weight "
+              f"{res.solve.objective}, wall {wall:.3f} s, launches "
+              f"{sum(k.launches for k in kernels.KERNELS)} ({power})")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = optimize(scen.current, scen.broker_list, scen.topology,
                    solver="tpu")
-    rep = res.report()
-    if not rep["feasible"] or res.replica_moves != 1:
-        fail(f"demo: expected 1 move and feasible, got {rep}")
-    if res.solve.objective != res.instance.max_weight():
-        fail("demo: weight below the unconstrained optimum")
-    if rep["solver_engine"] != "sweep" or rep["solver_platform"] != "gpu":
-        fail(f"demo: ran {rep['solver_engine']} on {rep['solver_platform']}")
-    print(f"demo: 1 move, feasible, weight {res.solve.objective} "
-          f"(= max_weight)")
+    wall = time.perf_counter() - t0
+    st = res.solve.stats
+    got = (st["engine"], st.get("construct_path"), res.replica_moves,
+           res.solve.objective, res.solve.optimal)
+    if got != ("construct", "reseat", 117, 59_802, True):
+        fail(f"adversarial at defaults: expected the certified reseat "
+             f"plan (construct, reseat, 117, 59802, True), got {got}")
+    print(f"adversarial at defaults: construct/reseat, 117 moves, weight "
+          f"59802, proven optimal, platform {st['platform']}, wall "
+          f"{wall:.3f} s (race {st['race_s']} s), launches "
+          f"{sum(k.launches for k in kernels.KERNELS)} ({power})")
 
+    # (b) the annealer pinned by its knobs (setting them turns the reseat
+    # race off, as in the reference): 8 chains x 128 sweeps on the card,
+    # every kernel, then certify-first selection. The boundary
+    # certificate is off (it would end the ladder at its first boundary
+    # wherever a chunk takes over cert_min_savings_s, as on a CPU), so
+    # the path does not depend on the card's speed
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = optimize(scen.current, scen.broker_list, scen.topology,
-                   solver="tpu")
+                   solver="tpu", batch=8, rounds=128,
+                   cert_min_savings_s=float("inf"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels.KERNELS}
@@ -759,9 +825,10 @@ def main() -> int:
     st = res.solve.stats
     if not rep["feasible"]:
         fail(f"adversarial: infeasible plan ({rep['violations']})")
-    if (st["chains_per_device"], st["rounds"]) != (8, 128):
-        fail(f"adversarial: ran {st['chains_per_device']} chains x "
-             f"{st['rounds']} sweeps, expected 8 x 128")
+    if (st["engine"], st["chains_per_device"], st["rounds_run"]) != (
+            "sweep", 8, 128):
+        fail(f"adversarial: ran {st['engine']} {st['chains_per_device']} "
+             f"chains x {st['rounds_run']} sweeps, expected sweep 8 x 128")
     for name, n in counts.items():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
@@ -771,17 +838,147 @@ def main() -> int:
         fail(f"{kernels.EXCHANGE.name}: {counts[kernels.EXCHANGE.name]} "
              f"launches on the main path, expected one an exchange sweep "
              f"({n_exch})")
-    print(f"adversarial: feasible, {res.replica_moves} moves (lower bound "
-          f"{st['moves_lb']}, seed {st['seed_moves']}), weight "
-          f"{res.solve.objective} (unconstrained optimum "
-          f"{res.instance.max_weight()}), {st['chains_per_device']} chains "
-          f"x {st['rounds']} sweeps, wall {wall:.3f} s")
-    print("adversarial phases (s): " + json.dumps({
-        k: st[k] for k in ("build_s", "seed_s", "lower_s", "anneal_s",
-                           "select_s", "polish_s", "verify_s")}))
+    if st.get("final_cert") not in ("ok", "ok_reseat"):
+        fail(f"adversarial: final_cert {st.get('final_cert')!r}, expected "
+             "a certificate at final selection")
+    if (res.replica_moves, res.solve.objective, res.solve.optimal) != (
+            117, 59_802, True):
+        fail(f"adversarial: {res.replica_moves} moves, weight "
+             f"{res.solve.objective}, proven {res.solve.optimal}; expected "
+             "117, 59802, proven")
+    print(f"adversarial pinned (batch=8, rounds=128): feasible, "
+          f"{res.replica_moves} moves (lower bound {st['moves_lb']}, seed "
+          f"{st['seed_moves']}), weight {res.solve.objective} (bound "
+          f"{st['weight_ub']}), final_cert {st['final_cert']}, proven "
+          f"optimal, {st['chains_per_device']} chains x {st['rounds_run']} "
+          f"sweeps, wall {wall:.3f} s ({power})")
+    print("adversarial pinned phases (s): " + json.dumps({
+        k: st[k] for k in ("build_s", "race_s", "seed_s", "lower_s",
+                           "anneal_s", "select_s", "polish_s",
+                           "verify_s")}))
     print("launches on the main path: " + json.dumps(counts))
     for row in rows:
         row["launches"] = counts[row["name"]]
+
+    # (c) the chain engine on the card at its card budget (512 chains x
+    # 24 rounds x 256 steps), plain PyTorch replayed as CUDA graphs:
+    # feasible, and the engine's verification holds B1 to the numpy
+    # oracle on its plan
+    def chain_solve(label, case, steps):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize(*case, solver="tpu", engine="chain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chain_counts = {k.name: k.launches for k in kernels.KERNELS}
+        st = res.solve.stats
+        rep = res.report()
+        if (st["engine"], st["chains_per_device"], st["rounds_run"],
+                st["steps_per_round"]) != ("chain", 512, 24, steps):
+            fail(f"{label}: ran {st['engine']} {st['chains_per_device']} x "
+                 f"{st['rounds_run']} x {st['steps_per_round']}")
+        if not rep["feasible"]:
+            fail(f"{label}: infeasible plan ({rep['violations']})")
+        # one B1 at the chunk's start, one in final selection, one in
+        # verification
+        if chain_counts[kernels.SCORE.name] != 3:
+            fail(f"{label}: B1 launched {chain_counts} times, expected 3 "
+                 "(seed, selection, verify)")
+        a_dev = torch.from_numpy(res.solve.a).to(dev)[None]
+        m_c = arrays.from_instance(res.instance, dev)
+        out = score(m_c, a_dev)[0][0, :5].tolist()
+        viol = res.instance.violations(res.solve.a)
+        if out != [res.solve.objective, viol["broker_balance"],
+                   viol["leader_balance"], viol["rack_balance"],
+                   viol["part_rack_diversity"]]:
+            fail(f"{label}: B1 scores {out} disagree with the oracle")
+        print(f"{label} (512 chains x 24 rounds x {steps} steps, plain "
+              f"PyTorch as CUDA graphs): feasible, {res.replica_moves} "
+              f"moves, weight {res.solve.objective}, final_cert "
+              f"{st.get('final_cert')}, wall {wall:.3f} s, anneal_s "
+              f"{st['anneal_s']} ({power}); launches "
+              + json.dumps(chain_counts))
+
+    chain_solve("chain engine", random_cluster(
+        np.random.default_rng(0), n_brokers=12, n_parts=40, rf=2,
+        n_racks=2, drop=2), 256)
+
+    # (d) the sweep->chain retry at its largest: a defaulted solve below
+    # 512 partitions whose sweep ends infeasible retries the chain engine
+    # at the card's budget, 512 chains x 24 rounds x 4P steps, with no
+    # time limit unless the caller set one. One round as CUDA graphs
+    # against the eager step loop (equal state, both timed), then the
+    # whole chain solve the retry runs
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        anneal,
+        bucket,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
+        greedy_seed,
+    )
+
+    case = random_cluster(np.random.default_rng(0), n_brokers=24,
+                          n_parts=500, rf=3, n_racks=3, drop=1)
+    inst = build_instance(*case)
+    steps = 4 * inst.num_parts
+    Pp, Rp = bucket.bucket_shape(inst)
+    m_r = arrays.from_instance(inst, dev, num_parts=Pp, max_rf=Rp)
+    seed_r = torch.from_numpy(arrays.pad_candidate(greedy_seed(inst),
+                                                   m_r)).to(dev)
+    keys = anneal.chain_keys(prng.PRNGKey(0), 512, dev)
+    rounds = {}
+    for graph in (True, False, True):
+        run = anneal.make_round_runner(steps, graph=graph)
+        st0 = anneal.init_chain(m_r, seed_r, keys)
+        bk, ba = anneal.best_key(st0), st0.a.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st1, bk, ba = run(m_r, st0, bk, ba, np.float32(1.0))
+        torch.cuda.synchronize()
+        rounds.setdefault(graph, []).append(
+            (time.perf_counter() - t0,
+             (st1.a, st1.cnt, st1.lcnt, st1.rcnt, st1.pen, st1.w, st1.key,
+              bk, ba)))
+    for i, (x, y) in enumerate(zip(rounds[True][0][1], rounds[False][0][1])):
+        if not torch.equal(x, y):
+            fail(f"chain round: leaf {i} differs between the CUDA graphs "
+                 "and the eager steps")
+    (g_first, _), (g_warm, _) = rounds[True]
+    e_s = rounds[False][0][0]
+    print(f"chain round at the retry's size (512 chains, {inst.num_parts} "
+          f"partitions, {steps} steps): equal state; CUDA graphs "
+          f"{g_first:.3f} s with capture, {g_warm:.3f} s captured, "
+          f"{1e3 * g_warm / steps:.4f} ms a step; eager {e_s:.3f} s, "
+          f"{1e3 * e_s / steps:.4f} ms a step ({power})")
+    # the whole anneal the retry runs: 24 rounds on the engine's chain
+    # ladder (2.5 -> 0.05) from the greedy seed. The retry's own solve
+    # adds the constructor race (this caps-binding case races the LP
+    # decode, which certifies it at once) and final selection
+    solve = anneal.make_solver_fn(512, steps)
+    temps = arrays.geometric_temps(2.5, 0.05, 24)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best_a, best_k, _curve = solve(m_r, seed_r, prng.PRNGKey(0), temps)
+    torch.cuda.synchronize()
+    anneal_s = time.perf_counter() - t0
+    plan = arrays.unpad_candidate(best_a, inst)
+    viol = inst.violations(plan)
+    out = score(m_r, best_a[None])[0][0, :5].tolist()
+    if out != [inst.preservation_weight(plan), viol["broker_balance"],
+               viol["leader_balance"], viol["rack_balance"],
+               viol["part_rack_diversity"]] or int(best_k) < 0:
+        fail(f"retry anneal: plan scores {out}, best key {int(best_k)}: "
+             "infeasible or disagreeing with the oracle")
+    print(f"sweep->chain retry anneal (512 chains x 24 rounds x {steps} "
+          f"steps, CUDA graphs, {inst.num_parts} partitions): feasible, "
+          f"{inst.move_count(plan)} moves, weight "
+          f"{inst.preservation_weight(plan)}, wall {anneal_s:.3f} s, "
+          f"{1e3 * anneal_s / (24 * steps):.4f} ms a step ({power})")
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows}))

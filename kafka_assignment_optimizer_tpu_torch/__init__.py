@@ -6,7 +6,9 @@ module at the same relative paths, held against it in the tests. This
 package imports neither JAX nor the reference package.
 
 - ``models``  — cluster/assignment model, the solver-neutral instance
-- ``solvers`` — the sweep annealing engine on the card
+- ``solvers`` — the exact host backends (``milp``, ``native``, ``lp_solve``)
+  and the annealing engine (the race, the ladder on the card, selection)
+- ``native``  — the bundled C++ sources (built with g++ at first use)
 - ``ops``     — scoring in plain PyTorch, and the CUDA kernels' wrappers
 - ``csrc``    — the CUDA C++ kernel sources (built with nvcc at first use)
 - ``prng``    — threefry2x32 random bits, equal to the reference's

@@ -38,9 +38,14 @@ class OptimizeResult:
             "leader_changes": self.moves.leader_changes,
             "objective_weight": self.instance.preservation_weight(
                 self.solve.a),
-            # the unconstrained per-partition optimum (the reference's
-            # LP-tightened bound is not part of this package yet)
-            "objective_upper_bound": self.instance.max_weight(),
+            # the tightest weight bound already computed for this
+            # instance (memoized by a certificate), else the
+            # unconstrained per-partition optimum
+            "objective_upper_bound": (
+                self.instance.best_known_weight_ub()
+                if self.instance.best_known_weight_ub() is not None
+                else self.instance.max_weight()
+            ),
             "violations": viol,
             "feasible": all(v == 0 for v in viol.values()),
             "proven_optimal": self.solve.optimal,
@@ -68,8 +73,9 @@ def optimize(
     Arguments mirror the reference package's ``optimize``: the current
     assignment (JSON text, dict, or :class:`Assignment`), the target
     broker list, the broker->rack topology, and optionally a new
-    replication factor. ``device`` (a solver keyword) picks the solve
-    device: the card by default, ``"cpu"`` on request.
+    replication factor. ``device`` (a keyword of the ``tpu`` solver,
+    which ``"auto"`` passes on only when it resolves there) picks the
+    solve device: the card by default, ``"cpu"`` on request.
     """
     t0 = time.perf_counter()
     if isinstance(current, str):

@@ -3,11 +3,15 @@
 Usage:
     python -m kafka_assignment_optimizer_tpu_torch \\
         --input current.json --broker-list 0-18 --topology topology.json \\
-        [--seed 0] [--batch 8] [--sweeps 128] [--device cuda|cpu] [--report]
+        [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
+        [--engine chain|sweep] [--seed 0] [--batch 8] [--sweeps 128] \\
+        [--device cuda|cpu] [--report]
 
 Reads the current assignment from ``--input`` or stdin, writes the plan
 (same dialect) to stdout and, with ``--report``, a solve report to
-stderr. Exit codes: 0 feasible plan, 3 infeasible plan, 2 error.
+stderr. Exit codes: 0 feasible plan, 3 infeasible plan, 2 error. The
+host backends (``milp``, ``native``, ``lp_solve``) ignore ``--device``;
+``auto`` picks ``milp`` for small instances and ``tpu`` at scale.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from pathlib import Path
 
 from .api import optimize
 from .models.cluster import Assignment, Topology, parse_broker_list
+
+_HOST_SOLVERS = ("milp", "native", "lp_solve")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,14 +42,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="broker->rack map: JSON file, inline JSON, or 'even-odd' "
         "(the upstream demo topology). Default: one rack.",
     )
-    ap.add_argument("--solver", default="auto", help="auto | tpu")
+    ap.add_argument("--solver", default="auto",
+                    help="auto | milp | native | lp_solve | tpu")
     ap.add_argument("--report", action="store_true",
                     help="print the solve report to stderr")
     ap.add_argument("--indent", type=int, default=2,
                     help="output JSON indent")
     ap.add_argument("--seed", type=int, default=0, help="search RNG seed")
     ap.add_argument("--batch", type=int, help="annealing chains")
-    ap.add_argument("--sweeps", type=int, help="annealing sweeps")
+    ap.add_argument("--sweeps", type=int,
+                    help="annealing rounds (tpu solver)")
+    ap.add_argument(
+        "--engine",
+        choices=["chain", "sweep"],
+        help="tpu solver engine: per-move Metropolis chains (the default "
+        "below 512 partitions on the CPU) or sweep-parallel proposals",
+    )
+    ap.add_argument("--time-limit", type=float,
+                    help="solver time limit, seconds")
     ap.add_argument("--device", default="cuda",
                     help="solve device: cuda (default) or cpu")
     return ap
@@ -67,7 +83,13 @@ def main(argv: list[str] | None = None) -> int:
         brokers = parse_broker_list(args.broker_list)
         all_ids = sorted(set(brokers) | set(current.broker_ids()))
         topology = load_topology(args.topology, all_ids)
-        kw = {"seed": args.seed, "device": args.device}
+        kw = {"seed": args.seed}
+        if args.solver not in _HOST_SOLVERS:
+            kw["device"] = args.device
+        if args.engine:
+            kw["engine"] = args.engine
+        if args.time_limit:
+            kw["time_limit_s"] = args.time_limit
         if args.batch:
             kw["batch"] = args.batch
         if args.sweeps:

@@ -1,12 +1,13 @@
 """Solver-neutral optimization model (the reference's L1-L3 layers).
 
-A copy of ``kafka_assignment_optimizer_tpu.models.instance`` limited to
-what the device solve path calls: building the instance, the numpy
-oracle (``violations``, ``preservation_weight``, ``move_count``), the
-cheap counting move bound, the unconstrained weight optimum
-(``max_weight``) and ``decode``. The LP/flow bounds and the exact leader
-reseat of the reference (its ``models.bounds`` / ``models.reseat``
-delegates) are not part of this package yet.
+A copy of ``kafka_assignment_optimizer_tpu.models.instance``: builds, from
+(current assignment, target broker list, topology, target RF), the single
+:class:`ProblemInstance` that every solver backend consumes — the MILP
+oracle, the LP emitter, the native C++ branch-and-bound, the plan
+constructor and the device annealing engine — with the numpy oracle
+(``violations``, ``preservation_weight``, ``move_count``), ``encode`` /
+``decode``, and thin delegates to the bound ladder (``models.bounds``)
+and the exact leader reseat (``models.reseat``).
 
 Candidates are *replica-slot* arrays ``A[P, R] : int`` of broker
 **indices** with slot 0 = leader, which hard-encodes the replication
@@ -21,10 +22,22 @@ any other broker 0.
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
+
+# guards creation of per-instance memo locks (instances are dataclasses;
+# the lock attribute is created lazily on first bound computation)
+_MEMO_GUARD = threading.Lock()
+
+# member count past which the UNaggregated kept-replica LP is considered
+# intractable (the 50k-partition jumbo's ~150k members time out at 900 s)
+# and the symmetry-aggregated formulation takes over — in the bound
+# ladder and in the plan constructor (solvers.lp_round)
+AGG_MEMBER_THRESHOLD = 60_000
 
 from .cluster import Assignment, PartitionAssignment, Topology
 
@@ -33,6 +46,7 @@ W_LEADER_KEEP = 4  # current leader stays leader
 W_LEADER_DEMOTE = 2  # current leader stays as follower
 W_FOLLOWER_PROMOTE = 2  # current follower becomes leader
 W_FOLLOWER_KEEP = 1  # current follower stays follower
+
 
 
 @dataclass
@@ -121,6 +135,63 @@ class ProblemInstance:
         ]
         return Assignment(partitions=parts)
 
+    def encode(self, plan: Assignment) -> np.ndarray:
+        """Inverse of :meth:`decode`: map a plan in reassignment-JSON
+        form onto this instance's index space ``A[P, R]`` (slot 0 =
+        ``replicas[0]`` = leader). The plan must cover exactly this
+        instance's (topic, partition) set, with each replica list no
+        longer than the partition's target RF (the index space cannot
+        represent extra replicas, and silently truncating them would
+        let an over-replicated plan audit as feasible) — structural
+        mismatches raise. Everything representable is ENCODED rather
+        than judged: ineligible brokers map to the null bucket ``B``
+        (surfacing as ``null_in_valid_slot`` violations), duplicated
+        brokers land in their slots (``duplicate_in_partition``), and
+        short replica lists leave null slots — so external plans, e.g.
+        ``kafka-reassign-partitions`` output, get scored and certified
+        by the same oracle as every solver's."""
+        B = self.num_brokers
+        by_key: dict[tuple[str, int], list[int]] = {}
+        for p in plan.partitions:
+            key = (p.topic, p.partition)
+            if key in by_key:
+                # last-wins dict building would silently dedupe a
+                # malformed plan listing the same partition twice (with
+                # possibly conflicting replica lists) — a structural
+                # mismatch, so it raises like the others
+                raise ValueError(
+                    f"plan lists partition {key[0]}/{key[1]} more than once"
+                )
+            by_key[key] = p.replicas
+        idx_of_broker = {int(b): i for i, b in enumerate(self.broker_ids)}
+        a = np.full((self.num_parts, self.max_rf), B, dtype=np.int32)
+        topic_names = [self.topics[t] for t in self.topic_of_part.tolist()]
+        pids = self.part_id.tolist()
+        rfs = self.rf.tolist()
+        seen = set()
+        for p in range(self.num_parts):
+            key = (topic_names[p], pids[p])
+            if key not in by_key:
+                raise ValueError(
+                    f"plan is missing partition {key[0]}/{key[1]}"
+                )
+            seen.add(key)
+            reps = by_key[key]
+            if len(reps) > rfs[p]:
+                raise ValueError(
+                    f"plan has {len(reps)} replicas for "
+                    f"{key[0]}/{key[1]} but the target RF is {rfs[p]} "
+                    "(pass target_rf / --rf to audit at a different RF)"
+                )
+            for s, broker in enumerate(reps):
+                a[p, s] = idx_of_broker.get(int(broker), B)
+        extra = set(by_key) - seen
+        if extra:
+            raise ValueError(
+                f"plan contains unknown partitions: {sorted(extra)[:3]}"
+            )
+        return a
+
     # -- feasibility / scoring (numpy reference; oracle for all backends) --
     def violations(self, a: np.ndarray) -> dict[str, int]:
         """Exact integer violation counts of the inequality families for a
@@ -188,7 +259,8 @@ class ProblemInstance:
         one) plus the best rf-1 positive follower weights among the rest.
         A true upper bound on any feasible plan's objective.
 
-        Vectorized over partitions: with v_1 >= v_2 >= ... the clipped-positive
+        Vectorized over partitions (it sits on the warm solve path via
+        ``certify_optimal``): with v_1 >= v_2 >= ... the clipped-positive
         follower weights of partition p and s_k their prefix sums, leader
         b scores  w_lead[b] + (s_{rf-1} - v(b) + v_rf  if v(b) >= v_{rf-1}
         else s_{rf-1})  — removing one instance of b's follower value from
@@ -201,63 +273,194 @@ class ProblemInstance:
         best = np.maximum(val.max(axis=1), s_rm1)
         return int(best[self.rf > 0].sum())
 
-    def _leader_vals(self):
-        """Per-(partition, candidate-leader) optimum of the preservation
-        weight, vectorized on a padded sparse member view. Returns
-        ``(val [P, M], s_rm1 [P], ids [P, M])`` — ``val[p, m]`` is the
-        best weight of partition p when member ``ids[p, m]`` leads (its
-        leader weight plus the best rf-1 positive follower weights among
-        the rest), ``s_rm1`` the best weight under a non-member (zero
-        weight) leader, padding columns carry ids of -1 and val ==
-        s_rm1. None when no weights exist at all."""
-        P, B = self.num_parts, self.num_brokers
-        if P == 0:
+    def _leader_vals(self, *a, **k):
+        """Delegates to ``models.bounds._leader_vals`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._leader_vals(self, *a, **k)
+
+    def weight_upper_bound(self, *a, **k):
+        """Delegates to ``models.bounds.weight_upper_bound`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds.weight_upper_bound(self, *a, **k)
+
+    def _memo_lock(self) -> threading.Lock:
+        lock = getattr(self, "_bounds_memo_lock", None)
+        if lock is None:
+            with _MEMO_GUARD:
+                lock = getattr(self, "_bounds_memo_lock", None)
+                if lock is None:
+                    lock = threading.Lock()
+                    self._bounds_memo_lock = lock
+        return lock
+
+    def cancel_pending_bounds(self) -> None:
+        """Tell straggling bound workers to stop escalating: tiers not
+        yet memoized are skipped (un-memoized) on the next check. The
+        in-flight HiGHS solve still runs to its time limit — scipy
+        cannot be interrupted — but no NEW tier starts. Engines call
+        this when their solve returns so a daemon bounds thread cannot
+        grind multi-second LPs into the next request's wall-clock."""
+        self._bounds_cancelled = True
+
+    def set_bounds_deadline(self, budget_s: float | None) -> None:
+        """Give the bound LPs a wall-clock budget: each subsequent LP
+        gets ``min(30 s, time remaining)`` as its HiGHS time limit, and
+        LPs starting after the deadline are skipped outright (the bound
+        ladder then falls back to the cheapest computed level — looser,
+        never unsound). Used by deadline-sensitive callers: the serve
+        audit endpoint (``--max-solve-s``) and the engine's bounds
+        worker."""
+        self._bounds_deadline = (
+            None if budget_s is None else time.perf_counter() + budget_s
+        )
+
+    def _lp_options(self, default_limit: float = 30.0) -> dict | None:
+        """HiGHS options for one bound LP under the instance deadline;
+        None when the deadline has already passed (caller skips)."""
+        d = getattr(self, "_bounds_deadline", None)
+        if d is None:
+            return {"time_limit": default_limit}
+        remaining = d - time.perf_counter()
+        if remaining <= 0.05:
             return None
-        wl_full = self.w_leader[:, :B]
-        wf_full = self.w_follower[:, :B]
-        # weights are sparse (only current members carry any): gather the
-        # nonzero (partition, broker) pairs into a padded [P, M] view so
-        # the per-leader formula runs on M ~ rf columns, not B
-        rows, cols = np.nonzero((wl_full > 0) | (wf_full > 0))
-        if rows.size == 0:
+        return {"time_limit": min(default_limit, remaining)}
+
+    def best_known_weight_ub(self) -> int | None:
+        """The tightest weight upper bound evaluated so far (for
+        reports), or None if none has been."""
+        memo = getattr(self, "_wub_memo", None)
+        if not memo:
             return None
-        cnt = np.bincount(rows, minlength=P)
-        M = int(cnt.max())
-        offs = np.zeros(P + 1, np.int64)
-        np.cumsum(cnt, out=offs[1:])
-        pos = np.arange(rows.size) - offs[rows]  # rank within its row
-        wl = np.zeros((P, M), np.int64)
-        wf = np.zeros((P, M), np.int64)
-        ids = np.full((P, M), -1, np.int64)
-        wl[rows, pos] = wl_full[rows, cols]
-        wf[rows, pos] = np.maximum(wf_full[rows, cols], 0)
-        ids[rows, pos] = cols
-        rf = self.rf.astype(np.int64)
-        k = M
-        top = -np.sort(-wf, axis=1)  # [P, M] desc
-        csum = np.concatenate(
-            [np.zeros((P, 1), np.int64), np.cumsum(top, axis=1)], axis=1
-        )
-        prow = np.arange(P)
-        s_rm1 = csum[prow, np.minimum(rf - 1, k)]  # sum of top rf-1
-        # with v_1 >= v_2 >= ... the clipped-positive follower weights and
-        # s_k their prefix sums, leader m scores wl[m] + (s_{rf-1} - v(m)
-        # + v_rf if v(m) >= v_{rf-1} else s_{rf-1}) — removing one
-        # instance of m's follower value from the top set and backfilling
-        # with the next-best; only values matter, so ties need no
-        # identity tracking. v_edge = v_{rf-1} (the weakest kept
-        # follower), v_next = v_rf (the backfill).
-        v_edge = top[prow, np.clip(rf - 2, 0, k - 1)]
-        v_next = np.where(
-            rf - 1 < k, top[prow, np.clip(rf - 1, 0, k - 1)], 0
-        )
-        in_top = (wf >= v_edge[:, None]) & (rf[:, None] >= 2)
-        foll_sum = np.where(
-            in_top,
-            s_rm1[:, None] - wf + v_next[:, None],
-            s_rm1[:, None],
-        )
-        return wl + foll_sum, s_rm1, ids
+        # .copy() is atomic under the GIL; a bounds worker thread may be
+        # inserting a tier concurrently
+        return min(memo.copy().values())
+
+    def move_lower_bound_exact(self, *a, **k):
+        """Delegates to ``models.bounds.move_lower_bound_exact`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds.move_lower_bound_exact(self, *a, **k)
+
+    def _members(self):
+        """(mrows, mcols): the (partition, broker) pairs whose slot could
+        be *kept* — current eligible members of live partitions.
+        Memoized: the bound ladder, the plan constructor and the
+        disaggregator each re-derive it, and the nonzero scan costs
+        ~0.12 s at the 50k-partition jumbo — repeated four times that
+        was a measurable slice of the construct path. The
+        weight matrices are immutable after build, so the memo can
+        never go stale; a concurrent double fill is benign (identical
+        value)."""
+        cached = getattr(self, "_members_memo", None)
+        if cached is None:
+            B = self.num_brokers
+            cached = np.nonzero(
+                ((self.w_leader[:, :B] > 0) | (self.w_follower[:, :B] > 0))
+                & (self.rf[:, None] > 0)
+            )
+            self._members_memo = cached
+        return cached
+
+    def _kept_maxflow(self, *a, **k):
+        """Delegates to ``models.bounds._kept_maxflow`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._kept_maxflow(self, *a, **k)
+
+    def _flow_prologue(self, *a, **k):
+        """Delegates to ``models.bounds._flow_prologue`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._flow_prologue(self, *a, **k)
+
+    def _leader_cap_flow(self, *a, **k):
+        """Delegates to ``models.bounds._leader_cap_flow`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._leader_cap_flow(self, *a, **k)
+
+    def _leader_cap_flow_lower(self, *a, **k):
+        """Delegates to ``models.bounds._leader_cap_flow_lower`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._leader_cap_flow_lower(self, *a, **k)
+
+    def _leader_cap_lp(self, *a, **k):
+        """Delegates to ``models.bounds._leader_cap_lp`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._leader_cap_lp(self, *a, **k)
+
+    def _kept_weight_lp(self, *a, **k):
+        """Delegates to ``models.bounds._kept_weight_lp`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._kept_weight_lp(self, *a, **k)
+
+    def _member_classes(self, *a, **k):
+        """Delegates to ``models.bounds._member_classes`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._member_classes(self, *a, **k)
+
+    def agg_effective(self) -> bool:
+        """True when partition symmetry collapses the member space
+        enough that the AGGREGATED kept-replica formulation (LP and
+        MILP) is cheap — the gate for preferring it over the
+        unaggregated LP in the bound ladder and for racing the
+        aggregated plan constructor on any instance, not just the
+        over-threshold ones. Steady-state round-robin clusters (the
+        benchmark family, and real Kafka clusters after a balanced
+        tool pass) collapse by 50-500x; adversarial distinct-weight
+        clusters do not, and this returns False. The gate is a pure
+        collapse RATIO (>= 8x) — no absolute floor — so small or
+        asymmetric instances keep the annealer path (and its CI
+        coverage) instead of degenerating into a host MILP solve."""
+        members = self._members()[0].size
+        if members == 0:
+            return False
+        n_cm = self._member_classes()[3].size
+        return n_cm * 8 <= members
+
+    def agg_construct_viable(self) -> bool:
+        """True when the AGGREGATED kept-weight formulation would
+        accept this instance rather than refuse: small enough to grind
+        regardless (<= 20k members), or class collapse of at least 4x.
+        ``_kept_weight_agg``'s refusal and the engine's constructor-race
+        gate share this predicate so the two can never drift — past the
+        unaggregated-LP size a refusal here means the constructor has
+        NO viable path and racing it only delays the annealer."""
+        members = self._members()[0].size
+        if members <= 20_000:
+            return True
+        # n_cm <= members // 4 for integers — the refusal's complement
+        return self._member_classes()[3].size * 4 <= members
+
+    def _kept_weight_agg(self, *a, **k):
+        """Delegates to ``models.bounds._kept_weight_agg`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds._kept_weight_agg(self, *a, **k)
+
+    def best_leader_assignment(self, *a, **k):
+        """Delegates to ``models.reseat.best_leader_assignment`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import reseat
+        return reseat.best_leader_assignment(self, *a, **k)
+
+    def _best_leader_lp(self, *a, **k):
+        """Delegates to ``models.reseat._best_leader_lp`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import reseat
+        return reseat._best_leader_lp(self, *a, **k)
+
+    def _reseat_cycle_cancel(self, *a, **k):
+        """Delegates to ``models.reseat._reseat_cycle_cancel`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import reseat
+        return reseat._reseat_cycle_cancel(self, *a, **k)
 
     def move_count(self, a: np.ndarray) -> int:
         """Replica moves vs the current assignment: count of valid slots
@@ -321,7 +524,38 @@ class ProblemInstance:
         lb_rack_in = int(np.maximum(self.rack_lo - mk, 0).sum())
         return max(lb_kept, lb_broker_in, lb_rack_in, 0)
 
+    def caps_bind(self) -> bool:
+        """True when balance bands bind against the CURRENT assignment —
+        over-full or under-floor brokers for either replicas or
+        leaderships. These are exactly the instances where (a) local
+        search must trade keeps against bands and plateaus epsilon below
+        the optimum, and (b) the LP-rounding constructor
+        (``solvers.lp_round``) tends to produce a certified optimum
+        outright: scale-outs, leader-skew rebalances, RF changes. A
+        plain decommission triggers neither side."""
+        B = self.num_brokers
+        m_b = (self.w_leader[:, :B] > 0).sum(axis=0)
+        lead = self.a0[:, 0]
+        ok = (
+            (self.rf > 0)
+            & (lead >= 0)
+            & (lead < B)
+            & (self.w_leader[np.arange(self.num_parts),
+                             np.clip(lead, 0, B - 1)] > 0)
+        )
+        lcnt = np.bincount(lead[ok], minlength=B)[:B]
+        return bool(
+            (m_b > self.broker_hi).any()
+            or (m_b < self.broker_lo).any()
+            or (lcnt > self.leader_hi).any()
+            or (lcnt < self.leader_lo).any()
+        )
 
+    def certify_optimal(self, *a, **k):
+        """Delegates to ``models.bounds.certify_optimal`` (the bound/
+        reseat machinery lives outside the data model)."""
+        from . import bounds
+        return bounds.certify_optimal(self, *a, **k)
 
 def build_instance(
     current: Assignment,

@@ -117,3 +117,27 @@ def randint(key, shape, minval: int, maxval: int, device=None):
     if device is None:
         return out.astype(np.int32)
     return out.to(torch.int32)
+
+
+def _hash_rows(keys: torch.Tensor, n: int):
+    """The two output words at flat counters ``0..n-1`` under each row of
+    ``keys`` (int64 ``[N, 2]`` of uint32 values, on a device): ``[N, n]``
+    each."""
+    c = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    return _threefry2x32(keys[:, :1], keys[:, 1:], c >> 32, c & _MASK)
+
+
+def split_rows(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of every row of ``keys`` (int64 ``[N, 2]``):
+    int64 ``[N, num, 2]``, on the keys' device."""
+    o0, o1 = _hash_rows(keys, num)
+    return torch.stack([o0, o1], dim=-1)
+
+
+def bits_rows(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` for every row of ``keys``
+    (int64 ``[N, 2]``): int64 ``[N, *shape]`` of values in
+    ``[0, 2**32)``, on the keys' device."""
+    shape = tuple(int(s) for s in shape)
+    o0, o1 = _hash_rows(keys, math.prod(shape))
+    return (o0 ^ o1).reshape(keys.shape[0], *shape)

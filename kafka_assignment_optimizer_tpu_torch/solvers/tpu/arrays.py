@@ -191,6 +191,23 @@ def state_from_numpy(state, device):
             np.asarray(key, np.uint32).copy())
 
 
+def chain_state_from_numpy(leaves: dict, device):
+    """The chain engine's ``ChainState`` from host arrays keyed by field
+    name (the reference's ``ChainState`` leaves taken as numpy arrays):
+    the population and count leaves become int32 tensors on ``device``,
+    the keys int64 ``[N, 2]`` tensors of their uint32 words."""
+    from .anneal import ChainState
+
+    def t(name):
+        return torch.tensor(np.asarray(leaves[name], np.int32),
+                            device=device)
+
+    key = np.asarray(leaves["key"], np.uint32).astype(np.int64)
+    return ChainState(a=t("a"), cnt=t("cnt"), lcnt=t("lcnt"),
+                      rcnt=t("rcnt"), pen=t("pen"), w=t("w"),
+                      key=torch.tensor(key, device=device))
+
+
 def pad_candidate(a: np.ndarray, m: ModelArrays) -> np.ndarray:
     """Pad a host candidate ``[P, R]`` up to the model's (possibly
     bucketed) ``[Pp, Rp]`` with the null broker."""

@@ -1,37 +1,84 @@
-"""The device solve path: greedy seed, the chunked sweep ladder on the
-card, final selection, polish, oracle verification.
+"""``--solver=tpu`` — the annealing engine, on the card.
 
-Counterpart of the sweep-engine path of
-``kafka_assignment_optimizer_tpu.solvers.tpu.engine`` without what this
-package does not have yet: the LP/flow bounds and the constructor race
-(so no certificate ends the ladder early and final selection always
-takes the reference's uncertified branch: rescore, rank, polish), the
-chain engine, lanes, portfolio, pipelining and the host fallback.
+Counterpart of ``kafka_assignment_optimizer_tpu.solvers.tpu.engine``
+(the reference's name ``"tpu"`` is kept so calls match call for call),
+taking the reference's decisions on one device:
+
+1. **The constructor race.** The LP/flow bounds are prefetched on a
+   daemon thread, and one host worker races the annealer: the LP-rounding
+   constructor where balance bands bind (or symmetry collapses the
+   instance), the exact MILP on tiny instances, greedy + exact leader
+   reseat otherwise. A certified plan returns at once with no device
+   touched (``engine "construct"``); an uncertified one competes as the
+   warm start.
+2. **The ladder.** The sweep engine (``sweep``, through the hand-written
+   kernels on the card) or, off the card below 512 partitions, the chain
+   engine (``anneal``), in schedule chunks. Between chunks: adoption of a
+   late constructor plan, the boundary optimality certificate, the chain
+   engine's reseed and the deadline.
+3. **Certify-first final selection.** Rescore (B1 on the card), then
+   moves against the exact move bound, feasibility, weight against the
+   weight bound, one exact reseat; polish only when no check certifies.
+4. **Verification.** The numpy oracle, the device scorer held to it, and
+   ``certify_optimal`` for ``proved_optimal``.
+
+A defaulted sweep that ends infeasible below 512 partitions retries the
+chain engine on what is left of the budget. Not here yet: lanes, the
+portfolio, pipelining and megachunks, checkpoints, warm starts,
+decomposition and the host fallback; their keywords raise
+``NotImplementedError`` unless their value names what this engine does.
 
 Every entry point runs on ``cuda`` unless the caller passes
-``device="cpu"``; it never moves to the CPU on its own. On the card the
-sweep runs through the hand-written kernels (the ``"cuda"`` scorer
-bundle), on the CPU through their plain PyTorch versions.
+``device="cpu"``; it never moves to the CPU on its own.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ... import prng
+from ...models import instance as _instance_mod
 from ...models.instance import ProblemInstance
 from ...ops.score_cuda import score
 from ...parallel.mesh import init_sweep_state
+from ...resilience.budget import Budget
 from ..base import SolveResult, register
 from . import arrays, bucket
+from . import constructor as _constructor
+from .anneal import make_solver_fn
 from .polish import polish
 from .seed import greedy_seed
 from .sweep import first_argmax, make_sweep_stepper_fn, out_key
 
 _IMIN = int(np.iinfo(np.int32).min)
+
+# below this partition count, off the card, the chain engine is the
+# default: per-move chains beat sweeping whole small populations there
+_SWEEP_THRESHOLD_PARTS = 512
+
+# how long the solve waits for the constructor worker before annealing
+# (seconds): past the aggregation threshold the constructor is the only
+# route to a certificate; the middle tier is the greedy + reseat racer's
+# at tens of thousands of members. Module-level so tests can pin them.
+_CONSTRUCT_WAIT_S = 5.0
+_CONSTRUCT_WAIT_BIG_S = 45.0
+_CONSTRUCT_WAIT_MID_S = 15.0
+_RESEAT_WAIT_MID_MEMBERS = 20_000
+
+# tiny-instance exact race: below these sizes the exact MILP solves in
+# milliseconds, so a defaulted solve races it like the LP constructor
+_EXACT_RACE_PARTS = 64
+_EXACT_RACE_VARS = 20_000  # 2 * brokers * partitions, the MILP var count
+
+# the greedy + exact-reseat racer; tests set it False to pin the
+# annealer path
+_RESEAT_RACE = True
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,28 +96,376 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _defaults(platform: str, engine: str | None) -> dict:
-    """Search-effort defaults of the sweep engine: 8 chains, 128 sweeps on
-    the card, 64 on the CPU (the reference's accelerator and CPU
-    budgets)."""
-    if engine not in (None, "sweep"):
+class _WarmChunkRegistry:
+    """Cross-solve warm per-chunk duration estimates, keyed by what a
+    chunk runs (engine, chains, budget knobs, bucket shape, chunk length,
+    scorer). The latest solve's warm minimum replaces the entry."""
+
+    def __init__(self, capacity: int = 64):
+        self._cap = capacity
+        self._lock = threading.Lock()
+        self._d: OrderedDict[tuple, float] = OrderedDict()
+
+    def get(self, key: tuple) -> float | None:
+        with self._lock:
+            v = self._d.get(key)
+            if v is not None:
+                self._d.move_to_end(key)
+            return v
+
+    def update(self, key: tuple, seconds: float) -> None:
+        with self._lock:
+            self._d.pop(key, None)
+            self._d[key] = float(seconds)
+            while len(self._d) > self._cap:
+                self._d.popitem(last=False)
+
+
+_WARM_CHUNKS = _WarmChunkRegistry()
+
+
+def _defaults(inst: ProblemInstance, platform: str,
+              engine: str | None) -> dict:
+    """Search-effort defaults of the resolved engine. The card (``"gpu"``)
+    takes the reference's TPU choices: the sweep engine at every size, 8
+    chains x 128 sweeps, or 512 chains for the chain engine. On the CPU
+    the chain engine is the default below 512 partitions (32 chains),
+    else 8 chains x 64 sweeps."""
+    P = inst.num_parts
+    on_card = platform == "gpu"
+    if engine is not None and engine not in ("chain", "sweep"):
         raise ValueError(
-            f"unknown engine {engine!r}; this package has the 'sweep' "
-            "engine only"
+            f"unknown tpu engine {engine!r}; expected 'chain' or 'sweep'"
         )
-    return {"engine": "sweep", "batch": 8,
-            "rounds": 128 if platform == "gpu" else 64}
+    engine = engine or (
+        "sweep" if (on_card or P >= _SWEEP_THRESHOLD_PARTS) else "chain"
+    )
+    if engine == "sweep":
+        return {"engine": "sweep", "batch": 8,
+                "rounds": 128 if on_card else 64, "steps_per_round": 1}
+    return {
+        "engine": "chain",
+        "batch": 512 if on_card else 32,
+        "rounds": 24,
+        "steps_per_round": max(256, min(4 * P, 20_000)),
+    }
 
 
-def _build_chunks(inst: ProblemInstance, rounds: int, t_hi: float,
-                  t_lo: float) -> list[np.ndarray]:
+# keyword -> the values that name what this engine already does (every
+# other value asks for a path of the reference not ported yet)
+_UNPORTED = {
+    "n_devices": (None, 1),
+    "checkpoint": (None,),
+    "profile_dir": (None,),
+    "precompile": (False,),
+    "pipeline": (None, False),
+    "portfolio": (None, False, 0, 1),
+    "warm_start": (None,),
+    "decompose": (None, False),
+    "megachunk": (None, False, 1),
+}
+
+
+def _refuse_unported(kw: dict) -> None:
+    for name, value in kw.items():
+        ok = _UNPORTED[name]
+        if not any(value is v or (type(value) is type(v) and value == v)
+                   for v in ok):
+            raise NotImplementedError(
+                f"{name}={value!r} is not supported by this package yet "
+                f"(accepted: {', '.join(repr(v) for v in ok)})"
+            )
+
+
+@register("tpu")
+def solve_tpu(
+    inst: ProblemInstance,
+    seed: int = 0,
+    batch: int | None = None,
+    rounds: int | None = None,
+    sweeps: int | None = None,  # CLI alias for rounds
+    steps_per_round: int | None = None,
+    t_hi: float | None = None,
+    t_lo: float | None = None,
+    n_devices: int | None = None,
+    engine: str | None = None,
+    checkpoint: str | None = None,
+    profile_dir: str | None = None,
+    time_limit_s: float | None = None,
+    cert_min_savings_s: float = 1.0,
+    precompile: bool = False,
+    pipeline: bool | None = None,
+    portfolio: bool | int | None = None,
+    warm_start=None,
+    budget: Budget | None = None,
+    decompose: bool | None = None,
+    megachunk=None,
+    device=None,
+) -> SolveResult:
+    """Solve ``inst``: the constructor race, then (unless it certified)
+    the annealing ladder on ``device`` (default the card), certify-first
+    final selection and verification. ``time_limit_s`` (or a caller's
+    ``budget``) bounds the joins and cuts the ladder at chunk
+    boundaries."""
+    _refuse_unported(dict(
+        n_devices=n_devices, checkpoint=checkpoint, profile_dir=profile_dir,
+        precompile=precompile, pipeline=pipeline, portfolio=portfolio,
+        warm_start=warm_start, decompose=decompose, megachunk=megachunk,
+    ))
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    if budget is None:
+        budget = Budget(time_limit_s, t0=t0)
+    # a previous solve on this instance may have cancelled straggling
+    # bound workers (or tagged its constructor path)
+    inst._bounds_cancelled = False
+    inst._construct_path = None
+    inst._flow_big_declines = 0
+    try:
+        res = _solve_raced(
+            inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
+            t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
+        )
+        # a DEFAULTED sweep that ends infeasible on an instance small
+        # enough for chains retries the chain engine on what is LEFT of
+        # this solve's budget, and keeps the better-ranked plan
+        if (
+            not res.stats["feasible"]
+            and engine is None
+            and res.stats["engine"] == "sweep"
+            and inst.num_parts < _SWEEP_THRESHOLD_PARTS
+            and not budget.expired()
+        ):
+            res2 = solve_tpu(
+                inst, seed=seed, engine="chain", batch=batch, t_hi=t_hi,
+                t_lo=t_lo, time_limit_s=budget.remaining(),
+                cert_min_savings_s=cert_min_savings_s, budget=budget,
+                device=device,
+            )
+
+            def rank(r):
+                return (r.stats["feasible"], -r.stats["violations"],
+                        r.objective, -r.stats["moves"])
+
+            if rank(res2) > rank(res):
+                res2.stats["engine_fallback"] = (
+                    "chain after infeasible defaulted sweep"
+                )
+                res = res2
+        return res
+    finally:
+        # straggling bound workers must not escalate further and grind
+        # host CPU into the next solve
+        inst.cancel_pending_bounds()
+
+
+def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
+                 t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
+                 budget, t0) -> SolveResult:
+    """Start the bounds prefetch and the constructor worker this
+    instance class races, then run the solve."""
+
+    def _bounds_body():
+        return inst.move_lower_bound_exact(), inst.weight_upper_bound()
+
+    bounds_fut = _BoundsTask(_bounds_body)
+    knobs_set = any(
+        v is not None
+        for v in (engine, batch, rounds, sweeps, steps_per_round, t_hi, t_lo)
+    )
+    members = inst._members()[0].size
+    big = members > _instance_mod.AGG_MEMBER_THRESHOLD
+    worker_fn = None
+    if inst.caps_bind() or big or inst.agg_effective():
+        reseat_ok = _RESEAT_RACE and not knobs_set
+
+        def worker_fn():
+            return _construct_worker(inst, bounds_fut,
+                                     reseat_fallback=reseat_ok)
+
+        lp_wait_s = _CONSTRUCT_WAIT_BIG_S if big else _CONSTRUCT_WAIT_S
+    elif (
+        not knobs_set
+        and inst.num_parts <= _EXACT_RACE_PARTS
+        and 2 * inst.num_brokers * inst.num_parts <= _EXACT_RACE_VARS
+    ):
+        def worker_fn():
+            return _exact_worker(inst, bounds_fut)
+
+        lp_wait_s = _CONSTRUCT_WAIT_S
+    elif not knobs_set and _RESEAT_RACE:
+        def worker_fn():
+            return _reseat_worker(inst, bounds_fut)
+
+        lp_wait_s = (
+            _CONSTRUCT_WAIT_MID_S
+            if members > _RESEAT_WAIT_MID_MEMBERS
+            else _CONSTRUCT_WAIT_S
+        )
+    else:
+        lp_wait_s = 0.0
+    lp_fut = _BoundsTask(worker_fn) if worker_fn is not None else None
+    return _solve_inner(
+        inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi, t_lo,
+        engine, time_limit_s, cert_min_savings_s, budget, t0, bounds_fut,
+        lp_fut, lp_wait_s,
+    )
+
+
+def _reseat_worker(inst: ProblemInstance, bounds_fut) -> tuple:
+    """Greedy + exact leader reseat: on slack-caps instances the greedy
+    repair keeps every keepable member, so the leader arrangement is the
+    only gap, and the exact reseat closes it. Returns ``(plan, certified,
+    extends_greedy)``; an uncertified plan is still a warm start."""
+    a = np.asarray(greedy_seed(inst), dtype=np.int32)
+    if not inst.is_feasible(a):
+        return None, False, False
+    try:
+        bounds_fut.result()
+    except Exception:
+        pass
+    a = inst.best_leader_assignment(a)
+    inst._construct_path = "reseat"
+    if inst.certify_optimal(a):
+        return a, True, True
+    return a, False, True
+
+
+def _construct_worker(inst: ProblemInstance, bounds_fut,
+                      reseat_fallback: bool = False) -> tuple:
+    """Decode the kept-replica LP into a plan (``solvers.lp_round``) and
+    certify it, after the bounds prefetch so the two threads never
+    duplicate the bound LPs. Past the unaggregated-LP size, where the
+    aggregated formulation would refuse, it returns at once (or runs the
+    greedy + reseat racer when allowed)."""
+    if (
+        inst._members()[0].size > _instance_mod.AGG_MEMBER_THRESHOLD
+        and not inst.agg_construct_viable()
+    ):
+        if reseat_fallback:
+            return _reseat_worker(inst, bounds_fut)
+        return None, False, False
+    try:
+        bounds_fut.result()
+    except Exception:
+        pass
+    from ..lp_round import construct
+
+    plan = construct(inst)
+    if plan is None:
+        return None, False, False
+    return plan, inst.certify_optimal(plan), False
+
+
+def _exact_worker(inst: ProblemInstance, bounds_fut) -> tuple:
+    """Tiny-instance race: the exact MILP (milliseconds at P <= 64),
+    time-limited, its optimum recorded as a weight bound, then
+    certified."""
+    try:
+        bounds_fut.result()
+    except Exception:
+        pass
+    from ..milp import solve_milp
+
+    r = solve_milp(inst, time_limit_s=2 * _CONSTRUCT_WAIT_S)
+    if not r.optimal or r.a is None:
+        return None, False, False
+    plan = np.asarray(r.a, dtype=np.int32)
+    if r.objective is not None:
+        inst._agg_weight_ub = int(r.objective)
+    if inst.certify_optimal(plan):
+        inst._construct_path = "milp"
+        return plan, True, False
+    return plan, False, False
+
+
+class _BoundsTask:
+    """Future-like handle on one host computation running on a daemon
+    thread (a non-daemon worker would block interpreter exit for the rest
+    of a running LP)."""
+
+    def __init__(self, fn):
+        self._ev = threading.Event()
+        self._res = None
+        self._exc: BaseException | None = None
+
+        def run():
+            try:
+                self._res = fn()
+            except BaseException as e:  # surfaced on result()
+                self._exc = e
+            finally:
+                self._ev.set()
+
+        threading.Thread(target=run, daemon=True).start()
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def result(self, timeout: float | None = None):
+        if not self._ev.wait(timeout):
+            raise TimeoutError("bounds computation still running")
+        if self._exc is not None:
+            raise self._exc
+        return self._res
+
+
+def _await_constructor(lp_fut, lp_wait_s, budget: Budget):
+    """Join the constructor worker for up to ``lp_wait_s`` (capped by the
+    budget). Returns ``(certified_a, lp_warm, lp_warm_extends)``."""
+    if lp_fut is None:
+        return None, None, False
+    lp_warm_extends = False
+    try:
+        plan, ok, lp_warm_extends = lp_fut.result(
+            timeout=budget.cap(lp_wait_s))
+        lp_warm_extends = bool(lp_warm_extends)
+    except Exception:
+        plan, ok = None, False
+    if ok:
+        return np.asarray(plan, dtype=np.int32), None, lp_warm_extends
+    if plan is not None:
+        return None, np.asarray(plan, dtype=np.int32), lp_warm_extends
+    return None, None, lp_warm_extends
+
+
+def _pick_seed(inst, lp_warm, lp_warm_extends) -> np.ndarray:
+    """The greedy repair, or the reseat racer's extension of it, or an
+    uncertified constructor plan that outranks it."""
+    warm_extends = lp_warm is not None and lp_warm_extends
+    a_seed = lp_warm if warm_extends else greedy_seed(inst)
+    assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
+        "seed left unfilled slots"
+    )
+    if lp_warm is not None and not warm_extends:
+        def _rank(zz):
+            return (-sum(inst.violations(zz).values()),
+                    inst.preservation_weight(zz), -inst.move_count(zz))
+
+        if _rank(lp_warm) > _rank(a_seed):
+            a_seed = lp_warm
+    return a_seed
+
+
+def _build_chunks(inst: ProblemInstance, engine: str, rounds: int,
+                  t_hi: float, t_lo: float,
+                  time_limit_s: float | None) -> list[np.ndarray]:
     """The annealing schedule: one geometric float32 ladder cut into
-    equal chunks (8 at 20k+ partitions, else 2), each a multiple of the
-    snapshot cadence, the tail padded with ``t_lo`` — exactly the
-    reference's cut, so the chunked run replays its ladder."""
+    chunks, the tail padded with ``t_lo``. The sweep engine is cut into 8
+    chunks under a deadline or at 20k+ partitions, else 2, each a
+    multiple of the snapshot cadence (so the chunked run replays the uncut
+    ladder); the chain engine is cut into 8 only under a deadline."""
     temps_full = arrays.geometric_temps(t_hi, t_lo, rounds)
-    n_chunks = 8 if inst.num_parts >= 20_000 else 2
-    c = 8 * max(1, -(-rounds // (8 * n_chunks)))
+    if engine == "sweep":
+        n_chunks = (
+            8 if (time_limit_s is not None or inst.num_parts >= 20_000)
+            else 2
+        )
+        c = 8 * max(1, -(-rounds // (8 * n_chunks)))
+    elif time_limit_s is not None:
+        c = max(1, -(-rounds // 8))
+    else:
+        c = rounds
     chunks = [temps_full[i:i + c] for i in range(0, rounds, c)]
     if len(chunks) > 1 and chunks[-1].shape[0] < c:
         pad = np.full(c - chunks[-1].shape[0], t_lo, np.float32)
@@ -85,16 +480,221 @@ def _sync(dev: torch.device) -> float:
     return time.perf_counter()
 
 
-def _final_selection(m: arrays.ModelArrays,
-                     pop_a: torch.Tensor) -> torch.Tensor:
+@dataclass
+class _LadderResult:
+    """What the ladder hands to final selection."""
+
+    pop_a: torch.Tensor | None = None  # [1, P, R] the shard winner
+    pop_k: torch.Tensor | None = None  # [1]
+    curves: list = field(default_factory=list)
+    rounds_run: int = 0
+    timed_out: bool = False
+    certified_a: np.ndarray | None = None  # boundary/constructor plan
+    constructed: bool = False  # certified_a came from the constructor
+    tight_fut: object = None  # in-flight tier-1 LP, reused at the end
+
+
+def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
+                seed_dev, key, sweep_state, lp_fut, bounds_fut,
+                cert_min_savings_s, budget, warm_key) -> _LadderResult:
+    """The chunked ladder, one chunk at a time. Between chunks: adopt a
+    finished certified constructor plan; try the optimality certificate
+    on the top winner when the ladder left to skip costs more than
+    ``cert_min_savings_s`` and the bounds are in hand (up to 3 exact
+    reseats over the solve; a tight tier-1 LP on its own thread); reseed
+    the chain engine from the best; honour the deadline."""
+    r = _LadderResult()
+    n = len(chunks)
+    reseat_tries = 0
+    deadline = budget.deadline
+    warm_chunk_s = None
+    last_chunk_s = None
+    wkey = (*warm_key, int(chunks[0].shape[0]) if n else 0, scorer)
+    prior_s = _WARM_CHUNKS.get(wkey)
+
+    def _deadline_now():
+        if budget.cancelled:
+            return time.perf_counter() - 1.0
+        return deadline
+
+    def _est_chunk_s():
+        for v in (warm_chunk_s, prior_s, last_chunk_s):
+            if v is not None:
+                return v
+        return None
+
+    if n == 1:
+        subs = [key]
+    else:
+        subs, _k = [], key
+        for _ in range(n):
+            _k, _s = prng.split(_k)
+            subs.append(_s)
+    if engine == "sweep":
+        stepper = make_sweep_stepper_fn(batch, scorer=scorer)
+    else:
+        chain_solve = make_solver_fn(batch, steps_per_round)
+
+    def boundary(i) -> bool:
+        nonlocal seed_dev, reseat_tries
+        if i + 1 >= n:
+            return False
+        if lp_fut is not None and lp_fut.done():
+            try:
+                plan, ok, _extends = lp_fut.result()
+            except Exception:
+                plan, ok = None, False
+            if ok:
+                r.certified_a = np.asarray(plan, dtype=np.int32)
+                r.constructed = True
+                return True
+        remaining_s = (n - i - 1) * (_est_chunk_s() or 0.0)
+        do_cert = remaining_s > cert_min_savings_s and bounds_fut.done()
+        if engine != "sweep" or do_cert:
+            pa, pk = r.pop_a.cpu().numpy(), r.pop_k.cpu().numpy()
+            for j in np.argsort(-pk)[:1] if do_cert else []:
+                cand = arrays.unpad_candidate(pa[j], inst)
+                mc = inst.move_count(cand)
+                if not inst.is_feasible(cand):
+                    continue
+                lb_exact, ub0 = bounds_fut.result()
+                if mc <= lb_exact:
+                    w_cand = inst.preservation_weight(cand)
+                    if w_cand < ub0 and reseat_tries < 3:
+                        reseat_tries += 1
+                        cand = inst.best_leader_assignment(cand)
+                        w_cand = inst.preservation_weight(cand)
+                    if w_cand >= ub0:
+                        r.certified_a = cand
+                        break
+                    if r.tight_fut is None:
+                        r.tight_fut = _BoundsTask(
+                            lambda: inst.weight_upper_bound(tight=True))
+                    elif r.tight_fut.done() and (
+                        w_cand >= r.tight_fut.result()
+                    ):
+                        r.certified_a = cand
+                        break
+            if r.certified_a is not None:
+                return True
+            if engine != "sweep":
+                seed_dev = r.pop_a[int(np.argmax(pk))]
+        return False
+
+    dev = m.device
+    for i in range(n):
+        dl = _deadline_now()
+        if dl is not None and i >= 1:
+            est = warm_chunk_s if warm_chunk_s is not None else prior_s
+            if time.perf_counter() > dl or (
+                est is not None and dl - time.perf_counter() < est * 0.9
+            ):
+                r.timed_out = True
+                break
+        tc = time.perf_counter()
+        if engine == "sweep":
+            sweep_state, top_a, top_k, curve = stepper(m, sweep_state,
+                                                       chunks[i])
+        else:
+            top_a, top_k, curve = chain_solve(m, seed_dev, subs[i],
+                                              chunks[i])
+        r.pop_a, r.pop_k = top_a[None], top_k[None]
+        chunk_s = _sync(dev) - tc
+        r.rounds_run += int(chunks[i].shape[0])
+        r.curves.append(curve)
+        last_chunk_s = chunk_s
+        if i > 0:
+            warm_chunk_s = (chunk_s if warm_chunk_s is None
+                            else min(warm_chunk_s, chunk_s))
+        if boundary(i):
+            break
+        dl = _deadline_now()
+        if dl is not None and time.perf_counter() > dl:
+            r.timed_out = i + 1 < n
+            break
+    if warm_chunk_s is not None:
+        _WARM_CHUNKS.update(wkey, warm_chunk_s)
+    return r
+
+
+def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget):
     """Exact rescore of the shard winners (B1 on the card, which also
-    counts the moves), ranked by feasibility, then weight, then fewest
-    moves (first index on ties): the reference's branch for an
-    uncertified champion, which the caller then polishes."""
+    counts the moves) ranked by feasibility, then weight, then fewest
+    moves; then certify FIRST — moves against the exact move bound,
+    feasibility, weight against the weight bound, one exact reseat —
+    and polish only when no check certified, followed by a reseat;
+    last, an uncertified constructor plan may outrank the result.
+
+    Returns ``(best_a, final_cert, lp_plan_won, t_select)``:
+    ``final_cert`` names the check that decided ("ok"/"ok_reseat"
+    certified, polish skipped); ``t_select`` is the host clock when the
+    certify-first attempt ended."""
     out, _cnt, _lcnt, _rcnt = score(m, pop_a)
     primary, moves = out_key(out), out[:, 5]
     tied = primary == primary.max()
-    return pop_a[first_argmax(torch.where(tied, -moves, _IMIN))]
+    cand = pop_a[first_argmax(torch.where(tied, -moves, _IMIN))]
+    certified_final = None
+    final_cert = "budget_spent"
+    left = budget.remaining()
+    if left is None or left > 0:
+        join_cap = left if left is not None else 15.0
+        try:
+            lb_exact, ub0 = bounds_fut.result(timeout=join_cap)
+        except Exception:
+            lb_exact = ub0 = None
+        if ub0 is None:
+            final_cert = "bounds_unavailable"
+        else:
+            cand_np = arrays.unpad_candidate(cand, inst)
+            if inst.move_count(cand_np) > lb_exact:
+                final_cert = "moves_above_lb"
+            elif not inst.is_feasible(cand_np):
+                final_cert = "infeasible"
+            elif inst.preservation_weight(cand_np) >= ub0:
+                certified_final = cand_np
+                final_cert = "ok"
+            else:
+                reseated = inst.best_leader_assignment(cand_np)
+                if inst.preservation_weight(reseated) >= ub0:
+                    certified_final = reseated
+                    final_cert = "ok_reseat"
+                else:
+                    final_cert = "weight_below_ub"
+                    # polish from the reseat (never below the champion)
+                    cand = torch.from_numpy(
+                        arrays.pad_candidate(reseated, m)).to(m.device)
+    t_select = _sync(m.device)
+    if certified_final is not None:
+        return certified_final, final_cert, False, t_select
+    best_a = arrays.unpad_candidate(polish(m, cand), inst)
+    try:
+        _, ub0 = bounds_fut.result(timeout=budget.remaining())
+    except Exception:
+        ub0 = None
+    if (
+        inst.is_feasible(best_a)
+        and not budget.expired()
+        and (ub0 is None or inst.preservation_weight(best_a) < ub0)
+    ):
+        best_a = inst.best_leader_assignment(best_a)
+    lp_won = False
+    if lp_fut is not None:
+        left = budget.remaining()
+        try:
+            plan, _ok, _extends = lp_fut.result(
+                timeout=10.0 if left is None else left)
+        except Exception:
+            plan = None
+        if plan is not None:
+            def rank(zz):
+                return (inst.is_feasible(zz), inst.preservation_weight(zz),
+                        -inst.move_count(zz))
+
+            plan = np.asarray(plan, dtype=np.int32)
+            if rank(plan) > rank(best_a):
+                best_a = plan
+                lp_won = True
+    return best_a, final_cert, lp_won, t_select
 
 
 def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
@@ -117,93 +717,150 @@ def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
     return viol
 
 
-@register("tpu")
-def solve_tpu(
-    inst: ProblemInstance,
-    seed: int = 0,
-    batch: int | None = None,
-    rounds: int | None = None,
-    sweeps: int | None = None,  # CLI alias for rounds
-    t_hi: float | None = None,
-    t_lo: float | None = None,
-    engine: str | None = None,
-    device=None,
-    **_unused,
-) -> SolveResult:
-    """Solve ``inst`` with the sweep engine on ``device`` (default the
-    card). The public name stays ``"tpu"`` so calls match the reference
-    package's call for call."""
-    t0 = time.perf_counter()
-    dev = resolve_device(device)
-    platform = "gpu" if dev.type == "cuda" else "cpu"
-    d = _defaults(platform, engine)
-    batch = batch or d["batch"]
-    rounds = rounds or sweeps or d["rounds"]
-    t_hi = 2.0 if t_hi is None else t_hi
-    t_lo = 0.02 if t_lo is None else t_lo
-    scorer = "cuda" if dev.type == "cuda" else "torch"
+def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
+                 t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
+                 budget, t0, bounds_fut, lp_fut, lp_wait_s) -> SolveResult:
+    certified_a, lp_warm, lp_warm_extends = _await_constructor(
+        lp_fut, lp_wait_s, budget)
+    constructed = early_stopped = certified_a is not None
+    t_race = time.perf_counter()
+    final_cert = None
+    steps_per_round_ignored = False
+    m = None
+    bkt_parts = bkt_rf = None
+    lad = _LadderResult()
+    if certified_a is None:
+        platform = "gpu" if dev.type == "cuda" else "cpu"
+        d = _defaults(inst, platform, engine)
+        engine = d["engine"]
+        batch = batch or d["batch"]
+        rounds = rounds or sweeps or d["rounds"]
+        steps_per_round = steps_per_round or d["steps_per_round"]
+        if engine == "sweep" and steps_per_round != 1:
+            # the sweep engine has no inner step loop: say so in stats
+            steps_per_round_ignored = True
+            steps_per_round = 1
+        if t_hi is None:
+            t_hi = 2.0 if engine == "sweep" else 2.5
+        if t_lo is None:
+            t_lo = 0.02 if engine == "sweep" else 0.05
+        scorer = "cuda" if dev.type == "cuda" else "torch"
+        a_seed = _pick_seed(inst, lp_warm, lp_warm_extends)
+        t_seed = time.perf_counter()
+        bkt_parts, bkt_rf = bucket.bucket_shape(inst)
+        m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
+                                 max_rf=bkt_rf)
+        seed_dev = torch.from_numpy(arrays.pad_candidate(a_seed, m)).to(dev)
+        key = prng.PRNGKey(seed)
+        chunks = _build_chunks(inst, engine, rounds, t_hi, t_lo,
+                               time_limit_s)
+        sweep_state = (init_sweep_state(m, seed_dev, key, batch)
+                       if engine == "sweep" else None)
+        t_lower = _sync(dev)
+        lad = _run_ladder(
+            inst, m, batch, steps_per_round, engine, scorer, chunks,
+            seed_dev, key, sweep_state, lp_fut, bounds_fut,
+            cert_min_savings_s, budget,
+            (engine, batch, steps_per_round, int(bkt_parts), int(bkt_rf)),
+        )
+        t_ladder = _sync(dev)
+        if lad.certified_a is not None:
+            certified_a = lad.certified_a
+            early_stopped = True
+            constructed = lad.constructed
+    else:
+        # the constructed path touches no device at all
+        platform = "host"
+        engine = "construct"
+        batch = rounds = steps_per_round = 0
+        scorer = None
+        a_seed = certified_a
+        t_seed = t_lower = t_ladder = t_race
+    t_select = t_ladder
+    if certified_a is not None:
+        best_a = np.asarray(certified_a, dtype=np.int32)
+        t_polish = t_ladder
+    else:
+        best_a, final_cert, lp_won, t_select = _final_selection(
+            inst, m, lad.pop_a, bounds_fut, lp_fut, budget)
+        constructed = constructed or lp_won
+        t_polish = _sync(dev)
 
-    a_seed = greedy_seed(inst)
-    t_seed = time.perf_counter()
-
-    bkt_parts, bkt_rf = bucket.bucket_shape(inst)
-    m = arrays.from_instance(inst, dev, num_parts=bkt_parts, max_rf=bkt_rf)
-    seed_dev = torch.from_numpy(arrays.pad_candidate(a_seed, m)).to(dev)
-    key = prng.PRNGKey(seed)
-    chunks = _build_chunks(inst, rounds, t_hi, t_lo)
-    # the reference's one-device mesh: one shard holding every chain,
-    # with the snapshot-boundary best migration its mesh path runs
-    stepper = make_sweep_stepper_fn(batch, scorer=scorer)
-    state = init_sweep_state(m, seed_dev, key, batch)
-    t_lower = _sync(dev)
-
-    curves = []
-    top_a = None
-    for temps in chunks:
-        state, top_a, _top_k, curve = stepper(m, state, temps)
-        curves.append(curve)
-    t_ladder = _sync(dev)
-
-    cand = _final_selection(m, top_a[None])
-    t_select = _sync(dev)
-    best_a = arrays.unpad_candidate(polish(m, cand), inst)
-    t_polish = _sync(dev)
-
-    viol = _verify(inst, m, best_a)
+    viol = _verify(inst, m, best_a) if m is not None else inst.violations(
+        best_a)
     weight = inst.preservation_weight(best_a)
     feasible = all(v == 0 for v in viol.values())
+    moves_final = int(inst.move_count(best_a))
+    # the optimality certificate: a plan meeting both bounds is a proven
+    # optimum; the tier-1 escalation is allowed without a deadline only
+    if certified_a is not None:
+        proved_optimal = True
+    else:
+        try:
+            timeout = budget.remaining()
+            bounds_fut.result(timeout=timeout)
+            if lad.tight_fut is not None:
+                lad.tight_fut.result(timeout=timeout)
+            proved_optimal = inst.certify_optimal(
+                best_a,
+                allow_tight=(time_limit_s is None
+                             or lad.tight_fut is not None),
+            )
+        except Exception:
+            proved_optimal = False
     t_verify = time.perf_counter()
-    curve = torch.cat(curves).cpu().numpy()
+    curve = (torch.cat([c.reshape(-1) for c in lad.curves]).cpu().numpy()
+             if lad.curves else np.zeros(0, np.int64))
     return SolveResult(
         a=best_a,
         solver="tpu",
         wall_clock_s=t_verify - t0,
         objective=int(weight),
-        optimal=False,
+        optimal=proved_optimal,
         stats={
             "platform": platform,
-            "device": str(dev),
-            "engine": "sweep",
+            "device": str(dev) if m is not None else None,
+            "engine": engine,
             "scorer": scorer,
-            "devices": 1,
+            "devices": 1 if m is not None else 0,
             "chains_per_device": batch,
             "rounds": rounds,
-            "rounds_run": sum(int(c.shape[0]) for c in chunks),
-            "chunks": len(chunks),
-            "bucket_parts": int(bkt_parts),
-            "bucket_rf": int(bkt_rf),
-            "moves_lb": inst.move_lower_bound(),
-            "seed_moves": int(inst.move_count(a_seed)),
-            "moves": int(inst.move_count(best_a)),
-            "feasible": feasible,
-            "violations": sum(viol.values()),
-            "proved_optimal": False,
-            "seed_s": round(t_seed - t0, 4),
+            "rounds_run": lad.rounds_run,
+            "chunks": len(lad.curves),
+            "timed_out": lad.timed_out,
+            "early_stopped": early_stopped,
+            "constructed": constructed,
+            "construct_path": (getattr(inst, "_construct_path", None)
+                               if constructed else None),
+            "constructor_impl": _constructor.active(),
+            "moves_lb": (
+                inst.move_lower_bound()
+                if getattr(inst, "_move_lb_memo", None) is None
+                else inst._move_lb_memo
+            ),
+            "weight_ub": inst.best_known_weight_ub(),
+            "flow_bound_declines": getattr(inst, "_flow_big_declines", 0),
+            "proved_optimal": proved_optimal,
+            **({"bucket_parts": int(bkt_parts), "bucket_rf": int(bkt_rf)}
+               if bkt_parts is not None else {}),
+            "time_limit_s": time_limit_s,
+            "steps_per_round": steps_per_round,
+            "steps_per_round_ignored": steps_per_round_ignored,
+            **({"final_cert": final_cert} if final_cert else {}),
+            "total_steps": (lad.rounds_run * steps_per_round
+                            if engine == "chain"
+                            else lad.rounds_run * inst.num_parts),
+            "race_s": round(t_race - t0, 4),
+            "seed_s": round(t_seed - t_race, 4),
             "lower_s": round(t_lower - t_seed, 4),
             "anneal_s": round(t_ladder - t_lower, 4),
             "select_s": round(t_select - t_ladder, 4),
             "polish_s": round(t_polish - t_select, 4),
             "verify_s": round(t_verify - t_polish, 4),
+            "seed_moves": int(inst.move_count(a_seed)),
+            "moves": moves_final,
+            "feasible": feasible,
+            "violations": sum(viol.values()),
             "score_curve": _downsample(curve, 32),
         },
     )

@@ -5,7 +5,8 @@ RF included — B1 also at 1 and 8 chains and at 30,000 brokers, the fused
 exchange sweep also at 2, 3 and 5 partitions (partners off the end in
 every sweep), at the main path's bucket and at a bucket of more blocks
 than the card holds at once, and the ``cuda`` sweep bundle against the
-``torch`` bundle over 16 sweeps. Exact equality throughout.
+``torch`` bundle over 16 sweeps, and the chain engine's rounds replayed
+as CUDA graphs against its eager step loop. Exact equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -37,7 +38,11 @@ from kafka_assignment_optimizer_tpu_torch.ops import score as tscore
 from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
     init_sweep_state,
 )
-from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays, sweep
+from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+    anneal,
+    arrays,
+    sweep,
+)
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import greedy_seed
 
 pytestmark = pytest.mark.cuda
@@ -180,6 +185,26 @@ def test_cuda_bundle_replays_torch_bundle(card, case):
         for chunk in (temps[:8], temps[8:]):
             st, top_a, top_k, curve = step(m, st, chunk)
             outs.append((*st[:4], top_a, top_k, curve))
+        runs.append(outs)
+    for xs, ys in zip(*runs):
+        _equal(xs, ys)
+
+
+# 40 steps a round: one graph of 32 steps and one of the 8 left
+@pytest.mark.parametrize("case", [CASES[0], CASES[2]])
+def test_chain_round_graphs_replay_eager_steps(card, case):
+    m, _a, seed = _model(case, card)
+    keys = anneal.chain_keys(prng.PRNGKey(4), 6, card)
+    runs = []
+    for graph in (True, False):
+        run = anneal.make_round_runner(40, graph=graph)
+        st = anneal.init_chain(m, seed, keys)
+        bk, ba = anneal.best_key(st), st.a.clone()
+        outs = []
+        for temp in (2.0, 0.5, 0.05):
+            st, bk, ba = run(m, st, bk, ba, np.float32(temp))
+            outs.append((st.a, st.cnt, st.lcnt, st.rcnt, st.pen, st.w,
+                         st.key, bk, ba))
         runs.append(outs)
     for xs, ys in zip(*runs):
         _equal(xs, ys)

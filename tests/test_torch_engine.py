@@ -1,8 +1,11 @@
-"""PyTorch port: the slice end to end on the CPU — ``optimize`` on the
+"""PyTorch port: the engine end to end on the CPU — ``optimize`` on the
 golden demo and on seeded random clusters, the CLI, the engine's schedule
-against the reference's, the device rules (the card unless the caller
-asks for the CPU; never a silent fallback), and the import boundary: the
-port and ``chip_smoke.py`` never import JAX or the JAX package."""
+and defaults against the reference's, the reference's decisions (the
+constructor race, certify-first selection, the deadline, the chain
+engine) case for case with plan and stats equal, the keywords the port
+refuses, the device rules (the card unless the caller asks for the CPU;
+never a silent fallback), and the import boundary: the port and
+``chip_smoke.py`` never import JAX or the JAX package."""
 
 import ast
 import json
@@ -16,7 +19,9 @@ import pytest
 import torch
 
 from kafka_assignment_optimizer_tpu import build_instance as jax_build
+from kafka_assignment_optimizer_tpu import optimize as jax_optimize
 from kafka_assignment_optimizer_tpu.solvers.tpu import engine as jengine
+from kafka_assignment_optimizer_tpu.utils import gen as jgen
 from kafka_assignment_optimizer_tpu_torch import optimize, prng
 from kafka_assignment_optimizer_tpu_torch.cli import main as cli_main
 from kafka_assignment_optimizer_tpu_torch.models.cluster import (
@@ -32,6 +37,7 @@ from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
 )
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays, engine
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import greedy_seed
+from kafka_assignment_optimizer_tpu_torch.utils import gen
 
 from tests.test_tpu_engine import random_cluster
 
@@ -44,15 +50,218 @@ def port_cluster(current, brokers, topo):
             Topology(rack_of=dict(topo.rack_of)))
 
 
+# the reference's mesh of one device, the sequential ladder; the port
+# accepts these values (they name what it does)
+REF_KW = dict(n_devices=1, portfolio=False, pipeline=False, megachunk=1)
+FIELDS = ("engine", "construct_path", "rounds_run", "proved_optimal",
+          "final_cert", "moves", "feasible", "timed_out", "early_stopped")
+
+
+def solve_both(case, prewarm_bounds=False, **kw):
+    """The same instance through both packages' ``solve_tpu`` (the port
+    on the CPU), with the same keywords. ``prewarm_bounds`` memoizes the
+    exact move bound and the tier-0 weight bound on both instances first,
+    so a bounds check never depends on when the prefetch thread ends."""
+    current, brokers, topo = case
+    inst_j = jax_build(current, brokers, topo)
+    inst_t = build_instance(*port_cluster(current, brokers, topo))
+    if prewarm_bounds:
+        for inst in (inst_j, inst_t):
+            inst.move_lower_bound_exact()
+            inst.weight_upper_bound()
+    rj = jengine.solve_tpu(inst_j, **REF_KW, **kw)
+    rt = engine.solve_tpu(inst_t, device="cpu", **REF_KW, **kw)
+    return rj, rt
+
+
+def assert_same(rj, rt):
+    np.testing.assert_array_equal(rt.a, rj.a)
+    assert rt.objective == rj.objective
+    assert rt.optimal == rj.optimal
+    for f in FIELDS:
+        assert rt.stats.get(f) == rj.stats.get(f), (
+            f, rt.stats.get(f), rj.stats.get(f))
+
+
+def small_adversarial():
+    """A 60-partition slice of the adversarial family: slack caps and no
+    symmetry, so with knobs set no constructor worker races."""
+    return jgen.adversarial(n_brokers=24, n_racks=4, n_topics_low=3,
+                            n_topics_high=3, parts_per_topic=10)
+
+
 def test_demo_golden(demo):
     current, brokers, topo = port_cluster(*demo)
     res = optimize(current, brokers, topo, solver="tpu", device="cpu")
     rep = res.report()
     assert rep["feasible"], rep
-    assert rep["solver_engine"] == "sweep"
-    assert rep["solver_platform"] == "cpu"
+    # the exact-MILP race certifies the demo on the host: no device
+    assert rep["solver_engine"] == "construct"
+    assert rep["solver_construct_path"] == "milp"
+    assert rep["solver_platform"] == "host"
+    assert rep["solver_rounds_run"] == 0
+    assert rep["proven_optimal"] is True
     assert res.replica_moves == 1
     assert res.solve.objective == res.instance.max_weight()
+
+
+def test_demo_matches_reference(demo):
+    rj, rt = solve_both(demo)
+    assert_same(rj, rt)
+    assert rt.stats["engine"] == "construct"
+    assert rt.stats["construct_path"] == "milp"
+    assert rt.optimal and rt.stats["moves"] == 1 and rt.objective == 49
+
+
+def test_lp_constructor_matches_reference(rng):
+    """The LP constructor certifies at once where the caps bind."""
+    rj, rt = solve_both(random_cluster(rng, n_brokers=14, n_parts=60, rf=3,
+                                       n_racks=3, drop=1))
+    assert_same(rj, rt)
+    assert rt.stats["engine"] == "construct"
+    assert rt.stats["construct_path"] == "lp"
+    assert rt.stats["rounds_run"] == 0 and rt.optimal
+    assert rt.stats["moves"] == 50 and rt.objective == 290
+
+
+def test_adversarial_reseat_race_matches_reference():
+    """Greedy + exact reseat certifies the 10,000-partition adversarial
+    scenario on the host: no ladder, no device."""
+    s = jgen.adversarial()
+    rj, rt = solve_both((s.current, s.broker_list, s.topology))
+    assert_same(rj, rt)
+    assert rt.stats["engine"] == "construct"
+    assert rt.stats["construct_path"] == "reseat"
+    assert rt.stats["platform"] == "host" and rt.optimal
+    assert rt.stats["moves"] == 117 and rt.objective == 59_802
+
+
+def test_chain_engine_matches_reference(rng):
+    """Below 512 partitions off the card the chain engine runs (32 chains
+    x 24 rounds x 256 steps); an uncertified MILP plan seeds it, final
+    selection polishes and reseats."""
+    rj, rt = solve_both(random_cluster(rng, n_brokers=12, n_parts=40, rf=2,
+                                       n_racks=2, drop=2))
+    assert_same(rj, rt)
+    assert rt.stats["engine"] == "chain" and rt.stats["rounds_run"] == 24
+    assert rt.stats["final_cert"] == "weight_below_ub"
+    assert rt.stats["moves"] == 19 and rt.objective == 153
+
+
+def test_deadline_matches_reference(demo):
+    """A deadline cuts the sweep ladder into 8-sweep chunks and stops it
+    at the first chunk boundary past the deadline; final selection then
+    has no budget left. The boundary certificate is turned off on both
+    (``cert_min_savings_s``): whether the reference tries it depends on
+    how long its first chunk took to compile."""
+    rj, rt = solve_both(demo, prewarm_bounds=True, engine="sweep",
+                        time_limit_s=0.001, cert_min_savings_s=1e9)
+    assert_same(rj, rt)
+    assert rt.stats["rounds_run"] == 8 and rt.stats["timed_out"]
+    assert rt.stats["final_cert"] == "budget_spent"
+    assert rt.optimal and rt.stats["moves"] == 1
+
+
+def test_pinned_annealer_matches_reference(monkeypatch):
+    """With the reseat racer off, slack caps and knobs set, no worker
+    races: the sweep ladder runs and certify-first selection decides
+    (here: moves above the exact bound, so polish and reseat), equal to
+    the reference. The boundary certificate is off on both."""
+    monkeypatch.setattr(jengine, "_RESEAT_RACE", False)
+    monkeypatch.setattr(engine, "_RESEAT_RACE", False)
+    s = small_adversarial()
+    rj, rt = solve_both((s.current, s.broker_list, s.topology),
+                        prewarm_bounds=True, engine="sweep", sweeps=32,
+                        batch=4, cert_min_savings_s=1e9)
+    assert_same(rj, rt)
+    assert rt.stats["engine"] == "sweep" and rt.stats["rounds_run"] == 32
+    assert rt.stats["feasible"]
+    assert rt.stats["final_cert"] == "moves_above_lb"
+
+
+def test_boundary_certificate_matches_reference(demo):
+    """At ``cert_min_savings_s=0`` the certificate is tried at every chunk
+    boundary (bounds memoized first): the demo's ladder certifies after
+    its first chunk and stops there, as the reference's does."""
+    rj, rt = solve_both(demo, prewarm_bounds=True, engine="sweep",
+                        sweeps=64, batch=4, cert_min_savings_s=0.0)
+    assert_same(rj, rt)
+    assert rt.stats["early_stopped"] and rt.stats["rounds_run"] == 32
+    assert rt.optimal and "final_cert" not in rt.stats
+
+
+def test_sweep_to_chain_retry_keeps_the_better_plan(demo, monkeypatch):
+    """A defaulted sweep that ends infeasible below 512 partitions (on the
+    card the sweep is the default at every size) retries the chain
+    engine on what is left of the budget and keeps the better plan. The
+    first solve is stood in by an infeasible sweep result; the chain
+    engine's defaults are cut to 4 chains x 2 rounds, and the boundary
+    certificate is off so both rounds run."""
+    current, brokers, topo = port_cluster(*demo)
+    inst = build_instance(current, brokers, topo)
+    real_raced, real_defaults = engine._solve_raced, engine._defaults
+    calls = []
+
+    def raced(inst, dev, seed, batch, rounds, sweeps, steps, t_hi, t_lo,
+              eng, *rest):
+        calls.append(eng)
+        if eng is None:
+            return engine.SolveResult(
+                a=inst.a0.copy(), solver="tpu", objective=0,
+                stats={"feasible": False, "engine": "sweep",
+                       "violations": 3, "moves": 0})
+        return real_raced(inst, dev, seed, batch, rounds, sweeps, steps,
+                          t_hi, t_lo, eng, *rest)
+
+    def defaults(inst, platform, eng):
+        d = real_defaults(inst, platform, eng)
+        return dict(d, batch=4, rounds=2) if d["engine"] == "chain" else d
+
+    monkeypatch.setattr(engine, "_solve_raced", raced)
+    monkeypatch.setattr(engine, "_defaults", defaults)
+    res = engine.solve_tpu(inst, device="cpu", time_limit_s=600.0,
+                           cert_min_savings_s=1e9)
+    assert calls == [None, "chain"]
+    assert res.stats["engine"] == "chain" and res.stats["feasible"]
+    assert res.stats["engine_fallback"] == (
+        "chain after infeasible defaulted sweep")
+    assert res.stats["rounds_run"] == 2 and res.stats["moves"] == 1
+    assert res.stats["time_limit_s"] <= 600.0
+
+
+def test_unported_keywords_raise(demo):
+    """A keyword of the reference's solver asks for a path the port does
+    not have: it raises instead of being ignored; values naming what the
+    port does pass."""
+    current, brokers, topo = port_cluster(*demo)
+    inst = build_instance(current, brokers, topo)
+    for kw in (dict(portfolio=True), dict(portfolio=4),
+               dict(pipeline=True), dict(megachunk=4),
+               dict(megachunk="auto"), dict(n_devices=2),
+               dict(checkpoint="plan.npz"), dict(profile_dir="prof"),
+               dict(precompile=True), dict(decompose=True),
+               dict(warm_start=inst.a0)):
+        with pytest.raises(NotImplementedError):
+            engine.solve_tpu(inst, device="cpu", **kw)
+    with pytest.raises(TypeError):
+        engine.solve_tpu(inst, device="cpu", no_such_keyword=1)
+    res = engine.solve_tpu(inst, device="cpu", portfolio=False,
+                           pipeline=False, megachunk=1, n_devices=1,
+                           decompose=False)
+    assert res.optimal and res.stats["moves"] == 1
+
+
+def test_auto_resolves_like_reference(demo):
+    """``"auto"`` is the exact MILP on the demo in both packages, with
+    the same plan, proof and reported weight bound."""
+    current, brokers, topo = demo
+    ref = jax_optimize(current, brokers, topo, solver="auto").report()
+    got = optimize(*port_cluster(current, brokers, topo), solver="auto",
+                   device="cpu").report()
+    assert got["solver"] == ref["solver"] == "milp"
+    assert got["proven_optimal"] is True
+    assert got["replica_moves"] == ref["replica_moves"] == 1
+    assert got["objective_upper_bound"] == ref["objective_upper_bound"]
 
 
 @pytest.mark.parametrize("case", [
@@ -61,7 +270,8 @@ def test_demo_golden(demo):
 ])
 def test_random_cluster_feasible(case, rng):
     current, brokers, topo = port_cluster(*random_cluster(rng, **case))
-    res = optimize(current, brokers, topo, device="cpu", sweeps=32)
+    res = optimize(current, brokers, topo, solver="tpu", device="cpu",
+                   engine="sweep", sweeps=32)
     rep = res.report()
     assert rep["feasible"], rep["violations"]
     assert res.replica_moves >= rep["solver_moves_lb"]
@@ -74,14 +284,22 @@ def test_schedule_and_initial_state_match_reference(rng):
     current, brokers, topo = random_cluster(rng, 10, 30, 3, 3, drop=1)
     inst_j = jax_build(current, brokers, topo)
     inst_t = build_instance(*port_cluster(current, brokers, topo))
-    for rounds in (64, 128, 100):
-        ref = jengine._build_chunks(inst_j, "sweep", rounds, 2.0, 0.02, None)
-        got = engine._build_chunks(inst_t, rounds, 2.0, 0.02)
+    for eng, rounds, limit in [("sweep", 64, None), ("sweep", 128, None),
+                               ("sweep", 100, None), ("sweep", 64, 1.0),
+                               ("chain", 24, None), ("chain", 24, 1.0),
+                               ("chain", 30, 2.0)]:
+        ref = jengine._build_chunks(inst_j, eng, rounds, 2.0, 0.02, limit)
+        got = engine._build_chunks(inst_t, eng, rounds, 2.0, 0.02, limit)
         assert len(ref) == len(got)
         for x, y in zip(ref, got):
             np.testing.assert_array_equal(np.asarray(x), y)
-    assert engine._defaults("gpu", None) == {
-        "engine": "sweep", "batch": 8, "rounds": 128}
+    # the card takes the reference's TPU choices
+    for eng in (None, "sweep", "chain"):
+        assert engine._defaults(inst_t, "gpu", eng) == jengine._defaults(
+            inst_j, "tpu", eng)
+        assert engine._defaults(inst_t, "cpu", eng) == jengine._defaults(
+            inst_j, "cpu", eng)
+    assert engine._defaults(inst_t, "cpu", None)["engine"] == "chain"
     m = arrays.from_instance(inst_t, "cpu")
     seed_np = greedy_seed(inst_t)
     seed = torch.from_numpy(seed_np)
@@ -98,11 +316,12 @@ def test_entry_points_need_the_card_unless_asked(demo, monkeypatch):
     current, brokers, topo = port_cluster(*demo)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        optimize(current, brokers, topo)
+        optimize(current, brokers, topo, solver="tpu")
     with pytest.raises(ValueError, match="unsupported device"):
         engine.resolve_device("mps")
-    with pytest.raises(ValueError, match="'sweep' engine only"):
-        optimize(current, brokers, topo, device="cpu", engine="chain")
+    with pytest.raises(ValueError, match="unknown tpu engine"):
+        optimize(current, brokers, topo, solver="tpu", device="cpu",
+                 engine="anneal")
 
 
 def test_cli_demo(tmp_path, capsys, monkeypatch):
@@ -116,23 +335,44 @@ def test_cli_demo(tmp_path, capsys, monkeypatch):
     assert len(plan["partitions"]) == 10
     rep = json.loads(out.err)
     assert rep["replica_moves"] == 1 and rep["feasible"]
+    assert rep["solver"] == "milp" and rep["proven_optimal"]
+    rc = cli_main(["-i", str(src), "--broker-list", "0-18", "--topology",
+                   "even-odd", "--device", "cpu", "--solver", "tpu",
+                   "--engine", "sweep", "--sweeps", "8", "--time-limit",
+                   "60", "--report"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    rep = json.loads(out.err)
+    assert rep["solver_engine"] == "sweep" and rep["solver_rounds_run"] == 8
+    assert rep["replica_moves"] == 1 and rep["feasible"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert cli_main(["-i", str(src), "--broker-list", "0-18"]) == 2
+    assert cli_main(["-i", str(src), "--broker-list", "0-18",
+                     "--solver", "tpu"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_port_never_imports_jax():
-    """Importing the port, solving on the CPU, and importing and running
-    chip_smoke.py without a card load neither JAX nor the JAX package."""
+    """Importing the port, solving on the CPU through every backend (the
+    exact host solvers, the race, the sweep and the chain engines), and
+    importing and running chip_smoke.py without a card load neither JAX
+    nor the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
         "import kafka_assignment_optimizer_tpu_torch as k\n"
         "from kafka_assignment_optimizer_tpu_torch.utils import gen\n"
         "s = gen.demo()\n"
-        "r = k.optimize(s.current, s.broker_list, s.topology, "
-        "device='cpu', sweeps=8)\n"
-        "assert r.report()['feasible']\n"
+        "def solve(**kw):\n"
+        "    r = k.optimize(s.current, s.broker_list, s.topology, **kw)\n"
+        "    assert r.report()['feasible'], kw\n"
+        "    return r.solve.stats\n"
+        "for name in ('milp', 'native', 'lp_solve', 'auto'):\n"
+        "    solve(solver=name)\n"
+        "assert solve(solver='tpu', device='cpu')['engine'] == 'construct'\n"
+        "assert solve(solver='tpu', device='cpu', engine='sweep', "
+        "sweeps=8)['engine'] == 'sweep'\n"
+        "assert solve(solver='tpu', device='cpu', engine='chain', "
+        "batch=4, rounds=2)['engine'] == 'chain'\n"
         "import chip_smoke\n"
         "torch.cuda.is_available = lambda: False\n"
         "assert chip_smoke.main() != 0\n"
