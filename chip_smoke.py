@@ -18,16 +18,25 @@ Phases (any failure exits non-zero; nothing is caught):
    equality; kernel, plain and library times in CUDA events, device time
    under the profiler, and each kernel's bound; B1 also at 1 chain, the
    verification call. The two fused kernels are checked at two
-   temperatures, the exchange sweep's records and maps too. A B1 call, a
-   site sweep and an exchange sweep through the ``cuda`` bundle must each
-   launch their kernel once (the wrapper's count) and make no other
-   device activity that the profiler sees, the exchange sweep with no
-   ``prng`` draw on the device. The fused kernels' operations bounds
+   temperatures, the exchange sweep's records and maps too. A B1 call and
+   a site sweep through their wrappers, and an exchange sweep as the
+   engine runs it (the ``cuda`` bundle on one lane) must each launch
+   their kernel once (the wrapper's count) and make no other device
+   activity that the profiler sees, the exchange sweep with no ``prng``
+   draw on the device. The fused kernels' operations bounds
    count threefry's integer instructions in the SASS that ``cuobjdump``
    shows;
+3b. lane kernels — the lane forms of the three kernels (one launch for
+   L lanes, each with its own tables, bands, penalty scale, temperature
+   and key) at the main path's shapes: L=8 lanes on the eight
+   ``PORTFOLIO_TABLE`` configs (the tables shared), each launch equal to
+   its lane plain version and to 8 single-lane launches, one launch and
+   no other device activity a call, wrapper, plain, library and device
+   times (L=1 beside L=8) and the bound at L=8; then 3 lanes of three
+   adversarial instances whose tables and bands differ, equal likewise;
 4. sweep times — median wall ms of one site, exchange and compound sweep
-   and one snapshot through the ``cuda`` bundle, synchronized around
-   each call, and of the plain random draws that the fused kernels
+   and one snapshot as the engine runs them (the ``cuda`` bundle on one
+   lane), synchronized around each call, and of the plain random draws that the fused kernels
    replace; the device activities and device ms of one B1 call, exchange
    sweep and snapshot;
 5. trajectory check — 2 chunks of 8 sweeps through the ``cuda`` bundle
@@ -40,15 +49,32 @@ Phases (any failure exits non-zero; nothing is caught):
    ``"auto"`` (``milp``) and ``adversarial`` (``construct``/``reseat``,
    117 moves, weight 59,802, proven), all certified on the host by the
    constructor race with no kernel launched;
-   (b) ``adversarial`` with ``batch=8, rounds=128`` (knobs set turn the
-   reseat race off): 8 chains x 128 sweeps on the card, every kernel
-   launched (32 exchange launches), certified at final selection
-   (``final_cert`` ``ok``/``ok_reseat``) at 117 moves, weight 59,802;
-   (c) the chain engine (plain PyTorch replayed as CUDA graphs, 512
+   (b) ``adversarial`` with ``batch=8, rounds=128, portfolio=False``
+   (knobs set turn the reseat race off), the solo anchor: 8 chains x 128
+   sweeps on the card, every kernel launched (64 site and 32 exchange
+   launches), certified at final selection (``final_cert``
+   ``ok``/``ok_reseat``) at 117 moves, weight 59,802;
+   (c) the same call with ``portfolio`` at its default: 8 lanes (the
+   ``PORTFOLIO_TABLE`` configs) x 8 chains x 128 sweeps, still 64 site
+   and 32 exchange launches (one a sweep for all lanes), B1 no more
+   often than in (b), at the JAX package's plan for the call (117 moves,
+   59,802, proven); wall and phases beside (b)'s;
+   (d) ``messy_case(1)`` (``seed=1, engine="sweep", batch=8,
+   rounds=32``) with the portfolio and without, on the card and on the
+   CPU: equal plans on both devices, the portfolio's (weight 18,
+   feasible) not the solo one's (17), as in the JAX package on one
+   device;
+   (e) the batch path: ``optimize_batch`` of 8 full-size adversarial
+   instances (seeds 0-7, one 10,240 x 4 bucket) at its defaults, every
+   lane feasible and verified (B1 held to the numpy oracle), lanes 0 and
+   7 equal to one-instance ``solve_tpu_batch`` solves; wall and
+   instances a second; then 3 of them padded to 8 lanes (the default)
+   and run at 3 (``KAO_LANE_BUCKETS=off``), equal plans, both walls;
+   (f) the chain engine (plain PyTorch replayed as CUDA graphs, 512
    chains x 24 rounds x 256 steps) on a 40-partition random cluster:
    feasible, B1 launched 3 times and equal to the numpy oracle on its
    plan; its wall beside the card's power limit;
-   (d) the sweep->chain retry at its largest budget (512 chains x 24
+   (g) the sweep->chain retry at its largest budget (512 chains x 24
    rounds x 4P steps) on a 500-partition random cluster: one round as
    CUDA graphs equal to the eager step loop, both timed; then the whole
    24-round anneal the retry runs, feasible and equal to the numpy
@@ -80,22 +106,22 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def timed(fn, torch) -> float:
-    """Median milliseconds per call over WINDOWS windows of REPS calls,
-    after a warm-up, in CUDA events."""
-    for _ in range(3):
+def timed(fn, torch, reps: int = REPS, windows: int = WINDOWS) -> float:
+    """Median milliseconds per call over ``windows`` windows of ``reps``
+    calls, after a warm-up, in CUDA events."""
+    for _ in range(min(reps, 3)):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         t1.record()
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / REPS)
+        times.append(t0.elapsed_time(t1) / reps)
     return statistics.median(times)
 
 
@@ -153,6 +179,18 @@ def max_abs_err(xs, ys, torch) -> float:
             fail(f"output {i}: shape {tuple(x.shape)} vs {tuple(y.shape)}")
         d = (x.to(torch.float64) - y.to(torch.float64)).abs()
         err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def check_equal(name, xs, ys) -> float:
+    """Fail unless every paired output is equal; returns max |x - y|."""
+    import torch
+
+    err = max_abs_err(xs, ys, torch)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        if not torch.equal(x, y):
+            fail(f"{name}: output {i} differs from the plain version "
+                 f"(max |diff| {err})")
     return err
 
 
@@ -226,38 +264,49 @@ def header(torch) -> float:
     return rate
 
 
+def engine_stages(m, a):
+    """The sweep engine's stages as it runs them on one model: the
+    ``cuda`` bundle on ``m`` as a stacked model of one lane and the
+    chains ``a`` as lane 0, with the histograms and the best snapshot of
+    ``a``. Returns ``(bundle, m1, (a1, cnt, lcnt, rcnt), best)``."""
+    import torch
+
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+
+    sc = sweep._make_lane_scorer("cuda")
+    m1, a1 = sweep._one_lane(m), a[None]
+    out, cnt, lcnt, rcnt = sc.full(m1, a1)
+    best = (sweep.best_key(out[..., 0],
+                           out[..., 1:5].sum(-1, dtype=torch.int32)),
+            out[..., 5], a1.clone())
+    return sc, m1, (a1, cnt, lcnt, rcnt), best
+
+
 def sweep_times(torch, m, a, reps: int = 20) -> dict:
     """Median wall ms of one site, exchange and compound sweep and one
-    snapshot (exact rescore, best update, migration) through the
-    ``cuda`` bundle on population ``a``, synchronized around each call;
-    also, for scale, the wall of the plain draws that the fused kernels
-    make in registers: the site sweep's random words, and the exchange
-    sweep's words and pairing; and of the host key derivation that the
-    exchange kernel's wrapper keeps."""
+    snapshot (exact rescore, best update, migration) as the engine runs
+    them (the ``cuda`` bundle, one lane) on population ``a``, synchronized
+    around each call; also, for scale, the wall of the plain draws that
+    the fused kernels make in registers: the site sweep's random words,
+    and the exchange sweep's words and pairing (the stride and the
+    phases' keys are drawn in the exchange launcher's C code)."""
     import numpy as np
 
     from kafka_assignment_optimizer_tpu_torch import prng
-    from kafka_assignment_optimizer_tpu_torch.ops.exchange_cuda import (
-        host_keys,
-    )
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
-    sc = sweep._make_scorer("cuda")
-    _f, _r, cnt, lcnt, rcnt = sc.hists(m, a)
-    out, *_h = sc.full(m, a)
-    best = (sweep.out_key(out), out[:, 5], a.clone())
-    temp = float(np.float32(0.5))
+    sc, m1, st, best = engine_stages(m, a)
+    temps = [float(np.float32(0.5))]
     key = prng.PRNGKey(5)
     calls = {
-        "site": lambda k: sc.site_step(m, a, cnt, lcnt, rcnt, k, temp),
-        "exchange": lambda k: sc.exch_step(m, a, cnt, lcnt, rcnt, k, temp),
-        "compound": lambda k: sc.comp_step(m, a, cnt, lcnt, rcnt, k, temp),
-        "snapshot": lambda k: sweep.snapshot_step(sc, m, a, *best),
+        "site": lambda k: sc.site_step(m1, *st, [k], temps),
+        "exchange": lambda k: sc.exch_step(m1, *st, [k], temps),
+        "compound": lambda k: sc.comp_step(m1, *st, [k], temps),
+        "snapshot": lambda k: sweep.snapshot_step(sc, m1, st[0], *best),
         "site bits draw": lambda k: prng.bits(k, (*a.shape[:2], 8),
                                               a.device),
         "exchange draws": lambda k: exchange_draws(k, *a.shape[:2],
                                                    a.device),
-        "exchange host keys": lambda k: host_keys(k, a.shape[1]),
     }
     out = {}
     for name, fn in calls.items():
@@ -276,25 +325,22 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
 def call_activities(torch, m, a) -> dict:
     """Device activities of one call and their summed device ms, under
     the profiler over REPS calls: B1 on ``a`` and on its first chain, one
-    exchange sweep and one snapshot through the ``cuda`` bundle."""
+    exchange sweep and one snapshot as the engine runs them (the ``cuda``
+    bundle, one lane)."""
     import numpy as np
 
     from kafka_assignment_optimizer_tpu_torch import prng
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
-    sc = sweep._make_scorer("cuda")
-    _f, _r, cnt, lcnt, rcnt = sc.hists(m, a)
-    out, *_h = sc.full(m, a)
-    best = (sweep.out_key(out), out[:, 5], a.clone())
-    a1 = a[:1].clone()
-    temp = float(np.float32(0.5))
+    sc, m1, st, best = engine_stages(m, a)
+    a1 = a[:1].clone()[None]
+    temps = [float(np.float32(0.5))]
     key = prng.PRNGKey(5)
     calls = {
-        "B1 call": lambda: sc.full(m, a),
-        "B1 call N=1": lambda: sc.full(m, a1),
-        "exchange sweep": lambda: sc.exch_step(m, a, cnt, lcnt, rcnt, key,
-                                               temp),
-        "snapshot": lambda: sweep.snapshot_step(sc, m, a, *best),
+        "B1 call": lambda: sc.full(m1, st[0]),
+        "B1 call N=1": lambda: sc.full(m1, a1),
+        "exchange sweep": lambda: sc.exch_step(m1, *st, [key], temps),
+        "snapshot": lambda: sweep.snapshot_step(sc, m1, st[0], *best),
     }
     res = {}
     for name, fn in calls.items():
@@ -425,6 +471,275 @@ def threefry_ops(kernels) -> tuple[int, dict]:
     return count, ops
 
 
+def lane_equal(torch, ms, al, temp: float, label: str) -> tuple:
+    """Hold the three lane launches on the chains ``al [L, N, P, R]`` of
+    the stacked model ``ms`` to their lane plain versions and to L
+    launches of the single-lane wrappers, bit for bit. Returns ``({kernel
+    name: max_abs_err}, (cnt, lcnt, rcnt), keys, temps)``: the lanes'
+    histograms, sweep keys and float32 temperatures (the shared
+    temperature times each lane's scale)."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.ops import exchange_cuda
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
+        score,
+        score_lanes,
+        score_lanes_plain,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops.site_cuda import (
+        site_step_cuda,
+        site_step_lanes,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        arrays,
+        sweep,
+    )
+
+    L = al.shape[0]
+    lanes = [arrays.lane_model(ms, i) for i in range(L)]
+    _o, cnt, lcnt, rcnt = score_lanes_plain(ms, al)
+    temps = [float(np.float32(temp) * np.float32(x))
+             for x in ms.lane_scalars()[2]]
+    keys = [prng.fold_in(prng.PRNGKey(11), i) for i in range(L)]
+
+    def stack(outs):
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    def exch_flat(out):
+        return (out[0], out[1], *out[2], out[3], out[4])
+
+    errs = {}
+    got = score_lanes(ms, al)
+    errs[kernels.SCORE.name] = max(
+        check_equal(f"B1 ({label}) vs plain", got,
+                    score_lanes_plain(ms, al)),
+        check_equal(f"B1 ({label}) vs {L} launches", got,
+                    stack(score(lanes[i], al[i]) for i in range(L))))
+    got = site_step_lanes(ms, al, cnt, lcnt, rcnt, keys, temps)
+    errs[kernels.SITE.name] = max(
+        check_equal(f"site sweep ({label}) vs plain", got,
+                    sweep.site_lanes_delta(ms, al, cnt, lcnt, rcnt, keys,
+                                           temps)),
+        check_equal(f"site sweep ({label}) vs {L} launches", got,
+                    stack(site_step_cuda(lanes[i], al[i], cnt[i], lcnt[i],
+                                         rcnt[i], keys[i], temps[i])
+                          for i in range(L))))
+    got = exch_flat(exchange_cuda.exchange_sweep_lanes(ms, al, lcnt, keys,
+                                                       temps))
+    errs[kernels.EXCHANGE.name] = max(
+        check_equal(f"exchange sweep ({label}) vs plain", got, stack(
+            exch_flat(exchange_cuda._plain_sweep(
+                lanes[i], al[i], lcnt[i], keys[i], temps[i]))
+            for i in range(L))),
+        check_equal(f"exchange sweep ({label}) vs {L} launches", got,
+                    stack(exch_flat(exchange_cuda.exchange_sweep_cuda(
+                        lanes[i], al[i], lcnt[i], keys[i], temps[i]))
+                        for i in range(L))))
+    torch.cuda.synchronize()
+    changed = int((got[0] != al).any(-1).sum())
+    print(f"  {label}: the three lane launches equal their plain versions "
+          f"and {L} single-lane launches ({changed} chain-partitions "
+          "changed by the exchange sweep)")
+    return errs, (cnt, lcnt, rcnt), keys, temps
+
+
+def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
+                 tf_ops: int, solo_device_us: dict) -> list[dict]:
+    """The lane forms at the main path's shapes: L=8 lanes of the
+    adversarial bucket on the eight ``PORTFOLIO_TABLE`` configs (the
+    tables shared, lane stride 0), each lane its own chain order; then 3
+    lanes of three instances whose tables and bands differ. Each lane
+    launch must equal its lane plain version and L single-lane launches,
+    and make one launch and no other device activity a call. Returns the
+    ``kernels`` rows of the 8-lane launches (launches filled in later)."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import exchange_cuda
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
+        score_lanes,
+        score_lanes_plain,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops.site_cuda import (
+        site_step_lanes,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        arrays,
+        bucket,
+        sweep,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    L = 8
+    N, P, R = a.shape
+    B1 = m.num_brokers + 1
+    ms = arrays.stack_models([arrays.with_config(m, c)
+                              for c in arrays.portfolio_configs(L)])
+    al = torch.stack([a.roll(i, 0) for i in range(L)])
+    print(f"lane kernels (L={L} portfolio configs, N={N} P={P} R={R} "
+          f"B+1={B1}):")
+    errs, (cnt, lcnt, rcnt), keys, temps = lane_equal(
+        torch, ms, al, temp, f"{L} portfolio lanes")
+    lanes = [arrays.lane_model(ms, i) for i in range(L)]
+
+    calls = {
+        kernels.SCORE.name: (lambda: score_lanes(ms, al),
+                             lambda: score_lanes_plain(ms, al)),
+        kernels.SITE.name: (
+            lambda: site_step_lanes(ms, al, cnt, lcnt, rcnt, keys, temps),
+            lambda: sweep.site_lanes_delta(ms, al, cnt, lcnt, rcnt, keys,
+                                           temps)),
+        kernels.EXCHANGE.name: (
+            lambda: exchange_cuda.exchange_step_lanes(
+                ms, al, cnt, lcnt, rcnt, keys, temps),
+            lambda: sweep.exchange_lanes_delta(ms, al, cnt, lcnt, rcnt,
+                                               keys, temps)),
+    }
+    for k in kernels.KERNELS:
+        one_launch(f"an {L}-lane {k.name}", calls[k.name][0], k,
+                   KERNEL_FUNCS[k.name][0], torch)
+
+    # the bounds at L=8: each input once (the shared tables once), the
+    # distinct weight and a0 entries every lane reads (one table, so
+    # the lanes' reads overlap), each output once; the operations as in
+    # the single-lane rows, summed over the lanes
+    flat = torch.where(m.slot_valid[None, None], al, m.num_brokers)
+    b1_reads = [(t, al[i, :, :, r], m.slot_valid[None, :, r])
+                for i in range(L) for t, r in
+                [(0, r) for r in range(R)] + [(1, r) for r in range(1, R)]]
+    b1_bytes = (nbytes(al, m.slot_valid, m.part_rack_hi, m.rack_of,
+                       m.rack_lo, m.rack_hi)
+                + gathered(B1, *b1_reads)
+                + nbytes(*score_lanes(ms, al)))
+    a0_keys, site_reads, real = [], [], 0
+    for i in range(L):
+        bits = prng.bits(keys[i], (N, P, 8), dev)
+        pp = sweep.propose_site(lanes[i], al[i], bits, temps[i],
+                                hists=sweep._carried(cnt[i], lcnt[i],
+                                                     rcnt[i]))
+        s_orig = sweep._rand_idx(arrays.u01(bits[..., 3]), R)
+        a0_keys.append((torch.arange(P, device=dev)[None] * R
+                        + s_orig).reshape(-1))
+        in_row = ((al[i] == pp.b_new[..., None])
+                  & m.slot_valid[None]).any(-1)
+        legal = torch.where(pp.is_lsw, m.rf > 1, ~in_row) & (m.rf > 0)
+        rep_, lsw = legal & ~pp.is_lsw, legal & pp.is_lsw
+        tbl = (pp.s != 0).to(torch.int64)
+        site_reads += [(tbl, pp.b_new, rep_), (tbl, pp.b_at_s, rep_),
+                       (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
+                       (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw)]
+        real += N * int((m.rf > 0).sum())
+    site_bytes = (nbytes(al, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
+                         m.rack_lo, m.rack_hi, cnt, lcnt, rcnt)
+                  + int(torch.unique(torch.cat(a0_keys)).numel()) * 4
+                  + gathered(B1, *site_reads)
+                  + nbytes(*calls[kernels.SITE.name][0]()))
+    ex = exchange_cuda.exchange_sweep_lanes(ms, al, lcnt, keys, temps)
+    s_own, b_other, acc = ex[2][0], ex[2][1], ex[2][4] > 0
+    b_own = al.gather(3, s_own.clamp(min=0)[..., None].long())[..., 0]
+    tbl = (s_own != 0).to(torch.int64)
+    ex_reads = [(tbl[i], b_other[i], acc[i]) for i in range(L)] + [
+        (tbl[i], b_own[i], acc[i]) for i in range(L)]
+    ex_bytes = (nbytes(al, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
+                       lcnt)
+                + gathered(B1, *ex_reads) + nbytes(ex[0], ex[1]))
+    n_words = real + int(acc.sum()) // 2 + 2 * N * L
+    bounds = {
+        kernels.SCORE.name: (b1_bytes, L * N * P * R * (12 + 2 * R), 0),
+        kernels.SITE.name: (site_bytes, real * tf_ops, real * 9),
+        kernels.EXCHANGE.name: (ex_bytes, round(n_words * tf_ops / 7),
+                                n_words),
+    }
+    # the library yardsticks: the replica histogram of every lane in one
+    # torch.bincount; the exchange maps of every lane in one
+    # scatter_reduce_
+    keys_b = (torch.arange(L * N, device=dev).reshape(L, N, 1, 1) * B1
+              + flat).reshape(-1)
+    idx = torch.cat([ex[2][2], ex[2][3] + B1], -1).reshape(L * N, -1).long()
+    src = torch.cat([ex[2][4], ex[2][4]], -1).reshape(L * N, -1)
+    maps = torch.zeros(L * N, 2 * B1, dtype=torch.float32, device=dev)
+    library = {
+        kernels.SCORE.name: timed(
+            lambda: torch.bincount(keys_b, minlength=L * N * B1), torch),
+        kernels.SITE.name: None,
+        kernels.EXCHANGE.name: timed(
+            lambda: maps.scatter_reduce_(1, idx, src, "amax"), torch),
+    }
+    rows = []
+    for k in kernels.KERNELS:
+        call, plain = calls[k.name]
+        events, _w = profiled(call, torch, REPS)
+        mine = [us for name, us in events if KERNEL_FUNCS[k.name][0] in name]
+        dev_ms = sum(mine) / REPS / 1e3 if len(mine) == REPS else None
+        bytes_, int_ops, fp_ops = bounds[k.name]
+        t_bytes = bytes_ / HBM_BYTES_PER_S
+        t_ops = max(int_ops / int32_ops_per_s, fp_ops / FP32_OPS_PER_S)
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        ms_ = timed(call, torch)
+        plain_ms = timed(plain, torch, reps=2, windows=3)
+        solo = solo_device_us.get(k.name)
+        rows.append({
+            "name": f"{k.name} ({L} lanes)", "route": "cuda",
+            "source": f"kafka_assignment_optimizer_tpu_torch/csrc/"
+                      f"{k.source}.cu",
+            "replaces": " + ".join(r.split(" ")[0] for r in k.replaces),
+            "launches": 0, "max_abs_err": errs[k.name], "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library[k.name],
+        })
+        print(f"  {k.name} at L={L}: exact; wrapper {ms_:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bytes_} bytes, "
+              f"{int_ops} INT32 ops), library "
+              + ("n/a" if library[k.name] is None
+                 else f"{library[k.name]:.4f} ms")
+              + ", device (profiler) L=8 "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.5f} ms")
+              + ", L=1 "
+              + ("not measured" if solo is None else f"{solo / 1e3:.5f} ms"))
+
+    # the stages with no kernel, run lane by lane: the compound sweep and
+    # the snapshot (one B1 for every lane, then each lane's bookkeeping
+    # and migration)
+    sc = sweep._make_lane_scorer("cuda")
+    out = sc.full(ms, al)
+    best = (sweep.best_key(out[0][..., 0],
+                           out[0][..., 1:5].sum(-1, dtype=torch.int32)),
+            out[0][..., 5], al.clone())
+    comp_ms = timed(lambda: sc.comp_step(ms, al, cnt, lcnt, rcnt, keys,
+                                         temps), torch, reps=2, windows=3)
+    snap_ms = timed(lambda: sweep.snapshot_step(sc, ms, al, *best),
+                    torch, reps=2, windows=3)
+    print(f"  L={L} stages without a kernel (lane by lane, CUDA events): "
+          f"compound sweep {comp_ms:.4f} ms, snapshot {snap_ms:.4f} ms")
+
+    # three lanes whose tables and bands differ: three adversarial
+    # instances of one bucket with 10,000, 9,800 and 9,600 partitions
+    ms3, pops = [], []
+    for i, ppt in enumerate((100, 98, 96)):
+        scen = gen.adversarial(parts_per_topic=ppt, seed=i)
+        inst = build_instance(scen.current, scen.broker_list, scen.topology)
+        if bucket.bucket_shape(inst) != (P, R):
+            fail(f"lane batch: instance {i} has bucket "
+                 f"{bucket.bucket_shape(inst)}, expected {(P, R)}")
+        mi = arrays.from_instance(inst, dev, num_parts=P, max_rf=R)
+        ms3.append(mi)
+        pops.append(torch.where(mi.slot_valid[None], a.roll(i, 0),
+                                mi.num_brokers))
+    ms3 = arrays.stack_models(ms3)
+    if len(set(ms3.lane_scalars()[0])) < 2:
+        fail("lane batch: the three instances' bands do not differ")
+    lane_equal(torch, ms3, torch.stack(pops), temp,
+               "3 lanes of three instances")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -443,6 +758,9 @@ def main() -> int:
     # ---- 1. header ------------------------------------------------------
     int32_ops_per_s = header(torch)
 
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
     from kafka_assignment_optimizer_tpu_torch.ops.exchange_cuda import (
         exchange_sweep_cuda,
     )
@@ -516,14 +834,6 @@ def main() -> int:
               "device (profiler) "
               + ("not measured" if device_us[k.name] is None
                  else f"{device_us[k.name] / 1e3:.4f} ms"))
-
-    def check_equal(name, xs, ys):
-        err = max_abs_err(xs, ys, torch)
-        for i, (x, y) in enumerate(zip(xs, ys)):
-            if not torch.equal(x, y):
-                fail(f"{name}: output {i} differs from the plain version "
-                     f"(max |diff| {err})")
-        return err
 
     NP = N * Pp
     print("kernel check:")
@@ -658,8 +968,8 @@ def main() -> int:
               f"{int((ref[0] != a).any(-1).sum())} partitions changed)")
     got = exch(temp)
     ref = exch_plain(temp)
-    sc = sweep._make_scorer("cuda")
-    # one exchange sweep through the cuda bundle: no prng draw on the
+    sc, m1, st, _best = engine_stages(m, a)
+    # one exchange sweep as the engine runs it: no prng draw on the
     # device, and exactly one device activity, the fused launch
     drawn = []
 
@@ -674,16 +984,16 @@ def main() -> int:
     bits_fn, randint_fn = prng.bits, prng.randint
     prng.bits, prng.randint = spy(bits_fn, 2), spy(randint_fn, 4)
     try:
-        sc.exch_step(m, a, cnt, lcnt, rcnt, key, temp)
+        sc.exch_step(m1, *st, [key], [temp])
     finally:
         prng.bits, prng.randint = bits_fn, randint_fn
     if drawn:
         fail(f"one exchange sweep drew {drawn} on the device")
     names = one_launch(
         "an exchange sweep",
-        lambda: sc.exch_step(m, a, cnt, lcnt, rcnt, key, temp),
+        lambda: sc.exch_step(m1, *st, [key], [temp]),
         kernels.EXCHANGE, "exchange_sweep", torch)
-    print(f"  (one exchange sweep through the cuda bundle: one device "
+    print(f"  (one exchange sweep as the engine runs it: one device "
           f"activity, no prng draw on the device: {names})")
     # the library yardstick of the maps: one scatter_reduce_ amax over
     # both token sets side by side
@@ -721,10 +1031,15 @@ def main() -> int:
            round(n_words * tf_ops / 7), n_words, lib,
            lambda: exch(temp))
 
+    # ---- 3b. the lane forms ----------------------------------------------
+    lane_rows = lane_kernels(torch, dev, m, a, temp, int32_ops_per_s, tf_ops,
+                             device_us)
+
     # ---- 4. sweep times --------------------------------------------------
-    print("sweep times (cuda bundle, median wall ms, synchronized): "
+    print("sweep times (cuda bundle, one lane, median wall ms, "
+          "synchronized): "
           + json.dumps(sweep_times(torch, m, a)))
-    print("device activities a call (cuda bundle, profiler): "
+    print("device activities a call (cuda bundle, one lane, profiler): "
           + json.dumps(call_activities(torch, m, a)))
 
     # ---- 5. trajectory check: cuda bundle vs torch bundle ---------------
@@ -807,60 +1122,205 @@ def main() -> int:
           f"{sum(k.launches for k in kernels.KERNELS)} ({power})")
 
     # (b) the annealer pinned by its knobs (setting them turns the reseat
-    # race off, as in the reference): 8 chains x 128 sweeps on the card,
-    # every kernel, then certify-first selection. The boundary
-    # certificate is off (it would end the ladder at its first boundary
-    # wherever a chunk takes over cert_min_savings_s, as on a CPU), so
-    # the path does not depend on the card's speed
-    kernels.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = optimize(scen.current, scen.broker_list, scen.topology,
-                   solver="tpu", batch=8, rounds=128,
-                   cert_min_savings_s=float("inf"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k.name: k.launches for k in kernels.KERNELS}
-    rep = res.report()
-    st = res.solve.stats
-    if not rep["feasible"]:
-        fail(f"adversarial: infeasible plan ({rep['violations']})")
-    if (st["engine"], st["chains_per_device"], st["rounds_run"]) != (
-            "sweep", 8, 128):
-        fail(f"adversarial: ran {st['engine']} {st['chains_per_device']} "
-             f"chains x {st['rounds_run']} sweeps, expected sweep 8 x 128")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"{name} was not launched on the main path")
-    # one fused launch an exchange sweep: sweeps 1, 5, 9, ...
-    n_exch = st["rounds"] // 4
-    if counts[kernels.EXCHANGE.name] != n_exch:
-        fail(f"{kernels.EXCHANGE.name}: {counts[kernels.EXCHANGE.name]} "
-             f"launches on the main path, expected one an exchange sweep "
-             f"({n_exch})")
-    if st.get("final_cert") not in ("ok", "ok_reseat"):
-        fail(f"adversarial: final_cert {st.get('final_cert')!r}, expected "
-             "a certificate at final selection")
-    if (res.replica_moves, res.solve.objective, res.solve.optimal) != (
-            117, 59_802, True):
-        fail(f"adversarial: {res.replica_moves} moves, weight "
-             f"{res.solve.objective}, proven {res.solve.optimal}; expected "
-             "117, 59802, proven")
-    print(f"adversarial pinned (batch=8, rounds=128): feasible, "
-          f"{res.replica_moves} moves (lower bound {st['moves_lb']}, seed "
-          f"{st['seed_moves']}), weight {res.solve.objective} (bound "
-          f"{st['weight_ub']}), final_cert {st['final_cert']}, proven "
-          f"optimal, {st['chains_per_device']} chains x {st['rounds_run']} "
-          f"sweeps, wall {wall:.3f} s ({power})")
-    print("adversarial pinned phases (s): " + json.dumps({
-        k: st[k] for k in ("build_s", "race_s", "seed_s", "lower_s",
-                           "anneal_s", "select_s", "polish_s",
-                           "verify_s")}))
-    print("launches on the main path: " + json.dumps(counts))
+    # race off, as in the reference) with the portfolio off: the solo
+    # anchor, 8 chains x 128 sweeps on the card, every kernel, then
+    # certify-first selection. The boundary certificate is off (it would
+    # end the ladder at its first boundary wherever a chunk takes over
+    # cert_min_savings_s, as on a CPU), so the path does not depend on the
+    # card's speed
+    pinned = dict(solver="tpu", batch=8, rounds=128,
+                  cert_min_savings_s=float("inf"))
+    phase_keys = ("build_s", "race_s", "seed_s", "lower_s", "anneal_s",
+                  "select_s", "polish_s", "verify_s")
+
+    def adversarial_solve(label, portfolio):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize(scen.current, scen.broker_list, scen.topology,
+                       portfolio=portfolio, **pinned)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        rep = res.report()
+        st = res.solve.stats
+        if not rep["feasible"]:
+            fail(f"{label}: infeasible plan ({rep['violations']})")
+        if (st["engine"], st["chains_per_device"], st["rounds_run"]) != (
+                "sweep", 8, 128):
+            fail(f"{label}: ran {st['engine']} {st['chains_per_device']} "
+                 f"chains x {st['rounds_run']} sweeps, expected sweep 8 x "
+                 "128")
+        for name, n in counts.items():
+            if n <= 0:
+                fail(f"{label}: {name} was not launched on the main path")
+        # one launch a site sweep (sweeps 0, 2, 4, ...) and an exchange
+        # sweep (sweeps 1, 5, 9, ...), for every lane at once
+        n_site, n_exch = st["rounds"] // 2, st["rounds"] // 4
+        if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) != (
+                n_site, n_exch):
+            fail(f"{label}: site / exchange kernel launched "
+                 f"{counts[kernels.SITE.name]} / "
+                 f"{counts[kernels.EXCHANGE.name]} times, expected one a "
+                 f"sweep ({n_site} / {n_exch})")
+        if st.get("final_cert") not in ("ok", "ok_reseat"):
+            fail(f"{label}: final_cert {st.get('final_cert')!r}, expected "
+                 "a certificate at final selection")
+        # the JAX package's plan for this call (its CPU run on one device,
+        # either setting: 117 moves, weight 59,802, proven)
+        if (res.replica_moves, res.solve.objective, res.solve.optimal) != (
+                117, 59_802, True):
+            fail(f"{label}: {res.replica_moves} moves, weight "
+                 f"{res.solve.objective}, proven {res.solve.optimal}; "
+                 "expected 117, 59802, proven")
+        print(f"{label} (batch=8, rounds=128): feasible, "
+              f"{res.replica_moves} moves (lower bound {st['moves_lb']}, "
+              f"seed {st['seed_moves']}), weight {res.solve.objective} "
+              f"(bound {st['weight_ub']}), final_cert {st['final_cert']}, "
+              f"proven optimal, {st['chains_per_device']} chains x "
+              f"{st['rounds_run']} sweeps, wall {wall:.3f} s ({power})")
+        print(f"{label} phases (s): "
+              + json.dumps({k: st[k] for k in phase_keys}))
+        print(f"{label} launches: " + json.dumps(counts))
+        return res, counts, wall
+
+    _res, counts, wall_solo = adversarial_solve("adversarial pinned solo",
+                                                False)
+    if "portfolio" in _res.solve.stats:
+        fail("adversarial pinned solo: ran the portfolio")
     for row in rows:
         row["launches"] = counts[row["name"]]
 
-    # (c) the chain engine on the card at its card budget (512 chains x
+    # (c) the same call with the portfolio at its default: the eight
+    # PORTFOLIO_TABLE configs as eight lanes, one launch of each kernel a
+    # sweep for all of them; the plan the JAX package gives for it
+    res, port_counts, wall_port = adversarial_solve(
+        "adversarial portfolio", None)
+    p = res.solve.stats.get("portfolio") or {}
+    if (p.get("width"), p.get("lane_bucket")) != (8, 8):
+        fail(f"adversarial portfolio: stats {p}, expected width 8 and "
+             "lane_bucket 8")
+    if port_counts[kernels.SCORE.name] > counts[kernels.SCORE.name]:
+        fail(f"adversarial portfolio: B1 launched "
+             f"{port_counts[kernels.SCORE.name]} times, more than the solo "
+             f"solve's {counts[kernels.SCORE.name]}")
+    print(f"adversarial portfolio: winner lane {p['winner_lane']} "
+          f"{json.dumps(p['winner_config'])}; wall {wall_port:.3f} s "
+          f"against the solo {wall_solo:.3f} s ({power})")
+    for row in lane_rows:
+        row["launches"] = port_counts[row["name"].split(" (")[0]]
+
+    # (d) messy_case(1) (seed=1, engine="sweep", batch=8, rounds=32): the
+    # portfolio's plan and the solo plan differ (here both feasible; the
+    # JAX package on one device gives weights 18 and 17), and each equals
+    # the port's plain path on the CPU, computed here
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.engine import (
+        solve_tpu,
+        solve_tpu_batch,
+    )
+
+    current, brokers, topo, target_rf = gen.messy_case(1)
+    messy = {}
+    for portfolio in (None, False):
+        for device in ("cuda", "cpu"):
+            inst = build_instance(current, brokers, topo, target_rf)
+            inst.move_lower_bound_exact()
+            inst.weight_upper_bound()
+            r = solve_tpu(inst, seed=1, engine="sweep", batch=8, rounds=32,
+                          portfolio=portfolio, device=device,
+                          cert_min_savings_s=float("inf"))
+            messy[portfolio, device] = r
+        card, cpu = messy[portfolio, "cuda"], messy[portfolio, "cpu"]
+        if not np.array_equal(card.a, cpu.a):
+            fail(f"messy_case(1) portfolio={portfolio}: the card's plan "
+                 "differs from the CPU's")
+    port, solo = messy[None, "cuda"], messy[False, "cuda"]
+    if not port.stats["feasible"] or (port.objective, solo.objective) != (
+            18, 17):
+        fail(f"messy_case(1): portfolio feasible {port.stats['feasible']} "
+             f"weight {port.objective}, solo weight {solo.objective}; "
+             "expected a feasible portfolio plan of weight 18 and a solo "
+             "plan of 17")
+    print(f"messy_case(1): portfolio feasible, {port.stats['moves']} moves, "
+          f"weight {port.objective} (winner lane "
+          f"{port.stats['portfolio']['winner_lane']}); solo feasible "
+          f"{solo.stats['feasible']}, weight {solo.objective}; both equal "
+          "to the CPU's plans")
+
+    # (e) the batch path: 8 full-size adversarial instances (seeds 0-7:
+    # 256 brokers, 10,000 partitions each, one 10,240 x 4 bucket) through
+    # optimize_batch at its defaults, every lane feasible and verified;
+    # lanes 0 and 7 each equal a one-instance solve_tpu_batch
+    from kafka_assignment_optimizer_tpu_torch import optimize_batch
+
+    t0 = time.perf_counter()
+    scens = [gen.adversarial(seed=i) for i in range(8)]
+    insts = [build_instance(x.current, x.broker_list, x.topology)
+             for x in scens]
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = optimize_batch([x.current for x in scens], insts)
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    batch_counts = {k.name: k.launches for k in kernels.KERNELS}
+    for i, r in enumerate(out):
+        st = r.solve.stats
+        if not r.report()["feasible"] or (st["lanes"], st["lane"],
+                                          st["lane_bucket"]) != (8, i, 8):
+            fail(f"batch lane {i}: feasible {r.report()['feasible']}, "
+                 f"lanes {st['lanes']} lane {st['lane']} bucket "
+                 f"{st['lane_bucket']}")
+    for i in (0, 7):
+        one = solve_tpu_batch([insts[i]], seeds=i)[0]
+        if not np.array_equal(one.a, out[i].solve.a):
+            fail(f"batch lane {i} differs from its one-instance batch")
+    st = out[0].solve.stats
+    print(f"batch: 8 adversarial instances (seeds 0-7), {st['engine']} "
+          f"{st['chains_per_device']} chains x {st['rounds_run']} sweeps, "
+          f"every lane feasible and verified, moves "
+          f"{[r.replica_moves for r in out]}; wall {batch_wall:.3f} s "
+          f"({8 / batch_wall:.3f} instances/s; building the instances "
+          f"{build_s:.3f} s more), launches {json.dumps(batch_counts)}; "
+          f"lanes 0 and 7 equal their one-instance batches ({power})")
+    # the lane padding: 3 of the instances padded up the lane ladder to 8
+    # lanes (the default) and run at 3 lanes (KAO_LANE_BUCKETS=off), in
+    # the order padded, unpadded, unpadded, padded; the real lanes' plans
+    # are equal either way
+    walls = {"8": [], "off": []}
+    plans = {}
+    saved = os.environ.get("KAO_LANE_BUCKETS")
+    try:
+        for env in ("8", "off", "off", "8"):
+            if env == "off":
+                os.environ["KAO_LANE_BUCKETS"] = "off"
+            else:
+                os.environ.pop("KAO_LANE_BUCKETS", None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = solve_tpu_batch(insts[:3], seeds=0)
+            torch.cuda.synchronize()
+            walls[env].append(time.perf_counter() - t0)
+            if got[0].stats["lane_bucket"] != (8 if env == "8" else 3):
+                fail(f"lane padding {env}: lane_bucket "
+                     f"{got[0].stats['lane_bucket']}")
+            plans.setdefault(env, [r.a for r in got])
+    finally:
+        if saved is None:
+            os.environ.pop("KAO_LANE_BUCKETS", None)
+        else:
+            os.environ["KAO_LANE_BUCKETS"] = saved
+    if not all(np.array_equal(x, y) for x, y in zip(plans["8"],
+                                                     plans["off"])):
+        fail("lane padding: 3 instances at 8 lanes and at 3 lanes give "
+             "different plans")
+    print(f"batch of 3 (seeds 0-2): padded to 8 lanes wall "
+          f"{walls['8'][0]:.3f} / {walls['8'][1]:.3f} s, at 3 lanes "
+          f"{walls['off'][0]:.3f} / {walls['off'][1]:.3f} s, plans equal "
+          f"({power})")
+
+    # (f) the chain engine on the card at its card budget (512 chains x
     # 24 rounds x 256 steps), plain PyTorch replayed as CUDA graphs:
     # feasible, and the engine's verification holds B1 to the numpy
     # oracle on its plan
@@ -904,15 +1364,12 @@ def main() -> int:
         np.random.default_rng(0), n_brokers=12, n_parts=40, rf=2,
         n_racks=2, drop=2), 256)
 
-    # (d) the sweep->chain retry at its largest: a defaulted solve below
+    # (g) the sweep->chain retry at its largest: a defaulted solve below
     # 512 partitions whose sweep ends infeasible retries the chain engine
     # at the card's budget, 512 chains x 24 rounds x 4P steps, with no
     # time limit unless the caller set one. One round as CUDA graphs
     # against the eager step loop (equal state, both timed), then the
     # whole chain solve the retry runs
-    from kafka_assignment_optimizer_tpu_torch.models.instance import (
-        build_instance,
-    )
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
         anneal,
         bucket,
@@ -981,7 +1438,7 @@ def main() -> int:
           f"{1e3 * anneal_s / (24 * steps):.4f} ms a step ({power})")
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + lane_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

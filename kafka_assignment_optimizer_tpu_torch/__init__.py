@@ -14,7 +14,7 @@ package imports neither JAX nor the reference package.
 - ``prng``    — threefry2x32 random bits, equal to the reference's
 """
 
-from .api import OptimizeResult, optimize  # noqa: F401
+from .api import OptimizeResult, optimize, optimize_batch  # noqa: F401
 from .models.cluster import (  # noqa: F401
     Assignment,
     MoveReport,

@@ -1,5 +1,6 @@
-"""High-level entry point: ``optimize()`` — parse, build the model, solve,
-decode, diff (the reference package's ``api.optimize``, call for call).
+"""High-level entry points: ``optimize()`` — parse, build the model, solve,
+decode, diff (the reference package's ``api.optimize``, call for call) —
+and ``optimize_batch()``, L prebuilt instances in one lane ladder.
 
 The solve runs on the card unless the caller passes ``device="cpu"``.
 """
@@ -99,3 +100,37 @@ def optimize(
         instance=inst,
         wall_clock_s=time.perf_counter() - t0,
     )
+
+
+def optimize_batch(
+    currents: Sequence[Assignment],
+    instances: Sequence[ProblemInstance],
+    seeds: int | Sequence[int] = 0,
+    **solver_kwargs,
+) -> list[OptimizeResult]:
+    """Solve L independent prebuilt instances in one lane ladder
+    (``solvers.tpu.engine.solve_tpu_batch``) and decode each lane back to
+    its own plan and move diff. ``currents[i]`` must be the assignment
+    ``instances[i]`` was built from (the diff is computed against it).
+    ``device`` picks the solve device: the card by default, ``"cpu"`` on
+    request."""
+    if len(currents) != len(instances):
+        raise ValueError(
+            f"{len(currents)} assignments for {len(instances)} instances"
+        )
+    from .solvers.tpu.engine import solve_tpu_batch
+
+    t0 = time.perf_counter()
+    results = solve_tpu_batch(list(instances), seeds=seeds, **solver_kwargs)
+    wall = time.perf_counter() - t0
+    out = []
+    for current, inst, res in zip(currents, instances, results):
+        plan = inst.decode(res.a)
+        out.append(OptimizeResult(
+            assignment=plan,
+            moves=move_diff(current, plan),
+            solve=res,
+            instance=inst,
+            wall_clock_s=wall,
+        ))
+    return out

@@ -8,6 +8,35 @@
 #include <stdint.h>
 
 #define KAO_MAX_R 16  // largest replica-slot count the kernels take
+#define KAO_MAX_LANES 64  // most lanes one launch takes
+
+// The model tables of every lane of a launch: lane l's table starts at
+// base + l * stride elements, stride 0 where the lanes share one table
+// (a portfolio's lanes differ only in their scalars). The wrappers fill
+// it from a single model (every stride 0) or a stacked one.
+struct ModelTabs {
+  const int* a0;            // [P, R]
+  long long a0_s;
+  const int* rf;            // [P]
+  long long rf_s;
+  const uint8_t* valid;     // [P, R]
+  long long valid_s;
+  const int* part_rack_hi;  // [P]
+  long long part_rack_hi_s;
+  const int* w_lead;        // [P, B1]
+  long long w_lead_s;
+  const int* w_foll;        // [P, B1]
+  long long w_foll_s;
+  const int* rack_of;       // [B1]
+  long long rack_of_s;
+  const int* rack_lo;       // [K1]
+  long long rack_lo_s;
+  const int* rack_hi;       // [K1]
+  long long rack_hi_s;
+};
+
+// lane l's copy of table x of a ModelTabs
+#define KAO_LANE(t, x, l) ((t).x + (size_t)(l) * (t).x##_s)
 
 // integer band-violation magnitude of count c vs [lo, hi]
 __device__ __forceinline__ int band_pen(int c, int lo, int hi) {

@@ -13,6 +13,16 @@
 // bit, and leaves the records s, b_other, tok_out, tok_in, prio [N, P] and
 // the maps m_out, m_in [N, B+1] of sweep.exchange_propose in its scratch.
 //
+// Lanes: one launch runs the sweep of L lanes (the portfolio's configs or
+// a batch's instances), each against its own tables (ModelTabs, lane
+// stride 0 where they are shared), leader band, penalty scale, temperature
+// and key; the grid-stride loops run over all L * N chains, and one
+// grid.sync() serves every lane. The host draws of a lane's sweep (the
+// stride d, the key of its words and the two keys of its phases: ten
+// threefry words, sweep.propose_exchange's) are made here in the launcher,
+// from the lane's sweep key, in a loop over the lanes. A lane's outputs
+// are what a launch on that lane alone writes.
+//
 // Design, for Hopper:
 //
 // - Three phases behind two grid-wide barriers (cooperative_groups'
@@ -34,10 +44,10 @@
 // - The pairing in the launch. The reference keeps the pairing, the
 //   partner views and the combination of the halves in XLA because a TPU
 //   gather is slow; here a partner's row is one load. The stride d stays a
-//   host draw (a shift amount, known before the launch). Each chain's phase
-//   is jax.random.randint(kph, (N, 1), 0, 2d): the randint's two words at
-//   counter n (the wrapper splits kph on the host) and its uint32
-//   arithmetic. Then partition p is on the lower side iff ((p + phase) / d)
+//   host draw (a shift amount, known before the launch: the launcher draws
+//   it). Each chain's phase is jax.random.randint(kph, (N, 1), 0, 2d): the
+//   randint's two words at counter n (the launcher splits kph) and its
+//   uint32 arithmetic. Then partition p is on the lower side iff ((p + phase) / d)
 //   is even, and pairs with p + d (lower) or p - d (upper).
 // - Random words in registers. Word j of partition q is threefry2x32 of the
 //   64-bit counter (n*P + q)*4 + j with the outputs xor-ed, as prng.bits
@@ -88,6 +98,37 @@ namespace cg = cooperative_groups;
 #define KAO_EXCH_FAKE_WORDS 0
 #endif
 
+// a lane's scalars as the wrapper passes them: the sweep's key
+struct ExchLaneIn {
+  uint32_t k0, k1;
+  float temp, lam;
+  int llo, lhi;
+};
+
+// a lane's scalars in the launch, with the launcher's host draws
+struct ExchLane {
+  uint32_t k0, k1;          // the key of the bits [N, P, 4]
+  uint32_t h0, h1, l0, l1;  // the phase randint's keys: higher, lower word
+  float temp, lam;
+  int d, llo, lhi;
+};
+
+// what the launch takes: every lane
+struct ExchLaunch {
+  ModelTabs t;
+  ExchLane lane[KAO_MAX_LANES];
+  const int* a;     // [L, N, P, R]
+  const int* lcnt;  // [L, N, B1]
+  int* a_new;       // [L, N, P, R], every element written
+  int* lcnt_new;    // [L, N, B1]
+  int* rec;    // [L, 5, N, P] scratch
+  int* maps;   // [L, 2, N, B1] scratch
+  int* phase;  // [L, N] scratch
+  int L, N, P, R, B1;
+  int nblk;  // partition tiles of KAO_THREADS a chain
+};
+
+// one lane's view of the launch
 struct ExchArgs {
   const int* a;             // [N, P, R]
   const int* rf;            // [P]
@@ -109,6 +150,24 @@ struct ExchArgs {
   int N, P, R, B1;
   int nblk;  // partition tiles of KAO_THREADS a chain
 };
+
+__device__ __forceinline__ ExchArgs exch_view(const ExchLaunch& G, int l) {
+  const ExchLane& x = G.lane[l];
+  const size_t n0 = (size_t)l * G.N;
+  const size_t rows = n0 * G.P * G.R;
+  return ExchArgs{G.a + rows,
+                  KAO_LANE(G.t, rf, l),
+                  KAO_LANE(G.t, valid, l),
+                  KAO_LANE(G.t, part_rack_hi, l),
+                  KAO_LANE(G.t, w_lead, l),
+                  KAO_LANE(G.t, w_foll, l),
+                  KAO_LANE(G.t, rack_of, l),
+                  G.lcnt + n0 * G.B1, G.a_new + rows,
+                  G.lcnt_new + n0 * G.B1, G.rec + 5 * n0 * G.P,
+                  G.maps + 2 * n0 * G.B1, G.phase + n0,
+                  x.k0, x.k1, x.h0, x.h1, x.l0, x.l1, x.temp, x.lam,
+                  x.d, x.llo, x.lhi, G.N, G.P, G.R, G.B1, G.nblk};
+}
 
 // the word at counter c under key (k0, k1), k2 = k0 ^ k1 ^ 0x1BD11BDA
 __device__ __forceinline__ uint32_t word(uint32_t k0, uint32_t k1,
@@ -313,27 +372,31 @@ __device__ __forceinline__ void finish(const ExchArgs& g, int n, int p) {
 }
 
 __global__ void __launch_bounds__(KAO_THREADS)
-    exchange_sweep(const ExchArgs g) {
+    exchange_sweep(const ExchLaunch G) {
   cg::grid_group grid = cg::this_grid();
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t NB1 = (size_t)g.N * g.B1;
-  const int tiles = g.N * g.nblk;
+  const int chains = G.L * G.N;
+  const size_t NB1 = (size_t)chains * G.B1;
+  const int tiles = chains * G.nblk;
 
   // ---- phase 0: maps, lcnt', the chains' phases -----------------------
-  for (size_t j = tid; j < 2 * NB1; j += stride) g.maps[j] = 0;
-  for (size_t j = tid; j < NB1; j += stride) g.lcnt_new[j] = g.lcnt[j];
-  for (size_t j = tid; j < (size_t)g.N; j += stride)
-    g.phase[j] = draw_phase(g, (int)j);
+  for (size_t j = tid; j < 2 * NB1; j += stride) G.maps[j] = 0;
+  for (size_t j = tid; j < NB1; j += stride) G.lcnt_new[j] = G.lcnt[j];
+  for (size_t j = tid; j < (size_t)chains; j += stride) {
+    const ExchArgs g = exch_view(G, (int)j / G.N);
+    g.phase[j % G.N] = draw_phase(g, (int)(j % G.N));
+  }
   if (KAO_EXCH_PHASES < 1) return;
   grid.sync();
 
   // ---- phase 1: proposals (B4) and the chains' maps (B5) --------------
   // a tile is one block's KAO_THREADS partitions of one chain, and its
   // loop is uniform over the block, so a warp lies in one chain
-  const uint32_t k2 = g.k0 ^ g.k1 ^ 0x1BD11BDAu;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int n = t / g.nblk;
+    const int c = t / G.nblk, n = c % G.N;
+    const ExchArgs g = exch_view(G, c / G.N);
+    const uint32_t k2 = g.k0 ^ g.k1 ^ 0x1BD11BDAu;
     propose(g, k2, n, (t % g.nblk) * KAO_THREADS + threadIdx.x, g.phase[n]);
   }
   if (KAO_EXCH_PHASES < 2) return;
@@ -341,33 +404,106 @@ __global__ void __launch_bounds__(KAO_THREADS)
 
   // ---- phase 2: keep, apply, lcnt' (B6) --------------------------------
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int n = t / g.nblk, p = (t % g.nblk) * KAO_THREADS + threadIdx.x;
+    const int c = t / G.nblk, n = c % G.N;
+    const ExchArgs g = exch_view(G, c / G.N);
+    const int p = (t % g.nblk) * KAO_THREADS + threadIdx.x;
     if (p < g.P) finish(g, n, p);
   }
 }
 
-// One exchange sweep: a cooperative launch of min(N * ceil(P / KAO_THREADS)
-// tiles, the blocks resident on the card) blocks of KAO_THREADS threads.
-// a_new and lcnt_new are fully written; scratch holds the records
-// [5, N, P], the maps [2, N, B1] and the phases [N], in that order.
-// Returns the CUDA error of the occupancy queries or the launch (0 on
-// success).
-extern "C" int kao_exchange_sweep(
-    const int* a, const int* rf, const uint8_t* valid, const int* part_rack_hi,
-    const int* w_lead, const int* w_foll, const int* rack_of, const int* lcnt,
-    uint32_t k0, uint32_t k1, uint32_t h0, uint32_t h1, uint32_t l0,
-    uint32_t l1, float temp, float lam, int d, int llo, int lhi, int N, int P,
-    int R, int B1, int* a_new, int* lcnt_new, int* scratch,
-    cudaStream_t stream) {
+// ---- the host draws of one lane's sweep ------------------------------------
+
+// threefry2x32 of the count pair (x0, x1) under key (k0, k1) on the host,
+// as prng._threefry2x32; out = the two output words
+static void threefry_host(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1,
+                          uint32_t out[2]) {
+  static const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+  for (int i = 0; i < 5; ++i) {
+    for (int j = 0; j < 4; ++j) {
+      const int r = rot[i % 2][j];
+      x0 += x1;
+      x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  out[0] = x0;
+  out[1] = x1;
+}
+
+// jax.random.split(key)[i]
+static void split_host(const uint32_t key[2], uint32_t i, uint32_t out[2]) {
+  threefry_host(key[0], key[1], 0u, i, out);
+}
+
+// jax.random.bits(key, (), uint32)
+static uint32_t word_host(const uint32_t key[2]) {
+  uint32_t o[2];
+  threefry_host(key[0], key[1], 0u, 0u, o);
+  return o[0] ^ o[1];
+}
+
+// sweep.propose_exchange's host draws from the sweep key (k0, k1), as
+// exchange_cuda.host_keys makes them: out = (the key of the words, the
+// stride d, the phase randint's higher and lower keys), 7 words
+extern "C" void kao_exchange_host_keys(uint32_t k0, uint32_t k1, int P,
+                                       uint32_t* out) {
+  const uint32_t key[2] = {k0, k1};
+  uint32_t kd[2], kbits[2], kr[2], kph[2], r1[2], r2[2], hi[2], lo[2];
+  split_host(key, 0, kd);
+  split_host(key, 1, kbits);
+  // _pair_stride: d = randint(split(kd)[0], (), 1, max(P // 2, 2))
+  split_host(kd, 0, kr);
+  split_host(kd, 1, kph);
+  split_host(kr, 0, r1);
+  split_host(kr, 1, r2);
+  const uint32_t top = (uint32_t)(P / 2 > 2 ? P / 2 : 2);
+  const uint32_t span = top <= 1u ? 1u : top - 1u;
+  uint32_t mul = (1u << 16) % span;
+  mul = (mul * mul) % span;
+  const uint32_t off = (word_host(r1) % span) * mul + word_host(r2) % span;
+  split_host(kph, 0, hi);
+  split_host(kph, 1, lo);
+  out[0] = kbits[0];
+  out[1] = kbits[1];
+  out[2] = 1u + off % span;
+  out[3] = hi[0];
+  out[4] = hi[1];
+  out[5] = lo[0];
+  out[6] = lo[1];
+}
+
+// One exchange sweep of L lanes: a cooperative launch of min(L * N *
+// ceil(P / KAO_THREADS) tiles, the blocks resident on the card) blocks of
+// KAO_THREADS threads, lane l from its tables (tabs), lanes[l] and the host
+// draws of its sweep key. a_new and lcnt_new are fully written; scratch
+// holds the records [L, 5, N, P], the maps [L, 2, N, B1] and the phases
+// [L, N], in that order. Returns the CUDA error of the occupancy queries or
+// the launch (0 on success).
+extern "C" int kao_exchange_sweep(const ModelTabs* tabs,
+                                  const ExchLaneIn* lanes, int L, int N,
+                                  int P, int R, int B1, const int* a,
+                                  const int* lcnt, int* a_new, int* lcnt_new,
+                                  int* scratch, cudaStream_t stream) {
+  if (L < 1 || L > KAO_MAX_LANES) return (int)cudaErrorInvalidValue;
   const int nblk = (P + KAO_THREADS - 1) / KAO_THREADS;
-  int* rec = scratch;
-  int* maps = rec + (size_t)5 * N * P;
-  int* phase = maps + (size_t)2 * N * B1;
-  const ExchArgs g{a,     rf,       valid, part_rack_hi, w_lead, w_foll,
-                   rack_of, lcnt,   a_new, lcnt_new,     rec,    maps,
-                   phase, k0,       k1,    h0,           h1,     l0,
-                   l1,    temp,     lam,   d,            llo,    lhi,
-                   N,     P,        R,     B1,           nblk};
+  ExchLaunch g;
+  g.t = *tabs;
+  for (int l = 0; l < L; ++l) {
+    const ExchLaneIn& x = lanes[l];
+    uint32_t w[7];
+    kao_exchange_host_keys(x.k0, x.k1, P, w);
+    g.lane[l] = ExchLane{w[0], w[1], w[3], w[4], w[5], w[6], x.temp,
+                         x.lam, (int)w[2], x.llo, x.lhi};
+  }
+  g.a = a, g.lcnt = lcnt, g.a_new = a_new, g.lcnt_new = lcnt_new;
+  g.rec = scratch;
+  g.maps = g.rec + (size_t)5 * L * N * P;
+  g.phase = g.maps + (size_t)2 * L * N * B1;
+  g.L = L, g.N = N, g.P = P, g.R = R, g.B1 = B1, g.nblk = nblk;
   // the resident grid, once per device
   static int resident[64];
   int dev = 0;
@@ -385,7 +521,7 @@ extern "C" int kao_exchange_sweep(
     resident[dev] = per_sm * sms;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(min(N * nblk, resident[dev]), 1, 1);
+  cfg.gridDim = dim3(min(L * N * nblk, resident[dev]), 1, 1);
   cfg.blockDim = dim3(KAO_THREADS, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;

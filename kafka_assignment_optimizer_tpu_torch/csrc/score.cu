@@ -17,6 +17,12 @@
 // the entries it needs, each in a cache line of its own, and the kernel
 // spreads the rows over every SM.
 //
+// Lanes: one launch scores a[L, N, P, R], the N chains of each of L lanes
+// (the portfolio's configs or a batch's instances), every lane against its
+// own tables (ModelTabs, lane stride 0 where they are shared) and bands.
+// The grid-stride loops below run over all L * N chains; a lane's outputs
+// are what a launch on that lane alone writes.
+//
 // Design, for Hopper: three phases behind two grid-wide barriers
 // (cooperative_groups' this_grid().sync(), a cooperative launch), so a call
 // is one device activity with no zero-filled outputs.
@@ -56,6 +62,25 @@ namespace cg = cooperative_groups;
 #define KAO_SCORE_ROWS 1
 #endif
 
+struct ScoreLane {
+  int blo, bhi, llo, lhi;
+};
+
+// what the launch takes: every lane
+struct ScoreLaunch {
+  ModelTabs t;
+  ScoreLane lane[KAO_MAX_LANES];
+  const int* a;  // [L, N, P, R]
+  int L, N, P, R, B1, K1;
+  int nblk;   // tiles of KAO_THREADS partitions a chain
+  int local;  // count a tile into shared memory first (cnt and lcnt fit)
+  int* out;   // [L, N, 8]
+  int* cnt;   // [L, N, B1]
+  int* lcnt;  // [L, N, B1]
+  int* rcnt;  // [L, N, K1]
+};
+
+// one lane's view of the launch: its tables, bands and chains
 struct ScoreArgs {
   const int* a;             // [N, P, R]
   const uint8_t* valid;     // [P, R]
@@ -67,39 +92,58 @@ struct ScoreArgs {
   const int* rack_hi;       // [K1]
   int blo, bhi, llo, lhi;
   int N, P, R, B1, K1;
-  int nblk;   // tiles of KAO_THREADS partitions a chain
-  int local;  // count a tile into shared memory first (cnt and lcnt fit)
+  int nblk, local;
   int* out;   // [N, 8]
   int* cnt;   // [N, B1]
   int* lcnt;  // [N, B1]
   int* rcnt;  // [N, K1]
 };
 
+__device__ __forceinline__ ScoreArgs score_view(const ScoreLaunch& G, int l) {
+  const ScoreLane& x = G.lane[l];
+  const size_t n0 = (size_t)l * G.N;
+  return ScoreArgs{G.a + n0 * G.P * G.R,
+                   KAO_LANE(G.t, valid, l),
+                   KAO_LANE(G.t, w_lead, l),
+                   KAO_LANE(G.t, w_foll, l),
+                   KAO_LANE(G.t, rack_of, l),
+                   KAO_LANE(G.t, part_rack_hi, l),
+                   KAO_LANE(G.t, rack_lo, l),
+                   KAO_LANE(G.t, rack_hi, l),
+                   x.blo, x.bhi, x.llo, x.lhi,
+                   G.N, G.P, G.R, G.B1, G.K1, G.nblk, G.local,
+                   G.out + n0 * 8, G.cnt + n0 * G.B1, G.lcnt + n0 * G.B1,
+                   G.rcnt + n0 * G.K1};
+}
+
 // RM: the most replica slots a row has (R <= RM), for the row's registers
 template <int RM>
 __global__ void __launch_bounds__(KAO_THREADS)
-    score_grid(const ScoreArgs g) {
+    score_grid(const ScoreLaunch G) {
   extern __shared__ int smem[];  // [2 * B1]: a tile's cnt, lcnt (local)
   __shared__ int scratch[32];
   __shared__ int tot[3];  // a tile's weight, overflow, moves
   cg::grid_group grid = cg::this_grid();
-  const int B1 = g.B1, K1 = g.K1, B = B1 - 1, R = g.R;
+  const int B1 = G.B1, K1 = G.K1, B = B1 - 1, R = G.R;
+  const int chains = G.L * G.N;
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t NB1 = (size_t)g.N * B1;
+  const size_t NB1 = (size_t)chains * B1;
 
   // ---- phase 0 ----------------------------------------------------------
-  for (size_t j = tid; j < (size_t)g.N * 8; j += stride) g.out[j] = 0;
-  for (size_t j = tid; j < NB1; j += stride) g.cnt[j] = g.lcnt[j] = 0;
-  for (size_t j = tid; j < (size_t)g.N * K1; j += stride) g.rcnt[j] = 0;
+  for (size_t j = tid; j < (size_t)chains * 8; j += stride) G.out[j] = 0;
+  for (size_t j = tid; j < NB1; j += stride) G.cnt[j] = G.lcnt[j] = 0;
+  for (size_t j = tid; j < (size_t)chains * K1; j += stride) G.rcnt[j] = 0;
   grid.sync();
 
   // ---- phase 1: a tile a block; the loop is uniform over the block ------
-  const int k_null = g.rack_of[B];
   const int lane = threadIdx.x & 31;
-  for (int t = blockIdx.x; KAO_SCORE_ROWS && t < g.N * g.nblk;
+  for (int t = blockIdx.x; KAO_SCORE_ROWS && t < chains * G.nblk;
        t += gridDim.x) {
-    const int n = t / g.nblk, p = (t % g.nblk) * KAO_THREADS + threadIdx.x;
+    const int c = t / G.nblk;
+    const ScoreArgs g = score_view(G, c / G.N);
+    const int k_null = g.rack_of[B];
+    const int n = c % G.N, p = (t % g.nblk) * KAO_THREADS + threadIdx.x;
     int* cnt_n = g.cnt + (size_t)n * B1;
     int* lcnt_n = g.lcnt + (size_t)n * B1;
     // +v at broker j of cnt (l = 0) or lcnt (l = 1): into shared memory or
@@ -178,8 +222,8 @@ __global__ void __launch_bounds__(KAO_THREADS)
                 tot[threadIdx.x]);
     if (g.local) {
       for (int j = threadIdx.x; j < 2 * B1; j += blockDim.x) {
-        const int c = smem[j];
-        if (c) atomicAdd(j < B1 ? &cnt_n[j] : &lcnt_n[j - B1], c);
+        const int h = smem[j];
+        if (h) atomicAdd(j < B1 ? &cnt_n[j] : &lcnt_n[j - B1], h);
       }
     }
     __syncthreads();  // the next tile zeroes smem and tot
@@ -187,16 +231,18 @@ __global__ void __launch_bounds__(KAO_THREADS)
   grid.sync();  // the counts are final
 
   // ---- phase 2: a block a chain ------------------------------------------
-  for (int n = blockIdx.x; n < g.N; n += gridDim.x) {
+  for (int c = blockIdx.x; c < chains; c += gridDim.x) {
+    const ScoreArgs g = score_view(G, c / G.N);
+    const int n = c % G.N;
     const int* cnt_n = g.cnt + (size_t)n * B1;
     const int* lcnt_n = g.lcnt + (size_t)n * B1;
     int* rcnt_n = g.rcnt + (size_t)n * K1;
     int pb = 0, pl = 0, pr = 0;
     for (int j = threadIdx.x; j < B1; j += blockDim.x) {
-      const int c = __ldcg(cnt_n + j);
-      if (c) atomicAdd(&rcnt_n[g.rack_of[j]], c);
+      const int v = __ldcg(cnt_n + j);
+      if (v) atomicAdd(&rcnt_n[g.rack_of[j]], v);
       if (j < B) {
-        pb += band_pen(c, g.blo, g.bhi);
+        pb += band_pen(v, g.blo, g.bhi);
         pl += band_pen(__ldcg(lcnt_n + j), g.llo, g.lhi);
       }
     }
@@ -214,27 +260,31 @@ __global__ void __launch_bounds__(KAO_THREADS)
   }
 }
 
-// out [N, 8] = (weight, pen_broker, pen_leader, pen_rack, pen_part_rack,
-// moves, 0, 0), cnt/lcnt [N, B1], rcnt [N, K1]: every entry written. A
-// cooperative launch of min(N * ceil(P / KAO_THREADS) tiles, the blocks
-// resident on the card) blocks of KAO_THREADS threads. Returns the CUDA
-// error of the attribute and occupancy calls or the launch (0 on success).
-extern "C" int kao_score(const int* a, const uint8_t* valid,
-                         const int* w_lead, const int* w_foll,
-                         const int* rack_of, const int* part_rack_hi,
-                         const int* rack_lo, const int* rack_hi, int blo,
-                         int bhi, int llo, int lhi, int N, int P, int R,
-                         int B1, int K1, int* out, int* cnt, int* lcnt,
+// out [L, N, 8] = (weight, pen_broker, pen_leader, pen_rack,
+// pen_part_rack, moves, 0, 0), cnt/lcnt [L, N, B1], rcnt [L, N, K1]: every
+// entry written, lane l from its tables (tabs) and bands (lanes[l]). A
+// cooperative launch of min(L * N * ceil(P / KAO_THREADS) tiles, the
+// blocks resident on the card) blocks of KAO_THREADS threads. Returns the
+// CUDA error of the attribute and occupancy calls or the launch (0 on
+// success).
+extern "C" int kao_score(const ModelTabs* tabs, const ScoreLane* lanes,
+                         int L, int N, int P, int R, int B1, int K1,
+                         const int* a, int* out, int* cnt, int* lcnt,
                          int* rcnt, cudaStream_t stream) {
+  if (L < 1 || L > KAO_MAX_LANES) return (int)cudaErrorInvalidValue;
   const int nblk = (P + KAO_THREADS - 1) / KAO_THREADS;
   // cnt and lcnt in shared memory where they fit beside the scratch
   const bool local = 8 * (size_t)B1 + 4 * 35 <= 232448;
   const size_t smem = local ? 8 * (size_t)B1 : 0;
-  const ScoreArgs g{a,    valid, w_lead, w_foll, rack_of, part_rack_hi,
-                    rack_lo, rack_hi, blo, bhi, llo, lhi,
-                    N,    P,     R,      B1,     K1,      nblk,
-                    local, out,  cnt,    lcnt,   rcnt};
-  void (*kernel)(const ScoreArgs) =
+  ScoreLaunch g;
+  g.t = *tabs;
+  for (int l = 0; l < L; ++l) g.lane[l] = lanes[l];
+  g.a = a;
+  g.L = L, g.N = N, g.P = P, g.R = R, g.B1 = B1, g.K1 = K1;
+  g.nblk = nblk;
+  g.local = local;
+  g.out = out, g.cnt = cnt, g.lcnt = lcnt, g.rcnt = rcnt;
+  void (*kernel)(const ScoreLaunch) =
       R <= 4 ? score_grid<4> : score_grid<KAO_MAX_R>;
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -252,7 +302,7 @@ extern "C" int kao_score(const int* a, const uint8_t* valid,
   if (err != cudaSuccess) return (int)err;
   if (per_sm * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(min(N * nblk, per_sm * sms), 1, 1);
+  cfg.gridDim = dim3(min(L * N * nblk, per_sm * sms), 1, 1);
   cfg.blockDim = dim3(KAO_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

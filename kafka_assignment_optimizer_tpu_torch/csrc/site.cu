@@ -8,6 +8,12 @@
 // sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, temp) computes:
 // (a_new, cnt', lcnt', rcnt'), bit for bit.
 //
+// Lanes: one launch runs the sweep of L lanes (the portfolio's configs or
+// a batch's instances), grid (C, N, L): each lane against its own tables
+// (ModelTabs, lane stride 0 where they are shared), bands, penalty scale,
+// temperature and key (SiteLane). A lane's outputs are what a launch on
+// that lane alone writes.
+//
 // Design, for Hopper:
 //
 // - Random words in registers. The reference draws bits[N, P, 8] with
@@ -19,7 +25,7 @@
 // - One cluster per chain. The keep test needs every partition's update
 //   of the chain's priority maps first: a dependency across the whole
 //   chain. Here a chain is one thread-block cluster of C CTAs (grid
-//   (C, N)), and the dependency is a cluster barrier inside the launch.
+//   (C, N, L)), and the dependency is a cluster barrier inside the launch.
 //   The chain's maps and histogram counts are spread over the cluster's
 //   distributed shared memory: token t lives in CTA t % C at index t / C,
 //   so a CTA holds 4 * (4 * ceil((B+1)/C) + ceil((K+1)/C)) bytes.
@@ -90,6 +96,30 @@ namespace cg = cooperative_groups;
 
 constexpr int C = KAO_SITE_CLUSTER;
 
+struct SiteLane {
+  uint32_t k0, k1;  // the sweep's key
+  float temp, lam;
+  int blo, bhi, llo, lhi;
+};
+
+// what the launch takes: every lane
+struct SiteLaunch {
+  ModelTabs t;
+  SiteLane lane[KAO_MAX_LANES];
+  const int* a;    // [L, N, P, R]
+  const int* cnt;  // [L, N, B1]
+  const int* lcnt;
+  const int* rcnt;  // [L, N, K1]
+  int* a_new;       // [L, N, P, R], every element written
+  int* cnt_new;     // [L, N, B1]
+  int* lcnt_new;
+  int* rcnt_new;    // [L, N, K1]
+  int4* rec;        // [L, N, P] scratch
+  int N, P, R, B1, K1;
+  int Pc;  // partitions per CTA
+};
+
+// one lane's view of the launch
 struct SiteArgs {
   const int* a;             // [N, P, R]
   const int* a0;            // [P, R]
@@ -116,11 +146,34 @@ struct SiteArgs {
   int Pc;  // partitions per CTA
 };
 
+__device__ __forceinline__ SiteArgs site_view(const SiteLaunch& G, int l) {
+  const SiteLane& x = G.lane[l];
+  const size_t n0 = (size_t)l * G.N;
+  const size_t rows = n0 * G.P * G.R;
+  return SiteArgs{G.a + rows,
+                  KAO_LANE(G.t, a0, l),
+                  KAO_LANE(G.t, rf, l),
+                  KAO_LANE(G.t, valid, l),
+                  KAO_LANE(G.t, part_rack_hi, l),
+                  KAO_LANE(G.t, w_lead, l),
+                  KAO_LANE(G.t, w_foll, l),
+                  KAO_LANE(G.t, rack_of, l),
+                  KAO_LANE(G.t, rack_lo, l),
+                  KAO_LANE(G.t, rack_hi, l),
+                  G.cnt + n0 * G.B1, G.lcnt + n0 * G.B1,
+                  G.rcnt + n0 * G.K1, G.a_new + rows,
+                  G.cnt_new + n0 * G.B1, G.lcnt_new + n0 * G.B1,
+                  G.rcnt_new + n0 * G.K1, G.rec + n0 * G.P,
+                  x.k0, x.k1, x.temp, x.lam, x.blo, x.bhi, x.llo, x.lhi,
+                  G.N, G.P, G.R, G.B1, G.K1, G.Pc};
+}
+
 __global__ void __launch_bounds__(KAO_SITE_THREADS)
-    site_sweep(const SiteArgs g) {
+    site_sweep(const SiteLaunch G) {
   extern __shared__ int smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
+  const SiteArgs g = site_view(G, blockIdx.z);
   const int n = blockIdx.y;
   const int B1 = g.B1, K1 = g.K1, B = B1 - 1, R = g.R, P = g.P;
   const int Bc = (B1 + C - 1) / C, Kc = (K1 + C - 1) / C;
@@ -304,22 +357,24 @@ __global__ void __launch_bounds__(KAO_SITE_THREADS)
   }
 }
 
-// One site sweep: grid (C, N) in clusters of (C, 1, 1). Returns the CUDA
-// error of the attribute calls or the launch (0 on success).
-extern "C" int kao_site_sweep(
-    const int* a, const int* a0, const int* rf, const uint8_t* valid,
-    const int* part_rack_hi, const int* w_lead, const int* w_foll,
-    const int* rack_of, const int* rack_lo, const int* rack_hi,
-    const int* cnt, const int* lcnt, const int* rcnt, uint32_t k0,
-    uint32_t k1, float temp, float lam, int blo, int bhi, int llo, int lhi,
-    int N, int P, int R, int B1, int K1, int* a_new, int* cnt_new,
-    int* lcnt_new, int* rcnt_new, int4* rec, cudaStream_t stream) {
-  SiteArgs g{a,       a0,       rf,       valid,   part_rack_hi, w_lead,
-             w_foll,  rack_of,  rack_lo,  rack_hi, cnt,          lcnt,
-             rcnt,    a_new,    cnt_new,  lcnt_new, rcnt_new,    rec,
-             k0,      k1,       temp,     lam,     blo,          bhi,
-             llo,     lhi,      N,        P,       R,            B1,
-             K1,      (P + C - 1) / C};
+// One site sweep of L lanes: grid (C, N, L) in clusters of (C, 1, 1), lane
+// l from its tables (tabs) and lanes[l]. Returns the CUDA error of the
+// attribute calls or the launch (0 on success).
+extern "C" int kao_site_sweep(const ModelTabs* tabs, const SiteLane* lanes,
+                              int L, int N, int P, int R, int B1, int K1,
+                              const int* a, const int* cnt, const int* lcnt,
+                              const int* rcnt, int* a_new, int* cnt_new,
+                              int* lcnt_new, int* rcnt_new, int4* rec,
+                              cudaStream_t stream) {
+  if (L < 1 || L > KAO_MAX_LANES) return (int)cudaErrorInvalidValue;
+  SiteLaunch g;
+  g.t = *tabs;
+  for (int l = 0; l < L; ++l) g.lane[l] = lanes[l];
+  g.a = a, g.cnt = cnt, g.lcnt = lcnt, g.rcnt = rcnt;
+  g.a_new = a_new, g.cnt_new = cnt_new, g.lcnt_new = lcnt_new;
+  g.rcnt_new = rcnt_new, g.rec = rec;
+  g.N = N, g.P = P, g.R = R, g.B1 = B1, g.K1 = K1;
+  g.Pc = (P + C - 1) / C;
   const size_t smem = 4 * (size_t)(4 * ((B1 + C - 1) / C) + (K1 + C - 1) / C);
   cudaError_t err;
   if (C > 8) {
@@ -333,7 +388,7 @@ extern "C" int kao_site_sweep(
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, N, 1);
+  cfg.gridDim = dim3(C, N, L);
   cfg.blockDim = dim3(min(KAO_SITE_THREADS, (g.Pc + 31) / 32 * 32), 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

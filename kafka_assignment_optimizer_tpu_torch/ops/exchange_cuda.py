@@ -12,40 +12,53 @@ barrier keeps, applies and updates ``lcnt``; see ``csrc/exchange.cu``.
 Its plain version is ``sweep._exchange_sweep_delta``: the proposal
 ``sweep.exchange_propose``, then ``sweep.exch_finish``.
 
-Each wrapper launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors.
+The sweep's host draws (the stride and the keys of the words and of the
+phases, :func:`host_keys`) are made by the launcher's C code from the
+sweep key. The lane forms (:func:`exchange_step_lanes`,
+:func:`exchange_sweep_lanes`) sweep the L lanes of a stacked model in one
+launch, each with its own key and temperature. Each wrapper launches the
+kernel for CUDA tensors and runs the plain version for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from .. import prng
-from ..solvers.tpu.arrays import ModelArrays
+from ..solvers.tpu.arrays import ModelArrays, lane_model
 from ..solvers.tpu.sweep import (
     _exchange_sweep_delta,
     _pair_stride,
     exch_finish,
+    exchange_lanes_delta,
     exchange_propose,
 )
 from . import kernels
-from .kernels import check, check_model
-
-
-def _words(key) -> tuple[int, int]:
-    return tuple(int(w) for w in np.asarray(key, np.uint32).reshape(2))
+from .kernels import check
 
 
 def host_keys(key, P: int):
     """The host draws of one exchange proposal, as ``propose_exchange``
     makes them: ``(kbits, d, k_hi, k_lo)``, the key of the words ``bits
     [N, P, 4]``, the stride, and the two keys of the phases'
-    ``randint``."""
+    ``randint``. The launcher draws the same words in C
+    (``kernels.exchange_host_keys``)."""
     kd, kbits = prng.split(key)
     d, kph = _pair_stride(kd, P)
     k_hi, k_lo = prng.split(kph)
     return kbits, d, k_hi, k_lo
+
+
+def _plain_sweep(m: ModelArrays, a, lcnt, key, temp: float):
+    """The plain versions of one exchange sweep with what it leaves
+    behind: ``(a_new, lcnt', records, m_out, m_in)``."""
+    p, m_out, m_in = exchange_propose(m, a, lcnt, key, temp)
+    rec = (p.s, p.b_other, p.tok_out, p.tok_in, p.prio)
+    a2, d_lcnt = exch_finish(a, *rec, m_out, m_in)
+    return a2, lcnt + d_lcnt, rec, m_out, m_in
 
 
 def exchange_sweep_cuda(m: ModelArrays, a, lcnt, key, temp: float):
@@ -58,36 +71,27 @@ def exchange_sweep_cuda(m: ModelArrays, a, lcnt, key, temp: float):
     tensors. ``key`` is the sweep's host ``uint32[2]`` key, ``temp`` the
     sweep temperature as a float32 value."""
     if a.device.type == "cpu":
-        p, m_out, m_in = exchange_propose(m, a, lcnt, key, temp)
-        rec = (p.s, p.b_other, p.tok_out, p.tok_in, p.prio)
-        a2, d_lcnt = exch_finish(a, *rec, m_out, m_in)
-        return a2, lcnt + d_lcnt, rec, m_out, m_in
-    check_model(m)
-    N = a.shape[0]
-    P, R = m.a0.shape
-    B1 = m.num_brokers + 1
-    dev = m.a0.device
-    check("a", a, torch.int32, (N, P, R), dev)
-    check("lcnt", lcnt, torch.int32, (N, B1), dev)
-    kbits, d, k_hi, k_lo = host_keys(key, P)
-    a_new = torch.empty_like(a)
-    lcnt_new = torch.empty_like(lcnt)
-    scratch = torch.empty(5 * N * P + 2 * N * B1 + N, dtype=torch.int32,
-                          device=dev)
-    _blo, _bhi, llo, lhi = m.bands()
-    kernels.EXCHANGE(
-        a.data_ptr(), m.rf.data_ptr(), m.slot_valid.data_ptr(),
-        m.part_rack_hi.data_ptr(), m.w_lead.data_ptr(), m.w_foll.data_ptr(),
-        m.rack_of.data_ptr(), lcnt.data_ptr(), *_words(kbits),
-        *_words(k_hi), *_words(k_lo), temp, m.lam_host(), d, llo, lhi, N,
-        P, R, B1, a_new.data_ptr(), lcnt_new.data_ptr(), scratch.data_ptr(),
-    )
-    rec = scratch[:5 * N * P].view(5, N, P)
-    maps = scratch[5 * N * P:-N].view(torch.float32).view(2, N, B1)
-    s, b_other, tok_out, tok_in, prio = rec.unbind(0)
-    return (a_new, lcnt_new,
-            (s, b_other, tok_out, tok_in, prio.view(torch.float32)),
-            maps[0], maps[1])
+        return _plain_sweep(m, a, lcnt, key, temp)
+    a2, l2, rec, m_out, m_in = _launch(m, a[None], lcnt[None], [key],
+                                       [temp])
+    return (a2[0], l2[0], tuple(x[0] for x in rec), m_out[0], m_in[0])
+
+
+def exchange_sweep_lanes(m: ModelArrays, a, lcnt, keys, temps):
+    """:func:`exchange_sweep_cuda` for every lane of the stacked model
+    ``m`` (``a [L, N, P, R]``, ``lcnt [L, N, B+1]``, lane l with
+    ``keys[l]`` and ``temps[l]``): every output gains the lane axis. One
+    launch on CUDA tensors, the plain versions lane by lane on CPU
+    tensors."""
+    if a.device.type == "cpu":
+        outs = [_plain_sweep(lane_model(m, lane), a[lane], lcnt[lane],
+                             keys[lane], temps[lane])
+                for lane in range(a.shape[0])]
+        a2, l2, rec, m_out, m_in = zip(*outs)
+        return (torch.stack(a2), torch.stack(l2),
+                tuple(torch.stack(x) for x in zip(*rec)),
+                torch.stack(m_out), torch.stack(m_in))
+    return _launch(m, a, lcnt, keys, temps)
 
 
 def exchange_step_cuda(m: ModelArrays, a, cnt, lcnt, rcnt, key,
@@ -103,3 +107,55 @@ def exchange_step_cuda(m: ModelArrays, a, cnt, lcnt, rcnt, key,
     a2, lcnt2, _rec, _m_out, _m_in = exchange_sweep_cuda(m, a, lcnt, key,
                                                          temp)
     return a2, cnt, lcnt2, rcnt
+
+
+def exchange_step_lanes(m: ModelArrays, a, cnt, lcnt, rcnt, keys, temps):
+    """:func:`exchange_step_cuda` for every lane of the stacked model
+    ``m`` (state ``[L, N, ...]``, lane l with ``keys[l]`` and
+    ``temps[l]``): one launch on CUDA tensors, the plain version
+    (``sweep.exchange_lanes_delta``) on CPU tensors."""
+    if a.device.type == "cpu":
+        return exchange_lanes_delta(m, a, cnt, lcnt, rcnt, keys, temps)
+    if a.shape[2] < 2:
+        return a, cnt, lcnt, rcnt
+    a2, lcnt2, _rec, _m_out, _m_in = _launch(m, a, lcnt, keys, temps)
+    return a2, cnt, lcnt2, rcnt
+
+
+@kernels.in_lane_groups
+def _launch(m: ModelArrays, a, lcnt, keys, temps):
+    """One launch of the fused exchange sweep on ``a [L, N, P, R]`` (a
+    single model is one lane; above ``kernels.MAX_LANES`` lanes, one
+    launch a group of lanes)."""
+    tabs = kernels.model_tabs(m)
+    L, N = a.shape[:2]
+    kernels.lane_count(m, L)
+    P, R = m.a0.shape[-2:]
+    B1 = m.num_brokers + 1
+    dev = m.a0.device
+    check("a", a, torch.int32, (L, N, P, R), dev)
+    check("lcnt", lcnt, torch.int32, (L, N, B1), dev)
+    bands, lams, _scales = m.lane_scalars()
+    lanes = np.zeros(L, kernels.EXCH_LANE)
+    words = np.asarray(keys, np.uint32).reshape(L, 2)
+    lanes["k0"], lanes["k1"] = words[:, 0], words[:, 1]
+    lanes["temp"] = temps
+    lanes["lam"] = lams
+    lanes["llo"] = [b[2] for b in bands]
+    lanes["lhi"] = [b[3] for b in bands]
+    a_new = torch.empty_like(a)
+    lcnt_new = torch.empty_like(lcnt)
+    scratch = torch.empty(L * (5 * N * P + 2 * N * B1 + N),
+                          dtype=torch.int32, device=dev)
+    kernels.EXCHANGE(
+        ctypes.byref(tabs), lanes.ctypes.data, L, N, P, R, B1,
+        a.data_ptr(), lcnt.data_ptr(), a_new.data_ptr(),
+        lcnt_new.data_ptr(), scratch.data_ptr(),
+    )
+    rec = scratch[:5 * L * N * P].view(L, 5, N, P)
+    maps = scratch[5 * L * N * P:-L * N].view(torch.float32).view(
+        L, 2, N, B1)
+    s, b_other, tok_out, tok_in, prio = rec.unbind(1)
+    return (a_new, lcnt_new,
+            (s, b_other, tok_out, tok_in, prio.view(torch.float32)),
+            maps[:, 0], maps[:, 1])

@@ -16,11 +16,20 @@ to ``torch.exp`` on the card.
 Each ported kernel is a :class:`Kernel`: its wrapper adds one to
 ``launches`` where it launches the kernel and nowhere else, so a run can
 show which kernels the main path went through.
+
+Every kernel takes L lanes (1 to ``MAX_LANES``) in one launch: the model
+tables of every lane (:class:`ModelTabs`, built once per model by
+:func:`model_tabs`, lane stride 0 where the lanes share a table) and an
+array of per-lane scalars (bands, penalty scale, and for the sweeps the
+temperature and the sweep's key), passed in the launch's parameters. A
+single model is one lane. More lanes than one launch takes run as
+launches of up to ``MAX_LANES`` lanes each (:func:`in_lane_groups`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,7 +37,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
+
+from ..solvers.tpu.arrays import lane_range
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -104,8 +116,34 @@ def library(name: str) -> ctypes.CDLL:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-U = ctypes.c_uint32
-F = ctypes.c_float
+
+MAX_LANES = 64  # KAO_MAX_LANES in csrc/common.cuh
+
+# the tables of common.cuh's ModelTabs, in its order: (ModelArrays field,
+# ModelTabs field)
+_TABLES = (("a0", "a0"), ("rf", "rf"), ("slot_valid", "valid"),
+           ("part_rack_hi", "part_rack_hi"), ("w_lead", "w_lead"),
+           ("w_foll", "w_foll"), ("rack_of", "rack_of"),
+           ("rack_lo", "rack_lo"), ("rack_hi", "rack_hi"))
+
+
+class ModelTabs(ctypes.Structure):
+    """common.cuh's ModelTabs: each table's device pointer and its lane
+    stride in elements."""
+
+    _fields_ = [x for _f, c in _TABLES
+                for x in ((c, ctypes.c_void_p), (c + "_s", ctypes.c_int64))]
+
+
+# the per-lane scalars of each kernel (its ScoreLane, SiteLane and
+# ExchLaneIn): 4-byte fields, no padding
+SCORE_LANE = np.dtype([("blo", "<i4"), ("bhi", "<i4"), ("llo", "<i4"),
+                       ("lhi", "<i4")])
+SITE_LANE = np.dtype([("k0", "<u4"), ("k1", "<u4"), ("temp", "<f4"),
+                      ("lam", "<f4"), ("blo", "<i4"), ("bhi", "<i4"),
+                      ("llo", "<i4"), ("lhi", "<i4")])
+EXCH_LANE = np.dtype([("k0", "<u4"), ("k1", "<u4"), ("temp", "<f4"),
+                      ("lam", "<f4"), ("llo", "<i4"), ("lhi", "<i4")])
 
 
 class Kernel:
@@ -154,35 +192,103 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: not contiguous")
 
 
-def check_model(m) -> None:
-    """Check the ``ModelArrays`` tables the sweep kernels read, once per
-    model (the result is cached on it, as its host scalars are)."""
-    if m.__dict__.get("_kernel_checked"):
-        return
-    P, R = m.a0.shape
+def model_tabs(m) -> ModelTabs:
+    """Check the tables of ``m`` (a single model, or a stacked one whose
+    every table is ``[L, ...]`` with contiguous lanes at lane stride 0 or
+    one lane's size) and return their :class:`ModelTabs`, once per model
+    (cached on it, as its host scalars are)."""
+    tabs = m.__dict__.get("_tabs")
+    if tabs is not None:
+        return tabs
+    L = m.num_lanes
+    P, R = m.a0.shape[-2:]
     B1 = m.num_brokers + 1
-    K1 = m.rack_lo.shape[0]
+    K1 = m.rack_lo.shape[-1]
     dev = m.a0.device
     if R > 16:
         raise ValueError(f"the kernels take at most 16 replica slots, got {R}")
-    check("a0", m.a0, torch.int32, (P, R), dev)
-    check("rf", m.rf, torch.int32, (P,), dev)
-    check("slot_valid", m.slot_valid, torch.bool, (P, R), dev)
-    check("part_rack_hi", m.part_rack_hi, torch.int32, (P,), dev)
-    check("w_lead", m.w_lead, torch.int32, (P, B1), dev)
-    check("w_foll", m.w_foll, torch.int32, (P, B1), dev)
-    check("rack_of", m.rack_of, torch.int32, (B1,), dev)
-    check("rack_lo", m.rack_lo, torch.int32, (K1,), dev)
-    check("rack_hi", m.rack_hi, torch.int32, (K1,), dev)
-    object.__setattr__(m, "_kernel_checked", True)
+    if L > MAX_LANES:
+        raise ValueError(f"a launch takes at most {MAX_LANES} lanes, got {L}")
+    shapes = {"a0": (P, R), "rf": (P,), "slot_valid": (P, R),
+              "part_rack_hi": (P,), "w_lead": (P, B1), "w_foll": (P, B1),
+              "rack_of": (B1,), "rack_lo": (K1,), "rack_hi": (K1,)}
+    dtypes = {"slot_valid": torch.bool}
+    tabs = ModelTabs()
+    for name, field in _TABLES:
+        t = getattr(m, name)
+        dtype = dtypes.get(name, torch.int32)
+        if L:
+            check(name, t[0], dtype, shapes[name], dev)
+            if t.shape[0] != L or t.stride(0) not in (0, t[0].numel()):
+                raise ValueError(f"{name}: lane axis {tuple(t.shape)} with "
+                                 f"stride {t.stride(0)}")
+            stride = t.stride(0)
+        else:
+            check(name, t, dtype, shapes[name], dev)
+            stride = 0
+        setattr(tabs, field, t.data_ptr())
+        setattr(tabs, field + "_s", stride)
+    object.__setattr__(m, "_tabs", tabs)
+    return tabs
 
 
-# the C signatures: pointers, then ints/floats, then the stream (added
-# by Kernel.__call__)
+def lane_count(m, L: int) -> None:
+    """Raise unless a launch of ``L`` lanes fits the kernels and matches
+    the model (a single model is one lane)."""
+    if not 1 <= L <= MAX_LANES:
+        raise ValueError(f"a launch takes 1 to {MAX_LANES} lanes, got {L}")
+    if L != max(m.num_lanes, 1):
+        raise ValueError(f"{L} lanes of state for a model of "
+                         f"{max(m.num_lanes, 1)}")
+
+
+def _cat_lanes(outs):
+    """Concatenate the launches' outputs (tensors, or tuples of them) on
+    the lane axis."""
+    if isinstance(outs[0], tuple):
+        return tuple(_cat_lanes(x) for x in zip(*outs))
+    return torch.cat(outs)
+
+
+def in_lane_groups(launch):
+    """Wrap a kernel's ``launch(m, a, *args)``, whose every argument after
+    the stacked model ``m`` has a leading lane axis (tensors, lists of
+    keys or temperatures): more lanes than one launch takes run as
+    launches of up to ``MAX_LANES`` lanes each, one a group of lanes,
+    their outputs concatenated on the lane axis. A launch's lanes are
+    independent, so the result is the one launch's."""
+    @functools.wraps(launch)
+    def run(m, a, *args):
+        L = a.shape[0]
+        if L <= MAX_LANES:
+            return launch(m, a, *args)
+        return _cat_lanes([
+            launch(lane_range(m, lo, min(lo + MAX_LANES, L)),
+                   *(x[lo:lo + MAX_LANES] for x in (a, *args)))
+            for lo in range(0, L, MAX_LANES)])
+
+    return run
+
+
+def exchange_host_keys(key, parts: int) -> tuple:
+    """The exchange launcher's host draws of one lane's sweep key, as
+    ``exchange_cuda.host_keys`` returns them: ``(kbits, d, k_hi, k_lo)``
+    (for the card tests; every launch makes them itself)."""
+    fn = library("exchange").kao_exchange_host_keys
+    fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, I, P]
+    fn.restype = None
+    k = np.asarray(key, np.uint32).reshape(2)
+    out = np.zeros(7, np.uint32)
+    fn(int(k[0]), int(k[1]), int(parts), out.ctypes.data)
+    return out[0:2].copy(), int(out[2]), out[3:5].copy(), out[5:7].copy()
+
+
+# the C signatures: the tables, the lane scalars, the lane count and the
+# sizes, then the tensors, then the stream (added by Kernel.__call__)
 SCORE = Kernel(
     "B1 score", "score", "kao_score",
     ("kafka_assignment_optimizer_tpu/ops/score_pallas.py:55 _score_kernel",),
-    [P] * 8 + [I] * 9 + [P] * 4 + [P],
+    [P, P] + [I] * 6 + [P] * 5 + [P],
 )
 SITE = Kernel(
     "B2+B3 site sweep", "site", "kao_site_sweep",
@@ -190,7 +296,7 @@ SITE = Kernel(
      "_propose_kernel",
      "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:59 "
      "_site_finish_kernel"),
-    [P] * 13 + [U, U, F, F] + [I] * 9 + [P] * 5 + [P],
+    [P, P] + [I] * 6 + [P] * 9 + [P],
 )
 EXCHANGE = Kernel(
     "B4+B5+B6 exchange sweep", "exchange", "kao_exchange_sweep",
@@ -200,7 +306,7 @@ EXCHANGE = Kernel(
      "_exch_maps_kernel",
      "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 "
      "_exch_finish_kernel"),
-    [P] * 8 + [U] * 6 + [F, F] + [I] * 7 + [P] * 3 + [P],
+    [P, P] + [I] * 5 + [P] * 5 + [P],
 )
 
 KERNELS = (SCORE, SITE, EXCHANGE)

@@ -15,15 +15,24 @@ CPU tensor; both return ``(out [N, 8], cnt [N, B+1], lcnt [N, B+1], rcnt
 pen_rack, pen_part_rack, moves)`` and zeros after. The TPU kernel leaves
 column 5 zero; the reference computes the moves beside it in XLA
 (``ops/score.py::moves_batch``), and the port folds that count into B1.
+
+:func:`score_lanes` is the lane form (the reference reaches B1 under
+``jax.vmap`` for its lanes): one launch scores ``a [L, N, P, R]``, each
+lane against its own model of a stacked model
+(``arrays.stack_models``); its plain version, :func:`score_lanes_plain`,
+is :func:`score_plain` lane by lane.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
-from ..solvers.tpu.arrays import ModelArrays, band_pen
+from ..solvers.tpu.arrays import ModelArrays, band_pen, lane_model
 from . import kernels
-from .kernels import check, check_model
+from .kernels import check
 
 
 def _count(idx: torch.Tensor, width: int) -> torch.Tensor:
@@ -107,23 +116,60 @@ def score(m: ModelArrays, a: torch.Tensor):
     the plain version for a CPU tensor."""
     if a.device.type == "cpu":
         return score_plain(m, a)
-    check_model(m)
-    N = a.shape[0]
-    P, R = m.a0.shape
+    return tuple(x[0] for x in _launch(m, a[None]))
+
+
+def score_lanes_plain(m: ModelArrays, a: torch.Tensor):
+    """The plain version of B1's lane form: :func:`score_plain` on each
+    lane of the stacked model ``m`` and its chains ``a[l]``, stacked."""
+    outs = [score_plain(lane_model(m, lane), a[lane])
+            for lane in range(a.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def score_lanes(m: ModelArrays, a: torch.Tensor):
+    """B1 on the chains ``a [L, N, P, R]`` of the L lanes of the stacked
+    model ``m``: ``(out [L, N, 8], cnt [L, N, B+1], lcnt [L, N, B+1],
+    rcnt [L, N, K+1])``. One launch for every lane on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if a.device.type == "cpu":
+        return score_lanes_plain(m, a)
+    return _launch(m, a)
+
+
+def _lane_bands(m: ModelArrays) -> np.ndarray:
+    """The model's per-lane bands as B1's lane scalars (cached)."""
+    lanes = m.__dict__.get("_score_lanes")
+    if lanes is None:
+        bands = m.lane_scalars()[0]
+        lanes = np.zeros(len(bands), kernels.SCORE_LANE)
+        for i, name in enumerate(("blo", "bhi", "llo", "lhi")):
+            lanes[name] = [b[i] for b in bands]
+        object.__setattr__(m, "_score_lanes", lanes)
+    return lanes
+
+
+@kernels.in_lane_groups
+def _launch(m: ModelArrays, a: torch.Tensor):
+    """One launch of B1 on ``a [L, N, P, R]`` (a single model is one
+    lane; above ``kernels.MAX_LANES`` lanes, one launch a group of
+    lanes)."""
+    tabs = kernels.model_tabs(m)
+    L, N = a.shape[:2]
+    kernels.lane_count(m, L)
+    P, R = m.a0.shape[-2:]
     B1 = m.num_brokers + 1
-    K1 = m.rack_lo.shape[0]
-    check("a", a, torch.int32, (N, P, R), m.a0.device)
-    buf = torch.empty(N * (8 + 2 * B1 + K1), dtype=torch.int32,
+    K1 = m.rack_lo.shape[-1]
+    check("a", a, torch.int32, (L, N, P, R), m.a0.device)
+    buf = torch.empty(L * N * (8 + 2 * B1 + K1), dtype=torch.int32,
                       device=a.device)
     out, cnt, lcnt, rcnt = (
-        x.view(N, -1) for x in buf.split((8 * N, B1 * N, B1 * N, K1 * N)))
-    blo, bhi, llo, lhi = m.bands()
+        x.view(L, N, -1)
+        for x in buf.split((8 * L * N, B1 * L * N, B1 * L * N, K1 * L * N)))
     kernels.SCORE(
-        a.data_ptr(), m.slot_valid.data_ptr(), m.w_lead.data_ptr(),
-        m.w_foll.data_ptr(), m.rack_of.data_ptr(),
-        m.part_rack_hi.data_ptr(), m.rack_lo.data_ptr(),
-        m.rack_hi.data_ptr(), blo, bhi, llo, lhi, N, P, R, B1, K1,
-        out.data_ptr(), cnt.data_ptr(), lcnt.data_ptr(), rcnt.data_ptr(),
+        ctypes.byref(tabs), _lane_bands(m).ctypes.data, L, N, P, R, B1, K1,
+        a.data_ptr(), out.data_ptr(), cnt.data_ptr(), lcnt.data_ptr(),
+        rcnt.data_ptr(),
     )
     return out, cnt, lcnt, rcnt
 

@@ -8,17 +8,24 @@ as ``thin_pallas.site_step_pallas``. One launch draws the sweep's random
 words (threefry in registers), proposes, accepts, thins, applies and
 updates the carried histograms, one thread-block cluster per chain; see
 ``csrc/site.cu``. The plain version is ``sweep._site_sweep_delta``.
+
+:func:`site_step_lanes` is the lane form (the reference reaches the
+kernels under ``jax.vmap`` for its lanes): one launch sweeps the L lanes
+of a stacked model, each with its own key and temperature; its plain
+version is ``sweep.site_lanes_delta``, the plain sweep lane by lane.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..solvers.tpu.arrays import ModelArrays
-from ..solvers.tpu.sweep import _site_sweep_delta
+from ..solvers.tpu.sweep import _site_sweep_delta, site_lanes_delta
 from . import kernels
-from .kernels import check, check_model
+from .kernels import check
 
 CLUSTER = 8  # CTAs per chain: KAO_SITE_CLUSTER in csrc/site.cu
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA can use on Hopper
@@ -38,36 +45,60 @@ def site_step_cuda(m: ModelArrays, a, cnt, lcnt, rcnt, key, temp: float):
     sweep temperature as a float32 value."""
     if a.device.type == "cpu":
         return _site_sweep_delta(m, a, cnt, lcnt, rcnt, key, temp)
-    check_model(m)
-    N = a.shape[0]
-    P, R = m.a0.shape
+    return tuple(x[0] for x in _launch(m, a[None], cnt[None], lcnt[None],
+                                       rcnt[None], [key], [temp]))
+
+
+def site_step_lanes(m: ModelArrays, a, cnt, lcnt, rcnt, keys, temps):
+    """One site sweep of every lane of the stacked model ``m``: ``a [L,
+    N, P, R]`` and the carried histograms ``[L, N, ...]``, lane l with
+    its host key ``keys[l]`` and float32 temperature ``temps[l]``. One
+    launch for every lane on CUDA tensors, the plain version on CPU
+    tensors."""
+    if a.device.type == "cpu":
+        return site_lanes_delta(m, a, cnt, lcnt, rcnt, keys, temps)
+    return _launch(m, a, cnt, lcnt, rcnt, keys, temps)
+
+
+@kernels.in_lane_groups
+def _launch(m: ModelArrays, a, cnt, lcnt, rcnt, keys, temps):
+    """One launch of the fused site sweep on ``a [L, N, P, R]`` (a single
+    model is one lane; above ``kernels.MAX_LANES`` lanes, one launch a
+    group of lanes)."""
+    tabs = kernels.model_tabs(m)
+    L, N = a.shape[:2]
+    kernels.lane_count(m, L)
+    P, R = m.a0.shape[-2:]
     B1 = m.num_brokers + 1
-    K1 = m.rack_lo.shape[0]
+    K1 = m.rack_lo.shape[-1]
     dev = m.a0.device
-    check("a", a, torch.int32, (N, P, R), dev)
-    check("cnt", cnt, torch.int32, (N, B1), dev)
-    check("lcnt", lcnt, torch.int32, (N, B1), dev)
-    check("rcnt", rcnt, torch.int32, (N, K1), dev)
+    check("a", a, torch.int32, (L, N, P, R), dev)
+    check("cnt", cnt, torch.int32, (L, N, B1), dev)
+    check("lcnt", lcnt, torch.int32, (L, N, B1), dev)
+    check("rcnt", rcnt, torch.int32, (L, N, K1), dev)
     if smem_bytes(B1, K1) > SMEM_LIMIT:
         raise ValueError(
             f"site sweep: {B1} brokers and {K1} racks need "
             f"{smem_bytes(B1, K1)} bytes of shared memory per CTA; the "
             f"card offers {SMEM_LIMIT}"
         )
-    k0, k1 = (int(w) for w in np.asarray(key, np.uint32).reshape(2))
+    bands, lams, _scales = m.lane_scalars()
+    lanes = np.zeros(L, kernels.SITE_LANE)
+    words = np.asarray(keys, np.uint32).reshape(L, 2)
+    lanes["k0"], lanes["k1"] = words[:, 0], words[:, 1]
+    lanes["temp"] = temps
+    lanes["lam"] = lams
+    for i, name in enumerate(("blo", "bhi", "llo", "lhi")):
+        lanes[name] = [b[i] for b in bands]
     a_new = torch.empty_like(a)
     cnt2 = torch.empty_like(cnt)
     lcnt2 = torch.empty_like(lcnt)
     rcnt2 = torch.empty_like(rcnt)
-    rec = torch.empty(N, P, 4, dtype=torch.int32, device=dev)  # scratch
-    blo, bhi, llo, lhi = m.bands()
+    rec = torch.empty(L, N, P, 4, dtype=torch.int32, device=dev)  # scratch
     kernels.SITE(
-        a.data_ptr(), m.a0.data_ptr(), m.rf.data_ptr(),
-        m.slot_valid.data_ptr(), m.part_rack_hi.data_ptr(),
-        m.w_lead.data_ptr(), m.w_foll.data_ptr(), m.rack_of.data_ptr(),
-        m.rack_lo.data_ptr(), m.rack_hi.data_ptr(), cnt.data_ptr(),
-        lcnt.data_ptr(), rcnt.data_ptr(), k0, k1, temp, m.lam_host(),
-        blo, bhi, llo, lhi, N, P, R, B1, K1, a_new.data_ptr(),
-        cnt2.data_ptr(), lcnt2.data_ptr(), rcnt2.data_ptr(), rec.data_ptr(),
+        ctypes.byref(tabs), lanes.ctypes.data, L, N, P, R, B1, K1,
+        a.data_ptr(), cnt.data_ptr(), lcnt.data_ptr(), rcnt.data_ptr(),
+        a_new.data_ptr(), cnt2.data_ptr(), lcnt2.data_ptr(),
+        rcnt2.data_ptr(), rec.data_ptr(),
     )
     return a_new, cnt2, lcnt2, rcnt2

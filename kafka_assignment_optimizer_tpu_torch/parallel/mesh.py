@@ -1,19 +1,59 @@
 """The one-device subset of the reference's ``parallel.mesh``: the initial
-sweep state.
+sweep state, and the lanes.
 
 The reference tiles the population over a device mesh; this package runs
 one device, which is the reference's mesh of one: one shard holding all
-chains, its RNG key the first of ``split(key, 1)``.
+chains, its RNG key the first of ``split(key, 1)``. Its lane leaves lose
+the device axis: the reference's ``a [1, L, N, P, R]`` is ``a [L, N, P,
+R]`` here.
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from .. import prng
-from ..ops.score_cuda import score
-from ..solvers.tpu.arrays import ModelArrays
-from ..solvers.tpu.sweep import out_key
+from ..ops.score_cuda import score, score_lanes
+from ..solvers.tpu.arrays import ModelArrays, lane_model
+from ..solvers.tpu.sweep import best_key, out_key
+
+# which raw lane counts each lane-padded bucket has served: (brokers,
+# racks, part-bucket, rf-bucket) -> lane buckets, lane counts, dispatches
+_LANE_SERVED: dict[tuple, dict] = {}
+_LANE_SERVED_LOCK = threading.Lock()
+
+
+def note_lane_serve(bucket_key: tuple, lanes: int,
+                    lane_bucket: int) -> None:
+    """Record one lane dispatch: ``bucket_key`` is (brokers, racks,
+    part-bucket, rf-bucket); ``lanes`` the raw width, ``lane_bucket`` the
+    padded width dispatched."""
+    with _LANE_SERVED_LOCK:
+        row = _LANE_SERVED.setdefault(
+            tuple(bucket_key),
+            {"lane_buckets": set(), "served_lane_counts": set(),
+             "dispatches": 0},
+        )
+        row["lane_buckets"].add(int(lane_bucket))
+        row["served_lane_counts"].add(int(lanes))
+        row["dispatches"] += 1
+
+
+def lane_serve_report() -> dict:
+    """``{'BxKxPxR': {lane_buckets, served_lane_counts, dispatches}}``."""
+    with _LANE_SERVED_LOCK:
+        rows = {k: dict(v) for k, v in _LANE_SERVED.items()}
+    return {
+        "x".join(str(x) for x in k): {
+            "lane_buckets": sorted(v["lane_buckets"]),
+            "served_lane_counts": sorted(v["served_lane_counts"]),
+            "dispatches": v["dispatches"],
+        }
+        for k, v in sorted(rows.items())
+    }
 
 
 def init_sweep_state(m: ModelArrays, a_seed: torch.Tensor, key,
@@ -37,3 +77,59 @@ def init_sweep_state(m: ModelArrays, a_seed: torch.Tensor, key,
         prng.split(key, 1)[0],
     )
 
+
+def init_lane_state(m_stack: ModelArrays, lane_seeds, keys, n_chains: int):
+    """Initial sweep state of L lanes: lane l's slice is exactly what
+    :func:`init_sweep_state` builds for lane l's model, seed
+    ``lane_seeds[l]`` and key ``keys[l]`` (``a [L, N, P, R]``, ranks
+    ``[L, N]``, keys ``uint32[L, 2]``). The seeds are scored, and their
+    moves counted, by one B1 launch for every lane."""
+    seeds = torch.tensor(np.asarray(lane_seeds, np.int32),
+                         device=m_stack.device)
+    L = seeds.shape[0]
+    out, _c, _l, _r = score_lanes(m_stack, seeds[:, None])
+    k0 = best_key(out[:, 0, 0], out[:, 0, 1:5].sum(-1, dtype=torch.int32))
+    mv0 = out[:, 0, 5]
+    pop = seeds[:, None].repeat(1, n_chains, 1, 1)
+    keys = np.asarray(keys, np.uint32).reshape(L, 2)
+    return (
+        pop,
+        k0[:, None].repeat(1, n_chains),
+        mv0[:, None].repeat(1, n_chains),
+        pop.clone(),
+        np.stack([prng.split(k, 1)[0] for k in keys]),
+    )
+
+
+def solve_lanes(m_stack: ModelArrays, n_chains: int, temps, state=None,
+                lane_seeds=None, keys=None, engine: str = "sweep",
+                steps_per_round: int = 1, scorer: str = "torch"):
+    """Run L same-bucket lanes (the stacked model ``m_stack``) through one
+    schedule chunk. Sweep engine: pass ``state`` from
+    :func:`init_lane_state` (or a previous chunk), or ``lane_seeds [L, P,
+    R]`` and ``keys [L, 2]`` to build it; returns ``(state', best_a [L,
+    P, R], best_k [L], curve [L, sweeps])`` through the lane stepper (one
+    launch of each kernel for every lane). Chain engine (no kernel in
+    either package): pass ``lane_seeds`` and ``keys``; each lane runs
+    ``anneal.make_solver_fn`` on its model with its own key, as the
+    reference's ``vmap`` does per lane; returns ``(best_a, best_k,
+    curve)`` with the same lane axes."""
+    if engine == "sweep":
+        from ..solvers.tpu.sweep import make_lane_stepper_fn
+
+        if state is None:
+            if lane_seeds is None or keys is None:
+                raise ValueError(
+                    "sweep lanes need state= or (lane_seeds=, keys=)")
+            state = init_lane_state(m_stack, lane_seeds, keys, n_chains)
+        return make_lane_stepper_fn(n_chains, scorer=scorer)(
+            m_stack, state, temps)
+    from ..solvers.tpu.anneal import make_solver_fn
+
+    solve = make_solver_fn(n_chains, steps_per_round)
+    seeds = torch.tensor(np.asarray(lane_seeds, np.int32),
+                         device=m_stack.device)
+    keys = np.asarray(keys, np.uint32).reshape(seeds.shape[0], 2)
+    outs = [solve(lane_model(m_stack, lane), seeds[lane], keys[lane], temps)
+            for lane in range(seeds.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))

@@ -14,6 +14,8 @@ can still tunnel through infeasible states.
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,11 +27,116 @@ from ...models.instance import ProblemInstance
 SCALE_W = 1
 LAMBDA = 64
 
-# the default search configuration (the reference's ``LaneConfig()``):
-# penalty scale, temperature-ladder multiplier, compound-move gate
-DEFAULT_LAM = float(LAMBDA)
-DEFAULT_TEMP_SCALE = 1.0
-DEFAULT_COMP_ENABLE = 1.0
+
+@dataclass(frozen=True)
+class LaneConfig:
+    """One lane's search configuration, carried as model data
+    (``ModelArrays.lam`` / ``temp_scale`` / ``comp_enable``):
+
+    - ``lam``: penalty scale (the default orders feasibility strictly
+      above preservation; low values tunnel through penalized states);
+    - ``temp_scale``: multiplier on the shared temperature ladder;
+    - ``compound``: whether the lane accepts compound 2-move exchange
+      proposals (the sweeps still run; a disabled lane rejects them).
+    """
+
+    lam: float = float(LAMBDA)
+    temp_scale: float = 1.0
+    compound: bool = True
+
+
+DEFAULT_CONFIG = LaneConfig()
+
+# the portfolio ladder: lane 0 is always the default config, so a
+# portfolio never does worse than the solo solve it replaces; the rest
+# trade penalty scale against temperature
+PORTFOLIO_TABLE = (
+    DEFAULT_CONFIG,                        # anchor: the solo config
+    LaneConfig(lam=8.0),                   # tunneler: cheap violations
+    LaneConfig(temp_scale=4.0),            # hot ladder: wide exploration
+    LaneConfig(lam=256.0, temp_scale=0.5),  # strict quench
+    LaneConfig(lam=4.0, temp_scale=2.0),   # hot + soft
+    LaneConfig(compound=False),            # plain move set
+    LaneConfig(lam=16.0, temp_scale=0.25),  # near-greedy cold descent
+    LaneConfig(lam=128.0, temp_scale=2.0),  # hot + strict
+)
+
+# the adaptive table: with KAO_PORTFOLIO_ADAPT set and enough evidence
+# banked, winners move to the front and never-winners sink to the tail;
+# with the gate off (the default) the table stays in the order above
+_ADAPT_LOCK = threading.Lock()
+_ADAPT_WINS = [0] * len(PORTFOLIO_TABLE)
+_ADAPT_SOLVES = [0]
+# below this many portfolio solves the table never reorders
+ADAPT_MIN_SOLVES = 16
+
+
+def portfolio_adapt_enabled() -> bool:
+    return os.environ.get("KAO_PORTFOLIO_ADAPT", "").lower() not in (
+        "", "0", "false", "no",
+    )
+
+
+def note_portfolio_result(winner: LaneConfig | None) -> None:
+    """Bank one finished portfolio solve: ``winner`` is the config of
+    the lane whose plan won (None when no lane won outright). Called
+    once a portfolio solve, gate on or off."""
+    with _ADAPT_LOCK:
+        _ADAPT_SOLVES[0] += 1
+        if winner is not None:
+            try:
+                _ADAPT_WINS[PORTFOLIO_TABLE.index(winner)] += 1
+            except ValueError:
+                pass  # a config outside the table has no slot
+
+
+def reset_portfolio_adapt() -> None:
+    with _ADAPT_LOCK:
+        _ADAPT_SOLVES[0] = 0
+        for i in range(len(_ADAPT_WINS)):
+            _ADAPT_WINS[i] = 0
+
+
+def portfolio_adapt_snapshot() -> dict:
+    """The banked evidence and the table order in force."""
+    with _ADAPT_LOCK:
+        wins = list(_ADAPT_WINS)
+        solves = _ADAPT_SOLVES[0]
+    enabled = portfolio_adapt_enabled()
+    order = _adapted_order(wins) if (
+        enabled and solves >= ADAPT_MIN_SOLVES
+    ) else list(range(len(PORTFOLIO_TABLE)))
+    return {
+        "enabled": enabled,
+        "solves": solves,
+        "min_solves": ADAPT_MIN_SOLVES,
+        "wins": wins,
+        "order": order,
+        "adapted": order != list(range(len(PORTFOLIO_TABLE))),
+    }
+
+
+def _adapted_order(wins: list[int]) -> list[int]:
+    """Lane 0 stays the default config; the rest sort by win count,
+    the table order breaking ties."""
+    tail = sorted(range(1, len(PORTFOLIO_TABLE)),
+                  key=lambda i: (-wins[i], i))
+    return [0] + tail
+
+
+def portfolio_configs(width: int) -> list[LaneConfig]:
+    """The first ``width`` portfolio lane configs (cycling past the
+    table). Lane 0 is the default config."""
+    w = max(1, int(width))
+    table = PORTFOLIO_TABLE
+    if portfolio_adapt_enabled():
+        with _ADAPT_LOCK:
+            wins = list(_ADAPT_WINS)
+            solves = _ADAPT_SOLVES[0]
+        if solves >= ADAPT_MIN_SOLVES:
+            table = tuple(PORTFOLIO_TABLE[i]
+                          for i in _adapted_order(wins))
+    return [table[i % len(table)] for i in range(w)]
 
 
 def band_pen(c, lo, hi):
@@ -54,7 +161,10 @@ def geometric_temps(t_hi: float, t_lo: float, n: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class ModelArrays:
-    """Model constants on one device. Every field is a tensor."""
+    """Model constants on one device. Every field is a tensor. A stacked
+    model (:func:`stack_models`) gives every field a leading lane axis
+    ``[L]``; the shape properties read the trailing axes, so they hold
+    for both."""
 
     a0: torch.Tensor  # [P, R] int32 current assignment, null = B
     rf: torch.Tensor  # [P] int32
@@ -73,41 +183,44 @@ class ModelArrays:
 
     @property
     def num_parts(self) -> int:
-        return self.a0.shape[0]
+        return self.a0.shape[-2]
 
     @property
     def max_rf(self) -> int:
-        return self.a0.shape[1]
+        return self.a0.shape[-1]
 
     @property
     def num_brokers(self) -> int:
-        return self.w_lead.shape[1] - 1
+        return self.w_lead.shape[-1] - 1
 
     @property
     def num_racks(self) -> int:
-        return self.rack_lo.shape[0] - 1
+        return self.rack_lo.shape[-1] - 1
+
+    @property
+    def num_lanes(self) -> int:
+        """The lane count of a stacked model; 0 for a single model."""
+        return self.a0.shape[0] if self.a0.dim() == 3 else 0
 
     @property
     def device(self) -> torch.device:
         return self.a0.device
 
-    def _host(self) -> tuple:
-        """The scalar leaves the kernels take as arguments, read to the
-        host once per model."""
+    def lane_scalars(self) -> tuple[list, list, list]:
+        """The scalar leaves the kernels take as arguments, one entry a
+        lane (one for a single model), read to the host once per model:
+        ``(bands, lam, temp_scale)`` with bands ``(broker_lo,
+        broker_hi, leader_lo, leader_hi)``, float32-exact floats."""
         cached = self.__dict__.get("_host_scalars")
         if cached is None:
-            bands = torch.cat([self.broker_band, self.leader_band]).tolist()
-            cached = (tuple(int(x) for x in bands), float(self.lam))
+            bands = torch.cat([self.broker_band, self.leader_band],
+                              -1).reshape(-1, 4).tolist()
+            cached = ([tuple(int(x) for x in b) for b in bands],
+                      [float(x) for x in self.lam.reshape(-1).tolist()],
+                      [float(x)
+                       for x in self.temp_scale.reshape(-1).tolist()])
             object.__setattr__(self, "_host_scalars", cached)
         return cached
-
-    def bands(self) -> tuple[int, int, int, int]:
-        """(broker_lo, broker_hi, leader_lo, leader_hi) as host ints."""
-        return self._host()[0]
-
-    def lam_host(self) -> float:
-        """The penalty scale as a host float (float32-exact)."""
-        return self._host()[1]
 
 
 _FIELDS = [f.name for f in dataclasses.fields(ModelArrays)]
@@ -117,7 +230,9 @@ _FLOAT_FIELDS = ("lam", "temp_scale", "comp_enable")
 def from_numpy(leaves: dict, device) -> ModelArrays:
     """Build a ``ModelArrays`` from host arrays keyed by field name — the
     reference's ``ModelArrays`` leaves taken as numpy arrays carry over
-    unchanged, so both packages compute on identical inputs."""
+    unchanged, so both packages compute on identical inputs. Stacked
+    leaves (a leading lane axis, the reference's ``stack_models``) carry
+    over as a stacked model."""
     out = {}
     for name in _FIELDS:
         x = np.asarray(leaves[name])
@@ -136,9 +251,11 @@ def from_instance(
     device,
     num_parts: int | None = None,
     max_rf: int | None = None,
+    config: LaneConfig | None = None,
 ) -> ModelArrays:
     """Lower an instance to tensors on ``device``, optionally padded up to
-    a bucket shape (``bucket.bucket_shape``). Padded partition rows are
+    a bucket shape (``bucket.bucket_shape``), with the search
+    configuration ``config`` (default :data:`DEFAULT_CONFIG`). Padded partition rows are
     inert: ``rf = 0``, ``slot_valid`` all false (their slots null out to
     broker ``B``), zero weights and a zero diversity cap; every proposal
     on them is rejected. Padded slot columns are plain invalid slots."""
@@ -171,24 +288,112 @@ def from_instance(
         "rack_lo": np.concatenate([inst.rack_lo, [0]]),
         "rack_hi": np.concatenate([inst.rack_hi, [big]]),
         "part_rack_hi": part_rack_hi,
-        "lam": DEFAULT_LAM,
-        "temp_scale": DEFAULT_TEMP_SCALE,
-        "comp_enable": DEFAULT_COMP_ENABLE,
+        **_config_values(config or DEFAULT_CONFIG),
     }, device)
+
+
+def _config_values(cfg: LaneConfig) -> dict:
+    """The config fields as float32 values."""
+    return {"lam": np.float32(cfg.lam),
+            "temp_scale": np.float32(cfg.temp_scale),
+            "comp_enable": np.float32(1.0 if cfg.compound else 0.0)}
+
+
+def _config_leaves(cfg: LaneConfig, device) -> dict:
+    """The config fields as float32 scalar tensors on ``device``."""
+    return {k: torch.tensor(v, device=device)
+            for k, v in _config_values(cfg).items()}
+
+
+def with_config(m: ModelArrays, cfg: LaneConfig) -> ModelArrays:
+    """``m`` with its config leaves replaced; the model tables are the
+    same tensors (a portfolio's stack shares them across lanes)."""
+    return dataclasses.replace(m, **_config_leaves(cfg, m.device))
+
+
+def model_config(m: ModelArrays) -> dict:
+    """Host view of a single model's config leaves."""
+    return {
+        "lam": float(m.lam),
+        "temp_scale": float(m.temp_scale),
+        "compound": bool(float(m.comp_enable) > 0.5),
+    }
+
+
+def stack_models(models: list[ModelArrays]) -> ModelArrays:
+    """Stack L same-shape models along a new leading lane axis: the
+    model the lane stepper and the lane kernels take. A field that every
+    model shares (the same tensor, as :func:`with_config` leaves the
+    tables of a portfolio) becomes a read-only lane-stride-0 view of it;
+    any other is stacked. Raises ValueError on shape skew: the lanes
+    must already share a bucket (same padded P/R, same B/K)."""
+    if not models:
+        raise ValueError("stack_models needs at least one model")
+    first = [getattr(models[0], f).shape for f in _FIELDS]
+    for m in models[1:]:
+        got = [getattr(m, f).shape for f in _FIELDS]
+        if got != first:
+            raise ValueError(
+                "lane models disagree on shape; pad every instance to a "
+                f"common bucket first (expected {first}, got {got})"
+            )
+    out = {}
+    for f in _FIELDS:
+        xs = [getattr(m, f) for m in models]
+        if all(x is xs[0] for x in xs):
+            out[f] = xs[0].unsqueeze(0).expand(len(xs), *xs[0].shape)
+        else:
+            out[f] = torch.stack(xs)
+    return ModelArrays(**out)
+
+
+def lane_model(m: ModelArrays, lane: int) -> ModelArrays:
+    """Lane ``lane`` of a stacked model as a single model (views of the
+    stacked tensors, cached on the stacked model)."""
+    views = m.__dict__.get("_lane_views")
+    if views is None:
+        views = [None] * m.num_lanes
+        object.__setattr__(m, "_lane_views", views)
+    if views[lane] is None:
+        views[lane] = ModelArrays(**{f: getattr(m, f)[lane]
+                                     for f in _FIELDS})
+    return views[lane]
+
+
+def lane_range(m: ModelArrays, lo: int, hi: int) -> ModelArrays:
+    """Lanes ``lo`` to ``hi - 1`` of a stacked model as a stacked model
+    (views of its tensors, shared tables still at lane stride 0; cached
+    on ``m``, so each range keeps its kernel arguments)."""
+    ranges = m.__dict__.get("_lane_ranges")
+    if ranges is None:
+        ranges = {}
+        object.__setattr__(m, "_lane_ranges", ranges)
+    if (lo, hi) not in ranges:
+        ranges[lo, hi] = ModelArrays(**{f: getattr(m, f)[lo:hi]
+                                        for f in _FIELDS})
+    return ranges[lo, hi]
 
 
 def state_from_numpy(state, device):
     """The sweep state ``(a, best_k, best_mv, best_a, key)`` from host
     arrays: the four population leaves become int32 tensors on
     ``device`` (independent buffers, never views of one another), the
-    key stays a host ``uint32[2]``."""
+    key stays a host ``uint32[2]``. The reference's lane state on its
+    mesh of one (``a [1, L, N, P, R]``, ``key [1, L, 2]``) becomes the
+    port's lane state (``a [L, N, P, R]``, keys ``uint32[L, 2]``)."""
     a, best_k, best_mv, best_a, key = state
+    key = np.asarray(key, np.uint32)
+    lanes = key.ndim == 3
+    if lanes and key.shape[0] != 1:
+        raise ValueError(f"a lane state of {key.shape[0]} devices; this "
+                         "package runs one")
 
     def t(x):
-        return torch.tensor(np.asarray(x, np.int32), device=device)
+        x = np.asarray(x, np.int32)
+        return torch.tensor(x[0] if lanes else x, device=device)
 
     return (t(a), t(best_k), t(best_mv), t(best_a),
-            np.asarray(key, np.uint32).copy())
+            (key[0] if lanes else key).copy())
 
 
 def chain_state_from_numpy(leaves: dict, device):

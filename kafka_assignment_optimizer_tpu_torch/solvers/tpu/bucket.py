@@ -18,6 +18,8 @@ Config:
 - ``KAO_BUCKETS=64,1024,16384`` override the partition ladder with an
   explicit comma list (instances above the largest rung keep their raw
   partition count).
+- ``KAO_LANE_BUCKETS=off`` keeps raw lane counts; ``KAO_LANE_BUCKETS=2,4,8``
+  overrides the lane ladder (a malformed value keeps the default).
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ _LADDER_TILE = 256
 
 # max-RF ladder: one rung per common value, then multiples of 4
 _RF_LADDER = (1, 2, 3, 4, 5, 6, 8)
+
+# lane ladder: a lane batch (the portfolio, a multi-instance batch) pads
+# its lane count up to a rung; padding lanes rerun lane 0 and are never
+# read. Rung 1 keeps a single lane raw; batches above the top rung stay
+# raw
+_LANE_LADDER = (1, 8)
 
 
 def _round_up(v: int, align: int) -> int:
@@ -84,6 +92,39 @@ def part_bucket(num_parts: int) -> int:
     while v < p:
         v = _next_rung(v)
     return v
+
+
+def _lane_ladder() -> tuple[int, ...] | None:
+    """The active lane ladder, or None when lane padding is off."""
+    raw = os.environ.get("KAO_LANE_BUCKETS", "")
+    if raw.lower() in ("off", "0", "none", "false"):
+        return None
+    if not raw or raw.lower() in ("on", "1", "true"):
+        return _LANE_LADDER
+    try:
+        rungs = sorted({int(x) for x in raw.split(",") if x.strip()})
+    except ValueError:
+        return _LANE_LADDER  # malformed override: the default ladder
+    return tuple(rungs) or _LANE_LADDER
+
+
+def lane_bucket(lanes: int) -> int:
+    """Smallest lane-ladder rung >= lanes (identity when lane padding is
+    off, or above the top rung)."""
+    n = int(lanes)
+    ladder = _lane_ladder()
+    if ladder is None:
+        return n
+    for rung in ladder:
+        if rung >= n:
+            return rung
+    return n
+
+
+def lane_ladder() -> list[int]:
+    """The active lane ladder's rungs; empty when lane padding is off."""
+    ladder = _lane_ladder()
+    return [] if ladder is None else list(ladder)
 
 
 def rf_bucket(max_rf: int) -> int:

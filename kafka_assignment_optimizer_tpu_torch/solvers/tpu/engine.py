@@ -13,9 +13,12 @@ taking the reference's decisions on one device:
    warm start.
 2. **The ladder.** The sweep engine (``sweep``, through the hand-written
    kernels on the card) or, off the card below 512 partitions, the chain
-   engine (``anneal``), in schedule chunks. Between chunks: adoption of a
-   late constructor plan, the boundary optimality certificate, the chain
-   engine's reseed and the deadline.
+   engine (``anneal``), in schedule chunks. A sweep solve races the
+   portfolio by default: ``portfolio_configs(8)`` as eight lanes of one
+   lane stepper (every kernel one launch for all lanes), the first lane
+   to certify at a boundary retiring the ladder. Between chunks:
+   adoption of a late constructor plan, the boundary optimality
+   certificate, the chain engine's reseed and the deadline.
 3. **Certify-first final selection.** Rescore (B1 on the card), then
    moves against the exact move bound, feasibility, weight against the
    weight bound, one exact reseat; polish only when no check certifies.
@@ -23,10 +26,12 @@ taking the reference's decisions on one device:
    ``certify_optimal`` for ``proved_optimal``.
 
 A defaulted sweep that ends infeasible below 512 partitions retries the
-chain engine on what is left of the budget. Not here yet: lanes, the
-portfolio, pipelining and megachunks, checkpoints, warm starts,
-decomposition and the host fallback; their keywords raise
-``NotImplementedError`` unless their value names what this engine does.
+chain engine on what is left of the budget. :func:`solve_tpu_batch` solves
+L independent instances in one lane ladder (no race, no boundary
+certificate, no polish). Not here yet: pipelining and megachunks, more
+than one device, checkpoints, warm starts, decomposition, profiling and
+the host fallback; their keywords raise ``NotImplementedError`` unless
+their value names what this engine does.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own.
@@ -34,6 +39,8 @@ Every entry point runs on ``cuda`` unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -45,8 +52,13 @@ import torch
 from ... import prng
 from ...models import instance as _instance_mod
 from ...models.instance import ProblemInstance
-from ...ops.score_cuda import score
-from ...parallel.mesh import init_sweep_state
+from ...ops.score_cuda import score, score_lanes
+from ...parallel.mesh import (
+    init_lane_state,
+    init_sweep_state,
+    note_lane_serve,
+    solve_lanes,
+)
 from ...resilience.budget import Budget
 from ..base import SolveResult, register
 from . import arrays, bucket
@@ -54,7 +66,12 @@ from . import constructor as _constructor
 from .anneal import make_solver_fn
 from .polish import polish
 from .seed import greedy_seed
-from .sweep import first_argmax, make_sweep_stepper_fn, out_key
+from .sweep import (
+    first_argmax,
+    make_lane_stepper_fn,
+    make_sweep_stepper_fn,
+    out_key,
+)
 
 _IMIN = int(np.iinfo(np.int32).min)
 
@@ -79,6 +96,52 @@ _EXACT_RACE_VARS = 20_000  # 2 * brokers * partitions, the MILP var count
 # the greedy + exact-reseat racer; tests set it False to pin the
 # annealer path
 _RESEAT_RACE = True
+
+# the portfolio: a sweep solve that the race did not certify races
+# KAO_PORTFOLIO_WIDTH lane configs (arrays.PORTFOLIO_TABLE) as lanes of
+# one lane stepper. Opt out per solve (portfolio=False) or for the
+# process (KAO_NO_PORTFOLIO=1; its falsy spellings leave it on)
+_PORTFOLIO_DEFAULT = os.environ.get("KAO_NO_PORTFOLIO", "").lower() in (
+    "", "off", "0", "none", "false",
+)
+
+
+def _env_portfolio_width() -> int:
+    """``KAO_PORTFOLIO_WIDTH``, 8 when unset or malformed; 1 means no
+    racing."""
+    raw = os.environ.get("KAO_PORTFOLIO_WIDTH", "").strip()
+    if not raw:
+        return 8
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        return 8
+
+
+_PORTFOLIO_WIDTH = _env_portfolio_width()
+
+
+def set_portfolio_default(enabled: bool) -> None:
+    """The process default for solves that leave ``portfolio`` at
+    None."""
+    global _PORTFOLIO_DEFAULT
+    _PORTFOLIO_DEFAULT = bool(enabled)
+
+
+def portfolio_width_default() -> int:
+    """The width a defaulted portfolio solve races."""
+    return _PORTFOLIO_WIDTH if _PORTFOLIO_DEFAULT else 1
+
+
+def _resolve_portfolio_width(portfolio) -> int:
+    """The lane count of the ``portfolio`` knob: None defers to the
+    process default, a bool toggles the default width, an int names the
+    width. 1 (or False) means off."""
+    if portfolio is None:
+        return _PORTFOLIO_WIDTH if _PORTFOLIO_DEFAULT else 1
+    if isinstance(portfolio, bool):
+        return _PORTFOLIO_WIDTH if portfolio else 1
+    return max(1, int(portfolio))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -159,10 +222,10 @@ _UNPORTED = {
     "profile_dir": (None,),
     "precompile": (False,),
     "pipeline": (None, False),
-    "portfolio": (None, False, 0, 1),
     "warm_start": (None,),
     "decompose": (None, False),
     "megachunk": (None, False, 1),
+    "trace": (None, False),
 }
 
 
@@ -209,8 +272,8 @@ def solve_tpu(
     boundaries."""
     _refuse_unported(dict(
         n_devices=n_devices, checkpoint=checkpoint, profile_dir=profile_dir,
-        precompile=precompile, pipeline=pipeline, portfolio=portfolio,
-        warm_start=warm_start, decompose=decompose, megachunk=megachunk,
+        precompile=precompile, pipeline=pipeline, warm_start=warm_start,
+        decompose=decompose, megachunk=megachunk,
     ))
     t0 = time.perf_counter()
     dev = resolve_device(device)
@@ -225,6 +288,7 @@ def solve_tpu(
         res = _solve_raced(
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
+            portfolio,
         )
         # a DEFAULTED sweep that ends infeasible on an instance small
         # enough for chains retries the chain engine on what is LEFT of
@@ -261,7 +325,7 @@ def solve_tpu(
 
 def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
-                 budget, t0) -> SolveResult:
+                 budget, t0, portfolio=None) -> SolveResult:
     """Start the bounds prefetch and the constructor worker this
     instance class races, then run the solve."""
 
@@ -308,7 +372,7 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     return _solve_inner(
         inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi, t_lo,
         engine, time_limit_s, cert_min_savings_s, budget, t0, bounds_fut,
-        lp_fut, lp_wait_s,
+        lp_fut, lp_wait_s, portfolio,
     )
 
 
@@ -484,25 +548,34 @@ def _sync(dev: torch.device) -> float:
 class _LadderResult:
     """What the ladder hands to final selection."""
 
-    pop_a: torch.Tensor | None = None  # [1, P, R] the shard winner
-    pop_k: torch.Tensor | None = None  # [1]
+    pop_a: torch.Tensor | None = None  # [1 or Lp, P, R] the winners
+    pop_k: torch.Tensor | None = None  # [1 or Lp]
     curves: list = field(default_factory=list)
     rounds_run: int = 0
     timed_out: bool = False
     certified_a: np.ndarray | None = None  # boundary/constructor plan
     constructed: bool = False  # certified_a came from the constructor
     tight_fut: object = None  # in-flight tier-1 LP, reused at the end
+    winner_lane: int | None = None  # the portfolio lane that certified
+    certified_at_s: float | None = None  # solve-relative certificate time
 
 
 def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 seed_dev, key, sweep_state, lp_fut, bounds_fut,
-                cert_min_savings_s, budget, warm_key) -> _LadderResult:
+                cert_min_savings_s, budget, warm_key,
+                lanes: int = 0) -> _LadderResult:
     """The chunked ladder, one chunk at a time. Between chunks: adopt a
     finished certified constructor plan; try the optimality certificate
     on the top winner when the ladder left to skip costs more than
     ``cert_min_savings_s`` and the bounds are in hand (up to 3 exact
     reseats over the solve; a tight tier-1 LP on its own thread); reseed
-    the chain engine from the best; honour the deadline."""
+    the chain engine from the best; honour the deadline.
+
+    ``lanes`` > 0 is the portfolio: ``m`` is a stacked model, the sweep
+    state a lane state, and each chunk runs the lane stepper. The
+    certificate's candidates are then the real lanes' winners (padding
+    lanes are never read), and the first lane to certify retires the
+    ladder as ``winner_lane``."""
     r = _LadderResult()
     n = len(chunks)
     reseat_tries = 0
@@ -531,7 +604,8 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
             _k, _s = prng.split(_k)
             subs.append(_s)
     if engine == "sweep":
-        stepper = make_sweep_stepper_fn(batch, scorer=scorer)
+        stepper = (make_lane_stepper_fn if lanes else make_sweep_stepper_fn)(
+            batch, scorer=scorer)
     else:
         chain_solve = make_solver_fn(batch, steps_per_round)
 
@@ -552,6 +626,9 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         do_cert = remaining_s > cert_min_savings_s and bounds_fut.done()
         if engine != "sweep" or do_cert:
             pa, pk = r.pop_a.cpu().numpy(), r.pop_k.cpu().numpy()
+            if lanes:
+                # the real lanes' winners; index j is lane j
+                pa, pk = pa[:lanes], pk[:lanes]
             for j in np.argsort(-pk)[:1] if do_cert else []:
                 cand = arrays.unpad_candidate(pa[j], inst)
                 mc = inst.move_count(cand)
@@ -576,6 +653,9 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                         r.certified_a = cand
                         break
             if r.certified_a is not None:
+                if lanes:
+                    r.winner_lane = int(j)
+                r.certified_at_s = round(time.perf_counter() - budget.t0, 4)
                 return True
             if engine != "sweep":
                 seed_dev = r.pop_a[int(np.argmax(pk))]
@@ -598,7 +678,8 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         else:
             top_a, top_k, curve = chain_solve(m, seed_dev, subs[i],
                                               chunks[i])
-        r.pop_a, r.pop_k = top_a[None], top_k[None]
+        r.pop_a, r.pop_k = ((top_a, top_k) if lanes
+                            else (top_a[None], top_k[None]))
         chunk_s = _sync(dev) - tc
         r.rounds_run += int(chunks[i].shape[0])
         r.curves.append(curve)
@@ -617,7 +698,8 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
     return r
 
 
-def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget):
+def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
+                     lanes: int = 0):
     """Exact rescore of the shard winners (B1 on the card, which also
     counts the moves) ranked by feasibility, then weight, then fewest
     moves; then certify FIRST — moves against the exact move bound,
@@ -625,14 +707,24 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget):
     and polish only when no check certified, followed by a reseat;
     last, an uncertified constructor plan may outrank the result.
 
-    Returns ``(best_a, final_cert, lp_plan_won, t_select)``:
-    ``final_cert`` names the check that decided ("ok"/"ok_reseat"
-    certified, polish skipped); ``t_select`` is the host clock when the
-    certify-first attempt ended."""
+    ``lanes`` > 0 is the portfolio: the pool is the real lanes' winners
+    (``pop_a [Lp, P, R]``, padding lanes dropped), scored with the base
+    model ``m``; polish and reseat use it too.
+
+    Returns ``(best_a, final_cert, lp_plan_won, t_select,
+    winner_lane)``: ``final_cert`` names the check that decided
+    ("ok"/"ok_reseat" certified, polish skipped); ``t_select`` is the
+    host clock when the certify-first attempt ended; ``winner_lane`` the
+    portfolio lane of the champion (None without lanes, or when the
+    constructor's plan won)."""
+    if lanes:
+        pop_a = pop_a[:lanes]
     out, _cnt, _lcnt, _rcnt = score(m, pop_a)
     primary, moves = out_key(out), out[:, 5]
     tied = primary == primary.max()
-    cand = pop_a[first_argmax(torch.where(tied, -moves, _IMIN))]
+    top = first_argmax(torch.where(tied, -moves, _IMIN))
+    cand = pop_a[top]
+    winner_lane = int(top) if lanes else None
     certified_final = None
     final_cert = "budget_spent"
     left = budget.remaining()
@@ -665,7 +757,7 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget):
                         arrays.pad_candidate(reseated, m)).to(m.device)
     t_select = _sync(m.device)
     if certified_final is not None:
-        return certified_final, final_cert, False, t_select
+        return certified_final, final_cert, False, t_select, winner_lane
     best_a = arrays.unpad_candidate(polish(m, cand), inst)
     try:
         _, ub0 = bounds_fut.result(timeout=budget.remaining())
@@ -694,7 +786,17 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget):
             if rank(plan) > rank(best_a):
                 best_a = plan
                 lp_won = True
-    return best_a, final_cert, lp_won, t_select
+    return (best_a, final_cert, lp_won, t_select,
+            None if lp_won else winner_lane)
+
+
+def _oracle(inst: ProblemInstance, a: np.ndarray) -> tuple[dict, list]:
+    """The numpy oracle's violations of plan ``a`` and its scores in B1's
+    order: (weight, broker, leader, rack, diversity)."""
+    viol = inst.violations(a)
+    return viol, [inst.preservation_weight(a), viol["broker_balance"],
+                  viol["leader_balance"], viol["rack_balance"],
+                  viol["part_rack_diversity"]]
 
 
 def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
@@ -702,12 +804,9 @@ def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
     """The numpy oracle's violation counts of the final plan, checked
     against the device scorer's (B1 on the card) — a disagreement means
     the device path is wrong, and raises."""
-    viol = inst.violations(best_a)
-    weight = inst.preservation_weight(best_a)
+    viol, oracle = _oracle(inst, best_a)
     dev_a = torch.from_numpy(arrays.pad_candidate(best_a, m)).to(m.device)
     out = score(m, dev_a[None])[0][0, :5].tolist()
-    oracle = [weight, viol["broker_balance"], viol["leader_balance"],
-              viol["rack_balance"], viol["part_rack_diversity"]]
     if out != oracle:
         raise RuntimeError(
             "verification failed: the device scores (weight, broker, "
@@ -719,7 +818,8 @@ def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
 
 def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
-                 budget, t0, bounds_fut, lp_fut, lp_wait_s) -> SolveResult:
+                 budget, t0, bounds_fut, lp_fut, lp_wait_s,
+                 portfolio=None) -> SolveResult:
     certified_a, lp_warm, lp_warm_extends = _await_constructor(
         lp_fut, lp_wait_s, budget)
     constructed = early_stopped = certified_a is not None
@@ -729,6 +829,7 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     m = None
     bkt_parts = bkt_rf = None
     lad = _LadderResult()
+    pw, port_lanes, port_cfgs = 1, 0, []
     if certified_a is None:
         platform = "gpu" if dev.type == "cuda" else "cpu"
         d = _defaults(inst, platform, engine)
@@ -754,14 +855,43 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         key = prng.PRNGKey(seed)
         chunks = _build_chunks(inst, engine, rounds, t_hi, t_lo,
                                time_limit_s)
-        sweep_state = (init_sweep_state(m, seed_dev, key, batch)
-                       if engine == "sweep" else None)
+        # the portfolio: the sweep engine only
+        pw = _resolve_portfolio_width(portfolio) if engine == "sweep" else 1
+        if pw > 1:
+            # pw configs padded up the lane ladder; padding lanes rerun
+            # lane 0's config and are never read. Lane 0 takes the solo
+            # key verbatim, lane i fold_in(key, i), padding lane j
+            # fold_in(key, pw + j): no two lanes share a stream
+            port_cfgs = arrays.portfolio_configs(pw)
+            port_lanes = bucket.lane_bucket(pw)
+            models = [arrays.with_config(m, c) for c in port_cfgs]
+            models += [models[0]] * (port_lanes - pw)
+            m_solver = arrays.stack_models(models)
+            lane_keys = np.stack(
+                [key] + [prng.fold_in(key, i) for i in range(1, pw)]
+                + [prng.fold_in(key, pw + j)
+                   for j in range(port_lanes - pw)])
+            lane_seeds = np.broadcast_to(
+                arrays.pad_candidate(a_seed, m),
+                (port_lanes, *m.a0.shape))
+            note_lane_serve((inst.num_brokers, inst.num_racks,
+                             int(bkt_parts), int(bkt_rf)), pw, port_lanes)
+            sweep_state = init_lane_state(m_solver, lane_seeds, lane_keys,
+                                          batch)
+            warm_key = ("lanes", port_lanes, engine, batch,
+                        steps_per_round, int(bkt_parts), int(bkt_rf))
+        else:
+            m_solver = m
+            sweep_state = (init_sweep_state(m, seed_dev, key, batch)
+                           if engine == "sweep" else None)
+            warm_key = (engine, batch, steps_per_round, int(bkt_parts),
+                        int(bkt_rf))
         t_lower = _sync(dev)
         lad = _run_ladder(
-            inst, m, batch, steps_per_round, engine, scorer, chunks,
+            inst, m_solver, batch, steps_per_round, engine, scorer, chunks,
             seed_dev, key, sweep_state, lp_fut, bounds_fut,
-            cert_min_savings_s, budget,
-            (engine, batch, steps_per_round, int(bkt_parts), int(bkt_rf)),
+            cert_min_savings_s, budget, warm_key,
+            lanes=pw if port_lanes else 0,
         )
         t_ladder = _sync(dev)
         if lad.certified_a is not None:
@@ -777,12 +907,14 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         a_seed = certified_a
         t_seed = t_lower = t_ladder = t_race
     t_select = t_ladder
+    winner_lane = lad.winner_lane
     if certified_a is not None:
         best_a = np.asarray(certified_a, dtype=np.int32)
         t_polish = t_ladder
     else:
-        best_a, final_cert, lp_won, t_select = _final_selection(
-            inst, m, lad.pop_a, bounds_fut, lp_fut, budget)
+        best_a, final_cert, lp_won, t_select, winner_lane = (
+            _final_selection(inst, m, lad.pop_a, bounds_fut, lp_fut,
+                             budget, lanes=pw if port_lanes else 0))
         constructed = constructed or lp_won
         t_polish = _sync(dev)
 
@@ -809,7 +941,13 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         except Exception:
             proved_optimal = False
     t_verify = time.perf_counter()
-    curve = (torch.cat([c.reshape(-1) for c in lad.curves]).cpu().numpy()
+    if port_lanes:
+        # the adaptive table's evidence: the config that produced the plan
+        arrays.note_portfolio_result(
+            port_cfgs[winner_lane] if winner_lane is not None else None)
+    # the best-score trajectory (the max over lanes on the portfolio)
+    curve = (torch.cat([c.reshape(-1, c.shape[-1]) for c in lad.curves],
+                       -1).max(0).values.cpu().numpy()
              if lad.curves else np.zeros(0, np.int64))
     return SolveResult(
         a=best_a,
@@ -846,6 +984,21 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             "time_limit_s": time_limit_s,
             "steps_per_round": steps_per_round,
             "steps_per_round_ignored": steps_per_round_ignored,
+            # the portfolio's geometry, its winning lane and config, and
+            # whether a lane's certificate retired the ladder (a boundary
+            # adoption of the constructor's plan is no portfolio win)
+            **({"portfolio": {
+                "width": pw,
+                "lane_bucket": port_lanes,
+                "winner_lane": winner_lane,
+                "winner_config": (
+                    dataclasses.asdict(port_cfgs[winner_lane])
+                    if winner_lane is not None else None),
+                "early_exit": (lad.certified_a is not None
+                               and not lad.constructed),
+                **({"certified_at_s": lad.certified_at_s}
+                   if lad.certified_at_s is not None else {}),
+            }} if port_lanes else {}),
             **({"final_cert": final_cert} if final_cert else {}),
             "total_steps": (lad.rounds_run * steps_per_round
                             if engine == "chain"
@@ -864,6 +1017,233 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             "score_curve": _downsample(curve, 32),
         },
     )
+
+
+def solve_tpu_batch(
+    insts: list,
+    seeds: int | list[int] = 0,
+    *,
+    engine: str | None = None,
+    batch: int | None = None,
+    rounds: int | None = None,
+    sweeps: int | None = None,
+    t_hi: float | None = None,
+    t_lo: float | None = None,
+    n_devices: int | None = None,
+    time_limit_s: float | None = None,
+    certify: bool = False,
+    trace: bool | str | None = None,
+    pipeline: bool | None = None,
+    portfolio: bool | int | None = None,
+    megachunk=None,
+    precompile: bool = False,
+    device=None,
+) -> list[SolveResult]:
+    """Solve L independent instances in one lane ladder on ``device``
+    (default the card): every instance padded up to one common bucket
+    (the largest lane's rungs) and lowered into a stacked model, the
+    lanes padded up the lane ladder (a padding lane reruns lane 0 with a
+    key of its own and is never read), and each schedule chunk one lane
+    stepper run (every kernel one launch for all lanes) or, for the chain
+    engine, one anneal a lane. No constructor race, no boundary
+    certificate, no polish: each lane's winner is verified against the
+    numpy oracle (and B1 held to it), and ``certify=True`` adds the
+    optimality certificate.
+
+    ``seeds`` is one int (lane i takes ``seed + i``) or one a lane; lane
+    i's key is ``PRNGKey(seeds[i])``. ``time_limit_s`` cuts the ladder
+    into chunks with the deadline checked between them. Instances whose
+    brokers or racks differ cannot stack: they are solved one by one
+    with :func:`solve_tpu`, tagged ``stats["lane_fallback"]``.
+    ``portfolio`` is honoured there only: the lanes of a batch are its
+    instances."""
+    _refuse_unported(dict(n_devices=n_devices, pipeline=pipeline,
+                          megachunk=megachunk, trace=trace,
+                          precompile=precompile))
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    if not insts:
+        return []
+    if isinstance(seeds, int):
+        seeds = [seeds + i for i in range(len(insts))]
+    if len(seeds) != len(insts):
+        raise ValueError(f"got {len(seeds)} seeds for {len(insts)} instances")
+    if len({(i.num_brokers, i.num_racks) for i in insts}) > 1:
+        results = []
+        for inst, s in zip(insts, seeds):
+            r = solve_tpu(inst, seed=s, engine=engine, batch=batch,
+                          rounds=rounds, sweeps=sweeps, t_hi=t_hi,
+                          t_lo=t_lo, time_limit_s=time_limit_s,
+                          portfolio=portfolio, device=device)
+            r.stats["lane_fallback"] = "brokers/racks differ across lanes"
+            results.append(r)
+        return results
+    return _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps,
+                             t_hi, t_lo, time_limit_s, certify, t0, dev)
+
+
+def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
+                      t_lo, time_limit_s, certify, t0, dev):
+    for inst in insts:
+        inst._bounds_cancelled = False
+        inst._construct_path = None
+        inst._flow_big_declines = 0
+    L = len(insts)
+    platform = "gpu" if dev.type == "cuda" else "cpu"
+    # the budget follows the largest lane (one bucket, one cost)
+    biggest = max(insts, key=lambda i: i.num_parts)
+    d = _defaults(biggest, platform, engine)
+    engine = d["engine"]
+    batch = batch or d["batch"]
+    rounds = rounds or sweeps or d["rounds"]
+    steps_per_round = d["steps_per_round"]
+    if t_hi is None:
+        t_hi = 2.0 if engine == "sweep" else 2.5
+    if t_lo is None:
+        t_lo = 0.02 if engine == "sweep" else 0.05
+    bkt_parts = max(bucket.part_bucket(i.num_parts) for i in insts)
+    bkt_rf = max(bucket.rf_bucket(i.max_rf) for i in insts)
+    B, K = insts[0].num_brokers, insts[0].num_racks
+    Lp = bucket.lane_bucket(L)
+    pad_lanes = Lp - L
+    note_lane_serve((B, K, bkt_parts, bkt_rf), L, Lp)
+    models = []
+    lane_seeds = np.empty((Lp, bkt_parts, bkt_rf), np.int32)
+    for i, inst in enumerate(insts):
+        m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
+                                 max_rf=bkt_rf)
+        models.append(m)
+        a_seed = np.asarray(greedy_seed(inst), dtype=np.int32)
+        assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
+            "seed left unfilled slots")
+        lane_seeds[i] = arrays.pad_candidate(a_seed, m)
+    for i in range(pad_lanes):
+        models.append(models[0])
+        lane_seeds[L + i] = lane_seeds[0]
+    m_stack = arrays.stack_models(models)
+    seed_moves = [int(inst.move_count(arrays.unpad_candidate(
+        lane_seeds[i], inst))) for i, inst in enumerate(insts)]
+    # padding lanes take derived keys, so no two lanes share a stream
+    keys = np.stack(
+        [prng.PRNGKey(s) for s in seeds]
+        + [prng.fold_in(prng.PRNGKey(seeds[0]), 1 + i)
+           for i in range(pad_lanes)])
+    scorer = "cuda" if dev.type == "cuda" else "torch"
+
+    deadline = Budget(time_limit_s, t0=t0).deadline
+    chunks = _build_chunks(biggest, engine, rounds, t_hi, t_lo,
+                           time_limit_s)
+    n = len(chunks)
+    state = None
+    cur_seeds, cur_keys = lane_seeds, keys
+    curves = []
+    rounds_run = 0
+    timed_out = False
+    pop_a = None
+    dispatches = 0
+    warm_chunk_s = None
+    wkey = ("lanes", Lp, engine, batch, steps_per_round, int(bkt_parts),
+            int(bkt_rf), int(chunks[0].shape[0]) if n else 0, scorer)
+    prior_s = _WARM_CHUNKS.get(wkey)
+    for ci in range(n):
+        if deadline is not None and ci >= 1:
+            est = warm_chunk_s if warm_chunk_s is not None else prior_s
+            if est is not None and deadline - time.perf_counter() < est * 0.9:
+                timed_out = True
+                break
+        tc = time.perf_counter()
+        out = solve_lanes(m_stack, batch, chunks[ci], state=state,
+                          lane_seeds=cur_seeds, keys=cur_keys,
+                          engine=engine, steps_per_round=steps_per_round,
+                          scorer=scorer)
+        dispatches += 1
+        if engine == "sweep":
+            state, pop_a, _pk, cv = out
+        else:
+            pop_a, _pk, cv = out
+        chunk_s = _sync(dev) - tc
+        rounds_run += int(chunks[ci].shape[0])
+        curves.append(cv)
+        if ci > 0:
+            warm_chunk_s = (chunk_s if warm_chunk_s is None
+                            else min(warm_chunk_s, chunk_s))
+        over = deadline is not None and time.perf_counter() > deadline
+        if engine != "sweep" and ci + 1 < n and not over:
+            # the chain engine reseeds each lane from its winner with a
+            # fresh key of its own stream (padding lanes too)
+            cur_seeds = pop_a.cpu().numpy()
+            cur_keys = np.stack([prng.split(k)[1] for k in cur_keys])
+        if over:
+            timed_out = ci + 1 < n
+            break
+    if warm_chunk_s is not None:
+        _WARM_CHUNKS.update(wkey, warm_chunk_s)
+    t_solve = _sync(dev)
+    curve = torch.cat(curves, -1).cpu().numpy()  # [Lp, rounds_run]
+    plans = pop_a.cpu().numpy()
+    wall = time.perf_counter() - t0
+    viols = _verify_lanes(insts, m_stack, plans)
+    results = []
+    for i, inst in enumerate(insts):
+        best_a = arrays.unpad_candidate(plans[i], inst)
+        viol = viols[i]
+        weight = inst.preservation_weight(best_a)
+        feasible = all(v == 0 for v in viol.values())
+        proved = bool(certify and feasible and inst.certify_optimal(best_a))
+        results.append(SolveResult(
+            a=best_a,
+            solver="tpu",
+            wall_clock_s=wall,
+            objective=int(weight),
+            optimal=proved,
+            stats={
+                "platform": platform,
+                "device": str(dev),
+                "engine": engine,
+                "lanes": L,
+                "lane": i,
+                "lane_bucket": Lp,
+                "devices": 1,
+                "chains_per_device": batch,
+                "rounds": rounds,
+                "rounds_run": rounds_run,
+                "timed_out": timed_out,
+                "bucket_parts": int(bkt_parts),
+                "bucket_rf": int(bkt_rf),
+                "scorer": scorer,
+                # one ladder served every lane: these describe the batch
+                "dispatches": dispatches,
+                "proved_optimal": proved,
+                "time_limit_s": time_limit_s,
+                "seed_moves": seed_moves[i],
+                "moves": int(inst.move_count(best_a)),
+                "feasible": feasible,
+                "violations": sum(viol.values()),
+                "anneal_s": round(t_solve - t0, 4),
+                "batch_wall_s": round(wall, 4),
+                "score_curve": _downsample(curve[i], 32),
+            },
+        ))
+    return results
+
+
+def _verify_lanes(insts, m_stack, plans) -> list[dict]:
+    """The numpy oracle's violation counts of each real lane's plan,
+    checked against the device scorer's (B1, one launch for every lane) —
+    a disagreement means the device path is wrong, and raises."""
+    a = torch.from_numpy(np.ascontiguousarray(plans)).to(m_stack.device)
+    out = score_lanes(m_stack, a[:, None])[0][:, 0, :5].tolist()
+    viols = []
+    for i, inst in enumerate(insts):
+        viol, oracle = _oracle(inst, arrays.unpad_candidate(plans[i], inst))
+        viols.append(viol)
+        if out[i] != oracle:
+            raise RuntimeError(
+                f"verification failed on lane {i}: the device scores "
+                f"(weight, broker, leader, rack, diversity) {out[i]} "
+                f"disagree with the numpy oracle {oracle}"
+            )
+    return viols
 
 
 def _downsample(x: np.ndarray, n: int) -> list[int]:

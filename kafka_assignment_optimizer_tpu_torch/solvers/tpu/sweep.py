@@ -21,6 +21,14 @@ bit for bit. The ``"cuda"`` scorer bundle swaps the hot stages for the
 hand-written kernels of ``ops`` (B1, the fused site sweep B2+B3, the
 fused exchange proposal B4+B5 and B6), which reproduce these functions
 exactly on the card.
+
+The lane form (:func:`make_lane_stepper_fn`) runs L lanes (one model
+each, the models stacked by ``arrays.stack_models``) through one stepper:
+the three kernels take every lane in one launch, and each lane's
+trajectory is the one the single-model stepper runs on that lane's model
+and key (the reference's ``jax.vmap`` of its stepper). The compound sweep
+and the snapshot's bookkeeping and migration have no kernel in either
+package; they run lane by lane.
 """
 
 from __future__ import annotations
@@ -32,7 +40,14 @@ import torch
 
 from ... import prng
 from ...ops.score_cuda import _count, chain_scores, histograms, score_plain
-from .arrays import SCALE_W, ModelArrays, band_pen, u01
+from .arrays import (
+    SCALE_W,
+    ModelArrays,
+    band_pen,
+    lane_model,
+    stack_models,
+    u01,
+)
 
 P_LSWAP = 0.15  # leadership-only proposals (zero replica movement)
 P_RESTORE = 0.5  # replace proposals that re-propose the original broker
@@ -712,22 +727,25 @@ def compound_sweep(m: ModelArrays, a, key, temp: float):
     return _compound_sweep_delta(m, a, cnt, lcnt, rcnt, key, temp)[0]
 
 
-class ScorerBundle(NamedTuple):
-    """The sweep loop's implementations, resolved per scorer.
+def _per_lane(step):
+    """The lane form of a sweep stage ``step(m, a, cnt, lcnt, rcnt, key,
+    temp)``: the stage on each lane of the stacked model ``m`` with that
+    lane's state rows, key ``keys[l]`` and temperature ``temps[l]``,
+    stacked."""
+    def run(m: ModelArrays, a, cnt, lcnt, rcnt, keys, temps):
+        outs = [step(lane_model(m, lane), a[lane], cnt[lane], lcnt[lane],
+                     rcnt[lane], keys[lane], temps[lane])
+                for lane in range(a.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
 
-    - ``hists(m, a) -> (flat, racks, cnt, lcnt, rcnt)``
-    - ``full(m, a) -> (out [N, 8], cnt, lcnt, rcnt)`` — B1: the snapshot
-      scorer (weight, penalties, moves) and exact histogram resync in one
-      pass
-    - ``site_step / exch_step / comp_step(m, a, cnt, lcnt, rcnt, key,
-      temp) -> (a, cnt, lcnt, rcnt)``
-    """
+    return run
 
-    hists: Callable
-    full: Callable
-    site_step: Callable
-    exch_step: Callable
-    comp_step: Callable
+
+# the plain versions of the lane kernels' sweeps, and the compound sweep
+# (no kernel in either package), lane by lane
+site_lanes_delta = _per_lane(_site_sweep_delta)
+exchange_lanes_delta = _per_lane(_exchange_sweep_delta)
+compound_lanes_delta = _per_lane(_compound_sweep_delta)
 
 
 def _on_card(fn):
@@ -735,7 +753,7 @@ def _on_card(fn):
     def run(m: ModelArrays, a: torch.Tensor, *args):
         if a.device.type != "cuda":
             raise ValueError(
-                "the 'cuda' scorer bundle runs on the card; got tensors on "
+                "the 'cuda' scorer runs on the card; got tensors on "
                 f"{a.device} (use scorer='torch' off the card)"
             )
         return fn(m, a, *args)
@@ -743,33 +761,50 @@ def _on_card(fn):
     return run
 
 
-def _make_scorer(scorer: str) -> ScorerBundle:
-    """``"torch"``: the plain PyTorch formulation (this module).
-    ``"cuda"``: the hand-written kernels (``ops``): B1 for the scores,
-    moves and histograms, one fused launch (B2+B3) per site sweep, and one
-    fused launch (B4+B5+B6) per exchange sweep; the compound sweep has no
-    kernel and runs the same code in both bundles. Both yield
+class LaneBundle(NamedTuple):
+    """The sweep engine's stages, resolved per scorer; every stage takes
+    a stacked model and ``[L, ...]`` state (a single model runs as one
+    lane, :func:`_one_lane`).
+
+    - ``full(m, a) -> (out [L, N, 8], cnt, lcnt, rcnt)`` — B1
+    - ``site_step / exch_step / comp_step(m, a, cnt, lcnt, rcnt, keys,
+      temps) -> (a, cnt, lcnt, rcnt)``
+    """
+
+    full: Callable
+    site_step: Callable
+    exch_step: Callable
+    comp_step: Callable
+
+
+def _make_lane_scorer(scorer: str) -> LaneBundle:
+    """``"torch"``: the plain PyTorch formulation (this module), lane by
+    lane. ``"cuda"``: the hand-written kernels (``ops``), one launch of
+    each for every lane: B1 for the scores, moves and histograms, the
+    fused site sweep (B2+B3) and the fused exchange sweep (B4+B5+B6); the
+    compound sweep has no kernel and runs lane by lane in both. Both yield
     bit-identical trajectories."""
+    from ...ops.score_cuda import score_lanes, score_lanes_plain
+
     if scorer == "torch":
-        return ScorerBundle(histograms, score_plain, _site_sweep_delta,
-                            _exchange_sweep_delta, _compound_sweep_delta)
+        return LaneBundle(score_lanes_plain, site_lanes_delta,
+                          exchange_lanes_delta, compound_lanes_delta)
     if scorer != "cuda":
         raise ValueError(f"unknown scorer {scorer!r}; expected 'torch' or "
                          "'cuda'")
-    from ...ops.score_cuda import score
-    from ...ops.exchange_cuda import exchange_step_cuda
-    from ...ops.site_cuda import site_step_cuda
+    from ...ops.exchange_cuda import exchange_step_lanes
+    from ...ops.site_cuda import site_step_lanes
 
-    def hists(m: ModelArrays, a: torch.Tensor):
-        flat = torch.where(m.slot_valid[None], a, m.num_brokers)
-        _out, cnt, lcnt, rcnt = score(m, a)
-        return flat, m.rack_of[flat.long()], cnt, lcnt, rcnt
+    return LaneBundle(_on_card(score_lanes), _on_card(site_step_lanes),
+                      _on_card(exchange_step_lanes),
+                      _on_card(compound_lanes_delta))
 
-    return ScorerBundle(
-        _on_card(hists), _on_card(score),
-        _on_card(site_step_cuda), _on_card(exchange_step_cuda),
-        _on_card(_compound_sweep_delta),
-    )
+
+def first_argmin_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`first_argmin` of every row of a 2-D tensor: ``[rows]``."""
+    idx = torch.arange(x.shape[1], device=x.device)[None, :]
+    low = x.min(1, keepdim=True).values
+    return torch.where(x == low, idx, x.shape[1]).min(1).values
 
 
 def _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a):
@@ -795,27 +830,97 @@ def _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a):
     return a, cnt, lcnt, rcnt, best_k, best_mv, best_a
 
 
-def snapshot_step(sc: ScorerBundle, m: ModelArrays, a, best_k, best_mv,
+def snapshot_step(sc: LaneBundle, m: ModelArrays, a, best_k, best_mv,
                   best_a):
-    """The stepper's snapshot: an exact rescore through bundle ``sc``
-    (its histograms overwrite the carried ones; B1's ``out[:, 5]`` is the
+    """The stepper's snapshot of every lane of the stacked model ``m``:
+    an exact rescore through bundle ``sc`` (one B1 for all lanes; its
+    histograms overwrite the carried ones, its ``out[..., 5]`` is the
     move count), each chain's best kept (fewest moves breaks key ties),
-    then the one-device best migration. Returns ``(a, cnt, lcnt, rcnt,
-    best_k, best_mv, best_a)``."""
+    then each lane's one-device best migration. Returns ``(a, cnt, lcnt,
+    rcnt, best_k, best_mv, best_a)``, every leaf ``[L, ...]``."""
     out, cnt, lcnt, rcnt = sc.full(m, a)
-    k, mv = out_key(out), out[:, 5]
+    k = best_key(out[..., 0], out[..., 1:5].sum(-1, dtype=torch.int32))
+    mv = out[..., 5]
     improved = (k > best_k) | ((k == best_k) & (mv < best_mv))
     best_mv = torch.where(improved, mv, best_mv)
     best_k = torch.where(improved, k, best_k)
-    best_a = torch.where(improved[:, None, None], a, best_a)
-    return _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a)
+    best_a = torch.where(improved[..., None, None], a, best_a)
+    rows = [_migrate(a[i], cnt[i], lcnt[i], rcnt[i], k[i], mv[i],
+                     best_k[i], best_mv[i], best_a[i])
+            for i in range(a.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def make_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
+                         scorer: str = "torch"):
+    """The sweep engine's stepper over L lanes: ``(m_stack, state,
+    temps) -> (state', best_a [L, P, R], best_k [L], curve [L, sweeps])``
+    with state = (a [L, N, P, R], best_k [L, N], best_mv [L, N], best_a
+    [L, N, P, R], keys ``uint32[L, 2]`` on the host).
+
+    Lane l's trajectory is the single-model stepper's on lane l's model
+    and key, bit for bit (the reference's ``jax.vmap`` of its stepper):
+    the cadences are lane-invariant, each lane draws its own sweep keys
+    and scales the shared ladder by its own ``temp_scale`` in float32.
+    Every kernel stage is one launch for all lanes; the compound sweep
+    and the snapshot's bookkeeping and migration run lane by lane.
+    Neither the state tensors passed in nor their views are written in
+    place."""
+    sc = _make_lane_scorer(scorer)
+
+    def solve(m: ModelArrays, state, temps):
+        a, best_k, best_mv, best_a, keys = state
+        keys = np.array(keys, np.uint32)
+        L = a.shape[0]
+        temps = np.asarray(temps, np.float32)
+        sweeps = temps.shape[0]
+        scales = np.asarray(m.lane_scalars()[2], np.float32)
+        _out, cnt, lcnt, rcnt = sc.full(m, a)
+        curve = []
+        for i in range(sweeps):
+            lane_temps = [float(temps[i] * scales[j]) for j in range(L)]
+            subs = []
+            for j in range(L):
+                keys[j], sub = prng.split(keys[j])
+                subs.append(sub)
+            if i % COMPOUND_EVERY == COMPOUND_EVERY - 1:
+                step = sc.comp_step
+            elif i % 2 == 1:
+                step = sc.exch_step
+            else:
+                step = sc.site_step
+            a, cnt, lcnt, rcnt = step(m, a, cnt, lcnt, rcnt, subs,
+                                      lane_temps)
+            if i % snapshot_every == snapshot_every - 1 or i == sweeps - 1:
+                a, cnt, lcnt, rcnt, best_k, best_mv, best_a = (
+                    snapshot_step(sc, m, a, best_k, best_mv, best_a))
+            curve.append(best_k.max(1).values)
+        tied = best_k == best_k.max(1, keepdim=True).values
+        top = first_argmin_rows(torch.where(tied, best_mv, _IMAX))
+        lanes = torch.arange(L, device=a.device)
+        curve = (torch.stack(curve, 1) if curve
+                 else torch.zeros(L, 0, dtype=torch.int32, device=a.device))
+        return ((a, best_k, best_mv, best_a, keys),
+                best_a[lanes, top], best_k[lanes, top], curve)
+
+    return solve
+
+
+def _one_lane(m: ModelArrays) -> ModelArrays:
+    """``m`` as a stacked model of one lane (cached on ``m``)."""
+    one = m.__dict__.get("_one_lane")
+    if one is None:
+        one = stack_models([m])
+        object.__setattr__(m, "_one_lane", one)
+    return one
 
 
 def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
                           scorer: str = "torch"):
     """The state-carrying core of the sweep engine: ``(m, state, temps)
     -> (state', best_a [P, R], best_key, curve [sweeps])`` with state =
-    (a [N, P, R], best_k [N], best_mv [N], best_a [N, P, R], key).
+    (a [N, P, R], best_k [N], best_mv [N], best_a [N, P, R], key): the
+    lane stepper (:func:`make_lane_stepper_fn`) on one lane.
 
     The reference's ``lax.scan`` becomes a Python loop with the same
     cadences: exchange on odd sweeps, compound every ``COMPOUND_EVERY``,
@@ -826,36 +931,14 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
     through chunk boundaries, so a run cut into chunks whose length is a
     multiple of ``snapshot_every`` replays the uncut run exactly. Neither
     the state tensors passed in nor their views are written in place."""
-    sc = _make_scorer(scorer)
+    lanes = make_lane_stepper_fn(n_chains, snapshot_every, scorer)
 
     def solve(m: ModelArrays, state, temps):
         a, best_k, best_mv, best_a, key = state
-        temps = np.asarray(temps, np.float32)
-        sweeps = temps.shape[0]
-        # per-config ladder scaling, in float32 as the reference
-        scale = np.float32(float(m.temp_scale))
-        _f, _r, cnt, lcnt, rcnt = sc.hists(m, a)
-        curve = []
-        for i in range(sweeps):
-            temp = float(temps[i] * scale)
-            key, sub = prng.split(key)
-            if i % COMPOUND_EVERY == COMPOUND_EVERY - 1:
-                step = sc.comp_step
-            elif i % 2 == 1:
-                step = sc.exch_step
-            else:
-                step = sc.site_step
-            a, cnt, lcnt, rcnt = step(m, a, cnt, lcnt, rcnt, sub, temp)
-            if i % snapshot_every == snapshot_every - 1 or i == sweeps - 1:
-                a, cnt, lcnt, rcnt, best_k, best_mv, best_a = snapshot_step(
-                    sc, m, a, best_k, best_mv, best_a)
-            curve.append(best_k.max())
-        tied = best_k == best_k.max()
-        top = first_argmin(torch.where(tied, best_mv, _IMAX))
-        curve = (torch.stack(curve) if curve
-                 else torch.zeros(0, dtype=torch.int32, device=a.device))
-        return ((a, best_k, best_mv, best_a, key),
-                best_a[top], best_k[top], curve)
+        state, top_a, top_k, curve = lanes(
+            _one_lane(m), (a[None], best_k[None], best_mv[None],
+                           best_a[None], np.asarray(key)[None]), temps)
+        return (tuple(x[0] for x in state), top_a[0], top_k[0], curve[0])
 
     return solve
 
@@ -866,7 +949,9 @@ def make_sweep_solver_fn(n_chains: int, snapshot_every: int = 8,
     the seed broadcast to ``n_chains`` independent chains, then one
     stepper run."""
     stepper = make_sweep_stepper_fn(n_chains, snapshot_every, scorer)
-    full = _make_scorer(scorer).full
+    from ...ops.score_cuda import score, score_plain
+
+    full = _on_card(score) if scorer == "cuda" else score_plain
 
     def solve(m: ModelArrays, a_seed: torch.Tensor, key, temps):
         P, R = a_seed.shape

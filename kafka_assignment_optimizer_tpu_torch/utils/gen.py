@@ -310,3 +310,43 @@ def adversarial(
             "caps slack -> annealer must close to the bound on-chip"
         ),
     )
+
+
+def messy_cluster(rng):
+    """One deliberately irregular cluster: several topics with different
+    partition counts and RFs, a lopsided rack map (rack 0 holds about
+    half the brokers; exact bands with single-broker racks are common),
+    and a broker list that may both drop and add brokers. Returns
+    ``(current, broker_list, topology, target_rf)``."""
+    n_brokers = int(rng.integers(6, 16))
+    n_topics = int(rng.integers(1, 4))
+    parts = []
+    for t in range(n_topics):
+        rf = int(rng.integers(1, min(4, n_brokers) + 1))
+        for p in range(int(rng.integers(2, 9))):
+            reps = rng.choice(n_brokers, size=rf, replace=False)
+            parts.append(PartitionAssignment(
+                f"topic-{t}", p, [int(b) for b in reps]
+            ))
+    n_racks = int(rng.integers(1, 4))
+    add = int(rng.integers(0, 3))
+    all_ids = list(range(n_brokers + add))
+    rack_of = {
+        b: f"rack{0 if b % 4 < 2 else (b % n_racks)}" for b in all_ids
+    }
+    drop = int(rng.integers(0, 2))
+    brokers = all_ids[drop:]
+    target_rf = None
+    if rng.random() < 0.3:
+        target_rf = int(rng.integers(1, 4))
+    return (Assignment(partitions=parts), brokers,
+            Topology(rack_of=rack_of), target_rf)
+
+
+def messy_case(seed: int = 0):
+    """:func:`messy_cluster` seeded with ``default_rng(2000 + seed)``;
+    ``messy_case(1)`` is the exact-band case on which the portfolio's
+    plan differs from the solo solve's."""
+    import numpy as _np
+
+    return messy_cluster(_np.random.default_rng(2000 + int(seed)))

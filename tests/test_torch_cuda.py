@@ -6,7 +6,14 @@ exchange sweep also at 2, 3 and 5 partitions (partners off the end in
 every sweep), at the main path's bucket and at a bucket of more blocks
 than the card holds at once, and the ``cuda`` sweep bundle against the
 ``torch`` bundle over 16 sweeps, and the chain engine's rounds replayed
-as CUDA graphs against its eager step loop. Exact equality throughout.
+as CUDA graphs against its eager step loop. The lane forms of the three
+kernels (one launch for L lanes) against L launches of the single-lane
+wrappers and against their lane plain versions, at L = 1, 3 and 8, on a
+portfolio's mixed configs and on a batch whose tables and bands differ;
+more lanes than one launch takes, split into launches of lane groups;
+the lane stepper's ``cuda`` bundle against its ``torch`` bundle; and the
+exchange launcher's host draws against ``prng``'s. Exact equality
+throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -36,6 +43,7 @@ from kafka_assignment_optimizer_tpu_torch.ops import (
 )
 from kafka_assignment_optimizer_tpu_torch.ops import score as tscore
 from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
+    init_lane_state,
     init_sweep_state,
 )
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
@@ -205,6 +213,148 @@ def test_chain_round_graphs_replay_eager_steps(card, case):
             st, bk, ba = run(m, st, bk, ba, np.float32(temp))
             outs.append((st.a, st.cnt, st.lcnt, st.rcnt, st.pen, st.w,
                          st.key, bk, ba))
+        runs.append(outs)
+    for xs, ys in zip(*runs):
+        _equal(xs, ys)
+
+
+def _portfolio_lanes(case, dev, L):
+    """L lanes of one instance on the portfolio's configs (cycling past
+    the table's 8), each lane its own chain order: ``(stacked model,
+    chains [L, N, P, R], seeds [L, P, R])``."""
+    m, a, seed = _model(case, dev)
+    ms = arrays.stack_models([arrays.with_config(m, c)
+                              for c in arrays.portfolio_configs(L)])
+    return (ms, torch.stack([a.roll(i, 0) for i in range(L)]),
+            seed[None].repeat(L, 1, 1))
+
+
+def _batch_lanes(dev, L):
+    """L instances whose tables and bands differ (partition counts and
+    RFs vary), one bucket, 13 brokers in 3 racks each."""
+    ms, pops, seeds = [], [], []
+    for i in range(L):
+        case = dict(nb=14 + i % 2, npart=40 - 3 * i,
+                    rfs=(3, 2, 1)[:1 + i % 3], nr=3, drop=1 + i % 2,
+                    bucket=(48, 4))
+        m, a, seed = _model(case, dev)
+        ms.append(m)
+        pops.append(a)
+        seeds.append(seed)
+    return arrays.stack_models(ms), torch.stack(pops), torch.stack(seeds)
+
+
+def _lane_inputs(ms, a, temp):
+    L = a.shape[0]
+    _out, cnt, lcnt, rcnt = score_cuda.score_lanes_plain(ms, a)
+    scales = ms.lane_scalars()[2]
+    temps = [float(np.float32(temp) * np.float32(s)) for s in scales]
+    keys = [prng.fold_in(prng.PRNGKey(7), i) for i in range(L)]
+    return (cnt, lcnt, rcnt), keys, temps
+
+
+def _stack(outs):
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["portfolio", "batch"])
+@pytest.mark.parametrize("temp", [2.0, 0.05])
+def test_lane_kernels_equal_solo_launches_and_plain(card, L, kind, temp):
+    ms, a, _seeds = (_portfolio_lanes(CASES[2], card, L) if kind ==
+                     "portfolio" else _batch_lanes(card, L))
+    (cnt, lcnt, rcnt), keys, temps = _lane_inputs(ms, a, temp)
+    lanes = [arrays.lane_model(ms, i) for i in range(L)]
+    # B1
+    got = score_cuda.score_lanes(ms, a)
+    _equal(got, score_cuda.score_lanes_plain(ms, a))
+    _equal(got, _stack(score_cuda.score(lanes[i], a[i]) for i in range(L)))
+    # the site sweep
+    got = site_cuda.site_step_lanes(ms, a, cnt, lcnt, rcnt, keys, temps)
+    _equal(got, sweep.site_lanes_delta(ms, a, cnt, lcnt, rcnt, keys, temps))
+    _equal(got, _stack(site_cuda.site_step_cuda(
+        lanes[i], a[i], cnt[i], lcnt[i], rcnt[i], keys[i], temps[i])
+        for i in range(L)))
+    assert (got[0] != a).any()
+    # the exchange sweep, its records and maps included
+    a2, l2, rec, m_out, m_in = exchange_cuda.exchange_sweep_lanes(
+        ms, a, lcnt, keys, temps)
+    solo = [exchange_cuda.exchange_sweep_cuda(lanes[i], a[i], lcnt[i],
+                                              keys[i], temps[i])
+            for i in range(L)]
+    _equal((a2, l2, *rec, m_out, m_in),
+           _stack((x[0], x[1], *x[2], x[3], x[4]) for x in solo))
+    _equal(exchange_cuda.exchange_step_lanes(ms, a, cnt, lcnt, rcnt, keys,
+                                             temps),
+           sweep.exchange_lanes_delta(ms, a, cnt, lcnt, rcnt, keys, temps))
+    torch.cuda.synchronize()
+
+
+def test_lane_launch_counts_and_limits(card):
+    """One launch a lane call up to ``MAX_LANES`` lanes, and one a group
+    of up to ``MAX_LANES`` lanes past it, equal to the lane plain
+    versions, on shared tables and on stacked ones; state of another
+    lane count raises instead of running."""
+    ms, a, _seeds = _portfolio_lanes(CASES[0], card, 8)
+    (cnt, lcnt, rcnt), keys, temps = _lane_inputs(ms, a, 0.5)
+    before = [k.launches for k in kernels.KERNELS]
+    score_cuda.score_lanes(ms, a)
+    site_cuda.site_step_lanes(ms, a, cnt, lcnt, rcnt, keys, temps)
+    exchange_cuda.exchange_step_lanes(ms, a, cnt, lcnt, rcnt, keys, temps)
+    assert [k.launches - b for k, b in zip(kernels.KERNELS, before)] == \
+        [1, 1, 1]
+    with pytest.raises(ValueError, match="lanes of state"):
+        score_cuda.score_lanes(ms, a[:3])
+    L = kernels.MAX_LANES + 1
+    shared, a_s, _s = _portfolio_lanes(CASES[0], card, L)
+    b8, a8, _s = _batch_lanes(card, 8)
+    stacked = arrays.stack_models([arrays.lane_model(b8, i % 8)
+                                   for i in range(L)])
+    assert shared.w_lead.stride(0) == 0 and stacked.w_lead.stride(0) > 0
+    for ms, a in ((shared, a_s),
+                  (stacked, torch.stack([a8[i % 8] for i in range(L)]))):
+        (cnt, lcnt, rcnt), keys, temps = _lane_inputs(ms, a, 0.5)
+        before = [k.launches for k in kernels.KERNELS]
+        _equal(score_cuda.score_lanes(ms, a),
+               score_cuda.score_lanes_plain(ms, a))
+        _equal(site_cuda.site_step_lanes(ms, a, cnt, lcnt, rcnt, keys,
+                                         temps),
+               sweep.site_lanes_delta(ms, a, cnt, lcnt, rcnt, keys, temps))
+        _equal(exchange_cuda.exchange_step_lanes(ms, a, cnt, lcnt, rcnt,
+                                                 keys, temps),
+               sweep.exchange_lanes_delta(ms, a, cnt, lcnt, rcnt, keys,
+                                          temps))
+        assert [k.launches - b for k, b in zip(kernels.KERNELS, before)] \
+            == [2, 2, 2]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("P", [2, 3, 5, 48, 10_240, 131_072])
+def test_exchange_launcher_host_keys_equal_prng(card, P):
+    for i in range(8):
+        key = prng.fold_in(prng.PRNGKey(P), i)
+        kb, d, hi, lo = kernels.exchange_host_keys(key, P)
+        kb_p, d_p, hi_p, lo_p = exchange_cuda.host_keys(key, P)
+        assert d == d_p
+        for x, y in ((kb, kb_p), (hi, hi_p), (lo, lo_p)):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["portfolio", "batch"])
+def test_lane_stepper_cuda_bundle_replays_torch_bundle(card, kind):
+    ms, _a, seeds = (_portfolio_lanes(CASES[0], card, 3) if kind ==
+                     "portfolio" else _batch_lanes(card, 3))
+    L = ms.num_lanes
+    keys = np.stack([prng.fold_in(prng.PRNGKey(9), i) for i in range(L)])
+    temps = arrays.geometric_temps(2.0, 0.02, 16)
+    runs = []
+    for scorer in ("cuda", "torch"):
+        step = sweep.make_lane_stepper_fn(4, scorer=scorer)
+        st = init_lane_state(ms, seeds.cpu().numpy(), keys, 4)
+        outs = []
+        for chunk in (temps[:8], temps[8:]):
+            st, top_a, top_k, curve = step(ms, st, chunk)
+            outs.append((*st[:4], top_a, top_k, curve))
         runs.append(outs)
     for xs, ys in zip(*runs):
         _equal(xs, ys)

@@ -232,11 +232,11 @@ def test_sweep_to_chain_retry_keeps_the_better_plan(demo, monkeypatch):
 def test_unported_keywords_raise(demo):
     """A keyword of the reference's solver asks for a path the port does
     not have: it raises instead of being ignored; values naming what the
-    port does pass."""
+    port does pass. (``portfolio`` is ported: its values are held to the
+    reference's in ``tests/test_torch_portfolio.py``.)"""
     current, brokers, topo = port_cluster(*demo)
     inst = build_instance(current, brokers, topo)
-    for kw in (dict(portfolio=True), dict(portfolio=4),
-               dict(pipeline=True), dict(megachunk=4),
+    for kw in (dict(pipeline=True), dict(megachunk=4),
                dict(megachunk="auto"), dict(n_devices=2),
                dict(checkpoint="plan.npz"), dict(profile_dir="prof"),
                dict(precompile=True), dict(decompose=True),
@@ -353,9 +353,10 @@ def test_cli_demo(tmp_path, capsys, monkeypatch):
 
 def test_port_never_imports_jax():
     """Importing the port, solving on the CPU through every backend (the
-    exact host solvers, the race, the sweep and the chain engines), and
-    importing and running chip_smoke.py without a card load neither JAX
-    nor the JAX package."""
+    exact host solvers, the race, the sweep engine's portfolio lanes and
+    the chain engine), a batch through ``optimize_batch``, and importing
+    and running chip_smoke.py without a card load neither JAX nor the JAX
+    package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -373,6 +374,13 @@ def test_port_never_imports_jax():
         "sweeps=8)['engine'] == 'sweep'\n"
         "assert solve(solver='tpu', device='cpu', engine='chain', "
         "batch=4, rounds=2)['engine'] == 'chain'\n"
+        "st = solve(solver='tpu', device='cpu', engine='sweep', sweeps=8, "
+        "batch=2)\n"
+        "assert st['portfolio']['width'] == 8, st\n"
+        "inst = k.build_instance(s.current, s.broker_list, s.topology)\n"
+        "out = k.optimize_batch([s.current] * 2, [inst] * 2, device='cpu', "
+        "engine='sweep', sweeps=8, batch=2)\n"
+        "assert all(r.report()['feasible'] for r in out)\n"
         "import chip_smoke\n"
         "torch.cuda.is_available = lambda: False\n"
         "assert chip_smoke.main() != 0\n"
