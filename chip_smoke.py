@@ -76,9 +76,33 @@ Phases (any failure exits non-zero; nothing is caught):
    plan; its wall beside the card's power limit;
    (g) the sweep->chain retry at its largest budget (512 chains x 24
    rounds x 4P steps) on a 500-partition random cluster: one round as
-   CUDA graphs equal to the eager step loop, both timed; then the whole
-   24-round anneal the retry runs, feasible and equal to the numpy
-   oracle under B1.
+   CUDA graphs equal to the eager step loop, both timed; then the
+   retry's anneal at 8 of its 24 rounds (its ms a step; the whole anneal
+   is three times the wall), feasible and equal to the numpy oracle
+   under B1;
+   (h) the decomposed solve: the smoke ``ultra_jumbo`` instance
+   (``engine="sweep", rounds=32, decompose=True``) on the card and on the
+   CPU, equal plans; then ``ultra_jumbo_case(seed=0)`` at its published
+   size (200,000 partitions, 4 AZs): the three lane launches held to
+   their plain versions on the decomposed map's first chunk state (8
+   lanes of the 62,208-row bucket; the ``kernels`` rows of the
+   decomposed map, with the map's own launches), then ``optimize`` at
+   its defaults (the auto trigger decides): the map through the lane
+   kernels, one AZ lane of its first call replayed through the CPU's
+   plain path with the same budget and held equal to the card's (plan,
+   weight, violations), then the stitched plan or ``decompose_to_flat``
+   and the flat path, the plan feasible under the numpy oracle with B1
+   held to it; build, split, the AZ seeds, map and reduce by iteration,
+   certify, total and the cold total;
+   (i) the delta API: the adversarial scenario's certified plan with one
+   more broker drained, through ``optimize_delta`` and a cold
+   ``optimize``, both feasible and held to the oracle (B1 too);
+   (j) the host fallback: the pinned solo adversarial solve with
+   ``nan_chunk`` armed returns the host plan flagged
+   ``anneal_to_construct``, verified; with the site kernel's launch
+   failing as a real failed launch does, the solve raises out of
+   ``optimize`` (that one error is caught and checked) and takes no
+   fallback.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -99,6 +123,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 INT32_LANES_PER_SM = 64  # Hopper issues 64 INT32 operations a clock per SM
 REPS = 20  # launches per timed window
+PROFILED = (5, 4)  # profiler windows, launches per window, of a lane row
+RETRY_ROUNDS = 8  # rounds of phase (g)'s retry anneal (the retry runs 24)
 WINDOWS = 5  # windows per time (the median is kept)
 
 
@@ -545,21 +571,18 @@ def lane_equal(torch, ms, al, temp: float, label: str) -> tuple:
     return errs, (cnt, lcnt, rcnt), keys, temps
 
 
-def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
-                 tf_ops: int, solo_device_us: dict) -> list[dict]:
-    """The lane forms at the main path's shapes: L=8 lanes of the
-    adversarial bucket on the eight ``PORTFOLIO_TABLE`` configs (the
-    tables shared, lane stride 0), each lane its own chain order; then 3
-    lanes of three instances whose tables and bands differ. Each lane
-    launch must equal its lane plain version and L single-lane launches,
-    and make one launch and no other device activity a call. Returns the
-    ``kernels`` rows of the 8-lane launches (launches filled in later)."""
-    import numpy as np
-
+def lane_rows(torch, dev, ms, al, errs: dict, hists, keys, temps,
+              int32_ops_per_s: float, tf_ops: int, shared: bool,
+              label: str, solo_device_us: dict | None = None) -> list[dict]:
+    """The ``kernels`` rows of the three lane launches on the chains ``al
+    [L, N, P, R]`` of the stacked model ``ms`` (``hists``, ``keys`` and
+    ``temps`` as :func:`lane_equal` returns them; ``errs`` its max
+    errors): each launch must make one launch and no other device
+    activity a call; wrapper, plain, library and device times, and the
+    bound. ``shared``: the lanes share one set of tables (the portfolio),
+    read once; else each lane reads its own. Launches are filled in
+    later."""
     from kafka_assignment_optimizer_tpu_torch import prng
-    from kafka_assignment_optimizer_tpu_torch.models.instance import (
-        build_instance,
-    )
     from kafka_assignment_optimizer_tpu_torch.ops import exchange_cuda
     from kafka_assignment_optimizer_tpu_torch.ops import kernels
     from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
@@ -571,23 +594,13 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
     )
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
         arrays,
-        bucket,
         sweep,
     )
-    from kafka_assignment_optimizer_tpu_torch.utils import gen
 
-    L = 8
-    N, P, R = a.shape
-    B1 = m.num_brokers + 1
-    ms = arrays.stack_models([arrays.with_config(m, c)
-                              for c in arrays.portfolio_configs(L)])
-    al = torch.stack([a.roll(i, 0) for i in range(L)])
-    print(f"lane kernels (L={L} portfolio configs, N={N} P={P} R={R} "
-          f"B+1={B1}):")
-    errs, (cnt, lcnt, rcnt), keys, temps = lane_equal(
-        torch, ms, al, temp, f"{L} portfolio lanes")
+    L, N, P, R = al.shape
+    cnt, lcnt, rcnt = hists
+    B1 = ms.num_brokers + 1
     lanes = [arrays.lane_model(ms, i) for i in range(L)]
-
     calls = {
         kernels.SCORE.name: (lambda: score_lanes(ms, al),
                              lambda: score_lanes_plain(ms, al)),
@@ -602,53 +615,69 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
                                                keys, temps)),
     }
     for k in kernels.KERNELS:
-        one_launch(f"an {L}-lane {k.name}", calls[k.name][0], k,
+        one_launch(f"an {L}-lane {k.name} ({label})", calls[k.name][0], k,
                    KERNEL_FUNCS[k.name][0], torch)
 
-    # the bounds at L=8: each input once (the shared tables once), the
-    # distinct weight and a0 entries every lane reads (one table, so
-    # the lanes' reads overlap), each output once; the operations as in
-    # the single-lane rows, summed over the lanes
-    flat = torch.where(m.slot_valid[None, None], al, m.num_brokers)
-    b1_reads = [(t, al[i, :, :, r], m.slot_valid[None, :, r])
-                for i in range(L) for t, r in
+    def tables(*names) -> int:
+        """Bytes of the lanes' tables, each read once: one set when the
+        lanes share them, else every lane's own."""
+        return (1 if shared else L) * nbytes(
+            *(getattr(lanes[0], f) for f in names))
+
+    def distinct(reads_of) -> int:
+        """Bytes of the distinct weight entries the lanes read: one union
+        over shared tables, else each lane's own entries."""
+        if shared:
+            return gathered(B1, *(r for i in range(L) for r in reads_of(i)))
+        return sum(gathered(B1, *reads_of(i)) for i in range(L))
+
+    # the bounds: each input once, the distinct weight and a0 entries the
+    # lanes read, each output once; the operations summed over the lanes
+    flat = torch.stack([torch.where(lanes[i].slot_valid[None], al[i],
+                                    ms.num_brokers) for i in range(L)])
+
+    def b1_reads(i):
+        sv = lanes[i].slot_valid
+        return [(t, al[i, :, :, r], sv[None, :, r]) for t, r in
                 [(0, r) for r in range(R)] + [(1, r) for r in range(1, R)]]
-    b1_bytes = (nbytes(al, m.slot_valid, m.part_rack_hi, m.rack_of,
-                       m.rack_lo, m.rack_hi)
-                + gathered(B1, *b1_reads)
-                + nbytes(*score_lanes(ms, al)))
+
+    b1_bytes = (nbytes(al) + tables("slot_valid", "part_rack_hi", "rack_of",
+                                    "rack_lo", "rack_hi")
+                + distinct(b1_reads) + nbytes(*score_lanes(ms, al)))
     a0_keys, site_reads, real = [], [], 0
     for i in range(L):
+        mi = lanes[i]
         bits = prng.bits(keys[i], (N, P, 8), dev)
-        pp = sweep.propose_site(lanes[i], al[i], bits, temps[i],
+        pp = sweep.propose_site(mi, al[i], bits, temps[i],
                                 hists=sweep._carried(cnt[i], lcnt[i],
                                                      rcnt[i]))
         s_orig = sweep._rand_idx(arrays.u01(bits[..., 3]), R)
         a0_keys.append((torch.arange(P, device=dev)[None] * R
-                        + s_orig).reshape(-1))
+                        + s_orig).reshape(-1) + (0 if shared else i * P * R))
         in_row = ((al[i] == pp.b_new[..., None])
-                  & m.slot_valid[None]).any(-1)
-        legal = torch.where(pp.is_lsw, m.rf > 1, ~in_row) & (m.rf > 0)
+                  & mi.slot_valid[None]).any(-1)
+        legal = torch.where(pp.is_lsw, mi.rf > 1, ~in_row) & (mi.rf > 0)
         rep_, lsw = legal & ~pp.is_lsw, legal & pp.is_lsw
         tbl = (pp.s != 0).to(torch.int64)
-        site_reads += [(tbl, pp.b_new, rep_), (tbl, pp.b_at_s, rep_),
-                       (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
-                       (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw)]
-        real += N * int((m.rf > 0).sum())
-    site_bytes = (nbytes(al, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
-                         m.rack_lo, m.rack_hi, cnt, lcnt, rcnt)
+        site_reads.append([(tbl, pp.b_new, rep_), (tbl, pp.b_at_s, rep_),
+                           (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
+                           (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw)])
+        real += N * int((mi.rf > 0).sum())
+    site_bytes = (nbytes(al, cnt, lcnt, rcnt)
+                  + tables("rf", "slot_valid", "part_rack_hi", "rack_of",
+                           "rack_lo", "rack_hi")
                   + int(torch.unique(torch.cat(a0_keys)).numel()) * 4
-                  + gathered(B1, *site_reads)
+                  + distinct(lambda i: site_reads[i])
                   + nbytes(*calls[kernels.SITE.name][0]()))
     ex = exchange_cuda.exchange_sweep_lanes(ms, al, lcnt, keys, temps)
     s_own, b_other, acc = ex[2][0], ex[2][1], ex[2][4] > 0
     b_own = al.gather(3, s_own.clamp(min=0)[..., None].long())[..., 0]
     tbl = (s_own != 0).to(torch.int64)
-    ex_reads = [(tbl[i], b_other[i], acc[i]) for i in range(L)] + [
-        (tbl[i], b_own[i], acc[i]) for i in range(L)]
-    ex_bytes = (nbytes(al, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
-                       lcnt)
-                + gathered(B1, *ex_reads) + nbytes(ex[0], ex[1]))
+    ex_bytes = (nbytes(al, lcnt)
+                + tables("rf", "slot_valid", "part_rack_hi", "rack_of")
+                + distinct(lambda i: [(tbl[i], b_other[i], acc[i]),
+                                      (tbl[i], b_own[i], acc[i])])
+                + nbytes(ex[0], ex[1]))
     n_words = real + int(acc.sum()) // 2 + 2 * N * L
     bounds = {
         kernels.SCORE.name: (b1_bytes, L * N * P * R * (12 + 2 * R), 0),
@@ -674,18 +703,25 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
     rows = []
     for k in kernels.KERNELS:
         call, plain = calls[k.name]
-        events, _w = profiled(call, torch, REPS)
-        mine = [us for name, us in events if KERNEL_FUNCS[k.name][0] in name]
-        dev_ms = sum(mine) / REPS / 1e3 if len(mine) == REPS else None
+        # device time: the launches the profiler saw, over short windows
+        # (one window of 20 launches at the decomposed map's shape has
+        # shown only 11 of them); each seen launch's time is whole
+        mine, seen = [], []
+        for _ in range(PROFILED[0]):
+            events, _w = profiled(call, torch, PROFILED[1])
+            got = [us for name, us in events
+                   if KERNEL_FUNCS[k.name][0] in name]
+            mine += got
+            seen.append(len(got))
+        dev_ms = sum(mine) / len(mine) / 1e3 if mine else None
         bytes_, int_ops, fp_ops = bounds[k.name]
         t_bytes = bytes_ / HBM_BYTES_PER_S
         t_ops = max(int_ops / int32_ops_per_s, fp_ops / FP32_OPS_PER_S)
         bound_ms = max(t_bytes, t_ops) * 1e3
         ms_ = timed(call, torch)
         plain_ms = timed(plain, torch, reps=2, windows=3)
-        solo = solo_device_us.get(k.name)
         rows.append({
-            "name": f"{k.name} ({L} lanes)", "route": "cuda",
+            "name": f"{k.name} ({label})", "route": "cuda",
             "source": f"kafka_assignment_optimizer_tpu_torch/csrc/"
                       f"{k.source}.cu",
             "replaces": " + ".join(r.split(" ")[0] for r in k.replaces),
@@ -694,15 +730,55 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library[k.name],
         })
-        print(f"  {k.name} at L={L}: exact; wrapper {ms_:.4f} ms, plain "
+        solo = (solo_device_us or {}).get(k.name)
+        print(f"  {k.name} ({label}): exact; wrapper {ms_:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bytes_} bytes, "
               f"{int_ops} INT32 ops), library "
               + ("n/a" if library[k.name] is None
                  else f"{library[k.name]:.4f} ms")
-              + ", device (profiler) L=8 "
+              + f", device (profiler) L={L} "
               + ("not measured" if dev_ms is None else f"{dev_ms:.5f} ms")
-              + ", L=1 "
-              + ("not measured" if solo is None else f"{solo / 1e3:.5f} ms"))
+              + f" ({len(mine)} of {PROFILED[0] * PROFILED[1]} launches "
+              f"seen, by window {seen})"
+              + ("" if solo_device_us is None else ", L=1 "
+                 + ("not measured" if solo is None
+                    else f"{solo / 1e3:.5f} ms")))
+    return rows
+
+
+def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
+                 tf_ops: int, solo_device_us: dict) -> list[dict]:
+    """The lane forms at the main path's shapes: L=8 lanes of the
+    adversarial bucket on the eight ``PORTFOLIO_TABLE`` configs (the
+    tables shared, lane stride 0), each lane its own chain order; then 3
+    lanes of three instances whose tables and bands differ. Each lane
+    launch must equal its lane plain version and L single-lane launches,
+    and make one launch and no other device activity a call. Returns the
+    ``kernels`` rows of the 8-lane launches (launches filled in later)."""
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        arrays,
+        bucket,
+        sweep,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    L = 8
+    N, P, R = a.shape
+    B1 = m.num_brokers + 1
+    ms = arrays.stack_models([arrays.with_config(m, c)
+                              for c in arrays.portfolio_configs(L)])
+    al = torch.stack([a.roll(i, 0) for i in range(L)])
+    print(f"lane kernels (L={L} portfolio configs, N={N} P={P} R={R} "
+          f"B+1={B1}):")
+    errs, hists, keys, temps = lane_equal(torch, ms, al, temp,
+                                          f"{L} portfolio lanes")
+    cnt, lcnt, rcnt = hists
+    rows = lane_rows(torch, dev, ms, al, errs, hists, keys, temps,
+                     int32_ops_per_s, tf_ops, True, f"{L} lanes",
+                     solo_device_us)
 
     # the stages with no kernel, run lane by lane: the compound sweep and
     # the snapshot (one B1 for every lane, then each lane's bookkeeping
@@ -738,6 +814,373 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
     lane_equal(torch, ms3, torch.stack(pops), temp,
                "3 lanes of three instances")
     return rows
+
+
+def b1_holds(torch, dev, inst, a, label: str) -> None:
+    """Fail unless B1 on the card, on plan ``a`` of ``inst`` (lowered at
+    its own shape), gives the numpy oracle's weight and violations."""
+    from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import score
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import arrays
+
+    m = arrays.from_instance(inst, dev)
+    out = score(m, torch.from_numpy(a).to(dev)[None])[0][0, :5].tolist()
+    viol = inst.violations(a)
+    oracle = [inst.preservation_weight(a), viol["broker_balance"],
+              viol["leader_balance"], viol["rack_balance"],
+              viol["part_rack_diversity"]]
+    if out != oracle:
+        fail(f"{label}: B1 scores {out} disagree with the oracle {oracle}")
+
+
+def decomposed_phase(torch, dev, power: str, int32_ops_per_s: float,
+                     tf_ops: int, partitions: int = 200_000) -> list[dict]:
+    """(h) The decomposed solve. The smoke ``ultra_jumbo`` instance with
+    ``engine="sweep", rounds=32, decompose=True`` on the card and on the
+    CPU: equal plans. Then ``ultra_jumbo_case(seed=0)`` at its published
+    size through ``optimize`` at its defaults (the auto trigger decides):
+    the three lane launches held to their plain versions on the map's
+    first chunk state (the kernels rows of the decomposed map), then the
+    solve: the map through the 8-lane bucket, every kernel launched by
+    the map; one AZ lane of the map's first call equal to the CPU's plain
+    path with the same budget; ``decomposed`` with 4 subproblems and lane
+    bucket 8, or ``decompose_to_flat`` with its record and the flat path;
+    feasible under the numpy oracle with B1 held to it. Returns the rows,
+    their launches the map's."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import decompose, optimize
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
+        init_lane_state,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        bucket,
+        engine,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
+        greedy_seed,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    smoke = gen.ultra_jumbo(seed=0, **gen.SMOKE_KWARGS["ultra_jumbo"])
+    got = {}
+    for device in ("cuda", "cpu"):
+        inst = build_instance(smoke.current, smoke.broker_list,
+                              smoke.topology)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = engine.solve_tpu(inst, seed=0, engine="sweep", rounds=32,
+                             decompose=True, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if r.stats["engine"] != "decomposed" or not r.stats["feasible"]:
+            fail(f"decomposed smoke ({device}): engine "
+                 f"{r.stats['engine']}, feasible {r.stats['feasible']}")
+        got[device] = (r, wall, {k.name: k.launches
+                                 for k in kernels.KERNELS})
+    (card, w_card, counts), (cpu, w_cpu, _c) = got["cuda"], got["cpu"]
+    if not np.array_equal(card.a, cpu.a) or (
+            card.stats["decompose"] != cpu.stats["decompose"]):
+        fail("decomposed smoke: the card's plan or decompose stats differ "
+             "from the CPU's")
+    d = card.stats["decompose"]
+    print(f"decomposed smoke ({smoke.notes}; sweep, 32 rounds): "
+          f"{d['subproblems']} subproblems, {d['iterations']} iterations, "
+          f"{card.stats['moves']} moves, weight {card.objective}, bound gap "
+          f"{d['bound_gap']}; equal to the CPU's plan; wall card "
+          f"{w_card:.3f} s, CPU {w_cpu:.3f} s ({power}); launches "
+          + json.dumps(counts))
+
+    t0 = time.perf_counter()
+    scen = gen.ultra_jumbo_case(seed=0, partitions=partitions)
+    t_gen = time.perf_counter()
+    inst = build_instance(scen.current, scen.broker_list, scen.topology)
+    t_build = time.perf_counter()
+    print(f"ultra_jumbo_case(seed=0): {scen.notes}; generated in "
+          f"{t_gen - t0:.3f} s, instance built in {t_build - t_gen:.3f} s")
+    # the map's first chunk state: the split and the lanes exactly as the
+    # solve's first map iteration builds them (the split, and each lane's
+    # greedy seed, are memoized on the instance, so the solve reuses them;
+    # the cold total below adds them back)
+    t0_split = time.perf_counter()
+    sp = decompose.split_of(inst)
+    if sp is None or sp.n_groups != 4:
+        fail("ultra_jumbo_case: the instance does not split into 4 AZs")
+    t_split = time.perf_counter()
+    for sub in sp.subs:
+        greedy_seed(sub)
+    t_seeds = time.perf_counter()
+    m_stack, lane_seeds, keys = engine.stack_lanes(
+        sp.subs, list(range(sp.n_groups)), dev)
+    pop = init_lane_state(m_stack, lane_seeds, keys, 8)[0]
+    torch.cuda.synchronize()
+    t_lanes = time.perf_counter()
+    L, N, P, R = pop.shape
+    seed_viol = [sum(sub.violations(lane_seeds[g][:sub.num_parts,
+                                                  :sub.max_rf]).values())
+                 for g, sub in enumerate(sp.subs)]
+    print(f"decomposed map's first chunk state: L={L} (of {sp.n_groups} "
+          f"AZs) N={N} P={P} R={R} B+1={m_stack.num_brokers + 1} "
+          f"K+1={m_stack.num_racks + 1}; split {t_split - t0_split:.3f} s, "
+          f"the AZs' greedy seeds {t_seeds - t_split:.3f} s, lowering "
+          f"{t_lanes - t_seeds:.3f} s; the seeds' violations {seed_viol}")
+    errs, hists, k_lanes, temps = lane_equal(
+        torch, m_stack, pop, float(np.float32(0.5)), "decomposed map")
+    rows = lane_rows(torch, dev, m_stack, pop, errs, hists, k_lanes, temps,
+                     int32_ops_per_s, tf_ops, False,
+                     f"{L} lanes, decomposed map")
+    del m_stack, pop, hists
+
+    from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
+        lane_serve_report,
+    )
+
+    served = lane_serve_report()
+    key = f"{sp.subs[0].num_brokers}x{sp.subs[0].num_racks}x{P}x{R}"
+    before = decompose.STATS.snapshot()["counters"]
+    # the map's own calls: solve_tpu_batch as the map makes them, each
+    # call's arguments, lane results and kernel launches kept
+    map_calls = []
+    batch_fn = engine.solve_tpu_batch
+
+    def map_call(insts, **kw):
+        at = {k.name: k.launches for k in kernels.KERNELS}
+        out = batch_fn(insts, **kw)
+        map_calls.append((list(insts), kw, out, {
+            k.name: k.launches - at[k.name] for k in kernels.KERNELS}))
+        return out
+
+    kernels.reset_counts()
+    engine.solve_tpu_batch = map_call
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize(scen.current, scen.broker_list, scen.topology,
+                       instance=inst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.solve_tpu_batch = batch_fn
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    snap = decompose.STATS.snapshot()
+    st = res.solve.stats
+    d = st.get("decompose") or {}
+    # the map ran through the lane ladder at the 8-lane bucket, every
+    # kernel launched by the map itself; then the stitched plan
+    # ("decomposed", 4 subproblems) or, when the stitch stays infeasible
+    # after the last iteration, decompose_to_flat and the flat path
+    dispatches = (lane_serve_report().get(key, {}).get("dispatches", 0)
+                  - served.get(key, {}).get("dispatches", 0))
+    if dispatches < 1 or 8 not in lane_serve_report()[key]["lane_buckets"]:
+        fail(f"ultra_jumbo_case: no 8-lane map dispatch at {key}")
+    if len(map_calls) != dispatches:
+        fail(f"ultra_jumbo_case: {len(map_calls)} map calls seen, "
+             f"{dispatches} dispatches served")
+    map_counts = {name: sum(c[3][name] for c in map_calls)
+                  for name in counts}
+    for name, n in map_counts.items():
+        if n <= 0:
+            fail(f"ultra_jumbo_case: the map did not launch {name}")
+    att = snap["attempt"]
+
+    # the witness: one AZ lane of the map's first call again, through the
+    # CPU's plain path with the card's budget (the map passes none, so the
+    # lane takes the card's defaults; the CPU's would be smaller): the
+    # same plan, weight and violations as the card's map gave that lane
+    subs, kw, lane_res, _n = map_calls[0]
+    if set(kw) != {"seeds", "engine", "device"} or kw["engine"] is not None:
+        fail(f"ultra_jumbo_case: the map's call {sorted(kw)} is not the "
+             "defaults' one the witness replays")
+    bkt = (lane_res[0].stats["bucket_parts"], lane_res[0].stats["bucket_rf"])
+    g = next(i for i, sub in enumerate(subs)
+             if (bucket.part_bucket(sub.num_parts),
+                 bucket.rf_bucket(sub.max_rf)) == bkt)
+    budget = engine._defaults(subs[g], "gpu", None)
+    t0_w = time.perf_counter()
+    cpu_lane = engine.solve_tpu_batch(
+        [subs[g]], seeds=[kw["seeds"][g]], engine=budget["engine"],
+        batch=budget["batch"], rounds=budget["rounds"], device="cpu")[0]
+    t_witness = time.perf_counter() - t0_w
+    card_lane = lane_res[g]
+    if (not np.array_equal(cpu_lane.a, card_lane.a)
+            or [cpu_lane.objective, cpu_lane.stats["violations"],
+                cpu_lane.stats["rounds_run"]]
+            != [card_lane.objective, card_lane.stats["violations"],
+                card_lane.stats["rounds_run"]]):
+        fail(f"ultra_jumbo_case: AZ lane {g} of the map on the card "
+             f"(weight {card_lane.objective}, violations "
+             f"{card_lane.stats['violations']}) differs from the CPU's "
+             f"plain path (weight {cpu_lane.objective}, violations "
+             f"{cpu_lane.stats['violations']})")
+    print(f"map witness: AZ lane {g} of the first map call ({budget['engine']}"
+          f", {budget['batch']} chains x {budget['rounds']} sweeps, seed "
+          f"{kw['seeds'][g]}, bucket {bkt[0]} x {bkt[1]}) through the CPU's "
+          f"plain path equals the card's lane: the same plan, weight "
+          f"{cpu_lane.objective}, {cpu_lane.stats['violations']} violations "
+          f"(its seed's {seed_viol[g]}), {cpu_lane.stats['moves']} moves; "
+          f"CPU {t_witness:.3f} s")
+    if st["engine"] == "decomposed":
+        if (d.get("subproblems"),
+                (d.get("sub_shape") or {}).get("lane_bucket")) != (4, 8):
+            fail(f"ultra_jumbo_case: decompose stats {d}; expected 4 "
+                 "subproblems, lane bucket 8")
+        outcome = (f"decomposed, {d['iterations']} iterations, "
+                   + ("proved_optimal" if res.solve.optimal
+                      else f"bound_gap {d['bound_gap']}"))
+    else:
+        if ("decompose_to_flat" not in st.get("degradations", [])
+                or snap["counters"]["fallback"] != before["fallback"] + 1
+                or att.get("stitch_violations", 0) <= 0
+                or len(att.get("lane_violations", [])) != 4):
+            fail(f"ultra_jumbo_case: engine {st['engine']} without a "
+                 f"recorded decompose_to_flat ({st.get('degradations')}, "
+                 f"{snap})")
+        outcome = (f"decompose_to_flat after {att['iteration']} iterations "
+                   f"(stitched plan {att['stitch_violations']} violations, "
+                   f"lanes {att['lane_violations']}), then the flat path: "
+                   f"{st['engine']}"
+                   + (f"/{st['construct_path']}" if st.get("construct_path")
+                      else "")
+                   + (f", final_cert {st['final_cert']}"
+                      if st.get("final_cert") else "")
+                   + f", proven {res.solve.optimal}")
+    viol = inst.violations(res.solve.a)
+    if any(viol.values()) or not res.report()["feasible"]:
+        fail(f"ultra_jumbo_case: infeasible plan {viol}")
+    b1_holds(torch, dev, inst, res.solve.a, "ultra_jumbo_case")
+    for row in rows:
+        row["launches"] = map_counts[row["name"].split(" (")[0]]
+    print(f"ultra_jumbo_case at the defaults: {outcome}; {res.replica_moves} "
+          f"moves (lower bound {inst.move_lower_bound_exact()}), weight "
+          f"{res.solve.objective} (bound {inst.best_known_weight_ub()}); "
+          f"feasible, the oracle and B1 agree; wall {wall:.3f} s with the "
+          f"split and the AZ seeds memoized, cold "
+          f"{t_split - t0_split + t_seeds - t_split + wall:.3f} s ({power})")
+    flat = {k: st[k] for k in ("race_s", "seed_s", "lower_s", "anneal_s",
+                               "select_s", "polish_s", "verify_s") if k in st}
+    print("ultra_jumbo_case phases (s): " + json.dumps({
+        "build": round(t_build - t_gen, 4),
+        "split": round(t_split - t0_split, 4),
+        "map": att.get("times", {}).get("map"),
+        "reduce": att.get("times", {}).get("reduce"),
+        "certify": att.get("times", {}).get("certify"),
+        **({"flat": flat} if st["engine"] != "decomposed" else {}),
+        "total": round(wall, 4),
+        "cold_total": round(t_seeds - t0_split + wall, 4)})
+          + f"; {dispatches} map dispatches; launches by the map "
+          + json.dumps(map_counts) + ", after it "
+          + json.dumps({n: counts[n] - map_counts[n] for n in counts}))
+    return rows
+
+
+def delta_phase(torch, dev, power: str) -> None:
+    """(i) The delta API. The adversarial scenario's certified plan at
+    the defaults, then one more broker drained: ``optimize_delta`` from
+    that plan and a cold ``optimize`` of the same post-event cluster,
+    both feasible and held to the oracle (B1 too)."""
+    from kafka_assignment_optimizer_tpu_torch import optimize, optimize_delta
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    scen = gen.adversarial()
+    prev = optimize(scen.current, scen.broker_list, scen.topology)
+    if not prev.solve.optimal:
+        fail("delta: the adversarial plan at the defaults is not certified")
+    brokers = scen.broker_list[:-1]  # the event: one more broker drained
+    out = {}
+    for label, call in (
+            ("optimize_delta", lambda: optimize_delta(
+                prev.assignment, brokers, scen.topology,
+                prev_plan=prev.assignment)),
+            ("cold optimize", lambda: optimize(prev.assignment, brokers,
+                                               scen.topology))):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        if not r.report()["feasible"]:
+            fail(f"delta ({label}): infeasible plan")
+        b1_holds(torch, dev, r.instance, r.solve.a, f"delta ({label})")
+        st = r.solve.stats
+        out[label] = r
+        print(f"delta ({label}, broker {scen.broker_list[-1]} drained): "
+              f"engine {st['engine']}, construct_path "
+              f"{st.get('construct_path')}, warm_started "
+              f"{st.get('warm_started')}, {r.replica_moves} moves, weight "
+              f"{r.solve.objective}, proven {r.solve.optimal}, wall "
+              f"{wall:.3f} s ({power}); launches " + json.dumps(counts))
+    if not out["optimize_delta"].solve.stats.get("warm_started"):
+        fail("delta: the adapted previous plan did not seed the solve")
+
+
+def fallback_phase(torch, dev, power: str) -> None:
+    """(j) The host fallback. The pinned solo adversarial solve with
+    ``nan_chunk`` armed: the host plan, flagged ``anneal_to_construct``,
+    feasible and verified. Then the same solve with the site kernel's
+    launch failing as a real failed launch does: it must raise out of
+    ``optimize`` (no host plan hides the device), and that one expected
+    error is caught here; any other fails the run."""
+    from kafka_assignment_optimizer_tpu_torch import optimize
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.resilience import chaos, ladder
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    scen = gen.adversarial()
+    pinned = dict(solver="tpu", batch=8, rounds=128, portfolio=False,
+                  cert_min_savings_s=float("inf"))
+    chaos.arm("nan_chunk")
+    try:
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize(scen.current, scen.broker_list, scen.topology,
+                       **pinned)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        chaos.disarm()
+    st = res.solve.stats
+    if (st["engine"], st.get("degraded")) != ("host_fallback",
+                                              "anneal_to_construct") or (
+            "anneal_to_construct" not in st.get("degradations", [])):
+        fail(f"host fallback: engine {st['engine']}, degraded "
+             f"{st.get('degraded')}, degradations {st.get('degradations')}")
+    if not res.report()["feasible"]:
+        fail("host fallback: infeasible plan")
+    b1_holds(torch, dev, res.instance, res.solve.a, "host fallback")
+    print(f"host fallback (nan_chunk, batch=8, rounds=128, portfolio off): "
+          f"engine {st['engine']}, degraded {st['degraded']}, degradations "
+          f"{st['degradations']}, {res.replica_moves} moves, weight "
+          f"{res.solve.objective}, proven {res.solve.optimal}, wall "
+          f"{wall:.3f} s ({power}); launches " + json.dumps(counts))
+    saved = kernels.SITE._fn
+    if saved is None:
+        fail("host fallback: the site kernel was never loaded")
+    before = ladder.snapshot()["anneal_to_construct"]
+    kernels.SITE._fn = lambda *args: 700  # cudaErrorIllegalAddress
+    try:
+        optimize(scen.current, scen.broker_list, scen.topology,
+                 **dict(pinned, rounds=8))
+    except RuntimeError as e:
+        if "failed to launch" not in str(e):
+            raise
+        err = e
+    else:
+        fail("a failed site launch did not raise out of optimize")
+    finally:
+        kernels.SITE._fn = saved
+    if ladder.snapshot()["anneal_to_construct"] != before:
+        fail("a failed site launch took the host fallback")
+    print(f"failed site launch: raised out of optimize ({err}); no host "
+          "fallback")
 
 
 def main() -> int:
@@ -1369,7 +1812,7 @@ def main() -> int:
     # at the card's budget, 512 chains x 24 rounds x 4P steps, with no
     # time limit unless the caller set one. One round as CUDA graphs
     # against the eager step loop (equal state, both timed), then the
-    # whole chain solve the retry runs
+    # retry's anneal, cut to RETRY_ROUNDS rounds
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
         anneal,
         bucket,
@@ -1411,12 +1854,14 @@ def main() -> int:
           f"{g_first:.3f} s with capture, {g_warm:.3f} s captured, "
           f"{1e3 * g_warm / steps:.4f} ms a step; eager {e_s:.3f} s, "
           f"{1e3 * e_s / steps:.4f} ms a step ({power})")
-    # the whole anneal the retry runs: 24 rounds on the engine's chain
-    # ladder (2.5 -> 0.05) from the greedy seed. The retry's own solve
-    # adds the constructor race (this caps-binding case races the LP
-    # decode, which certifies it at once) and final selection
+    # the anneal the retry runs, from the greedy seed (feasible here, so
+    # the result is too), over the engine's chain ladder (2.5 -> 0.05) cut
+    # to RETRY_ROUNDS of its 24 rounds: the same steps, a third of the
+    # wall. The retry's own solve adds the constructor race (this
+    # caps-binding case races the LP decode, which certifies it at once)
+    # and final selection
     solve = anneal.make_solver_fn(512, steps)
-    temps = arrays.geometric_temps(2.5, 0.05, 24)
+    temps = arrays.geometric_temps(2.5, 0.05, RETRY_ROUNDS)
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1431,14 +1876,21 @@ def main() -> int:
                viol["part_rack_diversity"]] or int(best_k) < 0:
         fail(f"retry anneal: plan scores {out}, best key {int(best_k)}: "
              "infeasible or disagreeing with the oracle")
-    print(f"sweep->chain retry anneal (512 chains x 24 rounds x {steps} "
-          f"steps, CUDA graphs, {inst.num_parts} partitions): feasible, "
+    print(f"sweep->chain retry anneal (512 chains x {RETRY_ROUNDS} of the "
+          f"retry's 24 rounds x {steps} steps, CUDA graphs, "
+          f"{inst.num_parts} partitions): feasible, "
           f"{inst.move_count(plan)} moves, weight "
           f"{inst.preservation_weight(plan)}, wall {anneal_s:.3f} s, "
-          f"{1e3 * anneal_s / (24 * steps):.4f} ms a step ({power})")
+          f"{1e3 * anneal_s / (RETRY_ROUNDS * steps):.4f} ms a step "
+          f"({power})")
+
+    # (h) the decomposed solve; (i) the delta API; (j) the host fallback
+    map_rows = decomposed_phase(torch, dev, power, int32_ops_per_s, tf_ops)
+    delta_phase(torch, dev, power)
+    fallback_phase(torch, dev, power)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
-    print(json.dumps({"kernels": rows + lane_rows}))
+    print(json.dumps({"kernels": rows + lane_rows + map_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,13 +8,23 @@ package imports neither JAX nor the reference package.
 - ``models``  — cluster/assignment model, the solver-neutral instance
 - ``solvers`` — the exact host backends (``milp``, ``native``, ``lp_solve``)
   and the annealing engine (the race, the ladder on the card, selection)
+- ``decompose`` — the map-reduce solve over a cluster's AZs
+- ``resilience`` — the deadline budget, the chaos harness, the
+  degradation ladder
+- ``watch``   — the warm-start adaptation of the delta API
+- ``obs``     — structured log lines
 - ``native``  — the bundled C++ sources (built with g++ at first use)
 - ``ops``     — scoring in plain PyTorch, and the CUDA kernels' wrappers
 - ``csrc``    — the CUDA C++ kernel sources (built with nvcc at first use)
 - ``prng``    — threefry2x32 random bits, equal to the reference's
 """
 
-from .api import OptimizeResult, optimize, optimize_batch  # noqa: F401
+from .api import (  # noqa: F401
+    OptimizeResult,
+    optimize,
+    optimize_batch,
+    optimize_delta,
+)
 from .models.cluster import (  # noqa: F401
     Assignment,
     MoveReport,

@@ -1,6 +1,8 @@
 """High-level entry points: ``optimize()`` — parse, build the model, solve,
 decode, diff (the reference package's ``api.optimize``, call for call) —
-and ``optimize_batch()``, L prebuilt instances in one lane ladder.
+``optimize_delta()``, the same warm-started from the previous plan after
+a cluster event, and ``optimize_batch()``, L prebuilt instances in one
+lane ladder.
 
 The solve runs on the card unless the caller passes ``device="cpu"``.
 """
@@ -57,6 +59,11 @@ class OptimizeResult:
             "racks": self.instance.num_racks,
             **{f"solver_{k}": v for k, v in self.solve.stats.items()
                if isinstance(v, (int, float, str, bool))},
+            # the degradation rungs the solve took: a list, which the
+            # scalar fold above drops, but a degraded plan must not read
+            # as a searched one
+            **({"degradations": list(self.solve.stats["degradations"])}
+               if self.solve.stats.get("degradations") else {}),
         }
 
 
@@ -99,6 +106,63 @@ def optimize(
         solve=result,
         instance=inst,
         wall_clock_s=time.perf_counter() - t0,
+    )
+
+
+def optimize_delta(
+    current: Assignment | str | dict,
+    broker_list: Sequence[int],
+    topology: Topology | dict | None = None,
+    target_rf: int | dict | None = None,
+    prev_plan: Assignment | str | dict | None = None,
+    solver: str = "auto",
+    instance: ProblemInstance | None = None,
+    **solver_kwargs,
+) -> OptimizeResult:
+    """One step of the cluster-watch delta path: :func:`optimize`,
+    warm-started from ``prev_plan`` — the previous plan adapted to the
+    post-event topology (dead brokers and racks evicted, surviving
+    replicas kept in place, ``watch.adapt.adapt_plan``). Adaptation that
+    produces no usable candidate takes the ``warm_start_rejected`` rung
+    and the solve runs cold; solvers without a warm-start path (the
+    exact host backends certify from scratch anyway) ignore it.
+    ``device`` as for :func:`optimize`.
+    """
+    if isinstance(current, str):
+        current = Assignment.from_json(current)
+    elif isinstance(current, dict):
+        current = Assignment.from_dict(current)
+    if isinstance(topology, dict):
+        topology = Topology.from_dict(topology)
+    if isinstance(prev_plan, str):
+        prev_plan = Assignment.from_json(prev_plan)
+    elif isinstance(prev_plan, dict):
+        prev_plan = Assignment.from_dict(prev_plan)
+
+    inst = (
+        instance if instance is not None
+        else build_instance(current, broker_list, topology, target_rf)
+    )
+    from .solvers.base import resolve_solver
+
+    solver_eff = resolve_solver(solver, inst)
+    if solver_eff != "tpu":
+        # the host backends take no device
+        solver_kwargs.pop("device", None)
+    if prev_plan is not None and solver_eff == "tpu":
+        from .resilience import ladder as _ladder
+        from .watch.adapt import adapt_plan
+
+        warm_a, reason = adapt_plan(inst, prev_plan)
+        if warm_a is None:
+            # rejection is a ladder step, not a silent downgrade (the
+            # engine's own validator covers the in-engine cases)
+            _ladder.note_rung("warm_start_rejected", reason=reason[:200])
+        else:
+            solver_kwargs.setdefault("warm_start", warm_a)
+    return optimize(
+        current, broker_list, topology, target_rf=target_rf,
+        solver=solver_eff, instance=inst, **solver_kwargs,
     )
 
 

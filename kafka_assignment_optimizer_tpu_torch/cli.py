@@ -5,7 +5,7 @@ Usage:
         --input current.json --broker-list 0-18 --topology topology.json \\
         [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
         [--engine chain|sweep] [--seed 0] [--batch 8] [--sweeps 128] \\
-        [--device cuda|cpu] [--report]
+        [--device cuda|cpu] [--decompose] [--chaos SPEC] [--report]
 
 Reads the current assignment from ``--input`` or stdin, writes the plan
 (same dialect) to stdout and, with ``--report``, a solve report to
@@ -62,6 +62,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="solver time limit, seconds")
     ap.add_argument("--device", default="cuda",
                     help="solve device: cuda (default) or cpu")
+    ap.add_argument(
+        "--decompose",
+        action="store_true",
+        help="force the decomposed map-reduce solve (tpu solver; "
+        "docs/DECOMPOSE.md): split the AZ/rack-structured instance into "
+        "per-AZ sub-instances, solve them as the lanes of one batch, "
+        "stitch and oracle-verify the global plan. Chosen on its own at "
+        "KAO_DECOMPOSE_AUTO_PARTS partitions (150,000) and up; "
+        "KAO_DECOMPOSE=0 disables it everywhere",
+    )
+    ap.add_argument(
+        "--chaos",
+        default=None,
+        metavar="SPEC",
+        help="arm the fault-injection harness for this solve (same as "
+        "KAO_CHAOS; docs/RESILIENCE.md), e.g. 'nan_chunk' or "
+        "'seed=7,chunk_overrun:1:-1': the solve must still return a "
+        "valid certified-or-degraded plan, with every degradation rung "
+        "in the --report output",
+    )
     return ap
 
 
@@ -77,6 +97,14 @@ def load_topology(spec: str | None, broker_ids: list[int]) -> Topology | None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.chaos:
+        from .resilience import chaos as _chaos
+
+        try:
+            _chaos.arm(args.chaos)
+        except ValueError as e:
+            print(f"error: bad --chaos spec: {e}", file=sys.stderr)
+            return 2
     try:
         text = Path(args.input).read_text() if args.input else sys.stdin.read()
         current = Assignment.from_json(text)
@@ -94,6 +122,8 @@ def main(argv: list[str] | None = None) -> int:
             kw["batch"] = args.batch
         if args.sweeps:
             kw["sweeps"] = args.sweeps
+        if args.decompose:
+            kw["decompose"] = True
         res = optimize(current, brokers, topology, solver=args.solver, **kw)
     except (ValueError, KeyError, OSError, RuntimeError) as e:
         msg = e.args[0] if e.args and isinstance(e.args[0], str) else e

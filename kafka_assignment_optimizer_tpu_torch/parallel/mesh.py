@@ -110,10 +110,11 @@ def solve_lanes(m_stack: ModelArrays, n_chains: int, temps, state=None,
     R]`` and ``keys [L, 2]`` to build it; returns ``(state', best_a [L,
     P, R], best_k [L], curve [L, sweeps])`` through the lane stepper (one
     launch of each kernel for every lane). Chain engine (no kernel in
-    either package): pass ``lane_seeds`` and ``keys``; each lane runs
-    ``anneal.make_solver_fn`` on its model with its own key, as the
-    reference's ``vmap`` does per lane; returns ``(best_a, best_k,
-    curve)`` with the same lane axes."""
+    either package): pass ``lane_seeds`` and ``keys``; every lane's
+    chains run as one chain axis (``anneal.make_lane_solver_fn``), each
+    lane on its model with its own key, as the reference's ``vmap`` does
+    per lane; returns ``(best_a, best_k, curve)`` with the same lane
+    axes."""
     if engine == "sweep":
         from ..solvers.tpu.sweep import make_lane_stepper_fn
 
@@ -124,12 +125,9 @@ def solve_lanes(m_stack: ModelArrays, n_chains: int, temps, state=None,
             state = init_lane_state(m_stack, lane_seeds, keys, n_chains)
         return make_lane_stepper_fn(n_chains, scorer=scorer)(
             m_stack, state, temps)
-    from ..solvers.tpu.anneal import make_solver_fn
+    from ..solvers.tpu.anneal import make_lane_solver_fn
 
-    solve = make_solver_fn(n_chains, steps_per_round)
     seeds = torch.tensor(np.asarray(lane_seeds, np.int32),
                          device=m_stack.device)
-    keys = np.asarray(keys, np.uint32).reshape(seeds.shape[0], 2)
-    outs = [solve(lane_model(m_stack, lane), seeds[lane], keys[lane], temps)
-            for lane in range(seeds.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    return make_lane_solver_fn(n_chains, steps_per_round)(
+        m_stack, seeds, keys, temps)

@@ -13,7 +13,12 @@ moves per chain and prices it in O(RF) from the carried histograms:
 
 The reference vmaps one chain's step and scans it; here one step runs over
 the whole ``[N]`` chain axis with advanced indexing, so a step is a fixed
-few hundred tensor operations whatever N is. The reference computes this
+few hundred tensor operations whatever N is. The step runs on a stacked
+model (:func:`make_lane_solver_fn`): L lanes' chains are one ``[L·N]``
+chain axis, each chain reading its own lane's tables, bands, penalty
+scale and temperature, the same per-chain arithmetic as L single-model
+runs, in one step's operations; a single model is its one lane
+(:func:`make_solver_fn`). The reference computes this
 engine in XLA with no Pallas kernel, so it is plain PyTorch on either
 device. On the card a round's step loop is captured as CUDA graphs
 (``_StepGraphs``) and replayed, so the host launches one graph per
@@ -35,7 +40,7 @@ import torch
 from ... import prng
 from ...ops.score_cuda import score
 from .arrays import LAMBDA, SCALE_W, ModelArrays, u01
-from .sweep import first_argmax, first_argmin
+from .sweep import _one_lane
 
 # move-type proposal mix (the reference's constants); the comparisons run
 # in float32, so the thresholds are taken as float32 values
@@ -97,19 +102,50 @@ def _tables(m: ModelArrays) -> dict:
     """The model's tables as the step reads them, once per model: int64
     (the step computes in int64, exact for these int32 values, so it
     pays for no index conversions), the two weight tables stacked flat
-    as ``w[role, p, b]`` (role 1 = leader)."""
+    as ``w[role, p, b]`` (role 1 = leader). The stacked model's tables
+    are flattened over the lane axis (a chain adds its lane's offset to
+    each index, :func:`_lane_offsets`), its bands and penalty scales kept
+    one a lane."""
     cached = m.__dict__.get("_chain_tables")
     if cached is None:
+        R = m.max_rf
         cached = {
-            "rf": m.rf.long(), "a0": m.a0.long(),
-            "slot_valid": m.slot_valid,
-            "w": torch.stack([m.w_foll, m.w_lead]).reshape(-1).long(),
-            "rack_of": m.rack_of.long(), "rack_lo": m.rack_lo.long(),
-            "rack_hi": m.rack_hi.long(), "part_rack_hi": m.part_rack_hi.long(),
-            "blo": m.broker_band[0].long(), "bhi": m.broker_band[1].long(),
-            "llo": m.leader_band[0].long(), "lhi": m.leader_band[1].long(),
+            "rf": m.rf.long().reshape(-1),
+            "a0": m.a0.long().reshape(-1, R),
+            "slot_valid": m.slot_valid.reshape(-1, R),
+            "w": torch.stack([m.w_foll, m.w_lead], -3).reshape(-1).long(),
+            "rack_of": m.rack_of.long().reshape(-1),
+            "rack_lo": m.rack_lo.long().reshape(-1),
+            "rack_hi": m.rack_hi.long().reshape(-1),
+            "part_rack_hi": m.part_rack_hi.long().reshape(-1),
+            "blo": m.broker_band[..., 0].long(),
+            "bhi": m.broker_band[..., 1].long(),
+            "llo": m.leader_band[..., 0].long(),
+            "lhi": m.leader_band[..., 1].long(),
+            "lam": m.lam.reshape(-1),
         }
         object.__setattr__(m, "_chain_tables", cached)
+    return cached
+
+
+def _lane_offsets(m: ModelArrays, t: dict, n_total: int) -> dict:
+    """For a stacked model of L lanes and ``n_total = L·N`` chains (lane
+    major): each chain's index offsets into the flattened tables (``p``:
+    partition rows, ``b``: broker entries, ``k``: rack entries, ``w``:
+    the weight table) and its lane's bands and penalty scale, cached per
+    chain count."""
+    L = m.num_lanes
+    key = ("_lane_offsets", n_total)
+    cached = t.get(key)
+    if cached is None:
+        P, B, K = m.num_parts, m.num_brokers, m.num_racks
+        lane = torch.arange(n_total, device=m.device) // (n_total // L)
+        cached = {
+            "p": lane * P, "b": lane * (B + 1), "k": lane * (K + 1),
+            "w": lane * (2 * P * (B + 1)),
+            **{f: t[f][lane] for f in ("blo", "bhi", "llo", "lhi", "lam")},
+        }
+        t[key] = cached
     return cached
 
 
@@ -125,9 +161,10 @@ def _delta_band(c_from, c_to, lo, hi):
 
 def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
                  row: torch.Tensor) -> ChainState:
-    """One Metropolis step of every chain. ``row`` is ``[N, 8]`` int64
-    random words (one row of the round's presampled bits a chain);
-    ``temp_div`` the float32 device scalar ``max(temp, 1e-6)``. The
+    """One Metropolis step of every chain of the stacked model ``m``.
+    ``row`` is ``[N, 8]`` int64 random words (one row of the round's
+    presampled bits a chain); ``temp_div`` the float32 ``[N]``
+    denominators ``max(temp, 1e-6)``. The
     state's tensors are int64 here (``make_round_runner`` converts at
     the round's ends); every value equals the reference's int32 one.
 
@@ -136,16 +173,26 @@ def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
     (from, to) pair of the move type each chain drew — the same integer
     terms, so the same sums."""
     t = _tables(m)
-    P, R = m.a0.shape
+    P, R = m.num_parts, m.max_rf
     B, K = m.num_brokers, m.num_racks
     PB1 = P * (B + 1)
     n = torch.arange(st.a.shape[0], device=st.a.device)
+    off = _lane_offsets(m, t, st.a.shape[0])
+
+    def at(name, idx, o):  # the chain's own lane's table entry
+        return t[name][idx + off[o]]
+
+    def at_rows(name, idx, o):  # the same for [N, W] index rows
+        return t[name][idx + off[o][:, None]]
+
+    blo, bhi, llo, lhi, lam = (off[f]
+                               for f in ("blo", "bhi", "llo", "lhi", "lam"))
 
     def col(x, idx):  # x[n, idx[n]] for per-chain rows x [N, W]
         return x.gather(1, idx[:, None])[:, 0]
 
     p = row[:, 0] % P
-    rfp = t["rf"][p]
+    rfp = at("rf", p, "p")
     u_type = u01(row[:, 1])
     is_rep = u_type < _T_REP
     is_lsw = (u_type >= _T_REP) & (u_type < _T_LSW)
@@ -160,18 +207,18 @@ def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
     s1 = torch.where(is_lsw, s_lsw, s_rep)
 
     row1 = st.a[n, p]  # [N, R]
-    valid1 = t["slot_valid"][p]
+    valid1 = at("slot_valid", p, "p")
     b_old = col(row1, torch.clamp_max(s1, R - 1))
     b_uni = row[:, 3] % B
-    b_orig = t["a0"][p, (row[:, 7] & 0xFFFF) % R]
+    b_orig = t["a0"][p + off["p"], (row[:, 7] & 0xFFFF) % R]
     b_new_rep = torch.where((u01(row[:, 7]) < _T_RESTORE) & (b_orig < B),
                             b_orig, b_uni)
 
     p2 = row[:, 4] % P
-    rfp2 = t["rf"][p2]
+    rfp2 = at("rf", p2, "p")
     s2 = (row[:, 5] & 0x3FFFFFFF) % torch.clamp_min(rfp2, 1)
     row2 = st.a[n, p2]
-    valid2 = t["slot_valid"][p2]
+    valid2 = at("slot_valid", p2, "p")
     b2 = col(row2, s2)
 
     bl = row1[:, 0]
@@ -201,6 +248,7 @@ def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
         torch.where(is_xsw, lead2.long() * PB1 + p2 * (B + 1), 0))
     x2 = torch.where(is_lsw, bl, torch.where(is_xsw, b_old, 0))
     y2 = torch.where(is_lsw, bf, torch.where(is_xsw, b2, 0))
+    role1, q_off = role1 + off["w"], q_off + off["w"]
     w = t["w"]
     dw = (w[role1 + x1] - w[role1 + y1]) + (w[q_off + x2] - w[q_off + y2])
 
@@ -210,7 +258,7 @@ def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
         d = _delta_band(col(counts, b_from), col(counts, b_to), lo, hi)
         return torch.where(both_real & (b_from != b_to), d, 0)
 
-    d_cnt = f_cnt(b_old, b_in, st.cnt, t["blo"], t["bhi"])
+    d_cnt = f_cnt(b_old, b_in, st.cnt, blo, bhi)
     lead_xor = lead1 ^ lead2
     lsub = torch.where(lead_xor, torch.where(lead1, b_old, b2), B)
     ladd = torch.where(lead_xor, torch.where(lead1, b2, b_old), B)
@@ -219,15 +267,16 @@ def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
                          torch.where(is_lsw, bl, lsub))
     l_to = torch.where(is_rep, torch.where(lead1, b_in, B),
                        torch.where(is_lsw, bf, ladd))
-    d_lead = f_cnt(l_from, l_to, st.lcnt, t["llo"], t["lhi"])
+    d_lead = f_cnt(l_from, l_to, st.lcnt, llo, lhi)
 
-    rack_of, rlo, rhi = t["rack_of"], t["rack_lo"], t["rack_hi"]
-    r_old, r_in = rack_of[b_old], rack_of[b_in]
+    r_old, r_in = at("rack_of", b_old, "b"), at("rack_of", b_in, "b")
     c_old, c_in = col(st.rcnt, r_old), col(st.rcnt, r_in)
     d_rack = torch.where(
         r_old != r_in,
-        ((c_old <= rlo[r_old]).long() - (c_old > rhi[r_old]).long())
-        + ((c_in >= rhi[r_in]).long() - (c_in < rlo[r_in]).long()),
+        ((c_old <= at("rack_lo", r_old, "k")).long()
+         - (c_old > at("rack_hi", r_old, "k")).long())
+        + ((c_in >= at("rack_hi", r_in, "k")).long()
+           - (c_in < at("rack_lo", r_in, "k")).long()),
         0,
     )
 
@@ -239,16 +288,17 @@ def _anneal_step(m: ModelArrays, st: ChainState, temp_div: torch.Tensor,
         return torch.where(r_from != r_to,
                            (c_to >= cap).long() - (c_from > cap).long(), 0)
 
-    racks1 = torch.where(valid1, rack_of[row1], K)
-    d_div1 = div_delta(racks1, t["part_rack_hi"][p], r_old, r_in)
-    racks2 = torch.where(valid2, rack_of[row2], K)
-    d_div2 = div_delta(racks2, t["part_rack_hi"][p2], rack_of[b2], r_old)
+    racks1 = torch.where(valid1, at_rows("rack_of", row1, "b"), K)
+    d_div1 = div_delta(racks1, at("part_rack_hi", p, "p"), r_old, r_in)
+    racks2 = torch.where(valid2, at_rows("rack_of", row2, "b"), K)
+    d_div2 = div_delta(racks2, at("part_rack_hi", p2, "p"),
+                       at("rack_of", b2, "b"), r_old)
 
     dpen = d_lead + torch.where(is_rep, d_cnt + d_rack + d_div1,
                                 torch.where(is_lsw, 0, d_div1 + d_div2))
 
     # --- accept (float32, full-precision exp) --------------------------
-    delta = (SCALE_W * dw).to(torch.float32) - m.lam * dpen.to(torch.float32)
+    delta = (SCALE_W * dw).to(torch.float32) - lam * dpen.to(torch.float32)
     accept = valid & ((delta >= 0)
                       | (u01(row[:, 6]) < torch.exp(delta / temp_div)))
 
@@ -290,14 +340,21 @@ def _cast(st: ChainState, dtype: torch.dtype, key=None) -> ChainState:
                       key=st.key if key is None else key)
 
 
-def _migrate(st: ChainState, k: torch.Tensor) -> ChainState:
-    """The reference's round-end migration on a mesh of one device: the
-    best chain (first index among ties) cloned over the worst (first
-    index), keys untouched."""
-    src, dst = first_argmax(k), first_argmin(k)
+def _migrate(st: ChainState, k: torch.Tensor, lanes: int) -> ChainState:
+    """The reference's round-end migration on a mesh of one device, within
+    each lane's block of chains: the best chain (first index among ties)
+    cloned over the worst (first index), keys untouched."""
+    kl = k.reshape(lanes, -1)
+    nc = kl.shape[1]
+    idx = torch.arange(nc, device=k.device)
+    base = torch.arange(lanes, device=k.device) * nc
+    src = torch.where(kl == kl.max(1, keepdim=True).values, idx,
+                      nc).min(1).values + base
+    dst = torch.where(kl == kl.min(1, keepdim=True).values, idx,
+                      nc).min(1).values + base
 
     def put(x):
-        return x.index_copy(0, dst[None], x[src][None])
+        return x.index_copy(0, dst, x[src])
 
     return ChainState(a=put(st.a), cnt=put(st.cnt), lcnt=put(st.lcnt),
                       rcnt=put(st.rcnt), pen=put(st.pen), w=put(st.w),
@@ -320,7 +377,9 @@ class _StepGraphs:
                for f in _INT_FIELDS}, key=st.key)
         self.rows = torch.zeros((st.a.shape[0], self.k, 8),
                                 dtype=torch.int64, device=dev)
-        self.temp = torch.ones((), dtype=torch.float32, device=dev)
+        # the Metropolis denominator, one a chain
+        self.temp = torch.ones(st.a.shape[0], dtype=torch.float32,
+                               device=dev)
         # one eager step on a side stream before capture builds the
         # model's tables and the allocator's blocks; its output is dropped
         side = torch.cuda.Stream(dev)
@@ -364,10 +423,11 @@ class _StepGraphs:
 def make_round_runner(steps_per_round: int, graph: bool | None = None):
     """``(m, state, best_k, best_a, temp) -> (state, best_k, best_a)``:
     ``steps_per_round`` steps of every chain, the feasible-best snapshot,
-    then the one-device migration of the reference's mesh path. The
-    temperature is scaled by ``m.temp_scale`` in float32; each chain's
-    key splits once and its ``[steps_per_round, 8]`` words are one
-    ``bits`` draw of the sub-key, as the reference draws them. ``graph``
+    then the one-device migration of the reference's mesh path. ``m`` is
+    a stacked model, or a single model run as its one lane. The
+    temperature is scaled by each lane's ``temp_scale`` in float32; each
+    chain's key splits once and its ``[steps_per_round, 8]`` words are
+    one ``bits`` draw of the sub-key, as the reference draws them. ``graph``
     (default: on a CUDA state) replays the step loop as CUDA graphs
     captured at the runner's first round; ``False`` launches each
     operation eagerly."""
@@ -375,9 +435,9 @@ def make_round_runner(steps_per_round: int, graph: bool | None = None):
 
     def run_round(m: ModelArrays, st: ChainState, best_k: torch.Tensor,
                   best_a: torch.Tensor, temp):
-        t = np.float32(temp) * np.float32(float(m.temp_scale))
-        temp_div = torch.full((), float(max(t, _TEMP_FLOOR)),
-                              dtype=torch.float32, device=st.a.device)
+        if not m.num_lanes:
+            m = _one_lane(m)
+        temp_div = _temp_div(m, temp, st.a.shape[0], st.a.device)
         ks = prng.split_rows(st.key)
         bits = prng.bits_rows(ks[:, 1], (steps_per_round, 8))
         if st.a.is_cuda if graph is None else graph:
@@ -394,9 +454,20 @@ def make_round_runner(steps_per_round: int, graph: bool | None = None):
         improved = k > best_k
         best_k = torch.where(improved, k, best_k)
         best_a = torch.where(improved[:, None, None], st.a, best_a)
-        return _migrate(st, k), best_k, best_a
+        return _migrate(st, k, m.num_lanes), best_k, best_a
 
     return run_round
+
+
+def _temp_div(m: ModelArrays, temp, n_total: int, device) -> torch.Tensor:
+    """The Metropolis denominators ``max(temp * temp_scale, 1e-6)`` in
+    float32 of the stacked model's ``n_total`` chains, each chain its
+    lane's ``temp_scale``."""
+    per_lane = [float(max(np.float32(temp) * np.float32(x), _TEMP_FLOOR))
+                for x in m.lane_scalars()[2]]
+    return torch.tensor(per_lane, dtype=torch.float32,
+                        device=device).repeat_interleave(
+                            n_total // m.num_lanes)
 
 
 def chain_keys(key, n_chains: int, device) -> torch.Tensor:
@@ -407,25 +478,57 @@ def chain_keys(key, n_chains: int, device) -> torch.Tensor:
                         device=device)
 
 
-def make_solver_fn(n_chains: int, steps_per_round: int):
-    """The whole anneal: ``(m, a_seed [P, R], key, temps) -> (best_a
-    [P, R], best_key, curve [rounds])``. Every chain starts at the seed
-    and the seed is the first best snapshot, so the result never ranks
-    below it. ``key`` is a host ``uint32[2]`` key (the per-chunk key of
-    the engine's ladder)."""
+def make_lane_solver_fn(n_chains: int, steps_per_round: int):
+    """The whole anneal of L lanes at once: ``(m_stack, seeds [L, P, R],
+    keys [L, 2], temps) -> (best_a [L, P, R], best_k [L], curve [L,
+    rounds])``. Lane l's ``n_chains`` chains start at ``seeds[l]`` on
+    ``lane_model(m_stack, l)`` with ``keys[l]`` and run as one block of
+    the ``[L·n_chains]`` chain axis (each lane's migration and winner
+    within its block), so each lane's result equals its one-lane run."""
+    from .arrays import lane_model
+
     run_round = make_round_runner(steps_per_round)
 
-    def solve(m: ModelArrays, a_seed: torch.Tensor, key, temps):
-        st = init_chain(m, a_seed, chain_keys(key, n_chains, m.device))
+    def solve(m: ModelArrays, seeds: torch.Tensor, keys, temps):
+        L = m.num_lanes
+        keys = np.asarray(keys, np.uint32).reshape(L, 2)
+        sts = [init_chain(lane_model(m, lane), seeds[lane],
+                          chain_keys(keys[lane], n_chains, m.device))
+               for lane in range(L)]
+        st = ChainState(**{f: torch.cat([getattr(x, f) for x in sts])
+                           for f in (*_INT_FIELDS, "key")})
         best_k = best_key(st)
         best_a = st.a.clone()
         curve = []
         for temp in np.asarray(temps, np.float32):
             st, best_k, best_a = run_round(m, st, best_k, best_a, temp)
-            curve.append(best_k.max())
-        top = first_argmax(best_k)
-        curve = (torch.stack(curve) if curve
-                 else torch.zeros(0, dtype=torch.int32, device=m.device))
-        return best_a[top], best_k[top], curve
+            curve.append(best_k.reshape(L, n_chains).max(1).values)
+        bk = best_k.reshape(L, n_chains)
+        idx = torch.arange(n_chains, device=bk.device)
+        top = torch.where(bk == bk.max(1, keepdim=True).values, idx,
+                          n_chains).min(1).values
+        lanes = torch.arange(L, device=bk.device)
+        curve = (torch.stack(curve, 1) if curve
+                 else torch.zeros((L, 0), dtype=torch.int32,
+                                  device=m.device))
+        return (best_a.reshape(L, n_chains, *best_a.shape[1:])[lanes, top],
+                bk[lanes, top], curve)
+
+    return solve
+
+
+def make_solver_fn(n_chains: int, steps_per_round: int):
+    """The whole anneal of one model, the one-lane case of
+    :func:`make_lane_solver_fn`: ``(m, a_seed [P, R], key, temps) ->
+    (best_a [P, R], best_key, curve [rounds])``. Every chain starts at the
+    seed and the seed is the first best snapshot, so the result never
+    ranks below it. ``key`` is a host ``uint32[2]`` key (the per-chunk
+    key of the engine's ladder)."""
+    solve_lanes = make_lane_solver_fn(n_chains, steps_per_round)
+
+    def solve(m: ModelArrays, a_seed: torch.Tensor, key, temps):
+        best_a, best_k, curve = solve_lanes(_one_lane(m), a_seed[None],
+                                            [key], temps)
+        return best_a[0], best_k[0], curve[0]
 
     return solve

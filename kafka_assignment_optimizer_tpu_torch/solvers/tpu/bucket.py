@@ -137,6 +137,19 @@ def rf_bucket(max_rf: int) -> int:
     return _round_up(r, 4)
 
 
+def ladder(n: int = 16) -> list[int]:
+    """The first ``n`` rungs of the active partition ladder (a custom
+    ``KAO_BUCKETS`` ladder's rungs, at most ``n``)."""
+    custom = _custom_ladder()
+    if custom is not None:
+        return custom[:n]
+    out, v = [], _LADDER_BASE
+    for _ in range(n):
+        out.append(v)
+        v = _next_rung(v)
+    return out
+
+
 def bucket_shape(inst) -> tuple[int, int]:
     """(partition-bucket, rf-bucket) for a ProblemInstance."""
     return part_bucket(inst.num_parts), rf_bucket(inst.max_rf)

@@ -4,11 +4,17 @@ Counterpart of ``kafka_assignment_optimizer_tpu.solvers.tpu.engine``
 (the reference's name ``"tpu"`` is kept so calls match call for call),
 taking the reference's decisions on one device:
 
+0. **The decomposed solve.** AZ/rack-structured instances of 150,000
+   partitions or more (or on request: ``decompose=True``,
+   ``KAO_DECOMPOSE=1``) solve as map-reduce over per-AZ sub-instances
+   through :func:`solve_tpu_batch` (``decompose``); a failed reduce
+   falls through to the flat path below (``decompose_to_flat``).
 1. **The constructor race.** The LP/flow bounds are prefetched on a
    daemon thread, and one host worker races the annealer: the LP-rounding
    constructor where balance bands bind (or symmetry collapses the
    instance), the exact MILP on tiny instances, greedy + exact leader
-   reseat otherwise. A certified plan returns at once with no device
+   reseat otherwise; a delta-API ``warm_start`` is tried for a
+   certificate first. A certified plan returns at once with no device
    touched (``engine "construct"``); an uncertified one competes as the
    warm start.
 2. **The ladder.** The sweep engine (``sweep``, through the hand-written
@@ -25,13 +31,20 @@ taking the reference's decisions on one device:
 4. **Verification.** The numpy oracle, the device scorer held to it, and
    ``certify_optimal`` for ``proved_optimal``.
 
-A defaulted sweep that ends infeasible below 512 partitions retries the
-chain engine on what is left of the budget. :func:`solve_tpu_batch` solves
-L independent instances in one lane ladder (no race, no boundary
-certificate, no polish). Not here yet: pipelining and megachunks, more
-than one device, checkpoints, warm starts, decomposition, profiling and
-the host fallback; their keywords raise ``NotImplementedError`` unless
-their value names what this engine does.
+Every step down is a rung of the degradation ladder
+(``resilience.ladder``), listed in ``stats["degradations"]``: the
+deadline cutting the ladder (``deadline_truncated``), a rejected warm
+start (``warm_start_rejected``), a failed decomposition
+(``decompose_to_flat``), the chain engine's retry of a defaulted sweep
+that ends infeasible below 512 partitions (``sweep_to_chain``), and the
+host fallback (``anneal_to_construct``): an injected chaos fault or a
+``FloatingPointError`` in the device path returns the host greedy/reseat
+plan, verified and flagged ``stats["degraded"]``; every other error
+raises. :func:`solve_tpu_batch` solves L independent instances in one
+lane ladder (no race, no boundary certificate, no polish). Not here yet:
+pipelining and megachunks, more than one device, checkpoints, profiling,
+the kernel->plain retry rung and the sanitizer; their keywords raise
+``NotImplementedError`` unless their value names what this engine does.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own.
@@ -53,12 +66,15 @@ from ... import prng
 from ...models import instance as _instance_mod
 from ...models.instance import ProblemInstance
 from ...ops.score_cuda import score, score_lanes
+from ...obs import log as _olog
 from ...parallel.mesh import (
     init_lane_state,
     init_sweep_state,
     note_lane_serve,
     solve_lanes,
 )
+from ...resilience import chaos as _chaos
+from ...resilience import ladder as _ladder
 from ...resilience.budget import Budget
 from ..base import SolveResult, register
 from . import arrays, bucket
@@ -222,8 +238,6 @@ _UNPORTED = {
     "profile_dir": (None,),
     "precompile": (False,),
     "pipeline": (None, False),
-    "warm_start": (None,),
-    "decompose": (None, False),
     "megachunk": (None, False, 1),
     "trace": (None, False),
 }
@@ -265,30 +279,70 @@ def solve_tpu(
     megachunk=None,
     device=None,
 ) -> SolveResult:
-    """Solve ``inst``: the constructor race, then (unless it certified)
-    the annealing ladder on ``device`` (default the card), certify-first
-    final selection and verification. ``time_limit_s`` (or a caller's
-    ``budget``) bounds the joins and cuts the ladder at chunk
-    boundaries."""
+    """Solve ``inst``: the decomposed solve where it applies, else the
+    constructor race, then (unless it certified) the annealing ladder on
+    ``device`` (default the card), certify-first final selection and
+    verification. ``time_limit_s`` (or a caller's ``budget``) bounds the
+    joins and cuts the ladder at chunk boundaries. ``warm_start`` (a
+    previous plan adapted to this instance, ``api.optimize_delta``)
+    races for a certificate first and competes as the ladder's seed.
+
+    The degradation-rung collector wraps the whole call: every rung any
+    layer takes — the chain retry's and a decomposition's own included —
+    lands in ``stats["degradations"]`` exactly once, on the outermost
+    solve."""
     _refuse_unported(dict(
         n_devices=n_devices, checkpoint=checkpoint, profile_dir=profile_dir,
-        precompile=precompile, pipeline=pipeline, warm_start=warm_start,
-        decompose=decompose, megachunk=megachunk,
+        precompile=precompile, pipeline=pipeline, megachunk=megachunk,
     ))
+    with _ladder.collect() as rungs:
+        res = _solve_tpu(
+            inst, seed, batch, rounds, sweeps, steps_per_round, t_hi, t_lo,
+            engine, time_limit_s, cert_min_savings_s, portfolio,
+            warm_start, budget, decompose, device,
+        )
+        if rungs:
+            res.stats["degradations"] = list(rungs)
+    return res
+
+
+def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
+               t_lo, engine, time_limit_s, cert_min_savings_s, portfolio,
+               warm_start, budget, decompose, device) -> SolveResult:
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if budget is None:
         budget = Budget(time_limit_s, t0=t0)
+    # a structurally invalid warm start is rejected onto the ladder
+    # (warm_start_rejected) and the solve proceeds from scratch
+    warm_start = _validate_warm_start(inst, warm_start)
     # a previous solve on this instance may have cancelled straggling
     # bound workers (or tagged its constructor path)
     inst._bounds_cancelled = False
     inst._construct_path = None
     inst._flow_big_declines = 0
+    # the decomposed rung: AZ/rack-structured instances past the flat
+    # ladder's reach (or opted in) solve as map-reduce over per-AZ lanes,
+    # stitched and verified against THIS flat instance. None (the split
+    # declined, or decompose_to_flat was noted) falls through to the flat
+    # path. A warm start is flat-plan shaped and keeps the flat path
+    if warm_start is None:
+        from ...decompose import maybe_decompose, should_decompose
+
+        if should_decompose(inst, decompose):
+            dres = maybe_decompose(
+                inst, seed=seed, engine=engine, time_limit_s=time_limit_s,
+                budget=budget, portfolio=portfolio, rounds=rounds or sweeps,
+                t_hi=t_hi, t_lo=t_lo, device=device,
+            )
+            if dres is not None:
+                inst.cancel_pending_bounds()
+                return dres
     try:
         res = _solve_raced(
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
-            portfolio,
+            portfolio, warm_start,
         )
         # a DEFAULTED sweep that ends infeasible on an instance small
         # enough for chains retries the chain engine on what is LEFT of
@@ -300,11 +354,16 @@ def solve_tpu(
             and inst.num_parts < _SWEEP_THRESHOLD_PARTS
             and not budget.expired()
         ):
+            remaining = budget.remaining()
+            _ladder.note_rung("sweep_to_chain", parts=inst.num_parts,
+                              remaining_s=remaining)
+            _olog.warn("engine_fallback_retry", engine="chain",
+                       parts=inst.num_parts)
             res2 = solve_tpu(
                 inst, seed=seed, engine="chain", batch=batch, t_hi=t_hi,
-                t_lo=t_lo, time_limit_s=budget.remaining(),
-                cert_min_savings_s=cert_min_savings_s, budget=budget,
-                device=device,
+                t_lo=t_lo, time_limit_s=remaining,
+                cert_min_savings_s=cert_min_savings_s,
+                warm_start=warm_start, budget=budget, device=device,
             )
 
             def rank(r):
@@ -325,9 +384,11 @@ def solve_tpu(
 
 def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
-                 budget, t0, portfolio=None) -> SolveResult:
+                 budget, t0, portfolio=None, warm_start=None) -> SolveResult:
     """Start the bounds prefetch and the constructor worker this
-    instance class races, then run the solve."""
+    instance class races (behind the warm-start certificate when there
+    is a warm start), then run the solve; a degradable fault in it
+    returns the host fallback's plan."""
 
     def _bounds_body():
         return inst.move_lower_bound_exact(), inst.weight_upper_bound()
@@ -368,12 +429,220 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         )
     else:
         lp_wait_s = 0.0
+    if warm_start is not None:
+        # the adapted previous plan gets first shot at the certificate,
+        # IN FRONT of the race worker this class would run (its
+        # fall-through), not instead of it
+        inner_fn = worker_fn
+
+        def worker_fn():
+            return _warm_certify_worker(inst, bounds_fut, warm_start,
+                                        inner_fn)
+
+        lp_wait_s = max(lp_wait_s, _CONSTRUCT_WAIT_S)
     lp_fut = _BoundsTask(worker_fn) if worker_fn is not None else None
-    return _solve_inner(
-        inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi, t_lo,
-        engine, time_limit_s, cert_min_savings_s, budget, t0, bounds_fut,
-        lp_fut, lp_wait_s, portfolio,
+    try:
+        return _solve_inner(
+            inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
+            t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
+            bounds_fut, lp_fut, lp_wait_s, portfolio, warm_start,
+        )
+    except Exception as e:
+        # the ladder's last rung: an injected fault or a NaN abort in the
+        # device path still returns a valid, verified plan, flagged
+        # degraded. Deliberately narrow (_degradable): a kernel launch or
+        # build error, an out-of-memory error, a failed verification and
+        # every other fault raise with their own traceback
+        if not _degradable(e):
+            raise
+        return _host_fallback(inst, e, budget, t0, time_limit_s, dev,
+                              warm_start=warm_start)
+
+
+def _chaos_chunk_hooks() -> None:
+    """The chaos injection points every chunk dispatch fires, on the
+    host before the chunk's first launch: a NaN surfacing from the chunk
+    (``nan_chunk``, as ``FloatingPointError``: the host-fallback rung)
+    and a chunk overrun (``chunk_overrun``: exercises the deadline
+    gate). ONE helper, so the single-solve and batch ladders never drift
+    apart on which faults they fire.
+
+    The reference also fires ``pallas_fault`` here, whose rung drains
+    the chunk and re-runs it on the plain path. That rung is not ported
+    yet, and without it the fault would send the solve to the host
+    fallback where the reference retries, so ``pallas_fault`` is not
+    fired: arming it changes nothing."""
+    _chaos.raise_if("nan_chunk", FloatingPointError)
+    _chaos.sleep_if("chunk_overrun")
+
+
+def _degradable(e: BaseException) -> bool:
+    """Faults that take the host-fallback rung instead of failing the
+    solve: injected chaos faults, and ``FloatingPointError`` (a NaN
+    abort). The reference declines the latter while its sanitizer is
+    armed; this package has no sanitizer yet, so it is always disarmed
+    here. Everything else — a CUDA launch error (a ``RuntimeError``, as a
+    ``ChaosFault`` is: never test ``isinstance(e, RuntimeError)``), an
+    ``nvcc`` or loader error, ``torch.cuda.OutOfMemoryError``, an
+    ``ImportError`` — must surface with its real traceback."""
+    if _chaos.is_fault(e):
+        return True
+    return isinstance(e, FloatingPointError)
+
+
+def _host_fallback(inst: ProblemInstance, exc: BaseException,
+                   budget: Budget, t0: float,
+                   time_limit_req: float | None, dev: torch.device,
+                   warm_start=None) -> SolveResult:
+    """The ladder's terminal rung (``anneal_to_construct``): the device
+    search is unusable, so build the best host-side plan — the greedy
+    repair, displaced by a validated warm start that ranks at least as
+    high, lifted by the exact leader reseat when feasible — verify it
+    against the numpy oracle (and, as every plan of this engine, hold B1
+    to the oracle on it), and return it FLAGGED (``stats["degraded"]``).
+    Certification is still attempted, budget permitting: greedy + exact
+    reseat is often the proven optimum. There are no checkpoints to
+    resume from yet (``resumed_from_checkpoint`` is False)."""
+    _ladder.note_rung("anneal_to_construct", error=repr(exc)[:200])
+    a = np.asarray(greedy_seed(inst), dtype=np.int32)
+    warm_used = False
+    # a warm start outranking the greedy repair keeps surviving replicas
+    # in place even on the degraded path
+    if warm_start is not None and _seed_rank(inst, warm_start) >= \
+            _seed_rank(inst, a):
+        a = warm_start
+        warm_used = True
+    if inst.is_feasible(a) and not budget.expired():
+        a = inst.best_leader_assignment(a)
+    bkt_parts, bkt_rf = bucket.bucket_shape(inst)
+    viol = _verify(inst, arrays.from_instance(
+        inst, dev, num_parts=bkt_parts, max_rf=bkt_rf), a)
+    feasible = all(v == 0 for v in viol.values())
+    weight = inst.preservation_weight(a)
+    proved = False
+    if feasible and not budget.expired():
+        try:
+            proved = inst.certify_optimal(a, allow_tight=False)
+        except Exception:
+            proved = False
+    return SolveResult(
+        a=a,
+        solver="tpu",
+        wall_clock_s=time.perf_counter() - t0,
+        objective=int(weight),
+        optimal=proved,
+        stats={
+            "device": str(dev),
+            "engine": "host_fallback",
+            "degraded": "anneal_to_construct",
+            "fault": repr(exc)[:200],
+            "feasible": feasible,
+            "violations": sum(viol.values()),
+            "moves": int(inst.move_count(a)),
+            "seed_moves": int(inst.move_count(a)),
+            "proved_optimal": proved,
+            "resumed_from_checkpoint": False,
+            "warm_started": warm_used,
+            "time_limit_s": time_limit_req,
+            "timed_out": False,
+            "early_stopped": False,
+            "constructed": True,
+            "rounds_run": 0,
+        },
     )
+
+
+def _seed_rank(inst, a) -> tuple:
+    """The one candidate rank every seed-selection path shares
+    (``_pick_seed`` and ``_host_fallback``): feasibility first, then
+    fewest violations, then preservation weight, then fewest moves."""
+    pen = sum(inst.violations(a).values())
+    return (
+        pen == 0, -pen, inst.preservation_weight(a),
+        -int(inst.move_count(a)),
+    )
+
+
+def _validate_warm_start(inst, a) -> np.ndarray | None:
+    """Admission check for a delta-API warm-start candidate: shape,
+    integer dtype and the hard structural families (out-of-range slots,
+    nulls in valid slots, duplicate brokers within a partition), which
+    the annealer's moves preserve rather than repair, must hold. Balance
+    bands may be violated (fixing them is the search's job). A candidate
+    whose ONLY violation is the leader band gets the exact reseat here,
+    at admission, so every consumer (the seed rank, the certify racer,
+    the host fallback) sees it at its true rank. A candidate that fails
+    is REJECTED onto the degradation ladder (``warm_start_rejected``)
+    and the solve proceeds from scratch; returns the validated int32
+    array or None."""
+    if a is None:
+        return None
+    reason = None
+    arr = np.asarray(a)
+    if arr.shape != (inst.num_parts, inst.max_rf):
+        reason = (
+            f"shape {arr.shape} != {(inst.num_parts, inst.max_rf)}"
+        )
+    elif not np.issubdtype(arr.dtype, np.integer):
+        reason = f"non-integer dtype {arr.dtype}"
+    else:
+        arr = np.ascontiguousarray(arr, dtype=np.int32)
+        viol = inst.violations(arr)
+        bad = {
+            k: viol[k]
+            for k in ("slot_out_of_range", "null_in_valid_slot",
+                      "duplicate_in_partition")
+            if viol[k]
+        }
+        if bad:
+            reason = f"structural violations {bad}"
+        elif viol["leader_balance"] and not any(
+            v for k, v in viol.items() if k != "leader_balance"
+        ):
+            try:
+                arr = np.ascontiguousarray(
+                    inst.best_leader_assignment(arr), dtype=np.int32
+                )
+            except Exception:
+                pass  # infeasible transportation: admit un-reseated
+    if reason is not None:
+        _ladder.note_rung("warm_start_rejected", reason=reason[:200])
+        _olog.warn("warm_start_rejected", reason=reason[:200])
+        return None
+    return arr
+
+
+def _warm_certify_worker(inst: ProblemInstance, bounds_fut, warm_a,
+                         inner=None) -> tuple:
+    """Constructor-race body for the delta path: after a cluster event
+    the adapted previous plan is often already the optimum (a drain
+    evicts a few replicas, and the hole-filling refill is move-minimal),
+    so try certifying IT before any LP decode, after the bounds prefetch
+    (the certificate's bounds are memoized there). The exact leader
+    reseat closes the one gap adaptation leaves. When the warm candidate
+    does not certify, falls through to ``inner``, the race worker this
+    instance class would otherwise have run. Returns ``(plan, certified,
+    extends_greedy)``."""
+    try:
+        bounds_fut.result()
+    except Exception:
+        pass
+    a = np.ascontiguousarray(warm_a, dtype=np.int32)
+    viol = inst.violations(a)
+    # the exact reseat repairs the leader band (a transportation problem
+    # over fixed replica sets), so gate only on the families it cannot
+    # touch
+    if all(v == 0 for k, v in viol.items() if k != "leader_balance"):
+        try:
+            a = inst.best_leader_assignment(a)
+        except Exception:
+            pass  # infeasible transportation: fall through uncertified
+        if inst.certify_optimal(a):
+            inst._construct_path = "warm"
+            return a, True, False
+    if inner is not None:
+        return inner()
+    return None, False, False
 
 
 def _reseat_worker(inst: ProblemInstance, bounds_fut) -> tuple:
@@ -493,14 +762,24 @@ def _await_constructor(lp_fut, lp_wait_s, budget: Budget):
     return None, None, lp_warm_extends
 
 
-def _pick_seed(inst, lp_warm, lp_warm_extends) -> np.ndarray:
-    """The greedy repair, or the reseat racer's extension of it, or an
-    uncertified constructor plan that outranks it."""
+def _pick_seed(inst, lp_warm, lp_warm_extends, warm_start=None):
+    """The greedy repair, or the reseat racer's extension of it; a
+    validated delta-API ``warm_start`` that ranks at least as high
+    (``_seed_rank``: it wins ties, so surviving replicas stay put unless
+    the greedy repair is better); then an uncertified constructor plan
+    that outranks either. Returns ``(a_seed, resumed_from_checkpoint,
+    warm_started)``; there are no checkpoints yet, so the middle one is
+    False."""
+    warm_used = False
     warm_extends = lp_warm is not None and lp_warm_extends
     a_seed = lp_warm if warm_extends else greedy_seed(inst)
     assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
         "seed left unfilled slots"
     )
+    if warm_start is not None and _seed_rank(inst, warm_start) >= \
+            _seed_rank(inst, a_seed):
+        a_seed = warm_start
+        warm_used = True
     if lp_warm is not None and not warm_extends:
         def _rank(zz):
             return (-sum(inst.violations(zz).values()),
@@ -508,7 +787,8 @@ def _pick_seed(inst, lp_warm, lp_warm_extends) -> np.ndarray:
 
         if _rank(lp_warm) > _rank(a_seed):
             a_seed = lp_warm
-    return a_seed
+            warm_used = False
+    return a_seed, False, warm_used
 
 
 def _build_chunks(inst: ProblemInstance, engine: str, rounds: int,
@@ -672,6 +952,7 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 r.timed_out = True
                 break
         tc = time.perf_counter()
+        _chaos_chunk_hooks()
         if engine == "sweep":
             sweep_state, top_a, top_k, curve = stepper(m, sweep_state,
                                                        chunks[i])
@@ -819,7 +1100,7 @@ def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
 def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
                  budget, t0, bounds_fut, lp_fut, lp_wait_s,
-                 portfolio=None) -> SolveResult:
+                 portfolio=None, warm_start=None) -> SolveResult:
     certified_a, lp_warm, lp_warm_extends = _await_constructor(
         lp_fut, lp_wait_s, budget)
     constructed = early_stopped = certified_a is not None
@@ -846,7 +1127,8 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         if t_lo is None:
             t_lo = 0.02 if engine == "sweep" else 0.05
         scorer = "cuda" if dev.type == "cuda" else "torch"
-        a_seed = _pick_seed(inst, lp_warm, lp_warm_extends)
+        a_seed, resumed, warm_started = _pick_seed(
+            inst, lp_warm, lp_warm_extends, warm_start)
         t_seed = time.perf_counter()
         bkt_parts, bkt_rf = bucket.bucket_shape(inst)
         m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
@@ -894,6 +1176,10 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             lanes=pw if port_lanes else 0,
         )
         t_ladder = _sync(dev)
+        if lad.timed_out:
+            # the deadline rung: the ladder returned best-so-far early
+            _ladder.note_rung("deadline_truncated",
+                              rounds_run=lad.rounds_run)
         if lad.certified_a is not None:
             certified_a = lad.certified_a
             early_stopped = True
@@ -905,6 +1191,10 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         batch = rounds = steps_per_round = 0
         scorer = None
         a_seed = certified_a
+        resumed = False
+        # the delta path's adapted plan can BE the certified plan: the
+        # warm-certify race worker tags its win
+        warm_started = getattr(inst, "_construct_path", None) == "warm"
         t_seed = t_lower = t_ladder = t_race
     t_select = t_ladder
     winner_lane = lad.winner_lane
@@ -1014,6 +1304,10 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             "moves": moves_final,
             "feasible": feasible,
             "violations": sum(viol.values()),
+            "resumed_from_checkpoint": resumed,
+            # True when the delta API's adapted previous plan seeded (or
+            # was certified as) this solve's plan
+            "warm_started": warm_started,
             "score_curve": _downsample(curve, 32),
         },
     )
@@ -1056,10 +1350,28 @@ def solve_tpu_batch(
     brokers or racks differ cannot stack: they are solved one by one
     with :func:`solve_tpu`, tagged ``stats["lane_fallback"]``.
     ``portfolio`` is honoured there only: the lanes of a batch are its
-    instances."""
+    instances.
+
+    The degradation-rung collector wraps the call: rungs the shared lane
+    ladder takes apply to every lane, while a lane's own rungs on the
+    unstackable fallback land on that lane's ``stats["degradations"]``
+    only."""
     _refuse_unported(dict(n_devices=n_devices, pipeline=pipeline,
                           megachunk=megachunk, trace=trace,
                           precompile=precompile))
+    with _ladder.collect() as rungs:
+        results = _solve_tpu_batch(
+            insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
+            time_limit_s, certify, portfolio, device)
+        for r in results:
+            combined = list(rungs or ()) + r.stats.get("degradations", [])
+            if combined:
+                r.stats["degradations"] = combined
+    return results
+
+
+def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
+                     t_lo, time_limit_s, certify, portfolio, device):
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if not insts:
@@ -1071,10 +1383,15 @@ def solve_tpu_batch(
     if len({(i.num_brokers, i.num_racks) for i in insts}) > 1:
         results = []
         for inst, s in zip(insts, seeds):
-            r = solve_tpu(inst, seed=s, engine=engine, batch=batch,
-                          rounds=rounds, sweeps=sweeps, t_hi=t_hi,
-                          t_lo=t_lo, time_limit_s=time_limit_s,
-                          portfolio=portfolio, device=device)
+            # lane-scoped rungs: THIS lane's fallbacks must not flag its
+            # siblings' stats
+            with _ladder.collect_lane() as lane_rungs:
+                r = solve_tpu(inst, seed=s, engine=engine, batch=batch,
+                              rounds=rounds, sweeps=sweeps, t_hi=t_hi,
+                              t_lo=t_lo, time_limit_s=time_limit_s,
+                              portfolio=portfolio, device=device)
+            if lane_rungs:
+                r.stats["degradations"] = list(lane_rungs)
             r.stats["lane_fallback"] = "brokers/racks differ across lanes"
             results.append(r)
         return results
@@ -1101,33 +1418,12 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
         t_hi = 2.0 if engine == "sweep" else 2.5
     if t_lo is None:
         t_lo = 0.02 if engine == "sweep" else 0.05
-    bkt_parts = max(bucket.part_bucket(i.num_parts) for i in insts)
-    bkt_rf = max(bucket.rf_bucket(i.max_rf) for i in insts)
-    B, K = insts[0].num_brokers, insts[0].num_racks
-    Lp = bucket.lane_bucket(L)
-    pad_lanes = Lp - L
-    note_lane_serve((B, K, bkt_parts, bkt_rf), L, Lp)
-    models = []
-    lane_seeds = np.empty((Lp, bkt_parts, bkt_rf), np.int32)
-    for i, inst in enumerate(insts):
-        m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
-                                 max_rf=bkt_rf)
-        models.append(m)
-        a_seed = np.asarray(greedy_seed(inst), dtype=np.int32)
-        assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
-            "seed left unfilled slots")
-        lane_seeds[i] = arrays.pad_candidate(a_seed, m)
-    for i in range(pad_lanes):
-        models.append(models[0])
-        lane_seeds[L + i] = lane_seeds[0]
-    m_stack = arrays.stack_models(models)
+    m_stack, lane_seeds, keys = stack_lanes(insts, seeds, dev)
+    Lp, bkt_parts, bkt_rf = lane_seeds.shape
+    note_lane_serve((insts[0].num_brokers, insts[0].num_racks, bkt_parts,
+                     bkt_rf), L, Lp)
     seed_moves = [int(inst.move_count(arrays.unpad_candidate(
         lane_seeds[i], inst))) for i, inst in enumerate(insts)]
-    # padding lanes take derived keys, so no two lanes share a stream
-    keys = np.stack(
-        [prng.PRNGKey(s) for s in seeds]
-        + [prng.fold_in(prng.PRNGKey(seeds[0]), 1 + i)
-           for i in range(pad_lanes)])
     scorer = "cuda" if dev.type == "cuda" else "torch"
 
     deadline = Budget(time_limit_s, t0=t0).deadline
@@ -1152,6 +1448,7 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                 timed_out = True
                 break
         tc = time.perf_counter()
+        _chaos_chunk_hooks()
         out = solve_lanes(m_stack, batch, chunks[ci], state=state,
                           lane_seeds=cur_seeds, keys=cur_keys,
                           engine=engine, steps_per_round=steps_per_round,
@@ -1176,6 +1473,8 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
         if over:
             timed_out = ci + 1 < n
             break
+    if timed_out:
+        _ladder.note_rung("deadline_truncated", rounds_run=rounds_run)
     if warm_chunk_s is not None:
         _WARM_CHUNKS.update(wkey, warm_chunk_s)
     t_solve = _sync(dev)
@@ -1225,6 +1524,39 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
             },
         ))
     return results
+
+
+def stack_lanes(insts, seeds, dev):
+    """The lane ladder's inputs for same-broker, same-rack instances:
+    every instance lowered at one common bucket (the largest lane's
+    rungs) and stacked, the lanes padded up the lane ladder (a padding
+    lane reruns lane 0's model and seed), each lane's greedy seed padded
+    to the bucket, and each lane's key (``PRNGKey(seeds[i])``; padding
+    lanes take keys derived from lane 0's, so no two lanes share a
+    stream). Returns ``(m_stack, lane_seeds [Lp, P, R], keys [Lp, 2])``.
+    """
+    L = len(insts)
+    bkt_parts = max(bucket.part_bucket(i.num_parts) for i in insts)
+    bkt_rf = max(bucket.rf_bucket(i.max_rf) for i in insts)
+    Lp = bucket.lane_bucket(L)
+    models = []
+    lane_seeds = np.empty((Lp, bkt_parts, bkt_rf), np.int32)
+    for i, inst in enumerate(insts):
+        m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
+                                 max_rf=bkt_rf)
+        models.append(m)
+        a_seed = np.asarray(greedy_seed(inst), dtype=np.int32)
+        assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
+            "seed left unfilled slots")
+        lane_seeds[i] = arrays.pad_candidate(a_seed, m)
+    for i in range(Lp - L):
+        models.append(models[0])
+        lane_seeds[L + i] = lane_seeds[0]
+    keys = np.stack(
+        [prng.PRNGKey(s) for s in seeds]
+        + [prng.fold_in(prng.PRNGKey(seeds[0]), 1 + i)
+           for i in range(Lp - L)])
+    return arrays.stack_models(models), lane_seeds, keys
 
 
 def _verify_lanes(insts, m_stack, plans) -> list[dict]:

@@ -98,6 +98,7 @@ class _Repair:
 
     def set_slot(self, p: int, s: int, b_new: int) -> None:
         b_old = int(self.a[p, s])
+        self.last_set = (p, s, b_old, b_new)
         if b_old < self.B:
             self.cnt[b_old] -= 1
             self.rcnt[self.rack[b_old]] -= 1
@@ -221,7 +222,8 @@ class _Repair:
     def fix_bands(self, max_repairs: int) -> None:
         inst, B, K = self.inst, self.B, self.K
         rack = self.rack[:B]
-        for _ in range(max_repairs):
+        prev = None  # the last relocation: (p, s, b_old, b_new)
+        for it in range(max_repairs):
             over_b = np.flatnonzero(self.cnt > inst.broker_hi)
             under_b = np.flatnonzero(self.cnt < inst.broker_lo)
             over_k = np.flatnonzero(self.rcnt > inst.rack_hi)
@@ -251,6 +253,21 @@ class _Repair:
                 src = int(np.argmax(np.where(donors, self.cnt, -1)))
             if not dst.any() or not self.relocate_one(src, dst):
                 break  # stuck; the annealer takes it from here
+            # a relocation that undoes the one before it returns the
+            # repair to the state before that one; every step being a
+            # function of that state, the loop then alternates between
+            # the two states until max_repairs. Stop at the state the
+            # last repair would leave: the current one when an even
+            # number of repairs is left, else one more relocation (the
+            # one before, again). Same result, without the ping-pong
+            # (hundreds of thousands of relocations at 50k partitions)
+            move = self.last_set
+            if prev is not None and move == (prev[0], prev[1], prev[3],
+                                              prev[2]):
+                if (max_repairs - it - 1) % 2:
+                    self.set_slot(prev[0], prev[1], prev[3])
+                break
+            prev = move
 
     def _batch_swaps(self, ordered_ps: np.ndarray, s_best: np.ndarray,
                      swap) -> int:
@@ -259,16 +276,23 @@ class _Repair:
         computed against pass-start counts stay exact. Returns the last
         partition swapped (-1 if none, unreachable for a nonempty
         order)."""
+        # the candidates' brokers, read up front: a swap changes only its
+        # own partition's row, and each candidate is a distinct partition
+        ps = np.asarray(ordered_ps, dtype=np.int64)
+        sb = s_best[ps] + 1
+        bl, bf = self.a[ps, 0], self.a[ps, sb]
         used = np.zeros(self.B + 1, dtype=bool)
-        last = -1
-        for p in ordered_ps.tolist():
-            bl = int(self.a[p, 0])
-            bf = int(self.a[p, int(s_best[p]) + 1])
-            if used[bl] or used[bf]:
-                continue
-            used[bl] = used[bf] = True
-            swap(p, int(s_best[p]) + 1)
-            last = p
+        last, pos = -1, 0
+        # each step takes the next candidate whose two brokers are both
+        # untouched (one array scan a swap: at most B/2 swaps a pass)
+        while pos < ps.size:
+            ok = ~(used[bl[pos:]] | used[bf[pos:]])
+            if not ok.any():
+                break
+            k = pos + int(np.argmax(ok))
+            used[bl[k]] = used[bf[k]] = True
+            swap(int(ps[k]), int(sb[k]))
+            last, pos = int(ps[k]), k + 1
         return last
 
     def fix_leaders(self, max_repairs: int) -> None:
@@ -475,6 +499,7 @@ class _RepairVec(_Repair):
 
     def set_slot(self, p: int, s: int, b_new: int) -> None:
         b_old = int(self.a[p, s])
+        self.last_set = (p, s, b_old, b_new)
         if b_old < self.B:
             self.cnt[b_old] -= 1
             self.rcnt[self.rack[b_old]] -= 1
@@ -502,7 +527,9 @@ class _RepairVec(_Repair):
     def used_mask(self, p: int) -> np.ndarray:
         return self.in_part[p, : self.B] > 0
 
-    def _donor_list(self, src: int) -> list:
+    def _donor_list(self, src: int) -> tuple[np.ndarray, np.ndarray]:
+        """``src``'s replica slots in donor order (weight, p, s): the
+        arrays ``(ps, ss)``, cached until ``src``'s slots change."""
         lst = self._donor_cache.get(src)
         if lst is None:
             ps, ss = np.nonzero((self.a == src) & self.valid)
@@ -512,37 +539,63 @@ class _RepairVec(_Repair):
                 self.inst.w_follower[ps, src],
             ).astype(np.int64)
             order = np.lexsort((ss, ps, w))  # (weight, p, s) — legacy order
-            lst = list(
-                zip(ps[order].tolist(), ss[order].tolist())
-            )
+            lst = (ps[order].astype(np.int64), ss[order].astype(np.int64))
             self._donor_cache[src] = lst
         return lst
 
     def relocate_one(self, src: int, dst_mask: np.ndarray) -> bool:
-        inst, rack = self.inst, self.rack[: self.B]
-        lst = self._donor_list(src)
-        fallback: tuple[int, int, int] | None = None
-        fallback_i = -1
-        for i, (p, s) in enumerate(lst):
-            b = self.choose_broker(p, dst_mask & ~self.used_mask(p))
-            if b < 0:
-                continue
-            same_rack = rack[b] == rack[src]
-            if self.prc[p, rack[b]] + 1 - same_rack <= inst.part_rack_hi[p]:
-                self.set_slot(p, s, b)  # invalidates src's cache...
-                lst.pop(i)
-                self._donor_cache[src] = lst  # ...which we repair exactly
-                return True
-            if fallback is None:
-                fallback = (p, s, b)
-                fallback_i = i
-        if fallback is not None:
-            p, s, b = fallback
-            self.set_slot(p, s, b)
-            lst.pop(fallback_i)
-            self._donor_cache[src] = lst
-            return True
-        return False
+        """The legacy relocation, decision for decision: walk ``src``'s
+        donor slots in order, pick each one's recipient as
+        ``choose_broker`` would, and take the first whose move keeps the
+        partition's rack diversity (else the first with any recipient).
+        The recipient keys that do not depend on the partition are ranked
+        once; the donor slots are then scanned in growing blocks, each
+        block's recipients picked at once, so a scan that reaches deep
+        into the list costs a few array operations, not one
+        ``choose_broker`` a slot."""
+        inst, B = self.inst, self.B
+        rack = self.rack[:B]
+        d_ps, d_ss = self._donor_list(src)
+        n = d_ps.size
+        if not n:
+            return False
+        rk_cnt = self.rcnt[rack]
+        base = np.lexsort((
+            np.arange(B), self.cnt, ~(rk_cnt < inst.rack_lo[rack]),
+            ~(self.cnt < inst.broker_lo), rk_cnt + 1 > inst.rack_hi[rack],
+            self.cnt + 1 > inst.broker_hi,
+        ))
+        rank = np.empty(B, dtype=np.int64)
+        rank[base] = np.arange(B)
+        fallback = None
+        start, step = 0, 256
+        while start < n:
+            ps = d_ps[start:start + step]
+            cap = inst.part_rack_hi[ps].astype(np.int64)
+            allowed = dst_mask[None, :] & (self.in_part[ps, :B] == 0)
+            div_bad = self.prc[ps][:, rack] + 1 > cap[:, None]
+            key = (~allowed) * (2 * B) + div_bad * B + rank[None, :]
+            best = key.argmin(1)
+            has = allowed[np.arange(ps.size), best]
+            same_rack = rack[best] == rack[src]
+            fits = has & (self.prc[ps, rack[best]] + 1 - same_rack <= cap)
+            if fits.any():
+                i = int(np.argmax(fits))
+                take = (start + i, int(best[i]))
+                break
+            if fallback is None and has.any():
+                i = int(np.argmax(has))
+                fallback = (start + i, int(best[i]))
+            start += ps.size
+            step *= 2
+        else:
+            take = fallback
+        if take is None:
+            return False
+        i, b = take
+        self.set_slot(int(d_ps[i]), int(d_ss[i]), b)  # invalidates src's...
+        self._donor_cache[src] = (np.delete(d_ps, i), np.delete(d_ss, i))
+        return True  # ...which is repaired exactly above
 
     def _augment_leader_chains(self, max_repairs: int, lo: int, hi: int,
                                swap) -> None:
@@ -614,19 +667,25 @@ def greedy_seed(inst: ProblemInstance, max_repairs: int | None = None,
     """Greedy repair seed. ``impl`` overrides the process-wide
     constructor implementation (``solvers.tpu.constructor``): ``"vec"``
     (default) or ``"legacy"`` — the oracle the vectorized path is
-    parity-pinned against."""
+    parity-pinned against. The seed is a function of the instance and
+    these two knobs, so it is computed once an instance (a decomposed
+    solve's second map, a retry, a repeat solve) and copied out."""
     if max_repairs is None:
         max_repairs = 4 * int(inst.rf.sum()) + 64
     impl = impl or _constructor.active()
-    cls = _RepairVec if impl == "vec" else _Repair
-    r = cls(inst)
-    r.fill_nulls()
-    r.fix_diversity()
-    r.fix_bands(max_repairs)
-    # band repair can occasionally be forced into a diversity-violating
-    # placement (every allowed broker's rack full for that partition);
-    # one more pass of each usually clears it
-    r.fix_diversity()
-    r.fix_bands(max_repairs)
-    r.fix_leaders(max_repairs)
-    return r.a
+    memo = inst.__dict__.setdefault("_greedy_seed_memo", {})
+    a = memo.get((max_repairs, impl))
+    if a is None:
+        cls = _RepairVec if impl == "vec" else _Repair
+        r = cls(inst)
+        r.fill_nulls()
+        r.fix_diversity()
+        r.fix_bands(max_repairs)
+        # band repair can occasionally be forced into a
+        # diversity-violating placement (every allowed broker's rack full
+        # for that partition); one more pass of each usually clears it
+        r.fix_diversity()
+        r.fix_bands(max_repairs)
+        r.fix_leaders(max_repairs)
+        a = memo[(max_repairs, impl)] = r.a
+    return a.copy()

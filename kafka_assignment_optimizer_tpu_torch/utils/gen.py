@@ -1,11 +1,14 @@
-"""Synthetic scenario generators: the port's copy of the two scenarios its
+"""Synthetic scenario generators: the port's copy of the scenarios its
 checks drive.
 
 - ``demo``         the upstream README example (golden: exactly 1 move);
 - ``adversarial``  256 brokers / 8 racks / 10k partitions, half the
   topics at RF 2 and half at RF 4, member sets drawn by seeded shuffle,
   one broker decommissioned — the at-scale row that reaches the sweep
-  engine.
+  engine;
+- ``ultra_jumbo``  an AZ/rack-structured decommission (200k partitions
+  at its default size), the decomposed solve's family;
+- ``messy_case``   a small irregular cluster (the portfolio's test).
 
 Copied from ``kafka_assignment_optimizer_tpu.utils.gen``; the same seed
 gives the same scenario in both packages.
@@ -66,6 +69,38 @@ def _rack_interleaved(broker_ids: list[int], topology: Topology) -> list[int]:
         i += 1
     return out
 
+
+def balanced_assignment(
+    broker_ids: list[int],
+    topology: Topology,
+    topics: dict[str, int],
+    rf: int,
+) -> Assignment:
+    """Rack-diverse, balanced placement (see module docstring).
+
+    Replica slots are filled *sequentially* through the rack-interleaved
+    order — replica g lands on ``order[g % B]`` — so per-broker totals are
+    exactly floor/ceil(R_tot/B) and per-rack totals exactly proportional,
+    whatever P and B are. The leader of each partition is then chosen
+    greedily as its least-leading replica, keeping leader counts inside
+    the floor/ceil band too: the generated current assignments are fully
+    feasible steady states."""
+    order = _rack_interleaved(broker_ids, topology)
+    B = len(order)
+    lcnt = {b: 0 for b in broker_ids}
+    parts = []
+    g = 0
+    for topic, n_parts in topics.items():
+        for p in range(n_parts):
+            reps = [order[(g + s) % B] for s in range(rf)]
+            g += rf
+            lead = min(reps, key=lambda b: (lcnt[b], b))
+            lcnt[lead] += 1
+            reps = [lead] + [b for b in reps if b != lead]
+            parts.append(
+                PartitionAssignment(topic=topic, partition=p, replicas=reps)
+            )
+    return Assignment(partitions=parts)
 
 
 def _mod_topology(broker_ids: list[int], n_racks: int) -> Topology:
@@ -312,6 +347,100 @@ def adversarial(
     )
 
 
+def ultra_jumbo(
+    n_az: int = 4, racks_per_az: int = 4, base_brokers: int = 8,
+    partitions: int = 200_000, rf: int = 3, cross_frac: float = 0.02,
+    seed: int = 0,
+) -> Scenario:
+    """The decomposed solve's instance family: an AZ/rack-structured
+    decommission sized past any flat bucket (default 200k partitions,
+    600k replica slots). Racks are heterogeneous (``base + r`` brokers
+    for rack ``r``) but the rack-size *multiset is identical across
+    AZs*, and the decommission removes one rack-0 broker per AZ — so
+    every AZ keeps the same (brokers, racks) shape and the decomposed
+    map phase can stack all AZ sub-instances as the lanes of ONE lane
+    ladder (docs/DECOMPOSE.md). Most partitions live entirely
+    inside one AZ (per-AZ balanced topic blocks); a ``cross_frac``
+    sliver of partitions is placed with each replica in a *different*
+    AZ — the boundary family the reduce phase must reconcile."""
+    if rf > n_az:
+        raise ValueError(f"ultra_jumbo needs rf <= n_az ({rf} > {n_az})")
+    if racks_per_az <= rf:
+        # ceil(rf/K) pins part_rack_hi at 1 for big K: a group with
+        # only rf racks would force every partition onto ALL of them,
+        # colliding with the proportional rack bands
+        raise ValueError(
+            f"ultra_jumbo needs racks_per_az > rf "
+            f"({racks_per_az} <= {rf})")
+    # heterogeneous but FLAT rack sizes (base+0..base+racks-1): per-AZ
+    # rack-band admissibility needs the largest rack <= B_az/rf once
+    # part_rack_hi == 1 (docs/DECOMPOSE.md "split criteria")
+    rack_sizes = [base_brokers + r for r in range(racks_per_az)]
+    rack_of: dict[str, str] = {}
+    az_brokers: list[list[int]] = []
+    removed: list[int] = []
+    bid = 0
+    for g in range(n_az):
+        mine: list[int] = []
+        for r, sz in enumerate(rack_sizes):
+            for _ in range(sz):
+                rack_of[str(bid)] = f"az{g}-rack{r}"
+                mine.append(bid)
+                bid += 1
+        az_brokers.append(mine)
+        removed.append(mine[base_brokers - 1])  # last rack-0 broker
+    topo = Topology.from_dict(rack_of)
+    all_brokers = [b for mine in az_brokers for b in mine]
+
+    cross = int(partitions * cross_frac)
+    per_az = (partitions - cross) // n_az
+    cross = partitions - per_az * n_az  # exact total
+    parts: list[PartitionAssignment] = []
+    for g in range(n_az):
+        blk = balanced_assignment(
+            az_brokers[g], topo, {f"az{g}": per_az}, rf
+        )
+        parts.extend(blk.partitions)
+    # boundary family: replica j of cross partition p lives in AZ
+    # (seed + p + j) % n_az, walking each AZ's rack-interleaved order —
+    # every replica a distinct AZ (hence a distinct rack)
+    orders = [_rack_interleaved(mine, topo) for mine in az_brokers]
+    for p in range(cross):
+        reps = [
+            orders[(seed + p + j) % n_az][(p * rf + j) % len(orders[0])]
+            for j in range(rf)
+        ]
+        parts.append(
+            PartitionAssignment(topic="xaz", partition=p, replicas=reps)
+        )
+    current = Assignment(partitions=parts)
+    gone = set(removed)
+    lb = sum(1 for pa in current.partitions for b in pa.replicas
+             if b in gone)
+    return Scenario(
+        name="ultra_jumbo",
+        current=current,
+        broker_list=[b for b in all_brokers if b not in gone],
+        topology=topo,
+        min_moves_lb=lb,
+        notes=(
+            f"{len(all_brokers)}b/{n_az}az/{partitions}-part AZ-structured "
+            f"decommission of one broker per AZ ({lb} replicas), "
+            f"{cross} cross-AZ boundary partitions"
+        ),
+    )
+
+
+def ultra_jumbo_case(seed: int = 0, partitions: int = 200_000) -> Scenario:
+    """The AZ-structured ultra-jumbo decommission at the requested size
+    (200,000 partitions: 4 AZs x 4 racks of 8-11 brokers, 152 brokers,
+    one rack-0 broker per AZ decommissioned, RF 3, 4,000 cross-AZ
+    partitions), seeded for reproducible boundary placement. Tests and
+    chip_smoke.py both use this wrapper, so the decomposed path is
+    always measured on the same family."""
+    return ultra_jumbo(partitions=partitions, seed=seed)
+
+
 def messy_cluster(rng):
     """One deliberately irregular cluster: several topics with different
     partition counts and RFs, a lopsided rack map (rack 0 holds about
@@ -350,3 +479,10 @@ def messy_case(seed: int = 0):
     import numpy as _np
 
     return messy_cluster(_np.random.default_rng(2000 + int(seed)))
+
+
+# shrunk per-scenario kwargs for quick CPU runs (the reference's
+# SMOKE_KWARGS entry of the one scenario here that has one)
+SMOKE_KWARGS = {
+    "ultra_jumbo": dict(n_az=3, racks_per_az=4, partitions=600),
+}

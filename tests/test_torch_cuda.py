@@ -6,7 +6,8 @@ exchange sweep also at 2, 3 and 5 partitions (partners off the end in
 every sweep), at the main path's bucket and at a bucket of more blocks
 than the card holds at once, and the ``cuda`` sweep bundle against the
 ``torch`` bundle over 16 sweeps, and the chain engine's rounds replayed
-as CUDA graphs against its eager step loop. The lane forms of the three
+as CUDA graphs against its eager step loop, on one model and in lane
+form. The lane forms of the three
 kernels (one launch for L lanes) against L launches of the single-lane
 wrappers and against their lane plain versions, at L = 1, 3 and 8, on a
 portfolio's mixed configs and on a batch whose tables and bands differ;
@@ -216,6 +217,23 @@ def test_chain_round_graphs_replay_eager_steps(card, case):
         runs.append(outs)
     for xs, ys in zip(*runs):
         _equal(xs, ys)
+
+
+def test_chain_lanes_graphs_equal_lane_by_lane(card):
+    """The chain engine's lane form on the card (every lane's chains one
+    axis, a round's steps replayed as CUDA graphs, each chain its lane's
+    bands, penalty scale and temperature) equals each lane run alone on
+    the CPU, on a portfolio's mixed configs."""
+    ms, _a, seeds = _portfolio_lanes(CASES[0], card, 3)
+    ms_cpu, _a, seeds_cpu = _portfolio_lanes(CASES[0], "cpu", 3)
+    keys = np.stack([prng.PRNGKey(i) for i in range(3)])
+    temps = arrays.geometric_temps(2.5, 0.05, 3)
+    got = anneal.make_lane_solver_fn(4, 40)(ms, seeds, keys, temps)
+    solo = anneal.make_solver_fn(4, 40)
+    for lane in range(3):
+        want = solo(arrays.lane_model(ms_cpu, lane), seeds_cpu[lane],
+                    keys[lane], temps)
+        _equal([x[lane].cpu() for x in got], want)
 
 
 def _portfolio_lanes(case, dev, L):

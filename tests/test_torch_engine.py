@@ -54,7 +54,8 @@ def port_cluster(current, brokers, topo):
 # accepts these values (they name what it does)
 REF_KW = dict(n_devices=1, portfolio=False, pipeline=False, megachunk=1)
 FIELDS = ("engine", "construct_path", "rounds_run", "proved_optimal",
-          "final_cert", "moves", "feasible", "timed_out", "early_stopped")
+          "final_cert", "moves", "feasible", "timed_out", "early_stopped",
+          "degradations", "warm_started")
 
 
 def solve_both(case, prewarm_bounds=False, **kw):
@@ -233,14 +234,15 @@ def test_unported_keywords_raise(demo):
     """A keyword of the reference's solver asks for a path the port does
     not have: it raises instead of being ignored; values naming what the
     port does pass. (``portfolio`` is ported: its values are held to the
-    reference's in ``tests/test_torch_portfolio.py``.)"""
+    reference's in ``tests/test_torch_portfolio.py``; ``decompose`` and
+    ``warm_start`` in ``tests/test_torch_decompose.py`` and
+    ``tests/test_torch_watch.py``.)"""
     current, brokers, topo = port_cluster(*demo)
     inst = build_instance(current, brokers, topo)
     for kw in (dict(pipeline=True), dict(megachunk=4),
                dict(megachunk="auto"), dict(n_devices=2),
                dict(checkpoint="plan.npz"), dict(profile_dir="prof"),
-               dict(precompile=True), dict(decompose=True),
-               dict(warm_start=inst.a0)):
+               dict(precompile=True)):
         with pytest.raises(NotImplementedError):
             engine.solve_tpu(inst, device="cpu", **kw)
     with pytest.raises(TypeError):
@@ -351,12 +353,79 @@ def test_cli_demo(tmp_path, capsys, monkeypatch):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def _cli_report(main, argv, capsys) -> tuple[int, dict | None, str]:
+    """``(exit code, --report JSON, stderr)`` of one CLI run: the report
+    is the JSON object after the structured log lines on stderr."""
+    rc = main(argv)
+    err = capsys.readouterr().err
+    start = err.find("\n{") + 1 if not err.startswith("{") else 0
+    rep = json.loads(err[start:]) if "{" in err else None
+    return rc, rep, err
+
+
+def test_cli_decompose_and_chaos_match_reference(tmp_path, capsys,
+                                                 monkeypatch):
+    """``--decompose`` on a smoke ``ultra_jumbo`` input and ``--chaos
+    nan_chunk`` on the demo give the reference CLI's report (engine,
+    moves, weight, degraded, degradations); a malformed ``--chaos`` spec
+    exits 2 with ``error:`` in both. The reference's ``tpu`` solver runs
+    on its mesh of one device, as in every parity test here."""
+    import functools
+
+    from kafka_assignment_optimizer_tpu.cli import main as jcli_main
+    from kafka_assignment_optimizer_tpu.resilience import chaos as jchaos
+    from kafka_assignment_optimizer_tpu.solvers import base as jbase
+    from kafka_assignment_optimizer_tpu_torch.resilience import chaos
+
+    jbase._load_all()
+    monkeypatch.setitem(jbase._REGISTRY, "tpu", functools.partial(
+        jengine.solve_tpu, n_devices=1, pipeline=False, megachunk=1))
+
+    s = jgen.ultra_jumbo(n_az=3, racks_per_az=4, partitions=120, seed=0)
+    src, topo = tmp_path / "uj.json", tmp_path / "uj_topo.json"
+    src.write_text(s.current.to_json())
+    topo.write_text(json.dumps(s.topology.to_dict()))
+    demo_src = tmp_path / "demo.json"
+    demo_src.write_text(demo_assignment().to_json())
+    runs = {
+        "decompose": ["-i", str(src), "--broker-list",
+                      ",".join(map(str, s.broker_list)), "--topology",
+                      str(topo), "--solver", "tpu", "--sweeps", "2",
+                      "--decompose", "--report"],
+        "chaos": ["-i", str(demo_src), "--broker-list", "0-18",
+                  "--topology", "even-odd", "--solver", "tpu", "--engine",
+                  "sweep", "--sweeps", "16", "--chaos", "nan_chunk",
+                  "--report"],
+    }
+    keys = ("solver_engine", "replica_moves", "objective_weight",
+            "solver_degraded", "degradations", "feasible")
+    try:
+        for name, argv in runs.items():
+            rc_j, ref, _ = _cli_report(jcli_main, argv, capsys)
+            rc_t, got, err = _cli_report(cli_main, argv + ["--device", "cpu"],
+                                         capsys)
+            assert rc_t == rc_j == 0, err
+            assert {k: got.get(k) for k in keys} == {
+                k: ref.get(k) for k in keys}, name
+        assert got["solver_engine"] == "host_fallback"
+        assert got["degradations"] == ["anneal_to_construct"]
+    finally:
+        jchaos.disarm()
+        chaos.disarm()
+    bad = runs["chaos"][:-3] + ["--chaos", "nan_chunc:1"]
+    for main in (jcli_main, cli_main):
+        rc, _rep, err = _cli_report(main, bad, capsys)
+        assert rc == 2 and "error: bad --chaos spec" in err
+    assert not chaos.armed() and not jchaos.armed()
+
+
 def test_port_never_imports_jax():
     """Importing the port, solving on the CPU through every backend (the
     exact host solvers, the race, the sweep engine's portfolio lanes and
-    the chain engine), a batch through ``optimize_batch``, and importing
-    and running chip_smoke.py without a card load neither JAX nor the JAX
-    package."""
+    the chain engine), a batch through ``optimize_batch``, a decomposed
+    solve (``KAO_DECOMPOSE=1``), ``optimize_delta`` with its warm start, a
+    chaos-armed solve's host fallback, and importing and running
+    chip_smoke.py without a card load neither JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -381,6 +450,20 @@ def test_port_never_imports_jax():
         "out = k.optimize_batch([s.current] * 2, [inst] * 2, device='cpu', "
         "engine='sweep', sweeps=8, batch=2)\n"
         "assert all(r.report()['feasible'] for r in out)\n"
+        "import os\n"
+        "os.environ['KAO_DECOMPOSE'] = '1'\n"
+        "u = gen.ultra_jumbo(n_az=3, racks_per_az=4, partitions=120)\n"
+        "r = k.optimize(u.current, u.broker_list, u.topology, solver='tpu', "
+        "device='cpu', sweeps=2)\n"
+        "assert r.solve.stats['engine'] == 'decomposed', r.solve.stats\n"
+        "d = k.optimize_delta(s.current, s.broker_list, s.topology, "
+        "prev_plan=s.current, solver='tpu', device='cpu')\n"
+        "assert d.solve.stats['warm_started'], d.solve.stats\n"
+        "del os.environ['KAO_DECOMPOSE']\n"
+        "from kafka_assignment_optimizer_tpu_torch.resilience import chaos\n"
+        "chaos.arm('nan_chunk')\n"
+        "st = solve(solver='tpu', device='cpu', engine='sweep', sweeps=8)\n"
+        "assert st['degradations'] == ['anneal_to_construct'], st\n"
         "import chip_smoke\n"
         "torch.cuda.is_available = lambda: False\n"
         "assert chip_smoke.main() != 0\n"
