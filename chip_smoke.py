@@ -52,8 +52,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (b) ``adversarial`` with ``batch=8, rounds=128, portfolio=False``
    (knobs set turn the reseat race off), the solo anchor: 8 chains x 128
    sweeps on the card, every kernel launched (64 site and 32 exchange
-   launches), certified at final selection (``final_cert``
-   ``ok``/``ok_reseat``) at 117 moves, weight 59,802;
+   launches), its two chunks pipelined (the default) with no rung taken,
+   certified at final selection (``final_cert`` ``ok``/``ok_reseat``) at
+   117 moves, weight 59,802;
    (c) the same call with ``portfolio`` at its default: 8 lanes (the
    ``PORTFOLIO_TABLE`` configs) x 8 chains x 128 sweeps, still 64 site
    and 32 exchange launches (one a sweep for all lanes), B1 no more
@@ -67,8 +68,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (e) the batch path: ``optimize_batch`` of 8 full-size adversarial
    instances (seeds 0-7, one 10,240 x 4 bucket) at its defaults, every
    lane feasible and verified (B1 held to the numpy oracle), lanes 0 and
-   7 equal to one-instance ``solve_tpu_batch`` solves; wall and
-   instances a second; then 3 of them padded to 8 lanes (the default)
+   7 equal to one-instance ``solve_tpu_batch`` solves, the pipelined
+   lane ladder (the default) equal to the synchronous one (walls in the
+   order P S S P); wall and instances a second; then 3 of them padded to 8 lanes (the default)
    and run at 3 (``KAO_LANE_BUCKETS=off``), equal plans, both walls;
    (f) the chain engine (plain PyTorch replayed as CUDA graphs, 512
    chains x 24 rounds x 256 steps) on a 40-partition random cluster:
@@ -102,7 +104,21 @@ Phases (any failure exits non-zero; nothing is caught):
    ``anneal_to_construct``, verified; with the site kernel's launch
    failing as a real failed launch does, the solve raises out of
    ``optimize`` (that one error is caught and checked) and takes no
-   fallback.
+   fallback;
+   (k) the ladder's dispatch modes: the solo anchor of (b) with
+   ``time_limit_s=3600`` (8 chunks of 16 sweeps) synchronous, pipelined
+   and fused in groups of 4 and 8 (``megachunk``) in both modes, in the
+   order A..F F..A: the same plan, curve and rounds, every kernel
+   launched, ``dispatches`` 8 or ceil(8 / K); per mode ``dispatches``,
+   ``dispatch_s``, ``device_s``, ``boundary_overlap_s``, ``anneal_s``,
+   wall, and (one profiled run a mode) the card's idle share of the
+   ladder, from a profiler session around the ladder alone; the
+   portfolio's call synchronous against pipelined, S P P S.
+   Then a fused group with thresholds every chain meets retires
+   after its first step on the card, equal to the CPU's plain path; the
+   injected kernel fault at the second chunk takes ``pallas_to_xla`` and
+   ``pipelined_to_sync`` with the unfaulted plan; a checkpoint written
+   and resumed.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -1183,6 +1199,255 @@ def fallback_phase(torch, dev, power: str) -> None:
           "fallback")
 
 
+def dispatch_phase(torch, dev, power: str) -> None:
+    """(k) The ladder's dispatch modes on the pinned solo anchor with a
+    never-binding deadline, so the 8-chunk schedule forms (``batch=8,
+    rounds=128, portfolio=False, cert_min_savings_s=1e9,
+    time_limit_s=3600``): synchronous, pipelined, and megachunks of 4 and
+    8 in both modes, run in the order A..F F..A within this call, each
+    with the launch counts set to 0 just before it and read just after:
+    every run the same plan, curve and rounds, every kernel launched
+    (site 64, exchange 32), ``dispatches`` 8 or ceil(8 / K); the same
+    call with the portfolio at its default, synchronous against
+    pipelined (S P P S, equal plans); then one profiled run a mode for
+    the card's idle share of the ladder, from a profiler session around
+    the ladder alone. Then, on
+    the card: a fused group with thresholds every chain meets retires
+    after its first step, equal to the CPU's plain path; the injected
+    kernel fault at the second chunk re-runs the rest on the plain
+    versions (``pallas_to_xla``, ``pipelined_to_sync``) with the same
+    plan; a checkpoint written and resumed."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_assignment_optimizer_tpu_torch import optimize, prng
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
+        init_sweep_state,
+        solve_megachunk,
+    )
+    from kafka_assignment_optimizer_tpu_torch.resilience import chaos
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        arrays,
+        bucket,
+        engine,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
+        greedy_seed,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import checkpoint, gen
+
+    scen = gen.adversarial()
+    inst = build_instance(scen.current, scen.broker_list, scen.topology)
+    kw = dict(solver="tpu", seed=0, batch=8, rounds=128, portfolio=False,
+              cert_min_savings_s=1e9, time_limit_s=3600.0, instance=inst)
+    modes = {
+        "sync": dict(pipeline=False),
+        "pipelined": dict(pipeline=True),
+        "mega4 sync": dict(pipeline=False, megachunk=4),
+        "mega4 pipelined": dict(pipeline=True, megachunk=4),
+        "mega8 sync": dict(pipeline=False, megachunk=8),
+        "mega8 pipelined": dict(pipeline=True, megachunk=8),
+    }
+
+    def solve(name, **extra):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize(scen.current, scen.broker_list, scen.topology,
+                       **{**kw, **modes[name], **extra})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, wall, {k.name: k.launches for k in kernels.KERNELS}
+
+    runs = {name: [] for name in modes}
+    for name in list(modes) + list(reversed(modes)):
+        runs[name].append(solve(name))
+    base = runs["sync"][0][0]
+    for name, rs in runs.items():
+        for res, _wall, counts in rs:
+            st = res.solve.stats
+            k = modes[name].get("megachunk", 1)
+            if (not np.array_equal(res.solve.a, base.solve.a)
+                    or st["score_curve"] != base.solve.stats["score_curve"]
+                    or st["rounds_run"] != 128 or st["chunks"] != 8):
+                fail(f"dispatch {name}: plan, curve or rounds "
+                     f"({st['rounds_run']}, {st['chunks']} chunks) differ "
+                     "from the synchronous ladder's")
+            if (st["dispatches"], st["pipeline"], st["megachunk"]["k"]) != (
+                    -(-8 // k), modes[name]["pipeline"], k):
+                fail(f"dispatch {name}: dispatches {st['dispatches']}, "
+                     f"pipeline {st['pipeline']}, megachunk "
+                     f"{st['megachunk']}")
+            if st.get("degradations") or st.get("final_cert") not in (
+                    "ok", "ok_reseat") or not res.report()["feasible"]:
+                fail(f"dispatch {name}: degradations "
+                     f"{st.get('degradations')}, final_cert "
+                     f"{st.get('final_cert')}")
+            if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) \
+                    != (64, 32) or counts[kernels.SCORE.name] <= 0:
+                fail(f"dispatch {name}: launches {counts}")
+    for name, rs in runs.items():
+        st = [r.solve.stats for r, _w, _c in rs]
+        print(f"dispatch {name}: " + json.dumps({
+            "dispatches": st[0]["dispatches"],
+            "dispatch_s": [s["dispatch_s"] for s in st],
+            "device_s": [s["device_s"] for s in st],
+            "boundary_overlap_s": [s["boundary_overlap_s"] for s in st],
+            "anneal_s": [s["anneal_s"] for s in st],
+            "wall_s": [round(w, 4) for _r, w, _c in rs],
+            "launches": rs[0][2]}) + f" ({power})")
+    # the default portfolio solve of the same call, synchronous against
+    # pipelined (the default), in the order S P P S
+    port = {False: [], True: []}
+    for pipe in (False, True, True, False):
+        res, wall, _c = solve("pipelined" if pipe else "sync",
+                              portfolio=None)
+        st = res.solve.stats
+        if st["pipeline"] is not pipe or st.get("degradations") or (
+                st["portfolio"]["width"] != 8):
+            fail(f"dispatch portfolio pipeline={pipe}: {st['pipeline']}, "
+                 f"{st.get('degradations')}, {st['portfolio']}")
+        port[pipe].append((res, wall))
+    if not all(np.array_equal(r.solve.a, port[False][0][0].solve.a)
+               for r, _w in port[True] + port[False]):
+        fail("dispatch portfolio: the pipelined and synchronous plans differ")
+    summary = {("pipelined" if p else "sync"): {
+        "anneal_s": [r.solve.stats["anneal_s"] for r, _w in rs],
+        "dispatch_s": [r.solve.stats["dispatch_s"] for r, _w in rs],
+        "wall_s": [round(w, 4) for _r, w in rs]} for p, rs in port.items()}
+    print("dispatch portfolio (8 lanes, 8 chunks), order S P P S: "
+          + json.dumps(summary) + f" ({power})")
+    print(f"dispatch modes: {base.replica_moves} moves, weight "
+          f"{base.solve.objective}, final_cert "
+          f"{base.solve.stats['final_cert']}, 8 chunks x 16 sweeps, every "
+          "mode the same plan, curve and rounds")
+    # the card's idle share of the ladder, one run a mode: a profiler
+    # session of its own around the ladder (``engine._run_ladder``, the
+    # device idle at its start and drained at its end, as the engine's
+    # next line does); busy is the device activity of that session, the
+    # window the host clock inside it (the ladder's wall, as anneal_s)
+    real_ladder = engine._run_ladder
+    seen = {}
+
+    def profiled_ladder(*a, **k):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = real_ladder(*a, **k)
+            torch.cuda.synchronize()
+            seen["window_s"] = time.perf_counter() - t0
+        seen["busy_s"] = sum(e.time_range.elapsed_us()
+                             for e in prof.events()
+                             if e.device_type == DeviceType.CUDA) / 1e6
+        return out
+
+    idle = {}
+    engine._run_ladder = profiled_ladder
+    try:
+        for name in modes:
+            seen.clear()
+            res, _w, _c = solve(name)
+            if not seen.get("busy_s"):
+                idle[name] = "not measured (no device event kept)"
+                continue
+            idle[name] = {
+                "idle": round(1 - seen["busy_s"] / seen["window_s"], 4),
+                "busy_s": round(seen["busy_s"], 4),
+                "window_s": round(seen["window_s"], 4),
+                "anneal_s": res.solve.stats["anneal_s"]}
+    finally:
+        engine._run_ladder = real_ladder
+    print("dispatch idle share of the ladder (a profiler session around "
+          "the ladder; 1 - device busy / its wall): " + json.dumps(idle)
+          + f" ({power})")
+
+    # the forced early exit on the card: a group of 4 steps x 16 sweeps
+    # whose thresholds every chain meets from the seed runs step 0 only;
+    # its outputs equal the CPU's plain path
+    Pb, Rb = bucket.bucket_shape(inst)
+    temps = arrays.geometric_temps(2.0, 0.02, 64)
+    segs = np.stack([temps[i * 16:(i + 1) * 16] for i in range(4)])
+    outs = {}
+    for device, scorer in ((dev, "cuda"), (torch.device("cpu"), "torch")):
+        m = arrays.from_instance(inst, device, num_parts=Pb, max_rf=Rb)
+        seed = torch.from_numpy(arrays.pad_candidate(greedy_seed(inst),
+                                                     m)).to(device)
+        st = init_sweep_state(m, seed, prng.PRNGKey(0), 8)
+        kernels.reset_counts()
+        out = solve_megachunk(m, 8, segs, st, cert_k=-(2 ** 31) + 1,
+                              cert_mv=2 ** 31 - 1, scorer=scorer)
+        outs[scorer] = ([np.asarray(x.cpu()) if torch.is_tensor(x) else x
+                         for x in out[1:]],
+                        {k.name: k.launches for k in kernels.KERNELS})
+    (card, counts), (plain, _c) = outs["cuda"], outs["torch"]
+    if card[-1].tolist() != [True, False, False, False] or not card[3]:
+        fail(f"forced exit: execd {card[-1].tolist()}, cert_ok {card[3]}")
+    for name, x, y in zip(("top_a", "top_k", "cert_a", "cert_ok", "cert_mv",
+                           "curves", "execd"), card, plain):
+        if not np.array_equal(x, y):
+            fail(f"forced exit: {name} differs between the card and the "
+                 "CPU's plain path")
+    if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) != (8, 4):
+        fail(f"forced exit: launches {counts}, expected one step's")
+    print("forced exit on the card: a group of 4 steps x 16 sweeps "
+          f"retired after step 0 (execd {card[-1].tolist()}), every output "
+          "equal to the CPU's plain path; launches " + json.dumps(counts))
+
+    # the injected kernel fault at the second chunk, pipelined: the
+    # speculation drains, the chunk and the rest re-run on the plain
+    # versions on the card, the plan is the unfaulted one
+    real_hooks = engine._chaos_chunk_hooks
+    calls = {"n": 0}
+
+    def hooks():
+        calls["n"] += 1
+        if calls["n"] == 2:
+            chaos.arm("pallas_fault")
+        real_hooks()
+
+    engine._chaos_chunk_hooks = hooks
+    try:
+        res, wall, counts = solve("pipelined")
+    finally:
+        engine._chaos_chunk_hooks = real_hooks
+        chaos.disarm()
+    st = res.solve.stats
+    if (st.get("degradations") != ["pallas_to_xla", "pipelined_to_sync"]
+            or st["scorer"] != "torch"
+            or "pallas_fault" not in st.get("pallas_fallback", "")):
+        fail(f"kernel fault: degradations {st.get('degradations')}, scorer "
+             f"{st['scorer']}")
+    if not np.array_equal(res.solve.a, base.solve.a) or (
+            st["score_curve"] != base.solve.stats["score_curve"]):
+        fail("kernel fault: the plain rung's plan or curve differs")
+    if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) != (8, 4):
+        fail(f"kernel fault: launches {counts}, expected chunk 0's only")
+    print(f"kernel fault at chunk 1 (pipelined): degradations "
+          f"{st['degradations']}, chunks 1-7 on the plain versions, the "
+          f"same plan and curve; wall {wall:.3f} s, anneal_s "
+          f"{st['anneal_s']} ({power}); launches " + json.dumps(counts))
+
+    # a checkpoint written and resumed on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck", "plan.npz")
+        r1, _w1, _c1 = solve("pipelined", checkpoint=path)
+        saved = checkpoint.load(path, inst)
+        r2, w2, _c2 = solve("pipelined", checkpoint=path)
+    if saved is None or not np.array_equal(saved, r1.solve.a):
+        fail("checkpoint: the written plan is not the solve's")
+    if (r1.solve.stats["resumed_from_checkpoint"],
+            r2.solve.stats["resumed_from_checkpoint"]) != (False, True) or (
+            not np.array_equal(r2.solve.a, r1.solve.a)):
+        fail("checkpoint: the second solve did not resume to the same plan")
+    print(f"checkpoint: written, resumed (resumed_from_checkpoint True), "
+          f"the same plan; resumed solve wall {w2:.3f} s ({power})")
+
+
 def main() -> int:
     import torch
 
@@ -1609,6 +1874,12 @@ def main() -> int:
         if st.get("final_cert") not in ("ok", "ok_reseat"):
             fail(f"{label}: final_cert {st.get('final_cert')!r}, expected "
                  "a certificate at final selection")
+        # the reference's default dispatch: its two chunks pipelined, no
+        # rung taken
+        if st["pipeline"] is not True or st.get("degradations"):
+            fail(f"{label}: pipeline {st['pipeline']}, degradations "
+                 f"{st.get('degradations')}; expected the pipelined ladder "
+                 "and no rung")
         # the JAX package's plan for this call (its CPU run on one device,
         # either setting: 117 moves, weight 59,802, proven)
         if (res.replica_moves, res.solve.objective, res.solve.optimal) != (
@@ -1719,6 +1990,23 @@ def main() -> int:
         one = solve_tpu_batch([insts[i]], seeds=i)[0]
         if not np.array_equal(one.a, out[i].solve.a):
             fail(f"batch lane {i} differs from its one-instance batch")
+    # the default lane ladder is pipelined; the synchronous one gives the
+    # same plans. Walls in the order pipelined (above), sync, sync,
+    # pipelined
+    walls = {True: [batch_wall], False: []}
+    for pipe in (False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = solve_tpu_batch(insts, seeds=0, pipeline=pipe)
+        torch.cuda.synchronize()
+        walls[pipe].append(time.perf_counter() - t0)
+        if again[0].stats["pipeline"] is not pipe or not all(
+                np.array_equal(r.solve.a, q.a) for r, q in zip(out, again)):
+            fail(f"batch: the lane ladder with pipeline={pipe} differs")
+    print(f"batch of 8, pipelined / synchronous lane ladder: the same "
+          f"plans, walls (order P S S P) pipelined "
+          f"{walls[True][0]:.3f}, {walls[True][1]:.3f} s, synchronous "
+          f"{walls[False][0]:.3f}, {walls[False][1]:.3f} s ({power})")
     st = out[0].solve.stats
     print(f"batch: 8 adversarial instances (seeds 0-7), {st['engine']} "
           f"{st['chains_per_device']} chains x {st['rounds_run']} sweeps, "
@@ -1884,10 +2172,12 @@ def main() -> int:
           f"{1e3 * anneal_s / (RETRY_ROUNDS * steps):.4f} ms a step "
           f"({power})")
 
-    # (h) the decomposed solve; (i) the delta API; (j) the host fallback
+    # (h) the decomposed solve; (i) the delta API; (j) the host fallback;
+    # (k) the ladder's dispatch modes
     map_rows = decomposed_phase(torch, dev, power, int32_ops_per_s, tf_ops)
     delta_phase(torch, dev, power)
     fallback_phase(torch, dev, power)
+    dispatch_phase(torch, dev, power)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

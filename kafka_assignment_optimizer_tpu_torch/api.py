@@ -83,7 +83,11 @@ def optimize(
     broker list, the broker->rack topology, and optionally a new
     replication factor. ``device`` (a keyword of the ``tpu`` solver,
     which ``"auto"`` passes on only when it resolves there) picks the
-    solve device: the card by default, ``"cpu"`` on request.
+    solve device: the card by default, ``"cpu"`` on request. The ``tpu``
+    solver's other keywords pass through as in the reference, among
+    them ``pipeline`` (the double-buffered ladder, on by default),
+    ``megachunk`` (K chunks a fused group) and ``checkpoint`` (an
+    ``.npz`` to resume from and save to).
     """
     t0 = time.perf_counter()
     if isinstance(current, str):
@@ -177,7 +181,7 @@ def optimize_batch(
     its own plan and move diff. ``currents[i]`` must be the assignment
     ``instances[i]`` was built from (the diff is computed against it).
     ``device`` picks the solve device: the card by default, ``"cpu"`` on
-    request."""
+    request; ``pipeline`` and ``megachunk`` schedule the lane ladder."""
     if len(currents) != len(instances):
         raise ValueError(
             f"{len(currents)} assignments for {len(instances)} instances"

@@ -5,7 +5,8 @@ Usage:
         --input current.json --broker-list 0-18 --topology topology.json \\
         [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
         [--engine chain|sweep] [--seed 0] [--batch 8] [--sweeps 128] \\
-        [--device cuda|cpu] [--decompose] [--chaos SPEC] [--report]
+        [--device cuda|cpu] [--no-pipeline] [--megachunk K|off] \\
+        [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report]
 
 Reads the current assignment from ``--input`` or stdin, writes the plan
 (same dialect) to stdout and, with ``--report``, a solve report to
@@ -63,6 +64,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="solve device: cuda (default) or cpu")
     ap.add_argument(
+        "--no-pipeline",
+        action="store_true",
+        help="disable the double-buffered ladder dispatch (tpu solver): "
+        "chunks then run strictly one at a time, with all boundary work "
+        "on the critical path; the plan is the same either way",
+    )
+    ap.add_argument(
+        "--megachunk",
+        default=None,
+        metavar="K|off",
+        help="fused ladder megachunks (tpu sweep engine): run K "
+        "consecutive schedule chunks as one group, one dispatch per K "
+        "chunks, with the same plan; 'off' keeps the per-chunk ladder",
+    )
+    ap.add_argument(
+        "--checkpoint",
+        metavar="PATH",
+        help="warm-start from / save the best plan to this .npz (tpu "
+        "solver); re-solves of the same instance never regress below it",
+    )
+    ap.add_argument(
         "--decompose",
         action="store_true",
         help="force the decomposed map-reduce solve (tpu solver; "
@@ -95,6 +117,21 @@ def load_topology(spec: str | None, broker_ids: list[int]) -> Topology | None:
     return Topology.from_json(text)
 
 
+def parse_megachunk(spec: str):
+    """``--megachunk``: an int width or 'off'. A typo fails (exit 2), and
+    so does the reference's 'auto', which this package does not offer."""
+    v = spec.strip().lower()
+    if v in ("off", "0", "none"):
+        return "off"
+    try:
+        return max(1, int(v))
+    except ValueError:
+        raise ValueError(
+            f"--megachunk {spec!r}: expected an integer width or 'off' "
+            "('auto' is not supported by this package yet)"
+        ) from None
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.chaos:
@@ -122,6 +159,12 @@ def main(argv: list[str] | None = None) -> int:
             kw["batch"] = args.batch
         if args.sweeps:
             kw["sweeps"] = args.sweeps
+        if args.checkpoint:
+            kw["checkpoint"] = args.checkpoint
+        if args.no_pipeline:
+            kw["pipeline"] = False
+        if args.megachunk is not None:
+            kw["megachunk"] = parse_megachunk(args.megachunk)
         if args.decompose:
             kw["decompose"] = True
         res = optimize(current, brokers, topology, solver=args.solver, **kw)

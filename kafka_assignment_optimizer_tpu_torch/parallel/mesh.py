@@ -1,5 +1,6 @@
 """The one-device subset of the reference's ``parallel.mesh``: the initial
-sweep state, and the lanes.
+sweep state, the lanes, the fused megachunk groups and the asynchronous
+device-to-host fetch.
 
 The reference tiles the population over a device mesh; this package runs
 one device, which is the reference's mesh of one: one shard holding all
@@ -131,3 +132,95 @@ def solve_lanes(m_stack: ModelArrays, n_chains: int, temps, state=None,
                          device=m_stack.device)
     return make_lane_solver_fn(n_chains, steps_per_round)(
         m_stack, seeds, keys, temps)
+
+
+def _mega_args(temps_stack, active, cert_k, cert_mv) -> tuple:
+    """A fused group's runtime arguments: every step active and the
+    never-firing certificate sentinels (a disarmed group) unless the
+    caller passes its own."""
+    from ..solvers.tpu.sweep import MEGA_DISARMED_KEY, MEGA_DISARMED_MOVES
+
+    temps_stack = np.asarray(temps_stack, np.float32)
+    if active is None:
+        active = np.ones(temps_stack.shape[0], bool)
+    return (temps_stack, np.asarray(active, bool),
+            MEGA_DISARMED_KEY if cert_k is None else int(cert_k),
+            MEGA_DISARMED_MOVES if cert_mv is None else int(cert_mv))
+
+
+def solve_megachunk(m: ModelArrays, n_chains: int, temps_stack, state, *,
+                    active=None, cert_k=None, cert_mv=None,
+                    scorer: str = "torch"):
+    """One fused group over K chunk steps: ``temps_stack [K, c]`` (a
+    short tail pads ``temps_stack`` and clears ``active``), ``state`` from
+    :func:`init_sweep_state` or any prior chunk or group. Returns
+    ``(state', top_a [P, R], top_k, cert_a [P, R], cert_ok, cert_mv,
+    curves [K, c], execd [K])``
+    (``sweep.make_mega_stepper_fn``). Omitting the certificate arguments
+    runs the group disarmed."""
+    from ..solvers.tpu.sweep import make_mega_stepper_fn
+
+    return make_mega_stepper_fn(n_chains, scorer=scorer)(
+        m, state, *_mega_args(temps_stack, active, cert_k, cert_mv))
+
+
+def solve_lanes_megachunk(m_stack: ModelArrays, n_chains: int, temps_stack,
+                          state, *, active=None, cert_k=None, cert_mv=None,
+                          scorer: str = "torch"):
+    """:func:`solve_megachunk` over the L lanes of ``m_stack`` (every
+    kernel one launch for all lanes a step): ``curves [L, K, c]``,
+    ``execd [L, K]``. Batch callers leave the certificate arguments at
+    their disarmed defaults (independent instances never share an exit);
+    the portfolio arms them, so the first lane to qualify stops every
+    lane."""
+    from ..solvers.tpu.sweep import make_mega_lane_stepper_fn
+
+    return make_mega_lane_stepper_fn(n_chains, scorer=scorer)(
+        m_stack, state, *_mega_args(temps_stack, active, cert_k, cert_mv))
+
+
+class _AsyncFetch:
+    """An in-flight device-to-host copy of a tensor or a tuple of tensors
+    (:func:`fetch_global_async`). On the card each tensor is copied with
+    ``non_blocking=True`` into pinned host memory on the current stream,
+    and an event is recorded after the copies: it completes once every
+    launch enqueued before the fetch has finished, so :meth:`wait` also
+    retires the work that produced the tensors. On the CPU the copy is
+    made at once. :meth:`get` returns numpy, idempotently."""
+
+    __slots__ = ("_host", "_event", "_tuple")
+
+    def __init__(self, x):
+        self._tuple = isinstance(x, (tuple, list))
+        xs = tuple(x) if self._tuple else (x,)
+        self._event = None
+        if any(t.device.type == "cuda" for t in xs):
+            self._host = []
+            for t in xs:
+                dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                dst.copy_(t, non_blocking=True)
+                self._host.append(dst)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = [t.detach().clone() for t in xs]
+
+    def wait(self) -> None:
+        """Block until the copy (and all work enqueued before it) is
+        done."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+
+    def get(self):
+        self.wait()
+        out = tuple(h.numpy() for h in self._host)
+        return out if self._tuple else out[0]
+
+
+def fetch_global_async(x) -> _AsyncFetch:
+    """Start the device-to-host copy of ``x`` (a tensor or a tuple of
+    tensors) without waiting: the ladder starts each chunk's copies right
+    after enqueueing the chunk, ahead of the next chunk's launches, so
+    the copies are not queued behind them."""
+    return _AsyncFetch(x)

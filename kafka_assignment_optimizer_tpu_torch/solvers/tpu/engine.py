@@ -24,7 +24,13 @@ taking the reference's decisions on one device:
    lane stepper (every kernel one launch for all lanes), the first lane
    to certify at a boundary retiring the ladder. Between chunks:
    adoption of a late constructor plan, the boundary optimality
-   certificate, the chain engine's reseed and the deadline.
+   certificate, the chain engine's reseed and the deadline. The sweep
+   ladder is pipelined by default (``pipeline``, ``KAO_NO_PIPELINE``):
+   chunk i+1 is enqueued before chunk i is retired, so chunk i's
+   boundary work overlaps chunk i+1 on the card; ``megachunk`` K fuses K
+   chunks into one group with the certificate's device-side precheck
+   between its steps. Both are scheduling only: the plans, curves and
+   stats equal the one-chunk-at-a-time ladder's.
 3. **Certify-first final selection.** Rescore (B1 on the card), then
    moves against the exact move bound, feasibility, weight against the
    weight bound, one exact reseat; polish only when no check certifies.
@@ -35,16 +41,25 @@ Every step down is a rung of the degradation ladder
 (``resilience.ladder``), listed in ``stats["degradations"]``: the
 deadline cutting the ladder (``deadline_truncated``), a rejected warm
 start (``warm_start_rejected``), a failed decomposition
-(``decompose_to_flat``), the chain engine's retry of a defaulted sweep
-that ends infeasible below 512 partitions (``sweep_to_chain``), and the
-host fallback (``anneal_to_construct``): an injected chaos fault or a
-``FloatingPointError`` in the device path returns the host greedy/reseat
-plan, verified and flagged ``stats["degraded"]``; every other error
-raises. :func:`solve_tpu_batch` solves L independent instances in one
-lane ladder (no race, no boundary certificate, no polish). Not here yet:
-pipelining and megachunks, more than one device, checkpoints, profiling,
-the kernel->plain retry rung and the sanitizer; their keywords raise
-``NotImplementedError`` unless their value names what this engine does.
+(``decompose_to_flat``), a fault inside a fused group
+(``megachunk_to_chunked``: the per-chunk ladder takes over), the
+injected kernel fault (``pallas_to_xla``: the chunk re-runs on the plain
+versions; ``pipelined_to_sync`` when speculation drained for it), a
+failed checkpoint write (``checkpoint_skipped``), the chain engine's
+retry of a defaulted sweep that ends infeasible below 512 partitions
+(``sweep_to_chain``), and the host fallback (``anneal_to_construct``):
+an injected chaos fault or a ``FloatingPointError`` in the device path
+returns the host greedy/reseat plan (or a better checkpoint), verified
+and flagged ``stats["degraded"]``; every other error raises.
+``checkpoint`` names an ``.npz`` the solve resumes from when it ranks at
+least as high as the greedy seed and writes its verified plan to.
+:func:`solve_tpu_batch` solves L independent instances in one lane
+ladder (no race, no boundary certificate, no polish). Not here yet: more
+than one device (``n_devices``), profiling (``profile_dir``), warm-up
+solves (``precompile``), span traces (``trace``), the fused width chosen
+from measurements (``megachunk="auto"``) and the sanitizer; their
+keywords raise ``NotImplementedError`` unless their value names what
+this engine does.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own.
@@ -68,14 +83,18 @@ from ...models.instance import ProblemInstance
 from ...ops.score_cuda import score, score_lanes
 from ...obs import log as _olog
 from ...parallel.mesh import (
+    fetch_global_async,
     init_lane_state,
     init_sweep_state,
     note_lane_serve,
     solve_lanes,
+    solve_lanes_megachunk,
+    solve_megachunk,
 )
 from ...resilience import chaos as _chaos
 from ...resilience import ladder as _ladder
 from ...resilience.budget import Budget
+from ...utils import checkpoint as ckpt
 from ..base import SolveResult, register
 from . import arrays, bucket
 from . import constructor as _constructor
@@ -88,6 +107,61 @@ from .sweep import (
     make_sweep_stepper_fn,
     out_key,
 )
+
+# the pipelined ladder: the sweep engine enqueues chunk i+1 before it
+# retires chunk i, so chunk i's boundary work (the fetch of its winners
+# and curve, the certificate, the constructor's adoption, the deadline)
+# overlaps chunk i+1 on the card. The chunk keys are split up front and
+# the sweep state carries its own keys, so it changes no trajectory. Opt
+# out per solve (pipeline=False) or for the process (KAO_NO_PIPELINE=1;
+# its falsy spellings leave it on)
+_PIPELINE_DEFAULT = os.environ.get("KAO_NO_PIPELINE", "").lower() in (
+    "", "off", "0", "none", "false",
+)
+
+
+def set_pipeline_default(enabled: bool) -> None:
+    """The process default for solves that leave ``pipeline`` at None."""
+    global _PIPELINE_DEFAULT
+    _PIPELINE_DEFAULT = bool(enabled)
+
+
+# ladder megachunks: K consecutive sweep chunks as ONE fused group, one
+# dispatch per K chunks. The reference's "auto" width (megachunk="auto"
+# or True, and its KAO_MEGACHUNK process default) picks K from measured
+# host and device time on the premise that a group pays its host time
+# once; a group here is the chunk stepper called K times from Python, so
+# its host time grows with K and that rule would always pick the widest
+# K. Until a fused group is one captured CUDA graph, "auto" raises and
+# KAO_MEGACHUNK is not read: a solve fuses only at an explicit width
+def _resolve_megachunk(megachunk) -> int | None:
+    """The requested fused width: None for the per-chunk ladder (None,
+    False and a non-numeric string such as ``"off"``), else the int
+    (a numeric string counts); ``"auto"`` and True raise
+    ``NotImplementedError``."""
+    if megachunk is True or (isinstance(megachunk, str)
+                             and megachunk.strip().lower() == "auto"):
+        raise NotImplementedError(
+            f"megachunk={megachunk!r} is not supported by this package yet "
+            "(accepted: None, 'off' or an integer width)"
+        )
+    if megachunk is None or megachunk is False:
+        return None
+    try:
+        return int(megachunk)
+    except ValueError:
+        return None
+
+
+def _mega_width(req: int | None, engine: str, n_chunks: int) -> tuple:
+    """``(K, mode)`` of a ladder, as the reference resolves an explicit
+    width: 1 ("off") unless the engine fuses (the sweep engine), the
+    ladder has more than one chunk and a width other than 1 was asked
+    for; else the width capped by the chunk count ("static")."""
+    if engine != "sweep" or n_chunks <= 1 or req is None or req == 1:
+        return 1, "off"
+    return max(1, min(req, n_chunks)), "static"
+
 
 _IMIN = int(np.iinfo(np.int32).min)
 
@@ -234,11 +308,8 @@ def _defaults(inst: ProblemInstance, platform: str,
 # other value asks for a path of the reference not ported yet)
 _UNPORTED = {
     "n_devices": (None, 1),
-    "checkpoint": (None,),
     "profile_dir": (None,),
     "precompile": (False,),
-    "pipeline": (None, False),
-    "megachunk": (None, False, 1),
     "trace": (None, False),
 }
 
@@ -292,14 +363,15 @@ def solve_tpu(
     lands in ``stats["degradations"]`` exactly once, on the outermost
     solve."""
     _refuse_unported(dict(
-        n_devices=n_devices, checkpoint=checkpoint, profile_dir=profile_dir,
-        precompile=precompile, pipeline=pipeline, megachunk=megachunk,
+        n_devices=n_devices, profile_dir=profile_dir, precompile=precompile,
     ))
+    megachunk = _resolve_megachunk(megachunk)
     with _ladder.collect() as rungs:
         res = _solve_tpu(
             inst, seed, batch, rounds, sweeps, steps_per_round, t_hi, t_lo,
             engine, time_limit_s, cert_min_savings_s, portfolio,
-            warm_start, budget, decompose, device,
+            warm_start, budget, decompose, device, checkpoint, pipeline,
+            megachunk,
         )
         if rungs:
             res.stats["degradations"] = list(rungs)
@@ -308,11 +380,14 @@ def solve_tpu(
 
 def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
                t_lo, engine, time_limit_s, cert_min_savings_s, portfolio,
-               warm_start, budget, decompose, device) -> SolveResult:
+               warm_start, budget, decompose, device, checkpoint, pipeline,
+               megachunk) -> SolveResult:
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if budget is None:
         budget = Budget(time_limit_s, t0=t0)
+    # None defers to the process default (KAO_NO_PIPELINE)
+    pipeline = _PIPELINE_DEFAULT if pipeline is None else bool(pipeline)
     # a structurally invalid warm start is rejected onto the ladder
     # (warm_start_rejected) and the solve proceeds from scratch
     warm_start = _validate_warm_start(inst, warm_start)
@@ -325,8 +400,9 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
     # ladder's reach (or opted in) solve as map-reduce over per-AZ lanes,
     # stitched and verified against THIS flat instance. None (the split
     # declined, or decompose_to_flat was noted) falls through to the flat
-    # path. A warm start is flat-plan shaped and keeps the flat path
-    if warm_start is None:
+    # path. A warm start and a checkpoint are flat-plan shaped and keep
+    # the flat path
+    if warm_start is None and checkpoint is None:
         from ...decompose import maybe_decompose, should_decompose
 
         if should_decompose(inst, decompose):
@@ -342,7 +418,7 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
         res = _solve_raced(
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
-            portfolio, warm_start,
+            portfolio, warm_start, checkpoint, pipeline, megachunk,
         )
         # a DEFAULTED sweep that ends infeasible on an instance small
         # enough for chains retries the chain engine on what is LEFT of
@@ -361,8 +437,8 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
                        parts=inst.num_parts)
             res2 = solve_tpu(
                 inst, seed=seed, engine="chain", batch=batch, t_hi=t_hi,
-                t_lo=t_lo, time_limit_s=remaining,
-                cert_min_savings_s=cert_min_savings_s,
+                t_lo=t_lo, checkpoint=checkpoint, time_limit_s=remaining,
+                cert_min_savings_s=cert_min_savings_s, pipeline=pipeline,
                 warm_start=warm_start, budget=budget, device=device,
             )
 
@@ -384,7 +460,9 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
 
 def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
-                 budget, t0, portfolio=None, warm_start=None) -> SolveResult:
+                 budget, t0, portfolio=None, warm_start=None,
+                 checkpoint=None, pipeline=True,
+                 megachunk=None) -> SolveResult:
     """Start the bounds prefetch and the constructor worker this
     instance class races (behind the warm-start certificate when there
     is a warm start), then run the solve; a degradable fault in it
@@ -446,6 +524,7 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
             bounds_fut, lp_fut, lp_wait_s, portfolio, warm_start,
+            checkpoint, pipeline, megachunk,
         )
     except Exception as e:
         # the ladder's last rung: an injected fault or a NaN abort in the
@@ -455,25 +534,36 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         # every other fault raise with their own traceback
         if not _degradable(e):
             raise
-        return _host_fallback(inst, e, budget, t0, time_limit_s, dev,
-                              warm_start=warm_start)
+        return _host_fallback(inst, e, checkpoint, budget, t0,
+                              time_limit_s, dev, warm_start=warm_start)
 
 
 def _chaos_chunk_hooks() -> None:
     """The chaos injection points every chunk dispatch fires, on the
-    host before the chunk's first launch: a NaN surfacing from the chunk
+    host before the chunk's first launch, as the reference fires them: a
+    kernel fault (``pallas_fault``: the chunk re-runs on the plain
+    versions, ``pallas_to_xla``), a NaN surfacing from the chunk
     (``nan_chunk``, as ``FloatingPointError``: the host-fallback rung)
     and a chunk overrun (``chunk_overrun``: exercises the deadline
     gate). ONE helper, so the single-solve and batch ladders never drift
-    apart on which faults they fire.
-
-    The reference also fires ``pallas_fault`` here, whose rung drains
-    the chunk and re-runs it on the plain path. That rung is not ported
-    yet, and without it the fault would send the solve to the host
-    fallback where the reference retries, so ``pallas_fault`` is not
-    fired: arming it changes nothing."""
+    apart on which faults they fire."""
+    _chaos.raise_if("pallas_fault")
     _chaos.raise_if("nan_chunk", FloatingPointError)
     _chaos.sleep_if("chunk_overrun")
+
+
+def _is_pallas_lowering(e: Exception) -> bool:
+    """Whether ``e`` takes the kernel->plain rung (``pallas_to_xla``, the
+    reference's name): True for the injected chaos kernel fault only.
+    The reference also retries a real Mosaic lowering error, which
+    happens while its kernel compiles, before anything runs. A real
+    failure of a kernel of this package to build or to launch (an
+    ``nvcc`` error, a CUDA launch error) raises instead: retrying it on
+    the plain versions would hide a broken kernel behind a solve that
+    looks healthy, so it surfaces with its own traceback. The injected
+    fault qualifies under every scorer, so CPU solves take the same
+    drain-and-retry path a card solve takes."""
+    return _chaos.is_pallas_fault(e)
 
 
 def _degradable(e: BaseException) -> bool:
@@ -491,21 +581,28 @@ def _degradable(e: BaseException) -> bool:
 
 
 def _host_fallback(inst: ProblemInstance, exc: BaseException,
-                   budget: Budget, t0: float,
+                   checkpoint: str | None, budget: Budget, t0: float,
                    time_limit_req: float | None, dev: torch.device,
                    warm_start=None) -> SolveResult:
     """The ladder's terminal rung (``anneal_to_construct``): the device
     search is unusable, so build the best host-side plan — the greedy
-    repair, displaced by a validated warm start that ranks at least as
-    high, lifted by the exact leader reseat when feasible — verify it
-    against the numpy oracle (and, as every plan of this engine, hold B1
-    to the oracle on it), and return it FLAGGED (``stats["degraded"]``).
+    repair, displaced by a checkpoint that ranks at least as high (crash
+    resume), then by a validated warm start that ranks at least as high,
+    lifted by the exact leader reseat when feasible — verify it against
+    the numpy oracle (and, as every plan of this engine, hold B1 to the
+    oracle on it), and return it FLAGGED (``stats["degraded"]``).
     Certification is still attempted, budget permitting: greedy + exact
-    reseat is often the proven optimum. There are no checkpoints to
-    resume from yet (``resumed_from_checkpoint`` is False)."""
+    reseat is often the proven optimum."""
     _ladder.note_rung("anneal_to_construct", error=repr(exc)[:200])
     a = np.asarray(greedy_seed(inst), dtype=np.int32)
+    resumed = False
     warm_used = False
+    if checkpoint:
+        a_prev = ckpt.load(checkpoint, inst)
+        if a_prev is not None and _seed_rank(inst, a_prev) >= \
+                _seed_rank(inst, a):
+            a = a_prev
+            resumed = True
     # a warm start outranking the greedy repair keeps surviving replicas
     # in place even on the degraded path
     if warm_start is not None and _seed_rank(inst, warm_start) >= \
@@ -541,7 +638,7 @@ def _host_fallback(inst: ProblemInstance, exc: BaseException,
             "moves": int(inst.move_count(a)),
             "seed_moves": int(inst.move_count(a)),
             "proved_optimal": proved,
-            "resumed_from_checkpoint": False,
+            "resumed_from_checkpoint": resumed,
             "warm_started": warm_used,
             "time_limit_s": time_limit_req,
             "timed_out": False,
@@ -743,11 +840,19 @@ class _BoundsTask:
         return self._res
 
 
-def _await_constructor(lp_fut, lp_wait_s, budget: Budget):
+def _await_constructor(lp_fut, lp_wait_s, checkpoint, budget: Budget):
     """Join the constructor worker for up to ``lp_wait_s`` (capped by the
-    budget). Returns ``(certified_a, lp_warm, lp_warm_extends)``."""
+    budget). A ``checkpoint``'s directory is created first: an
+    unwritable path fails before any solve time is spent, and the
+    constructed path, which skips the seed stage, still finds it for the
+    write at verification. Returns ``(certified_a, lp_warm,
+    lp_warm_extends)``."""
     if lp_fut is None:
         return None, None, False
+    if checkpoint:
+        from pathlib import Path
+
+        Path(checkpoint).parent.mkdir(parents=True, exist_ok=True)
     lp_warm_extends = False
     try:
         plan, ok, lp_warm_extends = lp_fut.result(
@@ -762,20 +867,32 @@ def _await_constructor(lp_fut, lp_wait_s, budget: Budget):
     return None, None, lp_warm_extends
 
 
-def _pick_seed(inst, lp_warm, lp_warm_extends, warm_start=None):
+def _pick_seed(inst, lp_warm, lp_warm_extends, checkpoint=None,
+               warm_start=None):
     """The greedy repair, or the reseat racer's extension of it; a
-    validated delta-API ``warm_start`` that ranks at least as high
-    (``_seed_rank``: it wins ties, so surviving replicas stay put unless
-    the greedy repair is better); then an uncertified constructor plan
-    that outranks either. Returns ``(a_seed, resumed_from_checkpoint,
-    warm_started)``; there are no checkpoints yet, so the middle one is
-    False."""
+    ``checkpoint`` plan that ranks at least as high (``_seed_rank``: the
+    next solve never regresses below the last one); a validated
+    delta-API ``warm_start`` that ranks at least as high (it wins ties,
+    so surviving replicas stay put unless the greedy repair is better);
+    then an uncertified constructor plan that outranks them. Returns
+    ``(a_seed, resumed_from_checkpoint, warm_started)``."""
+    resumed = False
     warm_used = False
     warm_extends = lp_warm is not None and lp_warm_extends
     a_seed = lp_warm if warm_extends else greedy_seed(inst)
     assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
         "seed left unfilled slots"
     )
+    if checkpoint:
+        # an unwritable path fails before any solve time is spent
+        from pathlib import Path
+
+        Path(checkpoint).parent.mkdir(parents=True, exist_ok=True)
+        a_prev = ckpt.load(checkpoint, inst)
+        if a_prev is not None and _seed_rank(inst, a_prev) >= \
+                _seed_rank(inst, a_seed):
+            a_seed = a_prev
+            resumed = True
     if warm_start is not None and _seed_rank(inst, warm_start) >= \
             _seed_rank(inst, a_seed):
         a_seed = warm_start
@@ -788,7 +905,7 @@ def _pick_seed(inst, lp_warm, lp_warm_extends, warm_start=None):
         if _rank(lp_warm) > _rank(a_seed):
             a_seed = lp_warm
             warm_used = False
-    return a_seed, False, warm_used
+    return a_seed, resumed, warm_used
 
 
 def _build_chunks(inst: ProblemInstance, engine: str, rounds: int,
@@ -824,46 +941,128 @@ def _sync(dev: torch.device) -> float:
     return time.perf_counter()
 
 
+class _CurveSlice:
+    """A retired chunk's curve, read from its group's asynchronous fetch
+    (whose third item is the curve): the whole curve of a one-chunk
+    dispatch (``j`` None), or chunk ``j`` of a fused group's ``curves``
+    along ``axis``, so one copy a group feeds K per-chunk curves equal to
+    the unfused ladder's."""
+
+    def __init__(self, h, j: int | None = None, axis: int = 0):
+        self._h, self._j, self._axis = h, j, axis
+
+    def get(self) -> np.ndarray:
+        curve = self._h.get()[2]
+        return curve if self._j is None else np.take(curve, self._j,
+                                                     axis=self._axis)
+
+
 @dataclass
 class _LadderResult:
-    """What the ladder hands to final selection."""
+    """What the ladder hands to final selection and the stats."""
 
     pop_a: torch.Tensor | None = None  # [1 or Lp, P, R] the winners
     pop_k: torch.Tensor | None = None  # [1 or Lp]
+    fetched: object = None  # the last retired dispatch's host copies
     curves: list = field(default_factory=list)
     rounds_run: int = 0
     timed_out: bool = False
     certified_a: np.ndarray | None = None  # boundary/constructor plan
     constructed: bool = False  # certified_a came from the constructor
+    scorer: str | None = None  # the scorer the ladder ended on
+    pallas_fallback: str | None = None  # the fault the plain rung took
     tight_fut: object = None  # in-flight tier-1 LP, reused at the end
+    pipelined: bool = False  # a speculative dispatch ran
+    dispatch_s: float = 0.0  # host time enqueueing chunks or groups
+    device_s: float = 0.0  # host time blocked on the card's results
+    boundary_overlap_s: float = 0.0  # boundary work behind a chunk in flight
     winner_lane: int | None = None  # the portfolio lane that certified
     certified_at_s: float | None = None  # solve-relative certificate time
+    mega_k: int = 1  # the fused width this ladder ran at (1 = unfused)
+    mega_groups: int = 0  # fused groups dispatched
+    dispatches: int = 0  # chunk or group dispatches
+    chunks_exec: int = 0  # schedule chunks that executed
+    mega_early_exit: bool = False  # a fused group's certificate held
 
 
 def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 seed_dev, key, sweep_state, lp_fut, bounds_fut,
-                cert_min_savings_s, budget, warm_key,
-                lanes: int = 0) -> _LadderResult:
-    """The chunked ladder, one chunk at a time. Between chunks: adopt a
-    finished certified constructor plan; try the optimality certificate
-    on the top winner when the ladder left to skip costs more than
-    ``cert_min_savings_s`` and the bounds are in hand (up to 3 exact
-    reseats over the solve; a tight tier-1 LP on its own thread); reseed
-    the chain engine from the best; honour the deadline.
+                cert_min_savings_s, budget, warm_key, lanes: int = 0,
+                pipeline: bool = True, mega_k: int = 1,
+                chain_lanes: tuple | None = None) -> _LadderResult:
+    """The chunked ladder. Between chunks: adopt a finished certified
+    constructor plan; try the optimality certificate on the top winner
+    when the ladder left to skip costs more than ``cert_min_savings_s``
+    and the bounds are in hand (up to 3 exact reseats over the solve; a
+    tight tier-1 LP on its own thread); reseed the chain engine from the
+    best; honour the deadline.
 
-    ``lanes`` > 0 is the portfolio: ``m`` is a stacked model, the sweep
-    state a lane state, and each chunk runs the lane stepper. The
-    certificate's candidates are then the real lanes' winners (padding
-    lanes are never read), and the first lane to certify retires the
-    ladder as ``winner_lane``."""
-    r = _LadderResult()
+    Every dispatch enqueues its chunk and at once starts the copies of
+    the chunk's winners and curve to pinned host memory (the
+    asynchronous fetch), ahead of any later launch; retiring the chunk
+    waits on the fetch's event, which completes after the chunk's last
+    launch. The boundary reads those host copies.
+
+    ``pipeline`` (the sweep engine): the ladder runs double-buffered —
+    chunk i+1 is enqueued before chunk i is retired, so chunk i's
+    boundary work runs while chunk i+1 runs on the card. The chunk keys
+    are split up front and the sweep state carries its own keys, so the
+    speculative dispatch takes no host decision and the trajectory is
+    the synchronous one. The deadline then decides whether to RETIRE the
+    chunk in flight, not whether to dispatch it; a chunk abandoned at a
+    certificate or the deadline is never read (its launches still run,
+    so final selection queues behind at most one chunk). The chain
+    engine's reseed is a data dependency: it never speculates.
+
+    The injected kernel fault (``_is_pallas_lowering``) re-runs the
+    chunk on the plain versions (``scorer="torch"``, the same device)
+    and records ``pallas_to_xla``; pipelined, the failed speculation is
+    drained first: chunk i retires with nothing in flight, the chunk is
+    retried synchronously (``pipelined_to_sync``), then speculation
+    resumes. No state is ever written in place, so a failed dispatch
+    leaves its input state intact for the retry.
+
+    ``lanes`` > 0 is the portfolio or a batch: ``m`` is a stacked model,
+    the sweep state a lane state, and each chunk runs the lane stepper.
+    The certificate's candidates are then the real lanes' winners
+    (padding lanes are never read), and the first lane to certify
+    retires the ladder as ``winner_lane``. ``bounds_fut`` None turns the
+    certificate off (a batch: its lanes are independent instances, so
+    every fused group runs disarmed). A batch's chain engine passes
+    ``chain_lanes = (lane_seeds [Lp, P, R], keys [Lp, 2])``: each chunk
+    is one lane anneal (``mesh.solve_lanes``), and at each boundary
+    every lane, padding lanes too, reseeds from its own winner with the
+    next key of its own stream.
+
+    ``mega_k`` > 1 fuses K consecutive sweep chunks into one group
+    (``mesh.solve_megachunk``): one host round trip retires K chunks,
+    and an armed group tests the certificate's device-side precheck
+    after each step, stopping early when a chain qualifies. Any fault
+    inside a group that the host fallback would take (``_degradable``:
+    the injected kernel fault is one) drains to the per-chunk walkers
+    (``megachunk_to_chunked``), which re-enter at the first chunk no
+    group finished and own the finer recovery."""
+    r = _LadderResult(scorer=scorer)
     n = len(chunks)
     reseat_tries = 0
     deadline = budget.deadline
+    # chunk 0's time includes the first launches' setup and a retried
+    # chunk's includes the fault: neither feeds the warm estimate
     warm_chunk_s = None
     last_chunk_s = None
-    wkey = (*warm_key, int(chunks[0].shape[0]) if n else 0, scorer)
-    prior_s = _WARM_CHUNKS.get(wkey)
+    chunk_len = int(chunks[0].shape[0]) if n else 0
+
+    def _wkey(width: int = 1) -> tuple:
+        """The warm registry's key, by fused width: a fused group's
+        per-chunk time lacks the per-dispatch host time an unfused chunk
+        pays, so the two never feed each other's estimate."""
+        return (*warm_key, chunk_len, width, r.scorer)
+
+    prior_s = _WARM_CHUNKS.get(_wkey())
+    mega_warm_s = None
+    mega_prior_s = _WARM_CHUNKS.get(_wkey(mega_k)) if mega_k > 1 else None
+    mega_active = False  # a fused walker owns the ladder
+    handles: list = []  # the retired chunks' curves, in order
 
     def _deadline_now():
         if budget.cancelled:
@@ -871,26 +1070,98 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         return deadline
 
     def _est_chunk_s():
-        for v in (warm_chunk_s, prior_s, last_chunk_s):
+        cands = ((mega_warm_s, mega_prior_s, last_chunk_s) if mega_active
+                 else (warm_chunk_s, prior_s, last_chunk_s))
+        for v in cands:
             if v is not None:
                 return v
         return None
 
-    if n == 1:
-        subs = [key]
+    # the chunk keys, split up front in the sequential order (the sweep
+    # engine ignores them: its keys ride in its state; a batch's chain
+    # lanes carry theirs in chain_lanes)
+    if n == 1 or key is None:
+        subs = [key] * n
     else:
         subs, _k = [], key
         for _ in range(n):
             _k, _s = prng.split(_k)
             subs.append(_s)
-    if engine == "sweep":
-        stepper = (make_lane_stepper_fn if lanes else make_sweep_stepper_fn)(
-            batch, scorer=scorer)
-    else:
-        chain_solve = make_solver_fn(batch, steps_per_round)
+    steppers: dict = {}
+
+    def _stepper():
+        """The chunk runner of the current scorer (the chain engine has
+        one runner whatever the scorer: its CUDA graphs are kept)."""
+        name = r.scorer if engine == "sweep" else "chain"
+        fn = steppers.get(name)
+        if fn is None:
+            fn = steppers[name] = (
+                (make_lane_stepper_fn if lanes else make_sweep_stepper_fn)(
+                    batch, scorer=r.scorer)
+                if engine == "sweep" else make_solver_fn(batch,
+                                                         steps_per_round))
+        return fn
+
+    def _winners(top_a, top_k):
+        return (top_a, top_k) if lanes else (top_a[None], top_k[None])
+
+    def dispatch(i, st):
+        """Enqueue chunk i and start its fetch; returns without waiting
+        for the card. The chaos points fire here."""
+        _chaos_chunk_hooks()
+        td = time.perf_counter()
+        if engine == "sweep":
+            new_state, top_a, top_k, curve = _stepper()(m, st, chunks[i])
+        elif chain_lanes is not None:
+            new_state = None
+            top_a, top_k, curve = solve_lanes(
+                m, batch, chunks[i], lane_seeds=chain_lanes[0],
+                keys=chain_lanes[1], engine="chain",
+                steps_per_round=steps_per_round)
+        else:
+            new_state = None
+            top_a, top_k, curve = _stepper()(m, seed_dev, subs[i],
+                                             chunks[i])
+        pop_a, pop_k = _winners(top_a, top_k)
+        h = fetch_global_async((pop_a, pop_k, curve))
+        r.dispatches += 1
+        return new_state, pop_a, pop_k, h, time.perf_counter() - td
+
+    def _note_fallback(i, e) -> None:
+        nonlocal warm_chunk_s, prior_s, mega_warm_s, mega_prior_s
+        _ladder.note_rung("pallas_to_xla", chunk=i)
+        r.pallas_fallback = repr(e)[:500]
+        r.scorer = "torch"
+        # the plain versions' chunks are slower: restart the warm
+        # estimate under the new scorer's key
+        warm_chunk_s = None
+        prior_s = _WARM_CHUNKS.get(_wkey())
+        mega_warm_s = None
+        mega_prior_s = (_WARM_CHUNKS.get(_wkey(mega_k)) if mega_k > 1
+                        else None)
+        _olog.warn("pallas_fallback", chunk=i, error=repr(e)[:200])
+
+    def dispatch_or_fallback(i, st):
+        """Dispatch with the kernel->plain retry; only with nothing in
+        flight. Returns ``(dispatch tuple, fell_back)``."""
+        try:
+            return dispatch(i, st), False
+        except Exception as e:
+            if not _is_pallas_lowering(e):
+                raise
+            _note_fallback(i, e)
+            return dispatch(i, st), True
+
+    def _retire_wait(h) -> float:
+        tw = time.perf_counter()
+        h.wait()
+        return time.perf_counter() - tw
 
     def boundary(i) -> bool:
-        nonlocal seed_dev, reseat_tries
+        """Retired chunk i's host work: the constructor's adoption, the
+        boundary certificate, the chain engine's reseed. True when the
+        ladder should stop (a certified plan exists)."""
+        nonlocal seed_dev, reseat_tries, chain_lanes
         if i + 1 >= n:
             return False
         if lp_fut is not None and lp_fut.done():
@@ -903,9 +1174,14 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 r.constructed = True
                 return True
         remaining_s = (n - i - 1) * (_est_chunk_s() or 0.0)
-        do_cert = remaining_s > cert_min_savings_s and bounds_fut.done()
+        do_cert = (remaining_s > cert_min_savings_s
+                   and bounds_fut is not None and bounds_fut.done())
         if engine != "sweep" or do_cert:
-            pa, pk = r.pop_a.cpu().numpy(), r.pop_k.cpu().numpy()
+            pa, pk = r.fetched.get()[:2]
+            if chain_lanes is not None:
+                chain_lanes = (pa, np.stack([prng.split(k)[1]
+                                             for k in chain_lanes[1]]))
+                return False
             if lanes:
                 # the real lanes' winners; index j is lane j
                 pa, pk = pa[:lanes], pk[:lanes]
@@ -941,41 +1217,361 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 seed_dev = r.pop_a[int(np.argmax(pk))]
         return False
 
-    dev = m.device
-    for i in range(n):
-        dl = _deadline_now()
-        if dl is not None and i >= 1:
-            est = warm_chunk_s if warm_chunk_s is not None else prior_s
-            if time.perf_counter() > dl or (
-                est is not None and dl - time.perf_counter() < est * 0.9
-            ):
-                r.timed_out = True
-                break
-        tc = time.perf_counter()
-        _chaos_chunk_hooks()
-        if engine == "sweep":
-            sweep_state, top_a, top_k, curve = stepper(m, sweep_state,
-                                                       chunks[i])
-        else:
-            top_a, top_k, curve = chain_solve(m, seed_dev, subs[i],
-                                              chunks[i])
-        r.pop_a, r.pop_k = ((top_a, top_k) if lanes
-                            else (top_a[None], top_k[None]))
-        chunk_s = _sync(dev) - tc
+    def retire_common(i, pop_a, pop_k, h, disp_s, device_s, chunk_s,
+                      fell_back) -> None:
+        """The bookkeeping of retired chunk i, once its fetch is done."""
+        nonlocal warm_chunk_s, last_chunk_s
+        r.pop_a, r.pop_k, r.fetched = pop_a, pop_k, h
         r.rounds_run += int(chunks[i].shape[0])
-        r.curves.append(curve)
+        r.chunks_exec += 1
+        r.dispatch_s += disp_s
+        r.device_s += device_s
         last_chunk_s = chunk_s
-        if i > 0:
+        if i > 0 and not fell_back:
             warm_chunk_s = (chunk_s if warm_chunk_s is None
                             else min(warm_chunk_s, chunk_s))
-        if boundary(i):
-            break
-        dl = _deadline_now()
-        if dl is not None and time.perf_counter() > dl:
-            r.timed_out = i + 1 < n
-            break
+        handles.append(_CurveSlice(h))
+
+    def run_sync(start: int = 0) -> None:
+        """One chunk at a time, retired before the next dispatch (the
+        chain engine, ``pipeline=False``); ``start`` > 0 is a fused
+        walker's drain re-entry."""
+        nonlocal sweep_state
+        for i in range(start, n):
+            dl = _deadline_now()
+            if dl is not None and i >= 1:
+                est = warm_chunk_s if warm_chunk_s is not None else prior_s
+                if time.perf_counter() > dl or (
+                    est is not None and dl - time.perf_counter() < est * 0.9
+                ):
+                    r.timed_out = True
+                    return
+            tc = time.perf_counter()
+            (new_state, pop_a, pop_k, h, disp_s), fb = dispatch_or_fallback(
+                i, sweep_state)
+            device_s = _retire_wait(h)
+            if engine == "sweep":
+                sweep_state = new_state
+            retire_common(i, pop_a, pop_k, h, disp_s, device_s,
+                          time.perf_counter() - tc, fb)
+            if boundary(i):
+                return
+            dl = _deadline_now()
+            if dl is not None and time.perf_counter() > dl:
+                r.timed_out = i + 1 < n
+                return
+
+    def run_pipelined(start: int = 0) -> None:
+        """Double-buffered sweep dispatch: chunk i+1 is enqueued before
+        chunk i is retired; ``start`` > 0 resumes after a fused group
+        drained."""
+        nonlocal sweep_state
+        r.pipelined = True
+        t_mark = time.perf_counter()
+        pending, pend_fb = dispatch_or_fallback(start, sweep_state)
+        i = start
+        while True:
+            new_state, pop_a, pop_k, h, disp_s = pending
+            nxt = None
+            if i + 1 < n:
+                try:
+                    nxt = dispatch(i + 1, new_state)
+                except Exception as e:
+                    if not _is_pallas_lowering(e):
+                        raise
+                    # drain: retire chunk i with nothing in flight; the
+                    # plain retry runs after this boundary
+                    _note_fallback(i + 1, e)
+            device_s = _retire_wait(h)
+            sweep_state = new_state
+            now = time.perf_counter()
+            retire_common(i, pop_a, pop_k, h, disp_s, device_s,
+                          now - t_mark, pend_fb)
+            t_mark = now
+            tb = time.perf_counter()
+            stop = boundary(i)
+            if nxt is not None:
+                r.boundary_overlap_s += time.perf_counter() - tb
+            if stop or i + 1 >= n:
+                # certified (the chunk in flight is abandoned unread) or
+                # done
+                return
+            dl = _deadline_now()
+            if dl is not None:
+                now = time.perf_counter()
+                est = warm_chunk_s if warm_chunk_s is not None else prior_s
+                if now > dl or (est is not None and dl - now < est * 0.9):
+                    r.timed_out = True
+                    return
+            if nxt is not None:
+                pending, pend_fb = nxt, False
+            else:
+                _ladder.note_rung("pipelined_to_sync", chunk=i + 1)
+                pending, _ = dispatch_or_fallback(i + 1, sweep_state)
+                pend_fb = True
+            i += 1
+
+    # ---------------- the fused walkers (mega_k > 1) ----------------
+
+    def _arm_exit(i) -> tuple | None:
+        """The device-side exit's thresholds ``(cert_k, cert_mv)``, under
+        the boundary certificate's own gate: armed only when skipping the
+        ladder past chunk ``i`` saves more than ``cert_min_savings_s`` and
+        the bounds are in hand; else None (a disarmed group)."""
+        if bounds_fut is None or not bounds_fut.done():
+            return None
+        remaining_s = (n - i - 1) * (_est_chunk_s() or 0.0)
+        if remaining_s <= cert_min_savings_s:
+            return None
+        try:
+            lb_exact, ub0 = bounds_fut.result()
+        except Exception:
+            return None
+        return int(ub0), int(lb_exact)
+
+    def dispatch_mega(i, k, st):
+        """Enqueue ONE group over ``chunks[i:i+k]`` and start its fetch.
+        A group narrower than ``mega_k`` pads with repeats of its last
+        chunk under a cleared ``active``. Returns ``((new_state, pop_a,
+        pop_k, fetch, execd), armed, dispatch_s)``."""
+        _chaos_chunk_hooks()
+        _chaos.raise_if("megachunk_fault")
+        td = time.perf_counter()
+        group = list(chunks[i:i + k])
+        active = [True] * k + [False] * (mega_k - k)
+        while len(group) < mega_k:
+            group.append(group[-1])
+        arm = _arm_exit(i + k - 1)
+        cert_k, cert_mv = arm if arm is not None else (None, None)
+        fn = solve_lanes_megachunk if lanes else solve_megachunk
+        (new_state, top_a, top_k, cert_a, cert_ok, cert_mvs, curves,
+         execd) = fn(m, batch, np.stack(group), st,
+                     active=np.asarray(active), cert_k=cert_k,
+                     cert_mv=cert_mv, scorer=r.scorer)
+        pop_a, pop_k = _winners(top_a, top_k)
+        # an armed group also copies its certificate snapshot
+        certs = (cert_a, cert_ok, cert_mvs) if arm is not None else ()
+        h = fetch_global_async((pop_a, pop_k, curves, *certs))
+        r.dispatches += 1
+        return ((new_state, pop_a, pop_k, h, execd), arm is not None,
+                time.perf_counter() - td)
+
+    def _read_exec(execd, k, armed) -> tuple:
+        """How many of the group's ``k`` chunks executed, and whether it
+        exited early. A disarmed group runs all ``k``."""
+        if not armed:
+            return k, False
+        e = np.asarray(execd)
+        n_exec = int(e.reshape(-1, e.shape[-1])[0][:k].sum())
+        return n_exec, n_exec < k
+
+    def _certify_exit(h) -> bool:
+        """The host's exact check of a group's flagged exit, as
+        ``boundary`` checks: feasibility, the exact move count, the
+        weight, one leader reseat. True when the certificate holds."""
+        nonlocal reseat_tries
+        ca, ok, mv = h.get()[3:]
+        if lanes:
+            ok, mv, ca = ok[:lanes], mv[:lanes], ca[:lanes]
+        else:
+            ok, mv, ca = ok.reshape(-1), mv.reshape(-1), ca[None]
+        qual = [j for j in range(ok.shape[0]) if ok[j]]
+        if not qual:
+            return False
+        try:
+            lb_exact, ub0 = bounds_fut.result()
+        except Exception:
+            return False
+        # the qualifier with the fewest moves, one candidate only
+        for j in sorted(qual, key=lambda j: int(mv[j]))[:1]:
+            cand = arrays.unpad_candidate(ca[j], inst)
+            if not inst.is_feasible(cand):
+                continue
+            if inst.move_count(cand) > lb_exact:
+                continue
+            w_cand = inst.preservation_weight(cand)
+            if w_cand < ub0 and reseat_tries < 3:
+                reseat_tries += 1
+                cand = inst.best_leader_assignment(cand)
+                w_cand = inst.preservation_weight(cand)
+            if w_cand >= ub0:
+                r.certified_a = cand
+                if lanes:
+                    r.winner_lane = int(j)
+                r.certified_at_s = round(time.perf_counter() - budget.t0, 4)
+                r.mega_early_exit = True
+                return True
+        return False
+
+    def retire_mega(i, k, out, disp_s, armed, group_s) -> tuple:
+        """Retire one group: wait on its fetch, commit the carried state,
+        account the chunks that executed and file its per-chunk time
+        under the fused width's own key. Returns ``(n_exec, early)``."""
+        nonlocal sweep_state, mega_warm_s, last_chunk_s
+        new_state, pop_a, pop_k, h, execd = out
+        device_s = _retire_wait(h)
+        sweep_state = new_state
+        n_exec, early = _read_exec(execd, k, armed)
+        r.pop_a, r.pop_k, r.fetched = pop_a, pop_k, h
+        r.mega_groups += 1
+        r.chunks_exec += n_exec
+        r.dispatch_s += disp_s
+        r.device_s += device_s
+        for j in range(n_exec):
+            r.rounds_run += int(chunks[i + j].shape[0])
+            handles.append(_CurveSlice(h, j, 1 if lanes else 0))
+        per_chunk = group_s / max(1, n_exec)
+        last_chunk_s = per_chunk
+        if i > 0 and n_exec == k == mega_k:
+            mega_warm_s = (per_chunk if mega_warm_s is None
+                           else min(mega_warm_s, per_chunk))
+        return n_exec, early
+
+    def _drain(i, e, to_pipelined: bool) -> None:
+        """``megachunk_to_chunked``: the per-chunk ladder re-enters at
+        chunk ``i``, the first chunk no group finished."""
+        nonlocal mega_active
+        mega_active = False
+        _ladder.note_rung(
+            "megachunk_to_chunked", chunk=i,
+            **({"error": repr(e)[:200]} if e is not None
+               else {"reason": "exit_uncertified"}))
+        if to_pipelined:
+            run_pipelined(start=i)
+        else:
+            run_sync(start=i)
+
+    def run_mega_sync() -> None:
+        """One group at a time: dispatch K chunks, retire, boundary."""
+        nonlocal mega_active
+        mega_active = True
+        r.mega_k = mega_k
+        i = 0
+        while i < n:
+            k = min(mega_k, n - i)
+            dl = _deadline_now()
+            if dl is not None and i >= 1:
+                est = _est_chunk_s()
+                if time.perf_counter() > dl or (
+                    est is not None
+                    and dl - time.perf_counter() < est * k * 0.9
+                ):
+                    r.timed_out = True
+                    return
+            tg = time.perf_counter()
+            try:
+                out, armed, disp_s = dispatch_mega(i, k, sweep_state)
+                n_exec, early = retire_mega(i, k, out, disp_s, armed,
+                                            time.perf_counter() - tg)
+            except Exception as e:
+                if not _degradable(e):
+                    raise
+                _drain(i, e, to_pipelined=False)
+                return
+            if early:
+                if _certify_exit(r.fetched):
+                    return
+                # a flagged exit the host could not certify would flag
+                # again at every step: the per-chunk ladder (whose
+                # certificate has the reseat and tight tiers) takes the
+                # tail from the first chunk not executed
+                _drain(i + n_exec, None, to_pipelined=False)
+                return
+            if boundary(i + k - 1):
+                return
+            dl = _deadline_now()
+            if dl is not None and time.perf_counter() > dl:
+                r.timed_out = i + k < n
+                return
+            i += k
+
+    def run_mega_pipelined() -> None:
+        """Double-buffered groups: group g+1 is enqueued before group g
+        is retired. When group g exits early with g+1 in flight, g+1 ran
+        from g's final state: a certificate that holds abandons g+1
+        unread; one that fails adopts g+1 (its trajectory continues
+        g's) and then drains to the per-chunk ladder."""
+        nonlocal mega_active
+        mega_active = True
+        r.mega_k = mega_k
+        r.pipelined = True
+        t_mark = time.perf_counter()
+        i = 0
+        k = min(mega_k, n)
+        try:
+            pending = dispatch_mega(i, k, sweep_state)
+        except Exception as e:
+            if not _degradable(e):
+                raise
+            _drain(i, e, to_pipelined=True)
+            return
+        while True:
+            out, armed, disp_s = pending
+            new_state = out[0]
+            j, k_next = i + k, min(mega_k, n - i - k)
+            nxt, drain_exc = None, None
+            if k_next > 0:
+                try:
+                    nxt = dispatch_mega(j, k_next, new_state)
+                except Exception as e:
+                    if not _degradable(e):
+                        raise
+                    drain_exc = e
+            n_exec, early = retire_mega(i, k, out, disp_s, armed,
+                                        time.perf_counter() - t_mark)
+            h = r.fetched
+            t_mark = time.perf_counter()
+            tb = time.perf_counter()
+            stop = early or boundary(i + k - 1)
+            if nxt is not None:
+                r.boundary_overlap_s += time.perf_counter() - tb
+            if early:
+                if _certify_exit(h):
+                    return  # the group in flight is abandoned unread
+                if nxt is not None:
+                    out2, armed2, disp2 = nxt
+                    n2, early2 = retire_mega(j, k_next, out2, disp2, armed2,
+                                             time.perf_counter() - t_mark)
+                    t_mark = time.perf_counter()
+                    if early2 and _certify_exit(r.fetched):
+                        return
+                    _drain(j + n2, None, to_pipelined=True)
+                    return
+                _drain(i + n_exec, None, to_pipelined=True)
+                return
+            if stop or k_next <= 0:
+                return
+            dl = _deadline_now()
+            if dl is not None:
+                nowd = time.perf_counter()
+                est = _est_chunk_s()
+                if nowd > dl or (
+                    est is not None and dl - nowd < est * k_next * 0.9
+                ):
+                    r.timed_out = True
+                    return
+            if drain_exc is not None:
+                _drain(j, drain_exc, to_pipelined=True)
+                return
+            pending = nxt
+            i, k = j, k_next
+
+    if engine == "sweep" and mega_k > 1 and n > 1:
+        # the fused ladder; its faults drain to the per-chunk walkers
+        if pipeline:
+            run_mega_pipelined()
+        else:
+            run_mega_sync()
+    elif pipeline and engine == "sweep" and n > 1:
+        run_pipelined()
+    else:
+        run_sync()
+    # every copy was started at its chunk's dispatch: by now on the host
+    r.curves = [h.get() for h in handles]
     if warm_chunk_s is not None:
-        _WARM_CHUNKS.update(wkey, warm_chunk_s)
+        _WARM_CHUNKS.update(_wkey(), warm_chunk_s)
+    if mega_warm_s is not None:
+        _WARM_CHUNKS.update(_wkey(mega_k), mega_warm_s)
     return r
 
 
@@ -1100,9 +1696,10 @@ def _verify(inst: ProblemInstance, m: arrays.ModelArrays,
 def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
                  budget, t0, bounds_fut, lp_fut, lp_wait_s,
-                 portfolio=None, warm_start=None) -> SolveResult:
+                 portfolio=None, warm_start=None, checkpoint=None,
+                 pipeline=True, megachunk=None) -> SolveResult:
     certified_a, lp_warm, lp_warm_extends = _await_constructor(
-        lp_fut, lp_wait_s, budget)
+        lp_fut, lp_wait_s, checkpoint, budget)
     constructed = early_stopped = certified_a is not None
     t_race = time.perf_counter()
     final_cert = None
@@ -1110,6 +1707,8 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     m = None
     bkt_parts = bkt_rf = None
     lad = _LadderResult()
+    chunks: list = []
+    mega_mode = "off"
     pw, port_lanes, port_cfgs = 1, 0, []
     if certified_a is None:
         platform = "gpu" if dev.type == "cuda" else "cpu"
@@ -1128,7 +1727,7 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             t_lo = 0.02 if engine == "sweep" else 0.05
         scorer = "cuda" if dev.type == "cuda" else "torch"
         a_seed, resumed, warm_started = _pick_seed(
-            inst, lp_warm, lp_warm_extends, warm_start)
+            inst, lp_warm, lp_warm_extends, checkpoint, warm_start)
         t_seed = time.perf_counter()
         bkt_parts, bkt_rf = bucket.bucket_shape(inst)
         m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
@@ -1168,14 +1767,17 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                            if engine == "sweep" else None)
             warm_key = (engine, batch, steps_per_round, int(bkt_parts),
                         int(bkt_rf))
+        mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
         t_lower = _sync(dev)
         lad = _run_ladder(
             inst, m_solver, batch, steps_per_round, engine, scorer, chunks,
             seed_dev, key, sweep_state, lp_fut, bounds_fut,
             cert_min_savings_s, budget, warm_key,
-            lanes=pw if port_lanes else 0,
+            lanes=pw if port_lanes else 0, pipeline=pipeline,
+            mega_k=mega_k,
         )
         t_ladder = _sync(dev)
+        scorer = lad.scorer
         if lad.timed_out:
             # the deadline rung: the ladder returned best-so-far early
             _ladder.note_rung("deadline_truncated",
@@ -1213,6 +1815,18 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     weight = inst.preservation_weight(best_a)
     feasible = all(v == 0 for v in viol.values())
     moves_final = int(inst.move_count(best_a))
+    if checkpoint:
+        # persist BEFORE the certification joins below, which may block
+        # on a straggling LP: a solve killed there keeps its plan. A
+        # failed write (disk full, permissions, the chaos point) is the
+        # checkpoint_skipped rung: the verified plan is still returned
+        try:
+            _chaos.raise_if("checkpoint_write", OSError)
+            ckpt.save(checkpoint, inst, best_a, meta={
+                "objective": int(weight), "feasible": feasible,
+                "moves": moves_final, "engine": engine})
+        except Exception as e:
+            _ladder.note_rung("checkpoint_skipped", error=repr(e)[:200])
     # the optimality certificate: a plan meeting both bounds is a proven
     # optimum; the tier-1 escalation is allowed without a deadline only
     if certified_a is not None:
@@ -1236,8 +1850,8 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         arrays.note_portfolio_result(
             port_cfgs[winner_lane] if winner_lane is not None else None)
     # the best-score trajectory (the max over lanes on the portfolio)
-    curve = (torch.cat([c.reshape(-1, c.shape[-1]) for c in lad.curves],
-                       -1).max(0).values.cpu().numpy()
+    curve = (np.concatenate([c.reshape(-1, c.shape[-1]) for c in lad.curves],
+                            -1).max(0)
              if lad.curves else np.zeros(0, np.int64))
     return SolveResult(
         a=best_a,
@@ -1274,6 +1888,26 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             "time_limit_s": time_limit_s,
             "steps_per_round": steps_per_round,
             "steps_per_round_ignored": steps_per_round_ignored,
+            # the ladder's dispatch: whether speculation ran, the host
+            # time enqueueing, the host time blocked on the card, the
+            # boundary work done behind a chunk in flight, the dispatches
+            "pipeline": lad.pipelined,
+            "dispatch_s": round(lad.dispatch_s, 4),
+            "device_s": round(lad.device_s, 4),
+            "boundary_overlap_s": round(lad.boundary_overlap_s, 4),
+            "dispatches": lad.dispatches,
+            # the fused ladder: its width, how it was chosen, its groups
+            # and chunks, and whether a group's certificate retired it
+            **({"megachunk": {
+                "k": lad.mega_k,
+                "mode": mega_mode,
+                "groups": lad.mega_groups,
+                "dispatches": lad.dispatches,
+                "chunks": lad.chunks_exec,
+                "early_exit": lad.mega_early_exit,
+            }} if engine == "sweep" and chunks else {}),
+            **({"pallas_fallback": lad.pallas_fallback}
+               if lad.pallas_fallback else {}),
             # the portfolio's geometry, its winning lane and config, and
             # whether a lane's certificate retired the ladder (a boundary
             # adoption of the constructor's plan is no portfolio win)
@@ -1350,19 +1984,21 @@ def solve_tpu_batch(
     brokers or racks differ cannot stack: they are solved one by one
     with :func:`solve_tpu`, tagged ``stats["lane_fallback"]``.
     ``portfolio`` is honoured there only: the lanes of a batch are its
-    instances.
+    instances. ``pipeline`` and ``megachunk`` schedule the lane ladder as
+    in :func:`solve_tpu`; a fused group of a batch always runs disarmed
+    (independent instances never share an early exit).
 
     The degradation-rung collector wraps the call: rungs the shared lane
     ladder takes apply to every lane, while a lane's own rungs on the
     unstackable fallback land on that lane's ``stats["degradations"]``
     only."""
-    _refuse_unported(dict(n_devices=n_devices, pipeline=pipeline,
-                          megachunk=megachunk, trace=trace,
+    _refuse_unported(dict(n_devices=n_devices, trace=trace,
                           precompile=precompile))
+    megachunk = _resolve_megachunk(megachunk)
     with _ladder.collect() as rungs:
         results = _solve_tpu_batch(
             insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
-            time_limit_s, certify, portfolio, device)
+            time_limit_s, certify, portfolio, device, pipeline, megachunk)
         for r in results:
             combined = list(rungs or ()) + r.stats.get("degradations", [])
             if combined:
@@ -1371,9 +2007,11 @@ def solve_tpu_batch(
 
 
 def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
-                     t_lo, time_limit_s, certify, portfolio, device):
+                     t_lo, time_limit_s, certify, portfolio, device,
+                     pipeline, megachunk):
     t0 = time.perf_counter()
     dev = resolve_device(device)
+    pipeline = _PIPELINE_DEFAULT if pipeline is None else bool(pipeline)
     if not insts:
         return []
     if isinstance(seeds, int):
@@ -1389,18 +2027,21 @@ def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                 r = solve_tpu(inst, seed=s, engine=engine, batch=batch,
                               rounds=rounds, sweeps=sweeps, t_hi=t_hi,
                               t_lo=t_lo, time_limit_s=time_limit_s,
-                              portfolio=portfolio, device=device)
+                              pipeline=pipeline, portfolio=portfolio,
+                              megachunk=megachunk, device=device)
             if lane_rungs:
                 r.stats["degradations"] = list(lane_rungs)
             r.stats["lane_fallback"] = "brokers/racks differ across lanes"
             results.append(r)
         return results
     return _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps,
-                             t_hi, t_lo, time_limit_s, certify, t0, dev)
+                             t_hi, t_lo, time_limit_s, certify, t0, dev,
+                             pipeline, megachunk)
 
 
 def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
-                      t_lo, time_limit_s, certify, t0, dev):
+                      t_lo, time_limit_s, certify, t0, dev, pipeline=True,
+                      megachunk=None):
     for inst in insts:
         inst._bounds_cancelled = False
         inst._construct_path = None
@@ -1426,62 +2067,34 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
         lane_seeds[i], inst))) for i, inst in enumerate(insts)]
     scorer = "cuda" if dev.type == "cuda" else "torch"
 
-    deadline = Budget(time_limit_s, t0=t0).deadline
     chunks = _build_chunks(biggest, engine, rounds, t_hi, t_lo,
                            time_limit_s)
-    n = len(chunks)
-    state = None
-    cur_seeds, cur_keys = lane_seeds, keys
-    curves = []
-    rounds_run = 0
-    timed_out = False
-    pop_a = None
-    dispatches = 0
-    warm_chunk_s = None
-    wkey = ("lanes", Lp, engine, batch, steps_per_round, int(bkt_parts),
-            int(bkt_rf), int(chunks[0].shape[0]) if n else 0, scorer)
-    prior_s = _WARM_CHUNKS.get(wkey)
-    for ci in range(n):
-        if deadline is not None and ci >= 1:
-            est = warm_chunk_s if warm_chunk_s is not None else prior_s
-            if est is not None and deadline - time.perf_counter() < est * 0.9:
-                timed_out = True
-                break
-        tc = time.perf_counter()
-        _chaos_chunk_hooks()
-        out = solve_lanes(m_stack, batch, chunks[ci], state=state,
-                          lane_seeds=cur_seeds, keys=cur_keys,
-                          engine=engine, steps_per_round=steps_per_round,
-                          scorer=scorer)
-        dispatches += 1
-        if engine == "sweep":
-            state, pop_a, _pk, cv = out
-        else:
-            pop_a, _pk, cv = out
-        chunk_s = _sync(dev) - tc
-        rounds_run += int(chunks[ci].shape[0])
-        curves.append(cv)
-        if ci > 0:
-            warm_chunk_s = (chunk_s if warm_chunk_s is None
-                            else min(warm_chunk_s, chunk_s))
-        over = deadline is not None and time.perf_counter() > deadline
-        if engine != "sweep" and ci + 1 < n and not over:
-            # the chain engine reseeds each lane from its winner with a
-            # fresh key of its own stream (padding lanes too)
-            cur_seeds = pop_a.cpu().numpy()
-            cur_keys = np.stack([prng.split(k)[1] for k in cur_keys])
-        if over:
-            timed_out = ci + 1 < n
-            break
-    if timed_out:
-        _ladder.note_rung("deadline_truncated", rounds_run=rounds_run)
-    if warm_chunk_s is not None:
-        _WARM_CHUNKS.update(wkey, warm_chunk_s)
+    warm_key = ("lanes", Lp, engine, batch, steps_per_round, int(bkt_parts),
+                int(bkt_rf))
+    mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
+    # the single path's ladder with the certificate off (no bounds): the
+    # lanes are independent instances, so no lane retires the others and
+    # every fused group runs disarmed
+    lad = _run_ladder(
+        insts[0], m_stack, batch, steps_per_round, engine, scorer, chunks,
+        None, None,
+        (init_lane_state(m_stack, lane_seeds, keys, batch)
+         if engine == "sweep" else None),
+        None, None, 0.0, Budget(time_limit_s, t0=t0), warm_key, lanes=L,
+        pipeline=pipeline, mega_k=mega_k,
+        chain_lanes=None if engine == "sweep" else (lane_seeds, keys),
+    )
+    if lad.timed_out:
+        _ladder.note_rung("deadline_truncated", rounds_run=lad.rounds_run)
     t_solve = _sync(dev)
-    curve = torch.cat(curves, -1).cpu().numpy()  # [Lp, rounds_run]
-    plans = pop_a.cpu().numpy()
+    curve = np.concatenate(lad.curves, -1)  # [Lp, rounds]
+    plans = lad.fetched.get()[0]
     wall = time.perf_counter() - t0
     viols = _verify_lanes(insts, m_stack, plans)
+    mega = ({"k": lad.mega_k, "mode": mega_mode, "groups": lad.mega_groups,
+             "dispatches": lad.dispatches, "chunks": lad.chunks_exec,
+             "early_exit": lad.mega_early_exit}
+            if engine == "sweep" and chunks else None)
     results = []
     for i, inst in enumerate(insts):
         best_a = arrays.unpad_candidate(plans[i], inst)
@@ -1505,13 +2118,17 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                 "devices": 1,
                 "chains_per_device": batch,
                 "rounds": rounds,
-                "rounds_run": rounds_run,
-                "timed_out": timed_out,
+                "rounds_run": lad.rounds_run,
+                "timed_out": lad.timed_out,
                 "bucket_parts": int(bkt_parts),
                 "bucket_rf": int(bkt_rf),
-                "scorer": scorer,
+                "scorer": lad.scorer,
+                "pipeline": lad.pipelined,
                 # one ladder served every lane: these describe the batch
-                "dispatches": dispatches,
+                "dispatches": lad.dispatches,
+                **({"megachunk": dict(mega)} if mega else {}),
+                **({"pallas_fallback": lad.pallas_fallback}
+                   if lad.pallas_fallback else {}),
                 "proved_optimal": proved,
                 "time_limit_s": time_limit_s,
                 "seed_moves": seed_moves[i],

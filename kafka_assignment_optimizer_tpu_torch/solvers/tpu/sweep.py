@@ -962,3 +962,99 @@ def make_sweep_solver_fn(n_chains: int, snapshot_every: int = 8,
         return top_a, top_k, curve
 
     return solve
+
+
+# the never-firing early-exit thresholds of a disarmed fused group: a
+# chain qualifies when ``best_k >= cert_k and best_mv <= cert_mv``, and
+# no key reaches int32 max and no move count is negative
+MEGA_DISARMED_KEY = _IMAX
+MEGA_DISARMED_MOVES = -1
+
+
+def make_mega_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
+                              scorer: str = "torch"):
+    """K consecutive chunk steps as one fused group over L lanes (the
+    reference's ``make_mega_lane_stepper_fn``): ``(m_stack, state, temps
+    [K, c], active [K] bool, cert_k, cert_mv) -> (state', top_a [L, P,
+    R], top_k [L], cert_a [L, P, R], cert_ok [L], cert_mv_out [L], curves
+    [L, K, c], execd [L, K])``.
+
+    Each executed step is the UNCHANGED :func:`make_lane_stepper_fn` run
+    on the carried state, so a group replays the chunked ladder bit for
+    bit. A step runs when ``active`` holds (a short tail clears the
+    padding steps) and no chain has qualified yet; a skipped step leaves
+    every state leaf alone, the host-side keys included, and emits a
+    zero curve. After each executed step of an ARMED group, a chain
+    qualifies when ``best_k >= cert_k and best_mv <= cert_mv`` (the
+    boundary certificate's device-side precheck); one qualifying chain in
+    any lane sets the group's shared ``done`` flag (the reference's
+    ``pmax`` over its lane axis) and the remaining steps are skipped.
+
+    The keys live on the host, so a skip is a host decision, not a
+    device-side select: a DISARMED group (the sentinels
+    ``MEGA_DISARMED_KEY``/``MEGA_DISARMED_MOVES``) skips exactly where
+    ``active`` is clear, which the host already knows, and reads nothing
+    from the device; an ARMED group reads its one-element ``done`` flag
+    after each executed step (one small device-to-host copy, which waits
+    for that step: the only host read inside a group). ``execd`` is
+    therefore host data (numpy). ``cert_a`` is each lane's qualifying
+    snapshot with the fewest moves (``cert_mv_out`` its moves, int32 max
+    when none qualifies)."""
+    chunk = make_lane_stepper_fn(n_chains, snapshot_every, scorer)
+
+    def solve(m: ModelArrays, state, temps, active, cert_k, cert_mv):
+        temps = np.asarray(temps, np.float32)
+        active = np.asarray(active, bool)
+        K, c = temps.shape
+        cert_k, cert_mv = int(cert_k), int(cert_mv)
+        armed = (cert_k, cert_mv) != (MEGA_DISARMED_KEY, MEGA_DISARMED_MOVES)
+        a0 = state[0]
+        L = a0.shape[0]
+        done = False
+        curves, execd = [], []
+        for j in range(K):
+            run = bool(active[j]) and not done
+            if run:
+                state, _top_a, _top_k, curve = chunk(m, state, temps[j])
+                if armed:
+                    best_k, best_mv = state[1], state[2]
+                    done = bool(((best_k >= cert_k)
+                                 & (best_mv <= cert_mv)).any())
+            else:
+                curve = torch.zeros(L, c, dtype=state[1].dtype,
+                                    device=a0.device)
+            curves.append(curve)
+            execd.append(run)
+        _a, best_k, best_mv, best_a, _keys = state
+        lanes = torch.arange(L, device=a0.device)
+        tied = best_k == best_k.max(1, keepdim=True).values
+        top = first_argmin_rows(torch.where(tied, best_mv, _IMAX))
+        qual = (best_k >= cert_k) & (best_mv <= cert_mv)
+        cert_ok = qual.any(1)
+        cidx = first_argmin_rows(torch.where(qual, best_mv, _IMAX))
+        cert_mv_out = torch.where(cert_ok, best_mv[lanes, cidx], _IMAX)
+        return (state, best_a[lanes, top], best_k[lanes, top],
+                best_a[lanes, cidx], cert_ok, cert_mv_out,
+                torch.stack(curves, 1),
+                np.broadcast_to(np.asarray(execd, bool), (L, K)).copy())
+
+    return solve
+
+
+def make_mega_stepper_fn(n_chains: int, snapshot_every: int = 8,
+                         scorer: str = "torch"):
+    """:func:`make_mega_lane_stepper_fn` on one model: ``(m, state,
+    temps [K, c], active [K], cert_k, cert_mv) -> (state', top_a [P, R],
+    top_k, cert_a [P, R], cert_ok, cert_mv_out, curves [K, c], execd
+    [K])`` with the single-model sweep state of
+    :func:`make_sweep_stepper_fn`."""
+    lanes = make_mega_lane_stepper_fn(n_chains, snapshot_every, scorer)
+
+    def solve(m: ModelArrays, state, temps, active, cert_k, cert_mv):
+        a, best_k, best_mv, best_a, key = state
+        out = lanes(_one_lane(m), (a[None], best_k[None], best_mv[None],
+                                   best_a[None], np.asarray(key)[None]),
+                    temps, active, cert_k, cert_mv)
+        return (tuple(x[0] for x in out[0]), *(x[0] for x in out[1:]))
+
+    return solve

@@ -12,9 +12,12 @@ kernels (one launch for L lanes) against L launches of the single-lane
 wrappers and against their lane plain versions, at L = 1, 3 and 8, on a
 portfolio's mixed configs and on a batch whose tables and bands differ;
 more lanes than one launch takes, split into launches of lane groups;
-the lane stepper's ``cuda`` bundle against its ``torch`` bundle; and the
-exchange launcher's host draws against ``prng``'s. Exact equality
-throughout.
+the lane stepper's ``cuda`` bundle against its ``torch`` bundle; the
+exchange launcher's host draws against ``prng``'s; and the pipelined
+ladder's two promises on the card: a chunk enqueued from the retired
+chunk's state and then abandoned leaves the retired chunk's outputs as a
+synchronous run left them, and the asynchronous fetch equals a blocking
+copy. Exact equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -44,6 +47,7 @@ from kafka_assignment_optimizer_tpu_torch.ops import (
 )
 from kafka_assignment_optimizer_tpu_torch.ops import score as tscore
 from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
+    fetch_global_async,
     init_lane_state,
     init_sweep_state,
 )
@@ -376,3 +380,46 @@ def test_lane_stepper_cuda_bundle_replays_torch_bundle(card, kind):
         runs.append(outs)
     for xs, ys in zip(*runs):
         _equal(xs, ys)
+
+
+def test_abandoned_chunk_leaves_the_retired_chunk_intact(card):
+    """The pipelined ladder's speculation: chunk 1 enqueued from chunk
+    0's state before chunk 0 is retired, then abandoned unread, leaves
+    chunk 0's state, winners and curve as a synchronous run left them,
+    and chunk 0's fetch (started before chunk 1 was enqueued) holds
+    them."""
+    m, _a, seed = _model(CASES[3], card)
+    temps = arrays.geometric_temps(2.0, 0.02, 32)
+    step = sweep.make_sweep_stepper_fn(4, scorer="cuda")
+    st = init_sweep_state(m, seed, prng.PRNGKey(9), 4)
+    st0, a0, k0, c0 = step(m, st, temps[:16])
+    torch.cuda.synchronize()
+    want = [x.clone() for x in (*st0[:4], a0, k0, c0)]
+    keys = np.array(st0[4])
+    st = init_sweep_state(m, seed, prng.PRNGKey(9), 4)
+    st0, a0, k0, c0 = step(m, st, temps[:16])
+    h = fetch_global_async((a0, k0, c0))
+    _st1, _a1, _k1, _c1 = step(m, st0, temps[16:])  # abandoned
+    got = h.get()
+    torch.cuda.synchronize()
+    _equal([*st0[:4], a0, k0, c0], want)
+    np.testing.assert_array_equal(st0[4], keys)
+    for x, y in zip(got, want[4:]):
+        np.testing.assert_array_equal(x, y.cpu().numpy())
+
+
+def test_async_fetch_equals_blocking_copy(card):
+    """``fetch_global_async`` of a tensor and of a tuple, on the card,
+    equals ``.cpu()`` of the same tensors, whatever their dtype and
+    layout, and ``get`` is idempotent."""
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 10_240, 4), generator=g,
+                      device=card, dtype=torch.int32)
+    y = torch.rand(8, 128, generator=g, device=card)
+    z = x[:, ::3, 1:]  # a non-contiguous view
+    one = fetch_global_async(x)
+    many = fetch_global_async((y, z, x.sum(-1)))
+    np.testing.assert_array_equal(one.get(), x.cpu().numpy())
+    np.testing.assert_array_equal(one.get(), x.cpu().numpy())
+    for got, t in zip(many.get(), (y, z, x.sum(-1))):
+        np.testing.assert_array_equal(got, t.cpu().numpy())

@@ -236,12 +236,13 @@ def test_unported_keywords_raise(demo):
     port does pass. (``portfolio`` is ported: its values are held to the
     reference's in ``tests/test_torch_portfolio.py``; ``decompose`` and
     ``warm_start`` in ``tests/test_torch_decompose.py`` and
-    ``tests/test_torch_watch.py``.)"""
+    ``tests/test_torch_watch.py``; ``pipeline``, ``megachunk`` and
+    ``checkpoint`` in ``tests/test_torch_pipeline.py``,
+    ``tests/test_torch_megachunk.py`` and
+    ``tests/test_torch_checkpoint.py``.)"""
     current, brokers, topo = port_cluster(*demo)
     inst = build_instance(current, brokers, topo)
-    for kw in (dict(pipeline=True), dict(megachunk=4),
-               dict(megachunk="auto"), dict(n_devices=2),
-               dict(checkpoint="plan.npz"), dict(profile_dir="prof"),
+    for kw in (dict(n_devices=2), dict(profile_dir="prof"),
                dict(precompile=True)):
         with pytest.raises(NotImplementedError):
             engine.solve_tpu(inst, device="cpu", **kw)
@@ -424,7 +425,8 @@ def test_port_never_imports_jax():
     exact host solvers, the race, the sweep engine's portfolio lanes and
     the chain engine), a batch through ``optimize_batch``, a decomposed
     solve (``KAO_DECOMPOSE=1``), ``optimize_delta`` with its warm start, a
-    chaos-armed solve's host fallback, and importing and running
+    pipelined megachunk solve writing a checkpoint (``utils.checkpoint``
+    imported), a chaos-armed solve's host fallback, and importing and running
     chip_smoke.py without a card load neither JAX nor the JAX package."""
     code = (
         "import sys\n"
@@ -460,6 +462,14 @@ def test_port_never_imports_jax():
         "prev_plan=s.current, solver='tpu', device='cpu')\n"
         "assert d.solve.stats['warm_started'], d.solve.stats\n"
         "del os.environ['KAO_DECOMPOSE']\n"
+        "import tempfile\n"
+        "ck = tempfile.mkdtemp() + '/ck.npz'\n"
+        "st = solve(solver='tpu', device='cpu', engine='sweep', sweeps=16, "
+        "time_limit_s=60, megachunk=2, checkpoint=ck)\n"
+        "assert st['megachunk']['k'] == 2 and st['pipeline'], st\n"
+        "from kafka_assignment_optimizer_tpu_torch.utils import checkpoint\n"
+        "assert checkpoint.load(ck, k.build_instance(s.current, "
+        "s.broker_list, s.topology)) is not None\n"
         "from kafka_assignment_optimizer_tpu_torch.resilience import chaos\n"
         "chaos.arm('nan_chunk')\n"
         "st = solve(solver='tpu', device='cpu', engine='sweep', sweeps=8)\n"

@@ -402,7 +402,7 @@ def test_solve_tpu_batch_unstackable_falls_back(batch_cases):
         alone = engine.solve_tpu(insts[i], seed=i, device="cpu", **kw)
         np.testing.assert_array_equal(res.a, alone.a)
     with pytest.raises(NotImplementedError):
-        engine.solve_tpu_batch(insts, device="cpu", pipeline=True)
+        engine.solve_tpu_batch(insts, device="cpu", trace=True)
     with pytest.raises(NotImplementedError):
         engine.solve_tpu_batch(insts, device="cpu", n_devices=2)
     with pytest.raises(ValueError, match="seeds for"):
