@@ -118,7 +118,27 @@ Phases (any failure exits non-zero; nothing is caught):
    after its first step on the card, equal to the CPU's plain path; the
    injected kernel fault at the second chunk takes ``pallas_to_xla`` and
    ``pipelined_to_sync`` with the unfaulted plan; a checkpoint written
-   and resumed.
+   and resumed;
+   (l) the service: ``serve.make_server(port=0)`` in this process, on
+   the card (its default), driven over HTTP with ``urllib``: ``POST
+   /warmup`` for the adversarial shape (its wall and row); the demo
+   through ``/submit`` (``milp``, 1 move, proven); the pinned solo
+   adversarial solve through ``/submit`` (``engine sweep, batch 8,
+   rounds 128, portfolio false`` under the service's 300 s cap: 8 chunks
+   of 16 sweeps), its plan equal to a direct ``optimize`` with the same
+   options and cap, its launches counted, its ``trace_id`` echoed and
+   ``GET /debug/solves/<tid>`` holding a ``ladder`` span with its
+   ``chunk`` children; 5 such requests in a row (the median wall at the
+   client); three concurrent ``/submit`` of (e)'s seeds 0-2 in one
+   coalescing window: one ``optimize_batch``, each lane's plan equal to
+   (e)'s; ``POST /evaluate`` of the solo plan (feasible, proven, 117
+   moves); ``POST /clusters/adv/events`` (bootstrap, then the broker of
+   (i) drained: the plan equal to (i)'s ``optimize_delta``); ``/healthz``
+   and ``/metrics`` scraped; with the default two workers a chain-engine
+   solve and a sweep solve at once, both verified; and with the
+   sanitizer armed and ``nan_chunk``, the status and body the JAX
+   package's service gives on the CPU (pinned there by
+   ``tests/test_torch_sanitize.py``) and one NaN abort on ``/metrics``.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -135,6 +155,10 @@ import sys
 import tempfile
 import time
 
+# the JAX package's service on the CPU answers a sanitized nan_chunk
+# solve so (tests/test_torch_sanitize.py holds both services to it)
+SANITIZED_NAN_CHUNK = (500, {"error": "internal error: chaos: injected "
+                                      "fault at point 'nan_chunk'"})
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 INT32_LANES_PER_SM = 64  # Hopper issues 64 INT32 operations a clock per SM
@@ -1134,6 +1158,7 @@ def delta_phase(torch, dev, power: str) -> None:
               f"{wall:.3f} s ({power}); launches " + json.dumps(counts))
     if not out["optimize_delta"].solve.stats.get("warm_started"):
         fail("delta: the adapted previous plan did not seed the solve")
+    return out["optimize_delta"]
 
 
 def fallback_phase(torch, dev, power: str) -> None:
@@ -1446,6 +1471,289 @@ def dispatch_phase(torch, dev, power: str) -> None:
         fail("checkpoint: the second solve did not resume to the same plan")
     print(f"checkpoint: written, resumed (resumed_from_checkpoint True), "
           f"the same plan; resumed solve wall {w2:.3f} s ({power})")
+
+
+def _http(url: str, path: str, payload=None):
+    """``(status, body, wall s)`` of one request; the body parsed as JSON
+    when it is JSON."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + path, method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode())
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    wall = time.perf_counter() - t0
+    try:
+        return status, json.loads(raw), wall
+    except ValueError:
+        return status, raw.decode(), wall
+
+
+def _spans(sp: dict):
+    yield sp
+    for c in sp.get("spans", ()):
+        yield from _spans(c)
+
+
+def service_phase(torch, power: str, batch3: list, delta) -> None:
+    """(l) The service on the card (see the module docstring). The launch
+    counts are process-wide, so they are read around requests that run
+    alone."""
+    import threading
+
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import optimize, serve
+    from kafka_assignment_optimizer_tpu_torch.analysis import sanitize
+    from kafka_assignment_optimizer_tpu_torch.models.cluster import (
+        demo_assignment,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.resilience import chaos
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    t_phase = time.perf_counter()
+    srv = serve.make_server(port=0)  # tpu solves on the card, the default
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def ok(path, payload=None, label=None):
+        st, body, wall = _http(url, path, payload)
+        if st != 200:
+            fail(f"service {label or path}: {st} {body}")
+        return body, wall
+
+    def payload(scen, **extra):
+        return {"assignment": scen.current.to_dict(),
+                "brokers": list(scen.broker_list),
+                "topology": scen.topology.to_dict(), **extra}
+
+    try:
+        # 1. warm-up of the adversarial shape
+        body, wall = ok("/warmup", {"shapes": [{
+            "brokers": 256, "partitions": 10_000, "rf": 4, "racks": 8}],
+            "engine": "sweep"})
+        print(f"service /warmup (256 brokers, 10,000 partitions, rf 4, 8 "
+              f"racks): wall {wall:.3f} s ({power}); row "
+              + json.dumps(body["warmed"][0]))
+        # 2. the demo through the exact MILP
+        body, _ = ok("/submit", {"assignment": demo_assignment().to_dict(),
+                                 "brokers": "0-18", "topology": "even-odd",
+                                 "solver": "milp"})
+        rep = body["report"]
+        if (rep["replica_moves"], rep["proven_optimal"]) != (1, True):
+            fail(f"service demo: {rep['replica_moves']} moves, proven "
+                 f"{rep['proven_optimal']}")
+        print("service /submit demo (milp): 1 move, proven optimal")
+        # 3. the pinned solo, against a direct optimize under the same cap
+        scen = gen.adversarial()
+        opts = {"engine": "sweep", "batch": 8, "rounds": 128,
+                "portfolio": False}
+        direct = optimize(scen.current, scen.broker_list, scen.topology,
+                          solver="tpu", time_limit_s=300.0, **opts)
+        kernels.reset_counts()
+        body, wall = ok("/submit", payload(scen, solver="tpu",
+                                           options=opts), "pinned solo")
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        rep, tid = body["report"], body.get("trace_id")
+        if body["assignment"] != direct.assignment.to_dict():
+            fail("service pinned solo: the served plan differs from the "
+                 "direct optimize's")
+        if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) != (
+                64, 32) or counts[kernels.SCORE.name] < 1:
+            fail(f"service pinned solo: launches {counts}")
+        if not tid:
+            fail("service pinned solo: no trace_id echoed")
+        trace, _ = ok(f"/debug/solves/{tid}")
+        ladders = [sp for sp in _spans(trace["spans"])
+                   if sp["name"] == "ladder"]
+        chunks = [c for lad in ladders for c in lad.get("spans", ())
+                  if c["name"] == "chunk"]
+        if len(ladders) != 1 or len(chunks) != rep["solver_chunks"]:
+            fail(f"service pinned solo: trace {tid} holds {len(ladders)} "
+                 f"ladder spans and {len(chunks)} chunk spans")
+        print(f"service /submit pinned solo (batch 8, rounds 128, "
+              f"portfolio off, 300 s cap): {rep['solver_engine']} "
+              f"{rep['solver_rounds_run']} sweeps in "
+              f"{rep['solver_dispatches']} chunks, final_cert "
+              f"{rep.get('solver_final_cert')}, {rep['replica_moves']} "
+              f"moves, weight {rep['objective_weight']}, proven "
+              f"{rep['proven_optimal']}, equal to the direct optimize; "
+              f"trace {tid}: 1 ladder span, {len(chunks)} chunk spans; "
+              f"launches {json.dumps(counts)}; wall {wall:.3f} s")
+        solo_plan = body["assignment"]
+        walls = []
+        for _ in range(5):
+            body, wall = ok("/submit", payload(scen, solver="tpu",
+                                               options=opts), "solo x5")
+            if body["assignment"] != solo_plan:
+                fail("service pinned solo: a repeat gave another plan")
+            walls.append(wall)
+        print(f"service pinned solo x5 at the client: median "
+              f"{statistics.median(walls):.3f} s, walls "
+              f"{[round(w, 3) for w in walls]} ({power})")
+        # 4. three concurrent requests coalesced into one batch: the
+        # coalescer holds each request for the group (its bypass off, as
+        # a busy pool would make it) and flushes at three
+        co = serve._COALESCER
+        saved = (co.should_bypass, co.max_batch, co.window_s)
+        co.should_bypass = lambda key: False
+        co.max_batch, co.window_s = 3, 30.0
+        with serve._METRICS_LOCK:
+            batches0 = serve._METRICS["batch_solves_total"]
+        res = [None] * 3
+
+        def one(i):
+            res[i] = _http(url, "/submit", payload(
+                gen.adversarial(seed=i), solver="tpu",
+                options={"seed": i}))
+
+        try:
+            kernels.reset_counts()
+            ths = [threading.Thread(target=one, args=(i,))
+                   for i in range(3)]
+            t0 = time.perf_counter()
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            batch_wall = time.perf_counter() - t0
+            counts = {k.name: k.launches for k in kernels.KERNELS}
+        finally:
+            co.should_bypass = saved[0]
+            co.max_batch, co.window_s = saved[1], saved[2]
+        with serve._METRICS_LOCK:
+            batches = serve._METRICS["batch_solves_total"] - batches0
+        for i, r in enumerate(res):
+            if r is None or r[0] != 200:
+                fail(f"service batch request {i}: {r}")
+            rep = r[1]["report"]
+            if (rep["solver_lanes"], rep["solver_lane_bucket"]) != (3, 8) \
+                    or not r[1].get("coalesced_into"):
+                fail(f"service batch request {i}: lanes "
+                     f"{rep['solver_lanes']}, bucket "
+                     f"{rep['solver_lane_bucket']}")
+            if r[1]["assignment"] != batch3[i]:
+                fail(f"service batch request {i}: the lane's plan differs "
+                     "from (e)'s")
+        if batches != 1:
+            fail(f"service batch: {batches} batched solves, expected 1")
+        print(f"service 3 concurrent /submit (seeds 0-2): one coalesced "
+              f"optimize_batch, 3 lanes padded to 8, each lane equal to "
+              f"(e)'s; moves {[r[1]['report']['replica_moves'] for r in res]}"
+              f"; batch wall at the client {batch_wall:.3f} s ({power}); "
+              f"launches {json.dumps(counts)}")
+        # 5. the audit of the solo plan: host work only (its bound LPs
+        # take tens of seconds at this size), on its own lock, so it runs
+        # beside steps 6-8 and is read before step 9
+        audit = {}
+        audit_t = threading.Thread(target=lambda: audit.update(r=_http(
+            url, "/evaluate", payload(scen, plan=solo_plan))))
+        audit_t.start()
+        # 6. the watch: bootstrap, then (i)'s drain
+        body, _ = ok("/clusters/adv/events", {
+            "type": "bootstrap", "epoch": 1,
+            **payload(scen)}, "bootstrap")
+        drained = scen.broker_list[-1]
+        body, wall = ok("/clusters/adv/events", {
+            "type": "broker_drain", "epoch": 2, "brokers": [drained]},
+            "broker_drain")
+        rep = body["report"]
+        if body["assignment"] != delta.assignment.to_dict():
+            fail("service watch: the drain's plan differs from (i)'s "
+                 "optimize_delta")
+        print(f"service /clusters/adv/events (bootstrap, broker {drained} "
+              f"drained): {rep['solver_engine']}/"
+              f"{rep.get('solver_construct_path')}, {rep['replica_moves']} "
+              f"moves, weight {rep['objective_weight']}, equal to (i)'s "
+              f"optimize_delta; wall {wall:.3f} s")
+        # 7. health and metrics
+        hz, _ = ok("/healthz")
+        st, text, _ = _http(url, "/metrics")
+        families = [ln.split()[2] for ln in text.splitlines()
+                    if ln.startswith("# TYPE ")]
+        if hz["platform"] != "gpu" or st != 200:
+            fail(f"service /healthz platform {hz['platform']}, /metrics "
+                 f"{st}")
+        print(f"service /healthz: platform gpu, cache "
+              + json.dumps({k: hz["cache"][k] for k in (
+                  "executables_held", "exec_hits", "exec_misses",
+                  "compiles_total", "persistent_cache")})
+              + f"; /metrics: {len(families)} families")
+        # 8. two workers: a chain-engine solve beside a sweep solve
+        chain_case = random_cluster(np.random.default_rng(0), 12, 40, 2, 2,
+                                    drop=2)
+        reqs = {
+            "chain": {"assignment": chain_case[0].to_dict(),
+                      "brokers": chain_case[1],
+                      "topology": chain_case[2].to_dict(), "solver": "tpu",
+                      "options": {"engine": "chain",
+                                  "steps_per_round": 256}},
+            "sweep": payload(scen, solver="tpu",
+                             options={**opts, "steps_per_round": 1}),
+        }
+        spans, outs = {}, {}
+
+        def run(name):
+            t0 = time.perf_counter()
+            outs[name] = _http(url, "/submit", reqs[name])
+            spans[name] = (t0, time.perf_counter())
+
+        ths = [threading.Thread(target=run, args=(n,)) for n in reqs]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        for name, r in outs.items():
+            if r[0] != 200 or not r[1]["report"]["feasible"] or \
+                    r[1]["report"]["solver_engine"] != name:
+                fail(f"service two workers ({name}): {r[0]} "
+                     f"{str(r[1])[:300]}")
+        overlap = (max(s[0] for s in spans.values())
+                   < min(s[1] for s in spans.values()))
+        if not overlap:
+            fail("service two workers: the two solves did not overlap")
+        print("service two workers at once: chain engine (512 chains, "
+              "CUDA graphs) and sweep, both feasible and verified; walls "
+              + json.dumps({k: round(v[1] - v[0], 3)
+                            for k, v in spans.items()}) + f" ({power})")
+        audit_t.join(timeout=600)
+        st, body, wall = audit.get("r", (None, None, None))
+        if st != 200 or (body["feasible"], body["proven_optimal"],
+                         body["replica_moves"]) != (True, True, 117):
+            fail(f"service /evaluate: {st} {body}")
+        print(f"service /evaluate of the solo plan (beside steps 6-8): "
+              f"feasible, proven, 117 moves, weight "
+              f"{body['objective_weight']} (bound "
+              f"{body['objective_upper_bound']}), wall {wall:.3f} s")
+        # 9. the sanitizer armed with nan_chunk
+        sanitize.enable()
+        chaos.arm("nan_chunk")
+        try:
+            st, body, _ = _http(url, "/submit", payload(
+                scen, solver="tpu", options=opts))
+            _s, text, _ = _http(url, "/metrics")
+        finally:
+            chaos.disarm()
+            sanitize.disable()
+        aborts = [ln for ln in text.splitlines()
+                  if ln.startswith("kao_sanitizer_nan_aborts_total ")]
+        if (st, body) != SANITIZED_NAN_CHUNK or aborts != [
+                "kao_sanitizer_nan_aborts_total 1"]:
+            fail(f"service sanitized nan_chunk: {st} {body}, {aborts}")
+        print(f"service sanitized nan_chunk: {st} {json.dumps(body)} (the "
+              f"JAX package's service on the CPU gives the same), "
+              f"{aborts[0]}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"service phase: {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -2046,6 +2354,9 @@ def main() -> int:
                                                      plans["off"])):
         fail("lane padding: 3 instances at 8 lanes and at 3 lanes give "
              "different plans")
+    # (e)'s seeds 0-2 as plans, for the service's coalesced batch in (l)
+    batch3 = [inst.decode(a).to_dict() for inst, a in zip(insts[:3],
+                                                           plans["8"])]
     print(f"batch of 3 (seeds 0-2): padded to 8 lanes wall "
           f"{walls['8'][0]:.3f} / {walls['8'][1]:.3f} s, at 3 lanes "
           f"{walls['off'][0]:.3f} / {walls['off'][1]:.3f} s, plans equal "
@@ -2175,9 +2486,11 @@ def main() -> int:
     # (h) the decomposed solve; (i) the delta API; (j) the host fallback;
     # (k) the ladder's dispatch modes
     map_rows = decomposed_phase(torch, dev, power, int32_ops_per_s, tf_ops)
-    delta_phase(torch, dev, power)
+    delta = delta_phase(torch, dev, power)
     fallback_phase(torch, dev, power)
     dispatch_phase(torch, dev, power)
+    # (l) the service on the card
+    service_phase(torch, power, batch3, delta)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

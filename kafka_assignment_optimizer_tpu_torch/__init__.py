@@ -11,8 +11,11 @@ package imports neither JAX nor the reference package.
 - ``decompose`` — the map-reduce solve over a cluster's AZs
 - ``resilience`` — the deadline budget, the chaos harness, the
   degradation ladder
-- ``watch``   — the warm-start adaptation of the delta API
-- ``obs``     — structured log lines
+- ``watch``   — the cluster watch: events, the plan store, the manager,
+  and the warm-start adaptation of the delta API
+- ``obs``     — structured log lines, solve traces, flight records
+- ``analysis`` — the runtime sanitizer
+- ``serve``   — the HTTP service (``python -m ...serve``)
 - ``native``  — the bundled C++ sources (built with g++ at first use)
 - ``ops``     — scoring in plain PyTorch, and the CUDA kernels' wrappers
 - ``csrc``    — the CUDA C++ kernel sources (built with nvcc at first use)
@@ -21,6 +24,7 @@ package imports neither JAX nor the reference package.
 
 from .api import (  # noqa: F401
     OptimizeResult,
+    evaluate,
     optimize,
     optimize_batch,
     optimize_delta,

@@ -1,8 +1,9 @@
 """High-level entry points: ``optimize()`` — parse, build the model, solve,
 decode, diff (the reference package's ``api.optimize``, call for call) —
 ``optimize_delta()``, the same warm-started from the previous plan after
-a cluster event, and ``optimize_batch()``, L prebuilt instances in one
-lane ladder.
+a cluster event, ``optimize_batch()``, L prebuilt instances in one lane
+ladder, and ``evaluate()``, the audit of an existing plan against the
+model and its bounds (host work only).
 
 The solve runs on the card unless the caller passes ``device="cpu"``.
 """
@@ -64,6 +65,13 @@ class OptimizeResult:
             # as a searched one
             **({"degradations": list(self.solve.stats["degradations"])}
                if self.solve.stats.get("degradations") else {}),
+            # which portfolio lane produced the plan, and the fused
+            # ladder's provenance: dicts, which the scalar fold drops,
+            # but they belong on the serving surface
+            **({"solver_portfolio": dict(self.solve.stats["portfolio"])}
+               if self.solve.stats.get("portfolio") else {}),
+            **({"solver_megachunk": dict(self.solve.stats["megachunk"])}
+               if self.solve.stats.get("megachunk") else {}),
         }
 
 
@@ -104,13 +112,20 @@ def optimize(
     result = get_solver(solver)(inst, **solver_kwargs)
     result.stats["build_s"] = round(t_build - t0, 4)
     plan = inst.decode(result.a)
-    return OptimizeResult(
+    out = OptimizeResult(
         assignment=plan,
         moves=move_diff(current, plan),
         solve=result,
         instance=inst,
         wall_clock_s=time.perf_counter() - t0,
     )
+    if result.solver != "tpu":
+        # the device engine records its own flight record; the exact
+        # host backends have none, so theirs lands here
+        from .obs import flight as _flight
+
+        _flight.record_optimize(out)
+    return out
 
 
 def optimize_delta(
@@ -202,3 +217,59 @@ def optimize_batch(
             wall_clock_s=wall,
         ))
     return out
+
+
+def evaluate(
+    current: Assignment | str | dict,
+    broker_list: Sequence[int],
+    plan: Assignment | str | dict,
+    topology: Topology | dict | None = None,
+    target_rf: int | dict | None = None,
+    time_budget_s: float | None = None,
+) -> dict:
+    """Audit an EXISTING plan — ours, another tool's, or
+    ``kafka-reassign-partitions`` output — against the same model and
+    bounds every solver uses (the reference package's ``api.evaluate``).
+    Returns a JSON-able report: feasibility with per-constraint
+    violation counts, replica moves vs the provable minimum, objective
+    weight vs its provable upper bound, and whether the plan is
+    certifiably globally optimal. Host work only: no device is touched.
+    ``time_budget_s`` caps the bound LPs; expired tiers fall back to
+    cheaper bounds (looser verdicts, never a blown deadline)."""
+    if isinstance(current, str):
+        current = Assignment.from_json(current)
+    elif isinstance(current, dict):
+        current = Assignment.from_dict(current)
+    if isinstance(plan, str):
+        plan = Assignment.from_json(plan)
+    elif isinstance(plan, dict):
+        plan = Assignment.from_dict(plan)
+    if isinstance(topology, dict):
+        topology = Topology.from_dict(topology)
+
+    inst = build_instance(current, broker_list, topology, target_rf)
+    if time_budget_s is not None:
+        inst.set_bounds_deadline(time_budget_s)
+    a = inst.encode(plan)
+    viol = inst.violations(a)
+    feasible = all(v == 0 for v in viol.values())
+    # diff the plan AS GIVEN (an infeasible plan may reference
+    # ineligible brokers, which the index space cannot round-trip)
+    moves = move_diff(current, plan)
+    weight = inst.preservation_weight(a)
+    return {
+        "feasible": feasible,
+        "violations": viol,
+        "replica_moves": moves.replica_moves,
+        "min_moves_lower_bound": inst.move_lower_bound_exact(),
+        "leader_changes": moves.leader_changes,
+        "objective_weight": weight,
+        "objective_upper_bound": inst.weight_upper_bound(level=2),
+        # exact-flow-tier declines (int32 overflow -> LP fallback):
+        # nonzero means the bound above may be the looser tier
+        "flow_bound_declines": getattr(inst, "_flow_big_declines", 0),
+        "proven_optimal": feasible and inst.certify_optimal(a),
+        "brokers": inst.num_brokers,
+        "partitions": inst.num_parts,
+        "racks": inst.num_racks,
+    }

@@ -6,19 +6,30 @@ Usage:
         [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
         [--engine chain|sweep] [--seed 0] [--batch 8] [--sweeps 128] \\
         [--device cuda|cpu] [--no-pipeline] [--megachunk K|off] \\
-        [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report]
+        [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report] \\
+        [--trace] [--flight-dir DIR] [--sanitize] [--emit-lp PATH]
+    python -m kafka_assignment_optimizer_tpu_torch --evaluate PLAN.json \\
+        --input current.json --broker-list 0-18 [--topology ...]
+    python -m kafka_assignment_optimizer_tpu_torch --events EVENTS.json \\
+        [--cluster-id NAME] [--watch-dir DIR]
 
 Reads the current assignment from ``--input`` or stdin, writes the plan
 (same dialect) to stdout and, with ``--report``, a solve report to
-stderr. Exit codes: 0 feasible plan, 3 infeasible plan, 2 error. The
-host backends (``milp``, ``native``, ``lp_solve``) ignore ``--device``;
-``auto`` picks ``milp`` for small instances and ``tpu`` at scale.
+stderr. ``--evaluate`` audits an existing plan instead (the report on
+stdout); ``--events`` replays a cluster-change stream through the watch
+manager. Exit codes: 0 feasible plan, 3 infeasible plan (or a fenced
+event), 2 error. The host backends (``milp``, ``native``, ``lp_solve``)
+ignore ``--device``; ``auto`` picks ``milp`` for small instances and
+``tpu`` at scale. The reference's ``--emit-waves`` (the rollout) and
+``--profile-dir`` (its profiler) are not in this package yet: given,
+they exit 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -36,8 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--input", "-i",
                     help="current assignment JSON file (default: stdin)")
-    ap.add_argument("--broker-list", required=True,
-                    help="target brokers, e.g. '0,1,2' or '0-18'")
+    ap.add_argument("--broker-list",
+                    help="target brokers, e.g. '0,1,2' or '0-18' "
+                    "(required except with --events)")
     ap.add_argument(
         "--topology",
         help="broker->rack map: JSON file, inline JSON, or 'even-odd' "
@@ -104,6 +116,63 @@ def build_parser() -> argparse.ArgumentParser:
         "valid certified-or-degraded plan, with every degradation rung "
         "in the --report output",
     )
+    ap.add_argument(
+        "--trace",
+        action="store_true",
+        help="record a span-level solve trace (tpu solver): the solve "
+        "report (phase spans + annealing trajectory) is attached to the "
+        "stderr report as 'solve_report' (implies --report)",
+    )
+    ap.add_argument(
+        "--flight-dir",
+        metavar="DIR",
+        help="solve-cost flight recorder: append one compact JSONL "
+        "cost+quality record per solve under this directory (same as "
+        "KAO_FLIGHT_DIR)",
+    )
+    ap.add_argument(
+        "--sanitize",
+        action="store_true",
+        help="runtime sanitizer mode (same as KAO_SANITIZE=1): the "
+        "ladder's NaN guard, the consumed-state guard and the rebuild "
+        "sentinel; trips fail the solve loudly",
+    )
+    ap.add_argument(
+        "--emit-lp",
+        metavar="PATH",
+        help="also write the lp_solve LP-format equation file",
+    )
+    ap.add_argument(
+        "--evaluate",
+        metavar="PLAN.json",
+        help="audit an existing plan instead of solving: print its "
+        "feasibility, violation counts, moves vs the provable minimum, "
+        "and optimality verdict",
+    )
+    ap.add_argument(
+        "--events",
+        metavar="FILE",
+        help="cluster-watch replay: apply a JSON file of epoch-fenced "
+        "change events (a list, or {'cluster_id', 'events': [...]}) "
+        "through the watch manager the service runs. The first event of "
+        "an unknown cluster must be a 'bootstrap'. Prints the final plan "
+        "to stdout and a line per event to stderr",
+    )
+    ap.add_argument("--cluster-id", default="default",
+                    help="cluster name for --events (default: 'default')")
+    ap.add_argument(
+        "--watch-dir",
+        metavar="DIR",
+        help="durable plan store for --events: a later replay resumes "
+        "at the stored epoch",
+    )
+    # the reference's flags whose subsystem is not in this package yet
+    ap.add_argument("--emit-waves", metavar="DIR",
+                    help="not supported by this package yet (needs the "
+                    "reference's rollout/); exits 2")
+    ap.add_argument("--profile-dir", metavar="DIR",
+                    help="not supported by this package yet (needs the "
+                    "reference's obs/prof.py); exits 2")
     return ap
 
 
@@ -134,6 +203,18 @@ def parse_megachunk(spec: str):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    for flag, dest, mod in (("--emit-waves", "emit_waves", "rollout/"),
+                            ("--profile-dir", "profile_dir",
+                             "obs/prof.py")):
+        if getattr(args, dest):
+            print(f"error: {flag} is not supported by this package yet "
+                  f"(needs {mod} of the reference package)",
+                  file=sys.stderr)
+            return 2
+    if args.sanitize:
+        from .analysis import sanitize as _sanitize
+
+        _sanitize.enable()
     if args.chaos:
         from .resilience import chaos as _chaos
 
@@ -143,37 +224,132 @@ def main(argv: list[str] | None = None) -> int:
             print(f"error: bad --chaos spec: {e}", file=sys.stderr)
             return 2
     try:
+        flight_dir = args.flight_dir or os.environ.get("KAO_FLIGHT_DIR")
+        if flight_dir:
+            from .obs import flight as _flight
+
+            try:
+                _flight.configure(flight_dir)
+            except OSError as e:
+                raise ValueError(f"--flight-dir {flight_dir!r}: {e}") from e
+        if args.events:
+            return _run_events(args)
+        if not args.broker_list:
+            raise ValueError("--broker-list is required (unless --events)")
         text = Path(args.input).read_text() if args.input else sys.stdin.read()
         current = Assignment.from_json(text)
         brokers = parse_broker_list(args.broker_list)
         all_ids = sorted(set(brokers) | set(current.broker_ids()))
         topology = load_topology(args.topology, all_ids)
-        kw = {"seed": args.seed}
-        if args.solver not in _HOST_SOLVERS:
-            kw["device"] = args.device
-        if args.engine:
-            kw["engine"] = args.engine
-        if args.time_limit:
-            kw["time_limit_s"] = args.time_limit
-        if args.batch:
-            kw["batch"] = args.batch
-        if args.sweeps:
-            kw["sweeps"] = args.sweeps
-        if args.checkpoint:
-            kw["checkpoint"] = args.checkpoint
-        if args.no_pipeline:
-            kw["pipeline"] = False
-        if args.megachunk is not None:
-            kw["megachunk"] = parse_megachunk(args.megachunk)
-        if args.decompose:
-            kw["decompose"] = True
-        res = optimize(current, brokers, topology, solver=args.solver, **kw)
+        if args.evaluate:
+            from .api import evaluate
+
+            rep = evaluate(current, brokers,
+                           Path(args.evaluate).read_text(), topology)
+            print(json.dumps(rep, indent=args.indent, default=str))
+            return 0 if rep["feasible"] else 3
+        res = optimize(current, brokers, topology, solver=args.solver,
+                       **_solve_kw(args))
+        if args.emit_lp:
+            from .solvers.lp import emit_lp
+
+            Path(args.emit_lp).write_text(emit_lp(res.instance))
     except (ValueError, KeyError, OSError, RuntimeError) as e:
         msg = e.args[0] if e.args and isinstance(e.args[0], str) else e
         print(f"error: {msg}", file=sys.stderr)
         return 2
     print(res.assignment.to_json(indent=args.indent))
     rep = res.report()
-    if args.report:
+    if args.trace and "solve_report" in res.solve.stats:
+        rep["solve_report"] = res.solve.stats["solve_report"]
+    if args.report or args.trace:
         print(json.dumps(rep, indent=2, default=str), file=sys.stderr)
     return 0 if rep["feasible"] else 3
+
+
+def _solve_kw(args: argparse.Namespace) -> dict:
+    """The solver keywords of the command line (``device`` for the
+    device engine only)."""
+    kw = {"seed": args.seed}
+    if args.solver not in _HOST_SOLVERS:
+        kw["device"] = args.device
+    if args.engine:
+        kw["engine"] = args.engine
+    if args.time_limit:
+        kw["time_limit_s"] = args.time_limit
+    if args.batch:
+        kw["batch"] = args.batch
+    if args.sweeps:
+        kw["sweeps"] = args.sweeps
+    if args.checkpoint:
+        kw["checkpoint"] = args.checkpoint
+    if args.no_pipeline:
+        kw["pipeline"] = False
+    if args.megachunk is not None:
+        kw["megachunk"] = parse_megachunk(args.megachunk)
+    if args.decompose:
+        kw["decompose"] = True
+    if args.trace and args.solver == "tpu":
+        kw["trace"] = True
+    return kw
+
+
+def _run_events(args: argparse.Namespace) -> int:
+    """``--events``: offline replay of a cluster-change stream through the
+    watch state machine — fencing, the durable store and warm-started
+    delta solves as the service's delta API runs them, minus the HTTP."""
+    from .api import optimize_delta
+    from .watch.manager import FencedEpoch, WatchRegistry
+    from .watch.store import PlanStore
+
+    doc = json.loads(Path(args.events).read_text())
+    if isinstance(doc, dict):
+        cluster_id = doc.get("cluster_id", args.cluster_id)
+        events = doc.get("events")
+    else:
+        cluster_id, events = args.cluster_id, doc
+    if not isinstance(events, list) or not events:
+        raise ValueError(
+            "--events file must be a non-empty list of events or "
+            "{'cluster_id', 'events': [...]}"
+        )
+    kw = _solve_kw(args)
+    kw.pop("checkpoint", None)
+
+    def solve_fn(state, prev_plan, budget):
+        res = optimize_delta(
+            state.assignment, state.brokers, state.topology,
+            target_rf=state.rf, prev_plan=prev_plan,
+            solver=args.solver, **kw,
+        )
+        return res.assignment.to_dict(), res.report()
+
+    store = PlanStore(args.watch_dir) if args.watch_dir else None
+    reg = WatchRegistry(solve_fn, store, window_s=0.0)
+    last_plan = None
+    rc = 0
+    for i, ev in enumerate(events):
+        try:
+            out = reg.handle_event(cluster_id, ev)
+        except FencedEpoch as e:
+            print(f"event[{i}] FENCED: {e}", file=sys.stderr)
+            rc = 3
+            continue
+        rep = out.get("report") or {}
+        print(
+            f"event[{i}] type={ev.get('type')} epoch={out['epoch']} "
+            f"status={out['status']} "
+            f"moves={rep.get('replica_moves')} "
+            f"feasible={rep.get('feasible')} "
+            f"warm={bool(rep.get('solver_warm_started'))}",
+            file=sys.stderr,
+        )
+        if out.get("assignment") is not None:
+            last_plan = out["assignment"]
+        if rep and not rep.get("feasible", True):
+            rc = 3
+    if last_plan is None:
+        info = reg.get_cluster(cluster_id) or {}
+        last_plan = info.get("plan")
+    print(json.dumps(last_plan, indent=args.indent))
+    return rc

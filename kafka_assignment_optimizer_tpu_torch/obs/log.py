@@ -1,13 +1,16 @@
 """Structured logging: one line per event, ``key=value`` pairs.
 
-A copy of ``kafka_assignment_optimizer_tpu.obs.log``::
+Replaces the ad-hoc ``print(..., file=sys.stderr)`` call sites in the
+serving path with a single greppable format::
 
-    ts=2026-08-03T12:00:00Z level=info event=degradation rung=sweep_to_chain
+    ts=2026-08-03T12:00:00Z level=info event=solve trace_id=ab12... \
+        solver=tpu wall_s=0.42 feasible=True
 
-Values containing spaces, quotes, ``=`` or newlines are double-quoted
-with backslash escapes; everything stays on one line. The reference
-appends the active solve trace's ID; this package has no solve tracer
-yet, so its lines carry none unless the caller passes ``trace_id``.
+The active trace ID (``obs.trace``) is appended automatically when a
+trace is live on the calling context, so serve/engine log lines join to
+their ``/debug/solves`` report without any plumbing. Values containing
+spaces, quotes, ``=`` or newlines are double-quoted with backslash
+escapes; everything stays on one line.
 """
 
 from __future__ import annotations
@@ -35,11 +38,16 @@ def _fmt(v) -> str:
 def log(event: str, _level: str = "info", _stream=None, **fields) -> None:
     """Emit one structured line to ``_stream`` (default stderr). None
     values are dropped so call sites can pass optional fields blindly."""
+    from .trace import current_trace_id
+
     parts = [
         "ts=" + time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
         f"level={_level}",
         f"event={_fmt(event)}",
     ]
+    tid = current_trace_id()
+    if tid and "trace_id" not in fields:
+        parts.append(f"trace_id={tid}")
     parts += [f"{k}={_fmt(v)}" for k, v in fields.items() if v is not None]
     line = " ".join(parts)
     stream = _stream if _stream is not None else sys.stderr

@@ -6,6 +6,11 @@ that stream, and returns ``cudaGetLastError()``. The sources are compiled
 with ``nvcc`` at first use into shared libraries under ``_build/``
 (content-hashed, so an edited source rebuilds) and loaded with
 ``ctypes``. ``build_all`` starts one ``nvcc`` per source at once.
+``KAO_COMPILE_CACHE`` (the service's ``--compile-cache DIR``) points the
+libraries at another directory, which processes may share: a finished
+build lands with ``os.replace``, so a second process sees all of a
+library or none of it and builds its own. :func:`cache_stats` counts the
+libraries this process loaded ready-built (hits) and built (misses).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that no
 ``a - b*c`` in the accept arithmetic is contracted into an FMA — the
@@ -35,11 +40,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..analysis import sanitize as _sanitize
+from ..obs import flight as _flight
 from ..solvers.tpu.arrays import lane_range
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -53,6 +61,26 @@ HEADERS = ("common.cuh",)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_CACHE = {"hits": 0, "misses": 0, "build_s": 0.0}
+_BUILT: set = set()  # the libraries this process built (its misses)
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: ``KAO_COMPILE_CACHE`` when set (and
+    not ``off``), else ``_build/`` beside the package."""
+    want = os.environ.get("KAO_COMPILE_CACHE", "")
+    if want and want.lower() not in ("off", "0", "none"):
+        return Path(want)
+    return BUILD_DIR
+
+
+def cache_stats() -> dict:
+    """The build directory and this process's traffic against it: hits
+    (a library loaded ready-built), misses (an ``nvcc`` build) and the
+    seconds the builds took. Never waits for a build in progress."""
+    return {"dir": str(build_dir()), "enabled": True,
+            "hits": _CACHE["hits"], "misses": _CACHE["misses"],
+            "build_s": round(_CACHE["build_s"], 4)}
 
 
 def _nvcc() -> str:
@@ -67,29 +95,37 @@ def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (f"{name}.cu", *HEADERS):
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
     """Start ``nvcc`` for one source unless its library is built; returns
-    ``(process, tmp, target)`` or None."""
+    ``(process, tmp, target, t0)`` or None (a hit)."""
     out = _target(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     log = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    dt = time.perf_counter() - t0
+    _CACHE["misses"] += 1
+    _CACHE["build_s"] += dt
+    _BUILT.add(out)
+    # a build inside a solve is that solve's compile time (obs.flight),
+    # and the recompile sentinel's evidence (analysis.sanitize)
+    _flight.note_compile(dt)
+    _sanitize.note_compile(("kernel", out.name))
 
 
 def build_all() -> None:
@@ -109,7 +145,10 @@ def library(name: str) -> ctypes.CDLL:
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(_target(name)))
+            target = _target(name)
+            if target not in _BUILT:
+                _CACHE["hits"] += 1
+            lib = ctypes.CDLL(str(target))
             _LIBS[name] = lib
         return lib
 

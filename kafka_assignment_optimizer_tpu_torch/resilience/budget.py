@@ -5,14 +5,34 @@ budget``: created once per solve, every join, retry and chunk-boundary
 gate asks it for ``remaining()`` instead of re-deriving ``t0 +
 time_limit_s`` (so a retry runs on what is left, never on the original
 limit again), and a caller-owned budget can be cancelled from another
-thread.
+thread. Retries (the watch manager's solve loop, the circuit breaker's
+cooldowns) share one jittered exponential backoff, :func:`backoff_s`.
 """
 
 from __future__ import annotations
 
+import random
 import time
 
-__all__ = ["Budget"]
+__all__ = ["Budget", "backoff_s", "jitter_factor"]
+
+_RNG = random.Random()
+
+
+def jitter_factor(jitter: float) -> float:
+    """Uniform scale factor in ``[1-jitter, 1+jitter]`` (floored at
+    0), the one jitter shape every retry and cooldown shares."""
+    lo = max(0.0, 1.0 - jitter)
+    return lo + (1.0 + jitter - lo) * _RNG.random()
+
+
+def backoff_s(attempt: int, base_s: float = 0.05, cap_s: float = 2.0,
+              jitter: float = 0.5) -> float:
+    """Jittered exponential backoff: ``base * 2**attempt`` capped at
+    ``cap_s``, scaled by :func:`jitter_factor`. ``attempt`` counts
+    from 0 (the first retry)."""
+    raw = min(float(base_s) * (2.0 ** max(int(attempt), 0)), float(cap_s))
+    return raw * jitter_factor(jitter)
 
 
 class Budget:

@@ -7,10 +7,9 @@ most drastic, and every step down is recorded at once in:
 - the solve's ``stats["degradations"]`` list (an ambient collector that
   the engine's entry points activate);
 - the process counter behind :func:`snapshot`;
+- a zero-length ``degrade`` span mark on the active solve trace
+  (``/debug/solves/<id>``);
 - one structured ``degradation`` log line (``obs.log``).
-
-The reference also marks each rung on the active solve trace; this
-package has no solve tracer yet, so that view is left out.
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import threading
+
+from ..obs import trace as _otrace
 
 __all__ = [
     "RUNGS", "note_rung", "collect", "collect_lane", "snapshot", "reset",
@@ -59,13 +60,14 @@ _ACTIVE: contextvars.ContextVar[list | None] = contextvars.ContextVar(
 
 
 def note_rung(rung: str, **attrs) -> None:
-    """Record one step down the ladder: counter + structured log + the
-    ambient per-solve collector."""
+    """Record one step down the ladder: counter + trace mark +
+    structured log + the ambient per-solve collector."""
     with _LOCK:
         _COUNTS[rung] = _COUNTS.get(rung, 0) + 1
     lst = _ACTIVE.get()
     if lst is not None:
         lst.append(rung)
+    _otrace.mark("degrade", rung=rung, **attrs)
     from ..obs import log as _olog
 
     _olog.warn("degradation", rung=rung, **attrs)
@@ -93,7 +95,8 @@ def collect_lane():
     """Per-lane scope inside a batch solve: rungs taken here land on
     the yielded list ONLY, shadowing the batch-level collector — a
     single lane's sequential fallback must not flag the other lanes'
-    stats as degraded (the counter and the log line still fire)."""
+    stats as degraded (the counter, the trace mark and the log line
+    still fire)."""
     lst: list = []
     token = _ACTIVE.set(lst)
     try:

@@ -32,12 +32,17 @@ ties pick the first index; and every write goes to a fresh tensor.
 
 from __future__ import annotations
 
+import itertools
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ... import prng
+from ...analysis import sanitize as _sanitize
+from ...obs import flight as _flight
 from ...ops.score_cuda import score
 from .arrays import LAMBDA, SCALE_W, ModelArrays, u01
 from .sweep import _one_lane
@@ -361,6 +366,26 @@ def _migrate(st: ChainState, k: torch.Tensor, lanes: int) -> ChainState:
                       key=st.key)
 
 
+# every round runner's number: the recompile sentinel's key names the
+# runner whose cache captured a graph
+_RUNNER_IDS = itertools.count()
+# one capture at a time in the process: entering torch.cuda.graph
+# synchronizes the whole device, which another thread's capture in
+# progress forbids (the service solves in several threads)
+_CAPTURE_LOCK = threading.Lock()
+# CUDA-graph captures of this process: count and seconds
+GRAPH_CAPTURES = {"captures": 0, "capture_s": 0.0}
+
+
+def _note_capture(seconds: float, key) -> None:
+    """One graph capture: the process count, the solve's compile time
+    (obs.flight) and the recompile sentinel's evidence."""
+    GRAPH_CAPTURES["captures"] += 1
+    GRAPH_CAPTURES["capture_s"] += seconds
+    _flight.note_compile(seconds)
+    _sanitize.note_compile(key)
+
+
 class _StepGraphs:
     """A round's step loop on the card as CUDA graphs: ``k`` steps of
     every chain captured once over static buffers (the int64 state, ``k``
@@ -432,6 +457,7 @@ def make_round_runner(steps_per_round: int, graph: bool | None = None):
     captured at the runner's first round; ``False`` launches each
     operation eagerly."""
     graphs = {}
+    runner = next(_RUNNER_IDS)
 
     def run_round(m: ModelArrays, st: ChainState, best_k: torch.Tensor,
                   best_a: torch.Tensor, temp):
@@ -443,7 +469,11 @@ def make_round_runner(steps_per_round: int, graph: bool | None = None):
         if st.a.is_cuda if graph is None else graph:
             gkey = (id(m), tuple(st.a.shape))
             if gkey not in graphs:
-                graphs[gkey] = _StepGraphs(m, st, steps_per_round)
+                t0 = time.perf_counter()
+                with _CAPTURE_LOCK:
+                    graphs[gkey] = _StepGraphs(m, st, steps_per_round)
+                _note_capture(time.perf_counter() - t0,
+                              ("chain_graph", runner, *gkey))
             st = graphs[gkey].run(st, temp_div, bits)
         else:
             st = _cast(st, torch.int64)

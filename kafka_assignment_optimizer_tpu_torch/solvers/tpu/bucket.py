@@ -25,6 +25,7 @@ Config:
 from __future__ import annotations
 
 import os
+import threading
 
 # partition ladder: geometric from 32 up — 1.5x below 1024 partitions,
 # 1.25x from there, rounded to multiples of 8 (256 from 4096 up)
@@ -153,3 +154,71 @@ def ladder(n: int = 16) -> list[int]:
 def bucket_shape(inst) -> tuple[int, int]:
     """(partition-bucket, rf-bucket) for a ProblemInstance."""
     return part_bucket(inst.num_parts), rf_bucket(inst.max_rf)
+
+
+class CacheStats:
+    """Process-wide cache counters under the reference's keys (its
+    ``bucket.STATS``, which counts XLA executables). This package compiles
+    no executable per shape, so here:
+
+    - ``bucket_hits``/``bucket_misses``/``padded_solves``: as in the
+      reference, a solve whose bucket key was seen before or not, and a
+      solve whose arrays were padded;
+    - ``exec_hits``: a chunk dispatch whose kernels were built and whose
+      graphs were captured already; ``exec_misses``: one that paid a
+      kernel build (``nvcc``) or a CUDA-graph capture;
+      ``exec_fallbacks``: one that ran on the plain versions after a
+      kernel fault;
+    - ``compiles_total``/``compile_seconds_total``: the kernel builds and
+      graph captures those misses paid, and their seconds.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._seen_buckets: set = set()
+        self._c = {
+            "bucket_hits": 0,
+            "bucket_misses": 0,
+            "padded_solves": 0,
+            "exec_hits": 0,
+            "exec_misses": 0,
+            "compiles_total": 0,
+            "compile_seconds_total": 0.0,
+            "exec_fallbacks": 0,
+        }
+
+    def record_bucket(self, key: tuple, padded: bool) -> bool:
+        """Record one solve's bucket key; returns True on a bucket hit."""
+        with self._lock:
+            hit = key in self._seen_buckets
+            self._seen_buckets.add(key)
+            self._c["bucket_hits" if hit else "bucket_misses"] += 1
+            if padded:
+                self._c["padded_solves"] += 1
+        return hit
+
+    def record_exec(self, hit: bool, compile_s: float = 0.0,
+                    fallback: bool = False) -> None:
+        with self._lock:
+            self._c["exec_hits" if hit else "exec_misses"] += 1
+            if not hit and not fallback:
+                self._c["compiles_total"] += 1
+                self._c["compile_seconds_total"] += float(compile_s)
+            if fallback:
+                self._c["exec_fallbacks"] += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = dict(self._c)
+            out["buckets_seen"] = len(self._seen_buckets)
+        out["compile_seconds_total"] = round(out["compile_seconds_total"], 4)
+        return out
+
+    def seen(self) -> list:
+        """The bucket keys this process has solved."""
+        with self._lock:
+            return sorted(list(k) for k in self._seen_buckets
+                          if isinstance(k, tuple))
+
+
+STATS = CacheStats()

@@ -54,10 +54,16 @@ and flagged ``stats["degraded"]``; every other error raises.
 ``checkpoint`` names an ``.npz`` the solve resumes from when it ranks at
 least as high as the greedy seed and writes its verified plan to.
 :func:`solve_tpu_batch` solves L independent instances in one lane
-ladder (no race, no boundary certificate, no polish). Not here yet: more
-than one device (``n_devices``), profiling (``profile_dir``), warm-up
-solves (``precompile``), span traces (``trace``), the fused width chosen
-from measurements (``megachunk="auto"``) and the sanitizer; their
+ladder (no race, no boundary certificate, no polish). ``trace`` records
+a span-level solve report (``obs.trace``); an ambient trace (the service
+wraps each request in one) collects the solve's spans too. The outermost
+solve lands one flight record (``obs.flight``). ``precompile=True`` (the
+service's warm-up solves) switches the constructor races, the decomposed
+solve and the host fallback off, as in the reference, and records no
+flight. The sanitizer (``analysis.sanitize``, ``KAO_SANITIZE=1``) arms
+the ladder's NaN, consumed-state and rebuild guards. Not here yet: more
+than one device (``n_devices``), profiling (``profile_dir``) and the
+fused width chosen from measurements (``megachunk="auto"``); their
 keywords raise ``NotImplementedError`` unless their value names what
 this engine does.
 
@@ -80,8 +86,11 @@ import torch
 from ... import prng
 from ...models import instance as _instance_mod
 from ...models.instance import ProblemInstance
+from ...analysis import sanitize as _san
 from ...ops.score_cuda import score, score_lanes
+from ...obs import flight as _flight
 from ...obs import log as _olog
+from ...obs import trace as _otrace
 from ...parallel.mesh import (
     fetch_global_async,
     init_lane_state,
@@ -309,8 +318,6 @@ def _defaults(inst: ProblemInstance, platform: str,
 _UNPORTED = {
     "n_devices": (None, 1),
     "profile_dir": (None,),
-    "precompile": (False,),
-    "trace": (None, False),
 }
 
 
@@ -349,6 +356,7 @@ def solve_tpu(
     decompose: bool | None = None,
     megachunk=None,
     device=None,
+    trace: bool | str | None = None,
 ) -> SolveResult:
     """Solve ``inst``: the decomposed solve where it applies, else the
     constructor race, then (unless it certified) the annealing ladder on
@@ -358,32 +366,79 @@ def solve_tpu(
     previous plan adapted to this instance, ``api.optimize_delta``)
     races for a certificate first and competes as the ladder's seed.
 
+    ``trace=True`` (or a trace-ID string) records a span-level solve
+    report (``obs.trace``), attached as ``stats["solve_report"]`` and
+    registered in the ``/debug/solves`` ring; an ambient trace still
+    collects this solve's spans, and its ID lands in ``stats``.
+
     The degradation-rung collector wraps the whole call: every rung any
     layer takes — the chain retry's and a decomposition's own included —
     lands in ``stats["degradations"]`` exactly once, on the outermost
-    solve."""
-    _refuse_unported(dict(
-        n_devices=n_devices, profile_dir=profile_dir, precompile=precompile,
-    ))
+    solve. The flight recorder wraps it the same way: the outermost
+    solve lands one record (a retry or a lane inside another recorded
+    solve feeds the outer record); a failed solve lands a failure
+    record; ``precompile`` solves land none."""
+    _refuse_unported(dict(n_devices=n_devices, profile_dir=profile_dir))
     megachunk = _resolve_megachunk(megachunk)
-    with _ladder.collect() as rungs:
-        res = _solve_tpu(
-            inst, seed, batch, rounds, sweeps, steps_per_round, t_hi, t_lo,
-            engine, time_limit_s, cert_min_savings_s, portfolio,
-            warm_start, budget, decompose, device, checkpoint, pipeline,
-            megachunk,
-        )
-        if rungs:
-            res.stats["degradations"] = list(rungs)
+    nested = _flight.accounting_active()
+    acc_tok = None if nested else _flight.start_accounting()
+    t0 = time.perf_counter()
+    try:
+        with _ladder.collect() as rungs:
+            res = _solve_tpu_traced(
+                inst, trace, seed, batch, rounds, sweeps, steps_per_round,
+                t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
+                portfolio, warm_start, budget, decompose, device,
+                checkpoint, pipeline, megachunk, precompile,
+            )
+            if rungs:
+                res.stats["degradations"] = list(rungs)
+    except BaseException as e:
+        acc = (_flight.end_accounting(acc_tok) if acc_tok is not None
+               else None)
+        if acc is not None and not precompile:
+            # a solve that raises still lands a record
+            _flight.record_failure(inst, acc, time.perf_counter() - t0, e)
+        raise
+    acc = _flight.end_accounting(acc_tok) if acc_tok is not None else None
+    if acc is not None and not precompile:
+        _flight.record_solve(res, inst, acc,
+                             wall_s=time.perf_counter() - t0)
+    return res
+
+
+def _solve_tpu_traced(inst, trace, *args) -> SolveResult:
+    """:func:`_solve_tpu` under its own trace when ``trace`` asks for one;
+    a ``FloatingPointError`` (a NaN abort) is counted by the sanitizer
+    once before it propagates."""
+    tr = _otrace.begin(trace, name="solve_tpu")
+    try:
+        res = _solve_tpu(inst, *args)
+    except BaseException as e:
+        if isinstance(e, FloatingPointError):
+            _san.note_nan_abort_once(e, "solve_tpu")
+        if tr is not None:
+            tr.root.set(error=repr(e)[:200])
+            _otrace.finish(tr)
+        raise
+    if tr is None:
+        tid = _otrace.current_trace_id()
+        if tid:
+            res.stats.setdefault("trace_id", tid)
+        return res
+    res.stats["trace_id"] = tr.trace_id
+    res.stats["solve_report"] = _otrace.finish(tr)
     return res
 
 
 def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
                t_lo, engine, time_limit_s, cert_min_savings_s, portfolio,
                warm_start, budget, decompose, device, checkpoint, pipeline,
-               megachunk) -> SolveResult:
+               megachunk, precompile=False) -> SolveResult:
     t0 = time.perf_counter()
     dev = resolve_device(device)
+    if _san.enabled():
+        _san.install()
     if budget is None:
         budget = Budget(time_limit_s, t0=t0)
     # None defers to the process default (KAO_NO_PIPELINE)
@@ -401,8 +456,8 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
     # stitched and verified against THIS flat instance. None (the split
     # declined, or decompose_to_flat was noted) falls through to the flat
     # path. A warm start and a checkpoint are flat-plan shaped and keep
-    # the flat path
-    if warm_start is None and checkpoint is None:
+    # the flat path, and a precompile solve warms the flat path
+    if not precompile and warm_start is None and checkpoint is None:
         from ...decompose import maybe_decompose, should_decompose
 
         if should_decompose(inst, decompose):
@@ -419,6 +474,7 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
             portfolio, warm_start, checkpoint, pipeline, megachunk,
+            precompile,
         )
         # a DEFAULTED sweep that ends infeasible on an instance small
         # enough for chains retries the chain engine on what is LEFT of
@@ -435,12 +491,15 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
                               remaining_s=remaining)
             _olog.warn("engine_fallback_retry", engine="chain",
                        parts=inst.num_parts)
-            res2 = solve_tpu(
-                inst, seed=seed, engine="chain", batch=batch, t_hi=t_hi,
-                t_lo=t_lo, checkpoint=checkpoint, time_limit_s=remaining,
-                cert_min_savings_s=cert_min_savings_s, pipeline=pipeline,
-                warm_start=warm_start, budget=budget, device=device,
-            )
+            # the retry's phase spans nest under one "retry" span
+            with _otrace.span("retry", engine="chain"):
+                res2 = solve_tpu(
+                    inst, seed=seed, engine="chain", batch=batch, t_hi=t_hi,
+                    t_lo=t_lo, checkpoint=checkpoint,
+                    time_limit_s=remaining,
+                    cert_min_savings_s=cert_min_savings_s, pipeline=pipeline,
+                    warm_start=warm_start, budget=budget, device=device,
+                )
 
             def rank(r):
                 return (r.stats["feasible"], -r.stats["violations"],
@@ -461,17 +520,20 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
 def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
                  budget, t0, portfolio=None, warm_start=None,
-                 checkpoint=None, pipeline=True,
-                 megachunk=None) -> SolveResult:
+                 checkpoint=None, pipeline=True, megachunk=None,
+                 precompile=False) -> SolveResult:
     """Start the bounds prefetch and the constructor worker this
     instance class races (behind the warm-start certificate when there
-    is a warm start), then run the solve; a degradable fault in it
+    is a warm start; none for a ``precompile`` solve, which exists to
+    run the device path), then run the solve; a degradable fault in it
     returns the host fallback's plan."""
 
     def _bounds_body():
-        return inst.move_lower_bound_exact(), inst.weight_upper_bound()
+        # the flow/LP bound computation's own span, inside "bounds"
+        with _otrace.span("bounds_flow"):
+            return inst.move_lower_bound_exact(), inst.weight_upper_bound()
 
-    bounds_fut = _BoundsTask(_bounds_body)
+    bounds_fut = _BoundsTask(_otrace.wrap("bounds", _bounds_body))
     knobs_set = any(
         v is not None
         for v in (engine, batch, rounds, sweeps, steps_per_round, t_hi, t_lo)
@@ -479,13 +541,17 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     members = inst._members()[0].size
     big = members > _instance_mod.AGG_MEMBER_THRESHOLD
     worker_fn = None
-    if inst.caps_bind() or big or inst.agg_effective():
+    worker_path = None
+    if precompile:
+        lp_wait_s = 0.0
+    elif inst.caps_bind() or big or inst.agg_effective():
         reseat_ok = _RESEAT_RACE and not knobs_set
 
         def worker_fn():
             return _construct_worker(inst, bounds_fut,
                                      reseat_fallback=reseat_ok)
 
+        worker_path = "lp"
         lp_wait_s = _CONSTRUCT_WAIT_BIG_S if big else _CONSTRUCT_WAIT_S
     elif (
         not knobs_set
@@ -495,11 +561,13 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         def worker_fn():
             return _exact_worker(inst, bounds_fut)
 
+        worker_path = "milp"
         lp_wait_s = _CONSTRUCT_WAIT_S
     elif not knobs_set and _RESEAT_RACE:
         def worker_fn():
             return _reseat_worker(inst, bounds_fut)
 
+        worker_path = "reseat"
         lp_wait_s = (
             _CONSTRUCT_WAIT_MID_S
             if members > _RESEAT_WAIT_MID_MEMBERS
@@ -507,7 +575,7 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         )
     else:
         lp_wait_s = 0.0
-    if warm_start is not None:
+    if warm_start is not None and not precompile:
         # the adapted previous plan gets first shot at the certificate,
         # IN FRONT of the race worker this class would run (its
         # fall-through), not instead of it
@@ -517,8 +585,11 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             return _warm_certify_worker(inst, bounds_fut, warm_start,
                                         inner_fn)
 
+        worker_path = f"warm+{worker_path}" if worker_path else "warm"
         lp_wait_s = max(lp_wait_s, _CONSTRUCT_WAIT_S)
-    lp_fut = _BoundsTask(worker_fn) if worker_fn is not None else None
+    lp_fut = (_BoundsTask(_otrace.wrap("construct_worker", worker_fn,
+                                       path=worker_path))
+              if worker_fn is not None else None)
     try:
         return _solve_inner(
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
@@ -530,9 +601,10 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         # the ladder's last rung: an injected fault or a NaN abort in the
         # device path still returns a valid, verified plan, flagged
         # degraded. Deliberately narrow (_degradable): a kernel launch or
-        # build error, an out-of-memory error, a failed verification and
-        # every other fault raise with their own traceback
-        if not _degradable(e):
+        # build error, an out-of-memory error, a failed verification, a
+        # sanitizer trip and every other fault raise with their own
+        # traceback, and a precompile solve exists to run the device
+        if precompile or not _degradable(e):
             raise
         return _host_fallback(inst, e, checkpoint, budget, t0,
                               time_limit_s, dev, warm_start=warm_start)
@@ -569,15 +641,17 @@ def _is_pallas_lowering(e: Exception) -> bool:
 def _degradable(e: BaseException) -> bool:
     """Faults that take the host-fallback rung instead of failing the
     solve: injected chaos faults, and ``FloatingPointError`` (a NaN
-    abort). The reference declines the latter while its sanitizer is
-    armed; this package has no sanitizer yet, so it is always disarmed
-    here. Everything else — a CUDA launch error (a ``RuntimeError``, as a
-    ``ChaosFault`` is: never test ``isinstance(e, RuntimeError)``), an
-    ``nvcc`` or loader error, ``torch.cuda.OutOfMemoryError``, an
+    abort) while the sanitizer is NOT armed (armed, the operator asked
+    for loud failure, as in the reference). A sanitizer trip never
+    degrades. Everything else — a CUDA launch error (a ``RuntimeError``,
+    as a ``ChaosFault`` is: never test ``isinstance(e, RuntimeError)``),
+    an ``nvcc`` or loader error, ``torch.cuda.OutOfMemoryError``, an
     ``ImportError`` — must surface with its real traceback."""
+    if isinstance(e, _san.SanitizerError):
+        return False
     if _chaos.is_fault(e):
         return True
-    return isinstance(e, FloatingPointError)
+    return isinstance(e, FloatingPointError) and not _san.enabled()
 
 
 def _host_fallback(inst: ProblemInstance, exc: BaseException,
@@ -594,7 +668,8 @@ def _host_fallback(inst: ProblemInstance, exc: BaseException,
     Certification is still attempted, budget permitting: greedy + exact
     reseat is often the proven optimum."""
     _ladder.note_rung("anneal_to_construct", error=repr(exc)[:200])
-    a = np.asarray(greedy_seed(inst), dtype=np.int32)
+    with _otrace.span("greedy"):
+        a = np.asarray(greedy_seed(inst), dtype=np.int32)
     resumed = False
     warm_used = False
     if checkpoint:
@@ -731,7 +806,8 @@ def _warm_certify_worker(inst: ProblemInstance, bounds_fut, warm_a,
     # touch
     if all(v == 0 for k, v in viol.items() if k != "leader_balance"):
         try:
-            a = inst.best_leader_assignment(a)
+            with _otrace.span("reseat"):
+                a = inst.best_leader_assignment(a)
         except Exception:
             pass  # infeasible transportation: fall through uncertified
         if inst.certify_optimal(a):
@@ -747,14 +823,16 @@ def _reseat_worker(inst: ProblemInstance, bounds_fut) -> tuple:
     repair keeps every keepable member, so the leader arrangement is the
     only gap, and the exact reseat closes it. Returns ``(plan, certified,
     extends_greedy)``; an uncertified plan is still a warm start."""
-    a = np.asarray(greedy_seed(inst), dtype=np.int32)
+    with _otrace.span("greedy"):
+        a = np.asarray(greedy_seed(inst), dtype=np.int32)
     if not inst.is_feasible(a):
         return None, False, False
     try:
         bounds_fut.result()
     except Exception:
         pass
-    a = inst.best_leader_assignment(a)
+    with _otrace.span("reseat"):
+        a = inst.best_leader_assignment(a)
     inst._construct_path = "reseat"
     if inst.certify_optimal(a):
         return a, True, True
@@ -860,11 +938,13 @@ def _await_constructor(lp_fut, lp_wait_s, checkpoint, budget: Budget):
         lp_warm_extends = bool(lp_warm_extends)
     except Exception:
         plan, ok = None, False
-    if ok:
-        return np.asarray(plan, dtype=np.int32), None, lp_warm_extends
-    if plan is not None:
-        return None, np.asarray(plan, dtype=np.int32), lp_warm_extends
-    return None, None, lp_warm_extends
+    # the host time taking a finished constructor plan into the solve
+    with _otrace.span("adopt", certified=bool(ok), plan=plan is not None):
+        if ok:
+            return np.asarray(plan, dtype=np.int32), None, lp_warm_extends
+        if plan is not None:
+            return None, np.asarray(plan, dtype=np.int32), lp_warm_extends
+        return None, None, lp_warm_extends
 
 
 def _pick_seed(inst, lp_warm, lp_warm_extends, checkpoint=None,
@@ -879,7 +959,11 @@ def _pick_seed(inst, lp_warm, lp_warm_extends, checkpoint=None,
     resumed = False
     warm_used = False
     warm_extends = lp_warm is not None and lp_warm_extends
-    a_seed = lp_warm if warm_extends else greedy_seed(inst)
+    if warm_extends:
+        a_seed = lp_warm
+    else:
+        with _otrace.span("greedy"):
+            a_seed = greedy_seed(inst)
     assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
         "seed left unfilled slots"
     )
@@ -935,9 +1019,13 @@ def _build_chunks(inst: ProblemInstance, engine: str, rounds: int,
 
 
 def _sync(dev: torch.device) -> float:
-    """Wait for the device, then read the host clock (phase timing)."""
+    """Wait for this thread's stream on the device, then read the host
+    clock (phase timing). A stream sync, never a device-wide one: the
+    service runs solves in several threads, and synchronizing the whole
+    device while another thread captures a CUDA graph (the chain
+    engine) is an error that would fail this thread's solve."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
     return time.perf_counter()
 
 
@@ -955,6 +1043,18 @@ class _CurveSlice:
         curve = self._h.get()[2]
         return curve if self._j is None else np.take(curve, self._j,
                                                      axis=self._axis)
+
+
+def _build_marks() -> tuple:
+    """``(builds, seconds)`` this process has spent building kernel
+    libraries and capturing the chain engine's CUDA graphs: a dispatch
+    that moves them paid a build (its compile window, a cache miss)."""
+    from ...ops.kernels import cache_stats
+    from .anneal import GRAPH_CAPTURES
+
+    st = cache_stats()
+    return (st["misses"] + GRAPH_CAPTURES["captures"],
+            st["build_s"] + GRAPH_CAPTURES["capture_s"])
 
 
 @dataclass
@@ -1105,23 +1205,53 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
     def _winners(top_a, top_k):
         return (top_a, top_k) if lanes else (top_a[None], top_k[None])
 
+    def _launch(fn, key, temps, st):
+        """One stepper call under the dispatch accounting: the
+        ``dispatch`` span and ledger window (a kernel build or a graph
+        capture inside it is its compile window instead, and makes the
+        dispatch a cache miss) and, armed, the sanitizer's
+        temperature-ladder and consumed-state guards."""
+        _san.check_host(temps, "temperature ladder")
+        _san.check_state(st, key)
+        b0, s0 = _build_marks()
+        td = time.perf_counter()
+        with _otrace.span("dispatch") as dsp:
+            out = fn()
+            b1, s1 = _build_marks()
+            cache = ("miss" if b1 > b0
+                     else "fallback" if r.pallas_fallback else "hit")
+            if dsp is not None:
+                dsp.set(cache=cache)
+        _flight.note_dispatch(cache)
+        _flight.note_window("dispatch",
+                            max(time.perf_counter() - td - (s1 - s0), 0.0))
+        bucket.STATS.record_exec(cache == "hit", compile_s=s1 - s0,
+                                 fallback=cache == "fallback")
+        _san.consume_state(st)
+        return out
+
     def dispatch(i, st):
         """Enqueue chunk i and start its fetch; returns without waiting
         for the card. The chaos points fire here."""
         _chaos_chunk_hooks()
         td = time.perf_counter()
         if engine == "sweep":
-            new_state, top_a, top_k, curve = _stepper()(m, st, chunks[i])
+            new_state, top_a, top_k, curve = _launch(
+                lambda: _stepper()(m, st, chunks[i]), ("chunk", i),
+                chunks[i], st)
         elif chain_lanes is not None:
             new_state = None
-            top_a, top_k, curve = solve_lanes(
-                m, batch, chunks[i], lane_seeds=chain_lanes[0],
-                keys=chain_lanes[1], engine="chain",
-                steps_per_round=steps_per_round)
+            top_a, top_k, curve = _launch(
+                lambda: solve_lanes(
+                    m, batch, chunks[i], lane_seeds=chain_lanes[0],
+                    keys=chain_lanes[1], engine="chain",
+                    steps_per_round=steps_per_round),
+                ("chunk", i), chunks[i], None)
         else:
             new_state = None
-            top_a, top_k, curve = _stepper()(m, seed_dev, subs[i],
-                                             chunks[i])
+            top_a, top_k, curve = _launch(
+                lambda: _stepper()(m, seed_dev, subs[i], chunks[i]),
+                ("chunk", i), chunks[i], None)
         pop_a, pop_k = _winners(top_a, top_k)
         h = fetch_global_async((pop_a, pop_k, curve))
         r.dispatches += 1
@@ -1153,9 +1283,35 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
             return dispatch(i, st), True
 
     def _retire_wait(h) -> float:
+        """Wait for a dispatch's copies (and with them its launches): the
+        ledger's device window. Armed, the sanitizer's NaN guard then
+        checks the float tensors the chunk ran on (one host sync)."""
         tw = time.perf_counter()
-        h.wait()
-        return time.perf_counter() - tw
+        with _otrace.span("device_transfer"):
+            h.wait()
+        device_s = time.perf_counter() - tw
+        _flight.note_device(device_s)
+        _san.check_device((m.lam, m.temp_scale, m.comp_enable),
+                          "chunk outputs")
+        return device_s
+
+    def chunk_attrs(sp, i, disp_s, device_s, overlap_s, h, scorer_ran):
+        """A retired chunk's span attributes: its schedule, its dispatch
+        and device seconds, and the best-score curve's improvements (the
+        copies already on the host)."""
+        if sp is None:
+            return
+        t_np = np.asarray(chunks[i])
+        arr = np.asarray(_CurveSlice(h).get())
+        best = arr.max(axis=tuple(range(arr.ndim - 1)))
+        imp = int((np.diff(best) > 0).sum()) if best.size > 1 else 0
+        sp.set(rounds=int(t_np.shape[0]), t_hi=float(t_np[0]),
+               t_lo=float(t_np[-1]), scorer=scorer_ran,
+               dispatch_s=round(disp_s, 4), device_s=round(device_s, 4),
+               boundary_overlap_s=round(overlap_s, 4),
+               energy_before=int(best[0]) if best.size else None,
+               energy_after=int(best[-1]) if best.size else None,
+               accepts=imp, declines=max(0, int(best.size) - 1 - imp))
 
     def boundary(i) -> bool:
         """Retired chunk i's host work: the constructor's adoption, the
@@ -1170,8 +1326,9 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
             except Exception:
                 plan, ok = None, False
             if ok:
-                r.certified_a = np.asarray(plan, dtype=np.int32)
-                r.constructed = True
+                with _otrace.span("adopt", certified=True, boundary=i):
+                    r.certified_a = np.asarray(plan, dtype=np.int32)
+                    r.constructed = True
                 return True
         remaining_s = (n - i - 1) * (_est_chunk_s() or 0.0)
         do_cert = (remaining_s > cert_min_savings_s
@@ -1246,15 +1403,19 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 ):
                     r.timed_out = True
                     return
-            tc = time.perf_counter()
-            (new_state, pop_a, pop_k, h, disp_s), fb = dispatch_or_fallback(
-                i, sweep_state)
-            device_s = _retire_wait(h)
-            if engine == "sweep":
-                sweep_state = new_state
-            retire_common(i, pop_a, pop_k, h, disp_s, device_s,
-                          time.perf_counter() - tc, fb)
-            if boundary(i):
+            with _otrace.span("chunk", index=i) as _sp:
+                tc = time.perf_counter()
+                (new_state, pop_a, pop_k, h, disp_s), fb = (
+                    dispatch_or_fallback(i, sweep_state))
+                device_s = _retire_wait(h)
+                if engine == "sweep":
+                    sweep_state = new_state
+                retire_common(i, pop_a, pop_k, h, disp_s, device_s,
+                              time.perf_counter() - tc, fb)
+                chunk_attrs(_sp, i, disp_s, device_s, 0.0, h, r.scorer)
+            with _flight.attribute("boundary"):
+                stop = boundary(i)
+            if stop:
                 return
             dl = _deadline_now()
             if dl is not None and time.perf_counter() > dl:
@@ -1272,8 +1433,13 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         i = start
         while True:
             new_state, pop_a, pop_k, h, disp_s = pending
+            # the scorer THIS chunk ran under (a failing speculative
+            # dispatch below flips r.scorer first)
+            ran_scorer = r.scorer
             nxt = None
             if i + 1 < n:
+                # outside chunk i's span, as in the reference: chunk
+                # i+1's dispatch span parents under the ladder
                 try:
                     nxt = dispatch(i + 1, new_state)
                 except Exception as e:
@@ -1282,16 +1448,20 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                     # drain: retire chunk i with nothing in flight; the
                     # plain retry runs after this boundary
                     _note_fallback(i + 1, e)
-            device_s = _retire_wait(h)
-            sweep_state = new_state
-            now = time.perf_counter()
-            retire_common(i, pop_a, pop_k, h, disp_s, device_s,
-                          now - t_mark, pend_fb)
-            t_mark = now
-            tb = time.perf_counter()
-            stop = boundary(i)
-            if nxt is not None:
-                r.boundary_overlap_s += time.perf_counter() - tb
+            with _otrace.span("chunk", index=i) as _sp:
+                device_s = _retire_wait(h)
+                sweep_state = new_state
+                now = time.perf_counter()
+                retire_common(i, pop_a, pop_k, h, disp_s, device_s,
+                              now - t_mark, pend_fb)
+                t_mark = now
+                tb = time.perf_counter()
+                with _flight.attribute("boundary"):
+                    stop = boundary(i)
+                overlap = time.perf_counter() - tb if nxt is not None else 0.0
+                r.boundary_overlap_s += overlap
+                chunk_attrs(_sp, i, disp_s, device_s, overlap, h,
+                            ran_scorer)
             if stop or i + 1 >= n:
                 # certified (the chunk in flight is abandoned unread) or
                 # done
@@ -1344,10 +1514,12 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         arm = _arm_exit(i + k - 1)
         cert_k, cert_mv = arm if arm is not None else (None, None)
         fn = solve_lanes_megachunk if lanes else solve_megachunk
+        temps = np.stack(group)
         (new_state, top_a, top_k, cert_a, cert_ok, cert_mvs, curves,
-         execd) = fn(m, batch, np.stack(group), st,
-                     active=np.asarray(active), cert_k=cert_k,
-                     cert_mv=cert_mv, scorer=r.scorer)
+         execd) = _launch(
+            lambda: fn(m, batch, temps, st, active=np.asarray(active),
+                       cert_k=cert_k, cert_mv=cert_mv, scorer=r.scorer),
+            ("megachunk", i), temps, st)
         pop_a, pop_k = _winners(top_a, top_k)
         # an armed group also copies its certificate snapshot
         certs = (cert_a, cert_ok, cert_mvs) if arm is not None else ()
@@ -1427,6 +1599,11 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                            else min(mega_warm_s, per_chunk))
         return n_exec, early
 
+    def mega_attrs(sp, k, n_exec, armed, early, disp_s) -> None:
+        if sp is not None:
+            sp.set(width=k, executed=n_exec, armed=armed, early_exit=early,
+                   dispatch_s=round(disp_s, 4))
+
     def _drain(i, e, to_pipelined: bool) -> None:
         """``megachunk_to_chunked``: the per-chunk ladder re-enters at
         chunk ``i``, the first chunk no group finished."""
@@ -1458,18 +1635,23 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 ):
                     r.timed_out = True
                     return
-            tg = time.perf_counter()
-            try:
-                out, armed, disp_s = dispatch_mega(i, k, sweep_state)
-                n_exec, early = retire_mega(i, k, out, disp_s, armed,
-                                            time.perf_counter() - tg)
-            except Exception as e:
-                if not _degradable(e):
-                    raise
-                _drain(i, e, to_pipelined=False)
-                return
+            with _otrace.span("megachunk", index=r.mega_groups,
+                              first_chunk=i, width=k) as _sp:
+                tg = time.perf_counter()
+                try:
+                    out, armed, disp_s = dispatch_mega(i, k, sweep_state)
+                    n_exec, early = retire_mega(i, k, out, disp_s, armed,
+                                                time.perf_counter() - tg)
+                except Exception as e:
+                    if not _degradable(e):
+                        raise
+                    _drain(i, e, to_pipelined=False)
+                    return
+                mega_attrs(_sp, k, n_exec, armed, early, disp_s)
             if early:
-                if _certify_exit(r.fetched):
+                with _flight.attribute("boundary"):
+                    certified = _certify_exit(r.fetched)
+                if certified:
                     return
                 # a flagged exit the host could not certify would flag
                 # again at every step: the per-chunk ladder (whose
@@ -1477,7 +1659,9 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 # tail from the first chunk not executed
                 _drain(i + n_exec, None, to_pipelined=False)
                 return
-            if boundary(i + k - 1):
+            with _flight.attribute("boundary"):
+                stop = boundary(i + k - 1)
+            if stop:
                 return
             dl = _deadline_now()
             if dl is not None and time.perf_counter() > dl:
@@ -1517,16 +1701,22 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                     if not _degradable(e):
                         raise
                     drain_exc = e
-            n_exec, early = retire_mega(i, k, out, disp_s, armed,
-                                        time.perf_counter() - t_mark)
-            h = r.fetched
-            t_mark = time.perf_counter()
-            tb = time.perf_counter()
-            stop = early or boundary(i + k - 1)
-            if nxt is not None:
-                r.boundary_overlap_s += time.perf_counter() - tb
+            with _otrace.span("megachunk", index=r.mega_groups,
+                              first_chunk=i, width=k) as _sp:
+                n_exec, early = retire_mega(i, k, out, disp_s, armed,
+                                            time.perf_counter() - t_mark)
+                h = r.fetched
+                t_mark = time.perf_counter()
+                tb = time.perf_counter()
+                with _flight.attribute("boundary"):
+                    stop = early or boundary(i + k - 1)
+                if nxt is not None:
+                    r.boundary_overlap_s += time.perf_counter() - tb
+                mega_attrs(_sp, k, n_exec, armed, early, disp_s)
             if early:
-                if _certify_exit(h):
+                with _flight.attribute("boundary"):
+                    certified = _certify_exit(h)
+                if certified:
                     return  # the group in flight is abandoned unread
                 if nxt is not None:
                     out2, armed2, disp2 = nxt
@@ -1599,7 +1789,9 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
     out, _cnt, _lcnt, _rcnt = score(m, pop_a)
     primary, moves = out_key(out), out[:, 5]
     tied = primary == primary.max()
-    top = first_argmax(torch.where(tied, -moves, _IMIN))
+    # the champion's index is the selection's read back from the card
+    with _otrace.span("device_transfer"):
+        top = int(first_argmax(torch.where(tied, -moves, _IMIN)))
     cand = pop_a[top]
     winner_lane = int(top) if lanes else None
     certified_final = None
@@ -1698,8 +1890,16 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  budget, t0, bounds_fut, lp_fut, lp_wait_s,
                  portfolio=None, warm_start=None, checkpoint=None,
                  pipeline=True, megachunk=None) -> SolveResult:
-    certified_a, lp_warm, lp_warm_extends = _await_constructor(
-        lp_fut, lp_wait_s, checkpoint, budget)
+    # the phase spans (obs.trace): every stage gets exactly one span on
+    # every path; a stage that does not run is a zero-length span marked
+    # skipped, as in the reference
+    with _otrace.span("constructor") as _sp:
+        certified_a, lp_warm, lp_warm_extends = _await_constructor(
+            lp_fut, lp_wait_s, checkpoint, budget)
+        if _sp is not None:
+            _sp.set(skipped=lp_fut is None, wait_budget_s=lp_wait_s,
+                    certified=certified_a is not None,
+                    warm_start=lp_warm is not None)
     constructed = early_stopped = certified_a is not None
     t_race = time.perf_counter()
     final_cert = None
@@ -1726,12 +1926,23 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         if t_lo is None:
             t_lo = 0.02 if engine == "sweep" else 0.05
         scorer = "cuda" if dev.type == "cuda" else "torch"
-        a_seed, resumed, warm_started = _pick_seed(
-            inst, lp_warm, lp_warm_extends, checkpoint, warm_start)
-        t_seed = time.perf_counter()
-        bkt_parts, bkt_rf = bucket.bucket_shape(inst)
-        m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
-                                 max_rf=bkt_rf)
+        # the ledger's host-constructor window: the seed and the model's
+        # lowering, the host work ahead of the first dispatch
+        with _flight.attribute("constructor"):
+            with _otrace.span("seed") as _sp:
+                a_seed, resumed, warm_started = _pick_seed(
+                    inst, lp_warm, lp_warm_extends, checkpoint, warm_start)
+                if _sp is not None:
+                    _sp.set(resumed_from_checkpoint=resumed,
+                            warm_started=warm_started,
+                            warm_start_extends_greedy=bool(lp_warm_extends))
+            t_seed = time.perf_counter()
+            bkt_parts, bkt_rf = bucket.bucket_shape(inst)
+            bucket.STATS.record_bucket(
+                (inst.num_brokers, inst.num_racks, bkt_parts, bkt_rf),
+                padded=(bkt_parts, bkt_rf) != (inst.num_parts, inst.max_rf))
+            m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
+                                     max_rf=bkt_rf)
         seed_dev = torch.from_numpy(arrays.pad_candidate(a_seed, m)).to(dev)
         key = prng.PRNGKey(seed)
         chunks = _build_chunks(inst, engine, rounds, t_hi, t_lo,
@@ -1768,14 +1979,37 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             warm_key = (engine, batch, steps_per_round, int(bkt_parts),
                         int(bkt_rf))
         mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
+        if port_lanes:
+            # the racing geometry, on the report even when the ladder's
+            # span is the one timed
+            _otrace.mark("portfolio", width=pw, lane_bucket=port_lanes)
         t_lower = _sync(dev)
-        lad = _run_ladder(
-            inst, m_solver, batch, steps_per_round, engine, scorer, chunks,
-            seed_dev, key, sweep_state, lp_fut, bounds_fut,
-            cert_min_savings_s, budget, warm_key,
-            lanes=pw if port_lanes else 0, pipeline=pipeline,
-            mega_k=mega_k,
-        )
+        marks0 = _flight.ledger_marks()
+        with _otrace.span("ladder", engine=engine,
+                          chunks=len(chunks)) as _sp:
+            lad = _run_ladder(
+                inst, m_solver, batch, steps_per_round, engine, scorer,
+                chunks, seed_dev, key, sweep_state, lp_fut, bounds_fut,
+                cert_min_savings_s, budget, warm_key,
+                lanes=pw if port_lanes else 0, pipeline=pipeline,
+                mega_k=mega_k,
+            )
+            if _sp is not None:
+                # the funnel's own dispatch and device windows around
+                # the ladder (obs.flight), next to the ladder's tallies
+                marks1 = _flight.ledger_marks()
+                _sp.set(rounds_run=lad.rounds_run, timed_out=lad.timed_out,
+                        scorer=lad.scorer, pipelined=lad.pipelined,
+                        dispatch_s=round(lad.dispatch_s, 4),
+                        device_s=round(lad.device_s, 4),
+                        boundary_overlap_s=round(lad.boundary_overlap_s, 4),
+                        boundary_certified=lad.certified_a is not None,
+                        portfolio_width=pw if port_lanes else None,
+                        dispatches=lad.dispatches, megachunk_k=lad.mega_k,
+                        ledger_dispatches=(marks1["dispatches"]
+                                           - marks0["dispatches"]),
+                        ledger_device_s=round(marks1["device_s"]
+                                              - marks0["device_s"], 4))
         t_ladder = _sync(dev)
         scorer = lad.scorer
         if lad.timed_out:
@@ -1798,61 +2032,82 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         # warm-certify race worker tags its win
         warm_started = getattr(inst, "_construct_path", None) == "warm"
         t_seed = t_lower = t_ladder = t_race
+        _otrace.mark("seed", skipped=True)
+        _otrace.mark("ladder", skipped=True)
+    # the best-score trajectory (the max over lanes on the portfolio);
+    # the solve report's annealing summary shares it
+    curve = (np.concatenate([c.reshape(-1, c.shape[-1]) for c in lad.curves],
+                            -1).max(0)
+             if lad.curves else np.zeros(0, np.int64))
+    if _otrace.active():
+        imp = int((np.diff(curve) > 0).sum()) if curve.size > 1 else 0
+        _otrace.set_trajectory(
+            engine=engine, rounds=int(curve.size),
+            energy_curve=_downsample(curve, 64), improved_rounds=imp,
+            plateau_rounds=max(0, int(curve.size) - 1 - imp))
     t_select = t_ladder
     winner_lane = lad.winner_lane
     if certified_a is not None:
+        _otrace.mark("polish", skipped=True)
         best_a = np.asarray(certified_a, dtype=np.int32)
         t_polish = t_ladder
     else:
-        best_a, final_cert, lp_won, t_select, winner_lane = (
-            _final_selection(inst, m, lad.pop_a, bounds_fut, lp_fut,
-                             budget, lanes=pw if port_lanes else 0))
+        # the "polish" span covers all of final selection: the rescore,
+        # the certify-first attempt and (on its failure) polish itself
+        with _otrace.span("polish") as _sp:
+            best_a, final_cert, lp_won, t_select, winner_lane = (
+                _final_selection(inst, m, lad.pop_a, bounds_fut, lp_fut,
+                                 budget, lanes=pw if port_lanes else 0))
+            if _sp is not None:
+                _sp.set(final_cert=final_cert, lp_plan_won=lp_won)
         constructed = constructed or lp_won
         t_polish = _sync(dev)
 
-    viol = _verify(inst, m, best_a) if m is not None else inst.violations(
-        best_a)
-    weight = inst.preservation_weight(best_a)
-    feasible = all(v == 0 for v in viol.values())
-    moves_final = int(inst.move_count(best_a))
-    if checkpoint:
-        # persist BEFORE the certification joins below, which may block
-        # on a straggling LP: a solve killed there keeps its plan. A
-        # failed write (disk full, permissions, the chaos point) is the
-        # checkpoint_skipped rung: the verified plan is still returned
-        try:
-            _chaos.raise_if("checkpoint_write", OSError)
-            ckpt.save(checkpoint, inst, best_a, meta={
-                "objective": int(weight), "feasible": feasible,
-                "moves": moves_final, "engine": engine})
-        except Exception as e:
-            _ladder.note_rung("checkpoint_skipped", error=repr(e)[:200])
-    # the optimality certificate: a plan meeting both bounds is a proven
-    # optimum; the tier-1 escalation is allowed without a deadline only
-    if certified_a is not None:
-        proved_optimal = True
-    else:
-        try:
-            timeout = budget.remaining()
-            bounds_fut.result(timeout=timeout)
-            if lad.tight_fut is not None:
-                lad.tight_fut.result(timeout=timeout)
-            proved_optimal = inst.certify_optimal(
-                best_a,
-                allow_tight=(time_limit_s is None
-                             or lad.tight_fut is not None),
-            )
-        except Exception:
-            proved_optimal = False
+    with _otrace.span("verify") as _sp:
+        viol = (_verify(inst, m, best_a) if m is not None
+                else inst.violations(best_a))
+        weight = inst.preservation_weight(best_a)
+        feasible = all(v == 0 for v in viol.values())
+        moves_final = int(inst.move_count(best_a))
+        if checkpoint:
+            # persist BEFORE the certification joins below, which may
+            # block on a straggling LP: a solve killed there keeps its
+            # plan. A failed write (disk full, permissions, the chaos
+            # point) is the checkpoint_skipped rung: the verified plan is
+            # still returned
+            try:
+                _chaos.raise_if("checkpoint_write", OSError)
+                ckpt.save(checkpoint, inst, best_a, meta={
+                    "objective": int(weight), "feasible": feasible,
+                    "moves": moves_final, "engine": engine})
+            except Exception as e:
+                _ladder.note_rung("checkpoint_skipped", error=repr(e)[:200])
+        # the optimality certificate: a plan meeting both bounds is a
+        # proven optimum; the tier-1 escalation is allowed without a
+        # deadline only
+        if certified_a is not None:
+            proved_optimal = True
+        else:
+            try:
+                timeout = budget.remaining()
+                bounds_fut.result(timeout=timeout)
+                if lad.tight_fut is not None:
+                    lad.tight_fut.result(timeout=timeout)
+                proved_optimal = inst.certify_optimal(
+                    best_a,
+                    allow_tight=(time_limit_s is None
+                                 or lad.tight_fut is not None),
+                )
+            except Exception:
+                proved_optimal = False
+        if _sp is not None:
+            _sp.set(feasible=feasible, moves=moves_final,
+                    proved_optimal=proved_optimal)
     t_verify = time.perf_counter()
     if port_lanes:
         # the adaptive table's evidence: the config that produced the plan
         arrays.note_portfolio_result(
             port_cfgs[winner_lane] if winner_lane is not None else None)
-    # the best-score trajectory (the max over lanes on the portfolio)
-    curve = (np.concatenate([c.reshape(-1, c.shape[-1]) for c in lad.curves],
-                            -1).max(0)
-             if lad.curves else np.zeros(0, np.int64))
     return SolveResult(
         a=best_a,
         solver="tpu",
@@ -1991,52 +2246,101 @@ def solve_tpu_batch(
     The degradation-rung collector wraps the call: rungs the shared lane
     ladder takes apply to every lane, while a lane's own rungs on the
     unstackable fallback land on that lane's ``stats["degradations"]``
-    only."""
-    _refuse_unported(dict(n_devices=n_devices, trace=trace,
-                          precompile=precompile))
+    only.
+
+    ``trace`` records ONE solve report for the whole batch: every lane's
+    stats carry its ``trace_id`` and ``solve_report``. Flight records:
+    one a lane (kind ``"lane"``), sharing the batch's accounting; none
+    for a ``precompile`` batch (the service's warm-up)."""
+    _refuse_unported(dict(n_devices=n_devices))
     megachunk = _resolve_megachunk(megachunk)
-    with _ladder.collect() as rungs:
-        results = _solve_tpu_batch(
-            insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
-            time_limit_s, certify, portfolio, device, pipeline, megachunk)
-        for r in results:
-            combined = list(rungs or ()) + r.stats.get("degradations", [])
-            if combined:
-                r.stats["degradations"] = combined
+    nested = _flight.accounting_active()
+    acc_tok = None if nested else _flight.start_accounting()
+    t0 = time.perf_counter()
+    try:
+        with _ladder.collect() as rungs:
+            results = _solve_tpu_batch(
+                insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
+                time_limit_s, certify, portfolio, device, pipeline,
+                megachunk, trace)
+            for r in results:
+                combined = (list(rungs or ())
+                            + r.stats.get("degradations", []))
+                if combined:
+                    r.stats["degradations"] = combined
+    except BaseException as e:
+        acc = (_flight.end_accounting(acc_tok) if acc_tok is not None
+               else None)
+        if acc is not None and not precompile:
+            # the whole batch failed: one failure record a lane
+            for inst in insts:
+                _flight.record_failure(inst, acc, time.perf_counter() - t0,
+                                       e, kind="lane")
+        raise
+    acc = _flight.end_accounting(acc_tok) if acc_tok is not None else None
+    if acc is not None and not precompile:
+        for inst, r in zip(insts, results):
+            _flight.record_solve(r, inst, acc, kind="lane")
     return results
 
 
 def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                      t_lo, time_limit_s, certify, portfolio, device,
-                     pipeline, megachunk):
+                     pipeline, megachunk, trace=None):
     t0 = time.perf_counter()
     dev = resolve_device(device)
     pipeline = _PIPELINE_DEFAULT if pipeline is None else bool(pipeline)
+    if _san.enabled():
+        _san.install()
     if not insts:
         return []
     if isinstance(seeds, int):
         seeds = [seeds + i for i in range(len(insts))]
     if len(seeds) != len(insts):
         raise ValueError(f"got {len(seeds)} seeds for {len(insts)} instances")
-    if len({(i.num_brokers, i.num_racks) for i in insts}) > 1:
-        results = []
-        for inst, s in zip(insts, seeds):
-            # lane-scoped rungs: THIS lane's fallbacks must not flag its
-            # siblings' stats
-            with _ladder.collect_lane() as lane_rungs:
-                r = solve_tpu(inst, seed=s, engine=engine, batch=batch,
-                              rounds=rounds, sweeps=sweeps, t_hi=t_hi,
-                              t_lo=t_lo, time_limit_s=time_limit_s,
-                              pipeline=pipeline, portfolio=portfolio,
-                              megachunk=megachunk, device=device)
-            if lane_rungs:
-                r.stats["degradations"] = list(lane_rungs)
-            r.stats["lane_fallback"] = "brokers/racks differ across lanes"
-            results.append(r)
-        return results
-    return _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps,
-                             t_hi, t_lo, time_limit_s, certify, t0, dev,
-                             pipeline, megachunk)
+    # one trace covers the whole call, the batch or its sequential
+    # fallback alike
+    tr = _otrace.begin(trace, name="solve_tpu_batch", lanes=len(insts))
+    try:
+        if len({(i.num_brokers, i.num_racks) for i in insts}) > 1:
+            results = []
+            for i, (inst, s) in enumerate(zip(insts, seeds)):
+                # lane-scoped rungs: THIS lane's fallbacks must not flag
+                # its siblings' stats
+                with _otrace.span("lane", index=i), \
+                        _ladder.collect_lane() as lane_rungs:
+                    r = solve_tpu(inst, seed=s, engine=engine, batch=batch,
+                                  rounds=rounds, sweeps=sweeps, t_hi=t_hi,
+                                  t_lo=t_lo, time_limit_s=time_limit_s,
+                                  pipeline=pipeline, portfolio=portfolio,
+                                  megachunk=megachunk, device=device)
+                if lane_rungs:
+                    r.stats["degradations"] = list(lane_rungs)
+                r.stats["lane_fallback"] = (
+                    "brokers/racks differ across lanes")
+                results.append(r)
+        else:
+            results = _solve_batch_body(
+                insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
+                time_limit_s, certify, t0, dev, pipeline, megachunk)
+    except BaseException as e:
+        if isinstance(e, FloatingPointError):
+            _san.note_nan_abort_once(e, "solve_tpu_batch")
+        if tr is not None:
+            tr.root.set(error=repr(e)[:200])
+            _otrace.finish(tr)
+        raise
+    if tr is not None:
+        rep = _otrace.finish(tr)
+        for r in results:
+            r.stats["trace_id"] = tr.trace_id
+            r.stats["solve_report"] = rep
+    else:
+        tid = _otrace.current_trace_id()
+        if tid:
+            for r in results:
+                r.stats.setdefault("trace_id", tid)
+    return results
 
 
 def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
@@ -2059,7 +2363,13 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
         t_hi = 2.0 if engine == "sweep" else 2.5
     if t_lo is None:
         t_lo = 0.02 if engine == "sweep" else 0.05
-    m_stack, lane_seeds, keys = stack_lanes(insts, seeds, dev)
+    # no bounds, no race, no polish on the batch path: their skipped
+    # marks keep the report's phase names those of the single path
+    _otrace.mark("bounds", skipped=True)
+    _otrace.mark("constructor", skipped=True)
+    _otrace.mark("polish", skipped=True)
+    with _otrace.span("seed", lanes=L):
+        m_stack, lane_seeds, keys = stack_lanes(insts, seeds, dev)
     Lp, bkt_parts, bkt_rf = lane_seeds.shape
     note_lane_serve((insts[0].num_brokers, insts[0].num_racks, bkt_parts,
                      bkt_rf), L, Lp)
@@ -2075,22 +2385,31 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
     # the single path's ladder with the certificate off (no bounds): the
     # lanes are independent instances, so no lane retires the others and
     # every fused group runs disarmed
-    lad = _run_ladder(
-        insts[0], m_stack, batch, steps_per_round, engine, scorer, chunks,
-        None, None,
-        (init_lane_state(m_stack, lane_seeds, keys, batch)
-         if engine == "sweep" else None),
-        None, None, 0.0, Budget(time_limit_s, t0=t0), warm_key, lanes=L,
-        pipeline=pipeline, mega_k=mega_k,
-        chain_lanes=None if engine == "sweep" else (lane_seeds, keys),
-    )
+    with _otrace.span("ladder", engine=engine, chunks=len(chunks)) as _lsp:
+        lad = _run_ladder(
+            insts[0], m_stack, batch, steps_per_round, engine, scorer,
+            chunks, None, None,
+            (init_lane_state(m_stack, lane_seeds, keys, batch)
+             if engine == "sweep" else None),
+            None, None, 0.0, Budget(time_limit_s, t0=t0), warm_key,
+            lanes=L, pipeline=pipeline, mega_k=mega_k,
+            chain_lanes=None if engine == "sweep" else (lane_seeds, keys),
+        )
+        if _lsp is not None:
+            _lsp.set(rounds_run=lad.rounds_run, timed_out=lad.timed_out,
+                     scorer=lad.scorer, pipelined=lad.pipelined,
+                     dispatches=lad.dispatches, megachunk_k=lad.mega_k)
     if lad.timed_out:
         _ladder.note_rung("deadline_truncated", rounds_run=lad.rounds_run)
     t_solve = _sync(dev)
     curve = np.concatenate(lad.curves, -1)  # [Lp, rounds]
     plans = lad.fetched.get()[0]
     wall = time.perf_counter() - t0
-    viols = _verify_lanes(insts, m_stack, plans)
+    with _otrace.span("verify", lanes=L) as _vsp:
+        viols = _verify_lanes(insts, m_stack, plans)
+        if _vsp is not None:
+            _vsp.set(lanes_feasible=sum(
+                1 for v in viols if all(x == 0 for x in v.values())))
     mega = ({"k": lad.mega_k, "mode": mega_mode, "groups": lad.mega_groups,
              "dispatches": lad.dispatches, "chunks": lad.chunks_exec,
              "early_exit": lad.mega_early_exit}
@@ -2159,10 +2478,14 @@ def stack_lanes(insts, seeds, dev):
     models = []
     lane_seeds = np.empty((Lp, bkt_parts, bkt_rf), np.int32)
     for i, inst in enumerate(insts):
+        bucket.STATS.record_bucket(
+            (inst.num_brokers, inst.num_racks, bkt_parts, bkt_rf),
+            padded=(bkt_parts, bkt_rf) != (inst.num_parts, inst.max_rf))
         m = arrays.from_instance(inst, dev, num_parts=bkt_parts,
                                  max_rf=bkt_rf)
         models.append(m)
-        a_seed = np.asarray(greedy_seed(inst), dtype=np.int32)
+        with _otrace.span("greedy", lane=i):
+            a_seed = np.asarray(greedy_seed(inst), dtype=np.int32)
         assert (a_seed[inst.slot_valid] < inst.num_brokers).all(), (
             "seed left unfilled slots")
         lane_seeds[i] = arrays.pad_candidate(a_seed, m)

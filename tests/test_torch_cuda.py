@@ -423,3 +423,115 @@ def test_async_fetch_equals_blocking_copy(card):
     np.testing.assert_array_equal(one.get(), x.cpu().numpy())
     for got, t in zip(many.get(), (y, z, x.sum(-1))):
         np.testing.assert_array_equal(got, t.cpu().numpy())
+
+
+def _chain_case():
+    rng = np.random.default_rng(0)
+    parts = [PartitionAssignment("t", p, [int(b) for b in rng.choice(
+        12, size=2, replace=False)]) for p in range(40)]
+    topo = Topology(rack_of={b: f"r{b % 2}" for b in range(12)})
+    return Assignment(partitions=parts), list(range(10)), topo
+
+
+def _sweep_case():
+    """A slice of the adversarial family: slack caps and no symmetry, so
+    with knobs set no constructor certifies it and the ladder runs."""
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    s = gen.adversarial(n_brokers=24, n_racks=4, n_topics_low=3,
+                        n_topics_high=3, parts_per_topic=10)
+    return s.current, s.broker_list, s.topology
+
+
+def test_two_workers_chain_capture_beside_sweep_launches(card):
+    """The service's two workers share the card: a chain-engine solve
+    (its rounds captured as CUDA graphs on a side stream) and a sweep
+    solve (the three kernels launched on the current stream) run at once
+    in two threads, three times, and each gives the plan it gives alone."""
+    import threading
+
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    kw = {"chain": dict(engine="chain", batch=64, rounds=4,
+                        steps_per_round=256),
+          "sweep": dict(engine="sweep", batch=8, sweeps=64,
+                        portfolio=False)}
+    cases = {"chain": _chain_case(), "sweep": _sweep_case()}
+
+    def solve(name):
+        inst = build_instance(*cases[name])
+        return engine.solve_tpu(inst, seed=0, device="cuda", **kw[name])
+
+    alone = {n: solve(n) for n in kw}
+    assert alone["chain"].stats["engine"] == "chain"
+    assert alone["sweep"].stats["engine"] == "sweep"
+    for _ in range(3):
+        got, errs = {}, []
+
+        def run(name):
+            try:
+                got[name] = solve(name)
+            except BaseException as e:  # surfaced below
+                errs.append(e)
+
+        ths = [threading.Thread(target=run, args=(n,)) for n in kw]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        assert not errs, errs
+        for n in kw:
+            np.testing.assert_array_equal(got[n].a, alone[n].a)
+            assert got[n].stats["feasible"] == alone[n].stats["feasible"]
+
+
+def test_served_solve_launches_the_kernels(card):
+    """A ``tpu`` solve through the service on the card (its default
+    device) launches all three kernels, and its trace holds the ladder."""
+    from kafka_assignment_optimizer_tpu_torch import serve
+
+    srv = serve.make_server(port=0)
+    try:
+        current, brokers, topo = _sweep_case()
+        kernels.reset_counts()
+        out = serve.handle_submit({
+            "assignment": current.to_dict(), "brokers": brokers,
+            "topology": topo.to_dict(), "solver": "tpu",
+            "options": {"engine": "sweep", "batch": 8, "sweeps": 32,
+                        "portfolio": False}})
+    finally:
+        srv.server_close()
+    counts = [k.launches for k in kernels.KERNELS]
+    assert all(c > 0 for c in counts), counts
+    assert out["report"]["solver_device"].startswith("cuda")
+    rep = serve._otrace.RECENT.get(out["trace_id"])
+    assert "ladder" in rep["phases"]
+
+
+def test_sanitizer_nan_guard_on_card(card):
+    """Armed, the NaN guard checks card tensors (one host sync) and
+    raises on a non-finite value; a solve armed runs every guard at
+    every chunk and gives the disarmed plan."""
+    from kafka_assignment_optimizer_tpu_torch.analysis import sanitize
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    ok = torch.ones(4, device=card)
+    bad = torch.tensor([1.0, float("nan")], device=card)
+    kw = dict(engine="sweep", batch=8, sweeps=32, portfolio=False,
+              time_limit_s=300.0, device="cuda")
+    ref = engine.solve_tpu(build_instance(*_sweep_case()), **kw)
+    sanitize.reset()
+    sanitize.enable()
+    try:
+        sanitize.check_device((ok, torch.zeros(3, dtype=torch.int32,
+                                                 device=card)))
+        with pytest.raises(FloatingPointError):
+            sanitize.check_device((ok, bad))
+        got = engine.solve_tpu(build_instance(*_sweep_case()), **kw)
+        snap = sanitize.snapshot()
+    finally:
+        sanitize.disable()
+        sanitize.reset()
+    np.testing.assert_array_equal(got.a, ref.a)
+    assert snap["nan_aborts_total"] == snap["donation_reuse_total"] == 0
+    assert snap["recompiles_total"] == 0

@@ -242,10 +242,15 @@ def test_unported_keywords_raise(demo):
     ``tests/test_torch_checkpoint.py``.)"""
     current, brokers, topo = port_cluster(*demo)
     inst = build_instance(current, brokers, topo)
-    for kw in (dict(n_devices=2), dict(profile_dir="prof"),
-               dict(precompile=True)):
+    for kw in (dict(n_devices=2), dict(profile_dir="prof")):
         with pytest.raises(NotImplementedError):
             engine.solve_tpu(inst, device="cpu", **kw)
+    # precompile (the service's warm-up) is ported: no constructor race,
+    # so the demo's device path runs instead of the exact MILP's
+    # certificate, as in the reference
+    res = engine.solve_tpu(inst, device="cpu", precompile=True,
+                           engine="sweep", sweeps=8, batch=2)
+    assert res.stats["engine"] == "sweep" and res.stats["rounds_run"] == 8
     with pytest.raises(TypeError):
         engine.solve_tpu(inst, device="cpu", no_such_keyword=1)
     res = engine.solve_tpu(inst, device="cpu", portfolio=False,

@@ -401,8 +401,11 @@ def test_solve_tpu_batch_unstackable_falls_back(batch_cases):
         assert res.stats["feasible"]
         alone = engine.solve_tpu(insts[i], seed=i, device="cpu", **kw)
         np.testing.assert_array_equal(res.a, alone.a)
-    with pytest.raises(NotImplementedError):
-        engine.solve_tpu_batch(insts, device="cpu", trace=True)
+    # trace is ported: one report covers the fallback's lanes
+    traced = engine.solve_tpu_batch(insts, device="cpu", trace=True, **kw)
+    rep = traced[0].stats["solve_report"]
+    assert [sp["name"] for sp in rep["spans"]["spans"]] == ["lane", "lane"]
+    assert traced[1].stats["trace_id"] == rep["trace_id"]
     with pytest.raises(NotImplementedError):
         engine.solve_tpu_batch(insts, device="cpu", n_devices=2)
     with pytest.raises(ValueError, match="seeds for"):

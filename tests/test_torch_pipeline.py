@@ -234,8 +234,9 @@ def test_batch_lane_ladder_pipelined_equals_reference():
 
 def test_process_default_and_unported_keywords(no_race):
     """``set_pipeline_default(False)`` makes a defaulted solve
-    synchronous; ``n_devices`` above 1, ``profile_dir``,
-    ``precompile=True`` and ``trace`` still raise."""
+    synchronous; ``n_devices`` above 1 and ``profile_dir`` still raise,
+    while ``precompile=True`` and ``trace`` (ported with the service)
+    are accepted by both entry points."""
     cl = the_cluster()
     assert engine._PIPELINE_DEFAULT is jengine._PIPELINE_DEFAULT is True
     engine.set_pipeline_default(False)
@@ -244,9 +245,12 @@ def test_process_default_and_unported_keywords(no_race):
     finally:
         engine.set_pipeline_default(True)
     inst = build_instance(*port_cluster(*cl))
-    for kw in (dict(n_devices=2), dict(profile_dir="prof"),
-               dict(precompile=True)):
+    for kw in (dict(n_devices=2), dict(profile_dir="prof")):
         with pytest.raises(NotImplementedError):
             engine.solve_tpu(inst, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        engine.solve_tpu_batch([inst], device="cpu", trace=True)
+        engine.solve_tpu_batch([inst], device="cpu", n_devices=2)
+    out = engine.solve_tpu_batch([inst], device="cpu", trace=True,
+                                 precompile=True, engine="sweep", sweeps=8,
+                                 batch=2)
+    assert out[0].stats["solve_report"]["name"] == "solve_tpu_batch"

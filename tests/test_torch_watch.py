@@ -176,3 +176,57 @@ def test_uncertified_warm_start_seeds_the_ladder():
     assert rt.stats["seed_moves"] == rj.stats["seed_moves"] == 8
     assert rt.stats["engine"] == "sweep" and rt.stats["rounds_run"] == 16
     assert rt.stats["feasible"]
+
+
+# the watch manager behind the service's delta API, in both packages: the
+# demo cluster bootstrapped, broker 7 drained, the RF raised to 3 (each
+# post-event state small enough for "auto" to send it to the exact MILP),
+# then a replayed epoch fenced with the reference's structured 409
+EVENTS = [
+    {"type": "bootstrap", "epoch": 1,
+     "assignment": cluster.demo_assignment().to_dict(),
+     "brokers": list(range(19)), "topology": "even-odd"},
+    {"type": "broker_drain", "epoch": 2, "brokers": [7]},
+    {"type": "rf_change", "epoch": 3, "rf": 3},
+]
+
+
+@pytest.fixture
+def watch_servers(monkeypatch):
+    from kafka_assignment_optimizer_tpu import serve as jserve
+    from kafka_assignment_optimizer_tpu_torch import serve
+
+    for mod in (jserve, serve):
+        monkeypatch.setitem(mod.WATCH, "dir", None)
+        monkeypatch.setitem(mod.WATCH, "registry", None)
+        monkeypatch.setitem(mod.WATCH, "window_s", 0.0)
+    monkeypatch.setitem(serve.SERVE, "device", "cpu")
+    yield jserve, serve
+    for mod in (jserve, serve):
+        mod.WATCH["registry"] = None
+
+
+def test_watch_event_sequence_matches_reference(watch_servers):
+    jserve, serve = watch_servers
+    for ev in EVENTS:
+        (sj, bj), (st, bt) = (mod.handle_cluster_event("c1", dict(ev))
+                              for mod in (jserve, serve))
+        assert (st, bt["status"], bt["epoch"], bt["plan_epoch"]) == \
+            (sj, bj["status"], bj["epoch"], bj["plan_epoch"]) == \
+            (200, "planned", ev["epoch"], ev["epoch"])
+        assert bt["assignment"] == bj["assignment"]
+        for f in ("replica_moves", "feasible", "proven_optimal", "solver",
+                  "objective_weight", "violations"):
+            assert bt["report"][f] == bj["report"][f], (ev["type"], f)
+    plan = bt["assignment"]["partitions"]
+    assert all(7 not in p["replicas"] and len(p["replicas"]) == 3
+               for p in plan)
+    errs = []
+    for mod in (jserve, serve):
+        with pytest.raises(mod.ApiError) as ei:
+            mod.handle_cluster_event("c1", dict(EVENTS[1]))
+        errs.append((ei.value.status, ei.value.body_extra))
+    assert errs[1] == errs[0] and errs[1][0] == 409
+    got = [mod.handle_clusters_get("c1") for mod in (jserve, serve)]
+    assert {k: got[1][k] for k in ("epoch", "plan_epoch", "plan")} == \
+        {k: got[0][k] for k in ("epoch", "plan_epoch", "plan")}
