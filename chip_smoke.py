@@ -138,7 +138,40 @@ Phases (any failure exits non-zero; nothing is caught):
    solve and a sweep solve at once, both verified; and with the
    sanitizer armed and ``nan_chunk``, the status and body the JAX
    package's service gives on the CPU (pinned there by
-   ``tests/test_torch_sanitize.py``) and one NaN abort on ``/metrics``.
+   ``tests/test_torch_sanitize.py``) and one NaN abort on ``/metrics``;
+   (m) the measurement plane, with the roofline profiler (``obs.prof``)
+   cleared and the device sampler (``obs.sampler``) at 10 Hz: the
+   catalogue's ``decommission``, ``scale_out``, ``rf_change`` and
+   ``leader_only`` at their published sizes through ``optimize`` at the
+   defaults, each feasible under the numpy oracle (B1 held to it) with
+   its moves against the scenario's bound (equal where the bound is
+   tight), its path, launches, wall and phases printed; ``decommission``
+   pinned to the annealer (``engine="sweep", batch=8, rounds=128``, the
+   portfolio, the certificate and the host race off: ``precompile=True``,
+   since the race's aggregated MILP certifies it even with the knobs
+   set), every kernel launched; ``adv50k`` (512 brokers, 50,000
+   partitions) at its defaults and, when the race certifies it on the
+   host, pinned the same way under a profiler session (the card's idle
+   share of the solve), with the sampler's ``kao_device_hbm_bytes`` read
+   during it; ``jumbo`` at its defaults; then the roofline (every key
+   with its analytic cost, no occupancy above 1.05), the phase's
+   ledgers summing to their walls, the profiler's own time under 2% of
+   the solves' and the sampler's duty cycle in [0, 1] at under 1%
+   overhead; the pinned ``decommission`` solve again with
+   ``profile_dir`` (a trace naming the three kernels, the same plan);
+   ``ops.bench_kernel.kernel_vs_torch`` at the headline's and
+   ``adv50k``'s shapes (6 rows each, every kernel equal to its plain
+   version, no share of the bound above 1.05); and the service with an
+   SLO spec, the sampler, a flight directory and a profile directory:
+   two pinned ``decommission`` ``/submit``s (certified in the host race)
+   and the pinned adversarial one of (l) (its ladder profiled, the first
+   of its bucket), then that one again under a profiler session (the
+   sampler's duty cycle across it, above 0, beside the card's idle
+   share), ``/debug/profile``,
+   ``/debug/slo``, ``/healthz`` (``devices``, ``slo``), the ``kao_slo_*``,
+   ``kao_drift_*``, ``kao_device_*`` and ``kao_prof_*`` families on
+   ``/metrics``, ``?format=chrome`` equal to ``obs.trace_cli convert`` of
+   the same report, and ``obs.prof`` over the flight directory.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -159,8 +192,6 @@ import time
 # solve so (tests/test_torch_sanitize.py holds both services to it)
 SANITIZED_NAN_CHUNK = (500, {"error": "internal error: chaos: injected "
                                       "fault at point 'nan_chunk'"})
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 INT32_LANES_PER_SM = 64  # Hopper issues 64 INT32 operations a clock per SM
 REPS = 20  # launches per timed window
 PROFILED = (5, 4)  # profiler windows, launches per window, of a lane row
@@ -172,23 +203,15 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def timed(fn, torch, reps: int = REPS, windows: int = WINDOWS) -> float:
+def timed(fn, reps: int = REPS, windows: int = WINDOWS) -> float:
     """Median milliseconds per call over ``windows`` windows of ``reps``
-    calls, after a warm-up, in CUDA events."""
-    for _ in range(min(reps, 3)):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / reps)
-    return statistics.median(times)
+    calls, after a warm-up, in CUDA events (``ops.bench_kernel``'s
+    timing, the one every kernel row uses)."""
+    from kafka_assignment_optimizer_tpu_torch.ops.bench_kernel import (
+        timed_ms,
+    )
+
+    return timed_ms(fn, True, reps, windows)
 
 
 # the __global__ functions each wrapper launches, for the profiler's view
@@ -258,28 +281,6 @@ def check_equal(name, xs, ys) -> float:
             fail(f"{name}: output {i} differs from the plain version "
                  f"(max |diff| {err})")
     return err
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def gathered(B1: int, *reads) -> int:
-    """Bytes of the distinct weight-table entries that ``reads`` address.
-    Each read is ``(table, b, mask)``: ``table`` is 0 for ``w_lead`` and 1
-    for ``w_foll`` (an int or an [N, P] tensor), ``b`` the broker indices
-    [N, P], and ``mask`` (broadcast to [N, P]) the entries read. Both
-    tables are [P, B+1] int32."""
-    import torch
-
-    keys = []
-    for table, b, mask in reads:
-        P = b.shape[1]
-        k = ((torch.as_tensor(table, device=b.device) * P
-              + torch.arange(P, device=b.device)[None, :]) * B1 + b.long())
-        mask = torch.as_tensor(mask, device=b.device)
-        keys.append(k[torch.broadcast_to(mask, k.shape)])
-    return int(torch.unique(torch.cat(keys)).numel()) * 4
 
 
 def random_cluster(rng, n_brokers, n_parts, rf, n_racks, drop=0):
@@ -426,39 +427,6 @@ def exchange_draws(key, N: int, P: int, device):
     kd, kbits = prng.split(key)
     return (prng.bits(kbits, (N, P, 4), device),
             sweep._pair_partners(kd, N, P, device))
-
-
-def adversarial_population(torch, dev, N: int = 8):
-    """The adversarial scenario lowered to its bucket on ``dev``, and N
-    chains of its greedy seed with one seeded random slot change per
-    partition: ``(inst, m, seed [P, R] numpy, a [N, P, R])``."""
-    import numpy as np
-
-    from kafka_assignment_optimizer_tpu_torch.models.instance import (
-        build_instance,
-    )
-    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
-        arrays,
-        bucket,
-    )
-    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
-        greedy_seed,
-    )
-    from kafka_assignment_optimizer_tpu_torch.utils import gen
-
-    scen = gen.adversarial()
-    inst = build_instance(scen.current, scen.broker_list, scen.topology)
-    Pp, Rp = bucket.bucket_shape(inst)
-    m = arrays.from_instance(inst, dev, num_parts=Pp, max_rf=Rp)
-    rng = np.random.default_rng(0)
-    seed_np = arrays.pad_candidate(greedy_seed(inst), m)
-    a_np = np.broadcast_to(seed_np, (N, Pp, Rp)).copy()
-    sl = rng.integers(0, inst.max_rf, size=(N, inst.num_parts))
-    bk = rng.integers(0, inst.num_brokers, size=(N, inst.num_parts))
-    a_np[np.arange(N)[:, None], np.arange(inst.num_parts)[None, :], sl] = bk
-    valid_np = np.asarray(m.slot_valid.cpu())
-    a_np[~np.broadcast_to(valid_np, a_np.shape)] = inst.num_brokers
-    return scen, inst, m, seed_np, torch.from_numpy(a_np).to(dev)
 
 
 # the seven threefry words of one partition, as csrc/site.cu draws them
@@ -611,20 +579,43 @@ def lane_equal(torch, ms, al, temp: float, label: str) -> tuple:
     return errs, (cnt, lcnt, rcnt), keys, temps
 
 
-def lane_rows(torch, dev, ms, al, errs: dict, hists, keys, temps,
-              int32_ops_per_s: float, tf_ops: int, shared: bool,
-              label: str, solo_device_us: dict | None = None) -> list[dict]:
+def kernel_row(k, label: str, err: float, call, plain, cost: dict,
+               library, peaks: dict, plain_reps: tuple = (REPS, WINDOWS)
+               ) -> dict:
+    """The ``kernels`` row of launch ``k`` (an ``ops.kernels`` kernel)
+    from ``ops.bench_kernel``: the wrapper ``call`` and its ``plain``
+    version timed by ``timed_ms``, the bound of ``cost`` (``data_cost``)
+    by ``bound_ms`` over ``peaks``, and the library yardstick ``(label,
+    fn)`` of ``library_calls`` (or None). Launches are filled in later."""
+    from kafka_assignment_optimizer_tpu_torch.ops import bench_kernel
+
+    bound, by = bench_kernel.bound_ms(cost, peaks)
+    return {
+        "name": k.name + label, "route": "cuda",
+        "source": f"kafka_assignment_optimizer_tpu_torch/csrc/{k.source}.cu",
+        "replaces": " + ".join(r.split(" ")[0] for r in k.replaces),
+        "launches": 0, "max_abs_err": err, "ms": timed(call),
+        "plain_ms": timed(plain, *plain_reps), "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": timed(library[1]) if library else None,
+    }
+
+
+def lane_rows(torch, ms, al, errs: dict, hists, keys, temps,
+              peaks: dict, tf_ops: int, label: str,
+              solo_device_us: dict | None = None) -> list[dict]:
     """The ``kernels`` rows of the three lane launches on the chains ``al
     [L, N, P, R]`` of the stacked model ``ms`` (``hists``, ``keys`` and
     ``temps`` as :func:`lane_equal` returns them; ``errs`` its max
     errors): each launch must make one launch and no other device
     activity a call; wrapper, plain, library and device times, and the
-    bound. ``shared``: the lanes share one set of tables (the portfolio),
-    read once; else each lane reads its own. Launches are filled in
-    later."""
-    from kafka_assignment_optimizer_tpu_torch import prng
-    from kafka_assignment_optimizer_tpu_torch.ops import exchange_cuda
-    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    bound (``ops.bench_kernel.data_cost``: a table the lanes share is
+    read once, else each lane's own). Launches are filled in later."""
+    from kafka_assignment_optimizer_tpu_torch.ops import (
+        bench_kernel,
+        exchange_cuda,
+        kernels,
+    )
     from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
         score_lanes,
         score_lanes_plain,
@@ -632,15 +623,10 @@ def lane_rows(torch, dev, ms, al, errs: dict, hists, keys, temps,
     from kafka_assignment_optimizer_tpu_torch.ops.site_cuda import (
         site_step_lanes,
     )
-    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
-        arrays,
-        sweep,
-    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
-    L, N, P, R = al.shape
+    L = al.shape[0]
     cnt, lcnt, rcnt = hists
-    B1 = ms.num_brokers + 1
-    lanes = [arrays.lane_model(ms, i) for i in range(L)]
     calls = {
         kernels.SCORE.name: (lambda: score_lanes(ms, al),
                              lambda: score_lanes_plain(ms, al)),
@@ -657,89 +643,8 @@ def lane_rows(torch, dev, ms, al, errs: dict, hists, keys, temps,
     for k in kernels.KERNELS:
         one_launch(f"an {L}-lane {k.name} ({label})", calls[k.name][0], k,
                    KERNEL_FUNCS[k.name][0], torch)
-
-    def tables(*names) -> int:
-        """Bytes of the lanes' tables, each read once: one set when the
-        lanes share them, else every lane's own."""
-        return (1 if shared else L) * nbytes(
-            *(getattr(lanes[0], f) for f in names))
-
-    def distinct(reads_of) -> int:
-        """Bytes of the distinct weight entries the lanes read: one union
-        over shared tables, else each lane's own entries."""
-        if shared:
-            return gathered(B1, *(r for i in range(L) for r in reads_of(i)))
-        return sum(gathered(B1, *reads_of(i)) for i in range(L))
-
-    # the bounds: each input once, the distinct weight and a0 entries the
-    # lanes read, each output once; the operations summed over the lanes
-    flat = torch.stack([torch.where(lanes[i].slot_valid[None], al[i],
-                                    ms.num_brokers) for i in range(L)])
-
-    def b1_reads(i):
-        sv = lanes[i].slot_valid
-        return [(t, al[i, :, :, r], sv[None, :, r]) for t, r in
-                [(0, r) for r in range(R)] + [(1, r) for r in range(1, R)]]
-
-    b1_bytes = (nbytes(al) + tables("slot_valid", "part_rack_hi", "rack_of",
-                                    "rack_lo", "rack_hi")
-                + distinct(b1_reads) + nbytes(*score_lanes(ms, al)))
-    a0_keys, site_reads, real = [], [], 0
-    for i in range(L):
-        mi = lanes[i]
-        bits = prng.bits(keys[i], (N, P, 8), dev)
-        pp = sweep.propose_site(mi, al[i], bits, temps[i],
-                                hists=sweep._carried(cnt[i], lcnt[i],
-                                                     rcnt[i]))
-        s_orig = sweep._rand_idx(arrays.u01(bits[..., 3]), R)
-        a0_keys.append((torch.arange(P, device=dev)[None] * R
-                        + s_orig).reshape(-1) + (0 if shared else i * P * R))
-        in_row = ((al[i] == pp.b_new[..., None])
-                  & mi.slot_valid[None]).any(-1)
-        legal = torch.where(pp.is_lsw, mi.rf > 1, ~in_row) & (mi.rf > 0)
-        rep_, lsw = legal & ~pp.is_lsw, legal & pp.is_lsw
-        tbl = (pp.s != 0).to(torch.int64)
-        site_reads.append([(tbl, pp.b_new, rep_), (tbl, pp.b_at_s, rep_),
-                           (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
-                           (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw)])
-        real += N * int((mi.rf > 0).sum())
-    site_bytes = (nbytes(al, cnt, lcnt, rcnt)
-                  + tables("rf", "slot_valid", "part_rack_hi", "rack_of",
-                           "rack_lo", "rack_hi")
-                  + int(torch.unique(torch.cat(a0_keys)).numel()) * 4
-                  + distinct(lambda i: site_reads[i])
-                  + nbytes(*calls[kernels.SITE.name][0]()))
-    ex = exchange_cuda.exchange_sweep_lanes(ms, al, lcnt, keys, temps)
-    s_own, b_other, acc = ex[2][0], ex[2][1], ex[2][4] > 0
-    b_own = al.gather(3, s_own.clamp(min=0)[..., None].long())[..., 0]
-    tbl = (s_own != 0).to(torch.int64)
-    ex_bytes = (nbytes(al, lcnt)
-                + tables("rf", "slot_valid", "part_rack_hi", "rack_of")
-                + distinct(lambda i: [(tbl[i], b_other[i], acc[i]),
-                                      (tbl[i], b_own[i], acc[i])])
-                + nbytes(ex[0], ex[1]))
-    n_words = real + int(acc.sum()) // 2 + 2 * N * L
-    bounds = {
-        kernels.SCORE.name: (b1_bytes, L * N * P * R * (12 + 2 * R), 0),
-        kernels.SITE.name: (site_bytes, real * tf_ops, real * 9),
-        kernels.EXCHANGE.name: (ex_bytes, round(n_words * tf_ops / 7),
-                                n_words),
-    }
-    # the library yardsticks: the replica histogram of every lane in one
-    # torch.bincount; the exchange maps of every lane in one
-    # scatter_reduce_
-    keys_b = (torch.arange(L * N, device=dev).reshape(L, N, 1, 1) * B1
-              + flat).reshape(-1)
-    idx = torch.cat([ex[2][2], ex[2][3] + B1], -1).reshape(L * N, -1).long()
-    src = torch.cat([ex[2][4], ex[2][4]], -1).reshape(L * N, -1)
-    maps = torch.zeros(L * N, 2 * B1, dtype=torch.float32, device=dev)
-    library = {
-        kernels.SCORE.name: timed(
-            lambda: torch.bincount(keys_b, minlength=L * N * B1), torch),
-        kernels.SITE.name: None,
-        kernels.EXCHANGE.name: timed(
-            lambda: maps.scatter_reduce_(1, idx, src, "amax"), torch),
-    }
+    library = bench_kernel.library_calls(
+        ms, al, exchange_cuda.exchange_sweep_lanes(ms, al, lcnt, keys, temps))
     rows = []
     for k in kernels.KERNELS:
         call, plain = calls[k.name]
@@ -754,28 +659,18 @@ def lane_rows(torch, dev, ms, al, errs: dict, hists, keys, temps,
             mine += got
             seen.append(len(got))
         dev_ms = sum(mine) / len(mine) / 1e3 if mine else None
-        bytes_, int_ops, fp_ops = bounds[k.name]
-        t_bytes = bytes_ / HBM_BYTES_PER_S
-        t_ops = max(int_ops / int32_ops_per_s, fp_ops / FP32_OPS_PER_S)
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        ms_ = timed(call, torch)
-        plain_ms = timed(plain, torch, reps=2, windows=3)
-        rows.append({
-            "name": f"{k.name} ({label})", "route": "cuda",
-            "source": f"kafka_assignment_optimizer_tpu_torch/csrc/"
-                      f"{k.source}.cu",
-            "replaces": " + ".join(r.split(" ")[0] for r in k.replaces),
-            "launches": 0, "max_abs_err": errs[k.name], "ms": ms_,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library[k.name],
-        })
+        cost = bench_kernel.data_cost(k.name, ms, al, hists, keys, temps,
+                                      tf_ops / 7)
+        row = kernel_row(k, f" ({label})", errs[k.name], call, plain, cost,
+                         library[k.name], peaks, (2, 3))
+        rows.append(row)
         solo = (solo_device_us or {}).get(k.name)
-        print(f"  {k.name} ({label}): exact; wrapper {ms_:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bytes_} bytes, "
-              f"{int_ops} INT32 ops), library "
-              + ("n/a" if library[k.name] is None
-                 else f"{library[k.name]:.4f} ms")
+        print(f"  {k.name} ({label}): exact; wrapper {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
+              f"ms ({cost['bytes']} bytes, {cost['int_ops']} INT32 ops), "
+              "library "
+              + ("n/a" if row["library_ms"] is None
+                 else f"{row['library_ms']:.4f} ms")
               + f", device (profiler) L={L} "
               + ("not measured" if dev_ms is None else f"{dev_ms:.5f} ms")
               + f" ({len(mine)} of {PROFILED[0] * PROFILED[1]} launches "
@@ -786,7 +681,7 @@ def lane_rows(torch, dev, ms, al, errs: dict, hists, keys, temps,
     return rows
 
 
-def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
+def lane_kernels(torch, dev, m, a, temp: float, peaks: dict,
                  tf_ops: int, solo_device_us: dict) -> list[dict]:
     """The lane forms at the main path's shapes: L=8 lanes of the
     adversarial bucket on the eight ``PORTFOLIO_TABLE`` configs (the
@@ -816,9 +711,8 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
     errs, hists, keys, temps = lane_equal(torch, ms, al, temp,
                                           f"{L} portfolio lanes")
     cnt, lcnt, rcnt = hists
-    rows = lane_rows(torch, dev, ms, al, errs, hists, keys, temps,
-                     int32_ops_per_s, tf_ops, True, f"{L} lanes",
-                     solo_device_us)
+    rows = lane_rows(torch, ms, al, errs, hists, keys, temps, peaks,
+                     tf_ops, f"{L} lanes", solo_device_us)
 
     # the stages with no kernel, run lane by lane: the compound sweep and
     # the snapshot (one B1 for every lane, then each lane's bookkeeping
@@ -829,9 +723,9 @@ def lane_kernels(torch, dev, m, a, temp: float, int32_ops_per_s: float,
                            out[0][..., 1:5].sum(-1, dtype=torch.int32)),
             out[0][..., 5], al.clone())
     comp_ms = timed(lambda: sc.comp_step(ms, al, cnt, lcnt, rcnt, keys,
-                                         temps), torch, reps=2, windows=3)
+                                         temps), reps=2, windows=3)
     snap_ms = timed(lambda: sweep.snapshot_step(sc, ms, al, *best),
-                    torch, reps=2, windows=3)
+                    reps=2, windows=3)
     print(f"  L={L} stages without a kernel (lane by lane, CUDA events): "
           f"compound sweep {comp_ms:.4f} ms, snapshot {snap_ms:.4f} ms")
 
@@ -872,7 +766,7 @@ def b1_holds(torch, dev, inst, a, label: str) -> None:
         fail(f"{label}: B1 scores {out} disagree with the oracle {oracle}")
 
 
-def decomposed_phase(torch, dev, power: str, int32_ops_per_s: float,
+def decomposed_phase(torch, dev, power: str, peaks: dict,
                      tf_ops: int, partitions: int = 200_000) -> list[dict]:
     """(h) The decomposed solve. The smoke ``ultra_jumbo`` instance with
     ``engine="sweep", rounds=32, decompose=True`` on the card and on the
@@ -970,9 +864,8 @@ def decomposed_phase(torch, dev, power: str, int32_ops_per_s: float,
           f"{t_lanes - t_seeds:.3f} s; the seeds' violations {seed_viol}")
     errs, hists, k_lanes, temps = lane_equal(
         torch, m_stack, pop, float(np.float32(0.5)), "decomposed map")
-    rows = lane_rows(torch, dev, m_stack, pop, errs, hists, k_lanes, temps,
-                     int32_ops_per_s, tf_ops, False,
-                     f"{L} lanes, decomposed map")
+    rows = lane_rows(torch, m_stack, pop, errs, hists, k_lanes, temps,
+                     peaks, tf_ops, f"{L} lanes, decomposed map")
     del m_stack, pop, hists
 
     from kafka_assignment_optimizer_tpu_torch.parallel.mesh import (
@@ -1756,6 +1649,366 @@ def service_phase(torch, power: str, batch3: list, delta) -> None:
     print(f"service phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+def measure_phase(torch, power: str) -> None:
+    """(m) The measurement plane on the card (see the module docstring):
+    the scenario catalogue at its published sizes with the roofline
+    profiler armed and the device sampler at 10 Hz, a profiled solve,
+    the kernel-vs-torch bench, and the service's measurement surfaces.
+    Nothing here is caught: a sampler that reads no card, a bench that
+    skips or a refused ``profile_dir`` fails the phase."""
+    import glob
+    import threading
+
+    from kafka_assignment_optimizer_tpu_torch import optimize, serve
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.obs import flight, prof
+    from kafka_assignment_optimizer_tpu_torch.obs.sampler import SAMPLER
+    from kafka_assignment_optimizer_tpu_torch.ops import bench_kernel
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    t_phase = time.perf_counter()
+    # the annealer pinned by its knobs, the portfolio and the boundary
+    # certificate off (as (b)): every kernel, a plan that does not depend
+    # on the card's speed. The catalogue's symmetric scenarios certify in
+    # the host race's aggregated MILP even with the knobs set (as in the
+    # reference), so the pinned solves also switch the race off
+    # (precompile=True, the service warm-up's mode; such a solve lands
+    # no flight record)
+    pinned = {"engine": "sweep", "batch": 8, "rounds": 128,
+              "portfolio": False}
+    no_race = {"cert_min_savings_s": float("inf"), "precompile": True}
+    prof.clear()
+    t_unix = time.time()
+    SAMPLER.configure(10.0)
+    walls = []
+
+    def solve(name, scen, label, **kw):
+        """One solve at the scenario's published size, its launches
+        counted from 0: feasible under the numpy oracle (B1 held to it),
+        its moves against the scenario's bound."""
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = optimize(scen.current, scen.broker_list, scen.topology,
+                       target_rf=scen.target_rf, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        rep, st = res.report(), res.solve.stats
+        inst = res.instance
+        if not rep["feasible"] or sum(inst.violations(res.solve.a).values()):
+            fail(f"{label}: infeasible plan ({rep['violations']})")
+        b1_holds(torch, torch.device("cuda"), inst, res.solve.a, label)
+        moves = rep["replica_moves"]
+        if moves < scen.min_moves_lb or (scen.lb_tight
+                                         and moves != scen.min_moves_lb):
+            fail(f"{label}: {moves} moves against the bound "
+                 f"{scen.min_moves_lb} (tight: {scen.lb_tight})")
+        phases = {k: st[k] for k in ("build_s", "race_s", "seed_s",
+                                     "lower_s", "anneal_s", "select_s",
+                                     "polish_s", "verify_s") if k in st}
+        print(f"{label}: {inst.num_brokers} brokers, {inst.num_parts} "
+              f"partitions; path {st.get('engine')}/"
+              f"{st.get('construct_path')}, {moves} moves (bound "
+              f"{scen.min_moves_lb}, tight {scen.lb_tight}), weight "
+              f"{res.solve.objective}, proven {rep['proven_optimal']}, "
+              f"wall {wall:.3f} s ({power}); launches "
+              + json.dumps(counts) + "; phases s " + json.dumps(phases))
+        return res, counts, wall
+
+    # 1. the catalogue's four published scenarios at the defaults
+    for name in ("decommission", "scale_out", "rf_change", "leader_only"):
+        solve(name, gen.SCENARIOS[name](), f"{name} at defaults")
+
+    # 2. decommission pinned to the annealer: every launch; then adv50k at
+    # its defaults (pinned as well when the race certifies it on the host)
+    decom = gen.SCENARIOS["decommission"]()
+    pinned_res, counts, _w = solve("decommission", decom,
+                                   "decommission pinned (batch=8, "
+                                   "rounds=128, portfolio off)",
+                                   solver="tpu", **pinned, **no_race)
+    if not all(counts.values()):
+        fail(f"decommission pinned: a kernel never launched: {counts}")
+    adv = gen.SCENARIOS["adv50k"]()
+    hbm = []
+    stop = threading.Event()
+
+    def watch_hbm():
+        while not stop.wait(0.05):
+            devs = SAMPLER.stats()["devices"]
+            hbm.append(max((d["bytes_in_use"] for d in devs.values()),
+                           default=0))
+
+    poller = threading.Thread(target=watch_hbm, daemon=True)
+    poller.start()
+    try:
+        _res, counts, _w = solve("adv50k", adv, "adv50k at defaults")
+        if not any(counts.values()):
+            print("adv50k: the constructor race certified it on the host "
+                  "with no launch; solved again pinned to the annealer")
+            # the card's idle share of this solve: a profiler session
+            # around it, 1 - device busy over its wall
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                _res, counts, wall = solve("adv50k", adv, "adv50k pinned",
+                                           solver="tpu", **pinned,
+                                           **no_race)
+            busy = sum(e.time_range.elapsed_us() for e in p.events()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+            if not all(counts.values()):
+                fail(f"adv50k pinned: a kernel never launched: {counts}")
+            idle = (f"{1 - busy / wall:.4f} (device busy {busy:.4f} s of "
+                    f"{wall:.3f} s)" if busy else
+                    "not measured (no device event kept)")
+        else:
+            idle = "not measured (the defaulted solve ran unprofiled)"
+    finally:
+        stop.set()
+        poller.join(timeout=5)
+    if not hbm or max(hbm) <= 0:
+        fail(f"the sampler read no card memory during adv50k ({hbm[:5]})")
+    # the pinned solves land no flight record, so the duty cycle reads
+    # what the recorded solves before them left; (7) reads it across a
+    # served solve that lands one
+    snap = SAMPLER.snapshot()
+    if not 0.0 <= snap["duty_cycle"] <= 1.0 or snap["overhead_frac"] >= 0.01:
+        fail(f"sampler: duty cycle {snap['duty_cycle']}, overhead "
+             f"{snap['overhead_frac']}")
+    print(f"sampler during adv50k: kao_device_hbm_bytes max {max(hbm)}, "
+          f"duty cycle {snap['duty_cycle']}, overhead_frac "
+          f"{snap['overhead_frac']}, samples {snap['samples_total']}, avg "
+          f"sample {snap['avg_sample_s']} s; the profiler's idle share of "
+          f"the pinned adv50k solve {idle} ({power})")
+    print("sampler snapshot: " + json.dumps(
+        {k: snap[k] for k in ("enabled", "hz", "samples_total",
+                              "overhead_frac", "duty_cycle", "devices",
+                              "duty_totals", "roofline")}))
+
+    # 3. jumbo at its defaults
+    solve("jumbo", gen.SCENARIOS["jumbo"](), "jumbo at defaults")
+
+    # 4. the roofline of everything above
+    roof = prof.roofline()
+    snapp = prof.snapshot()
+    for row in snapp["executables"]:
+        if row["flops"] is None or row["bytes_accessed"] is None:
+            fail(f"roofline: key {row['key_id']} ({row['path']}, "
+                 f"{row['scorer']}) has no analytic cost")
+        over = {k: v for k, v in row.items()
+                if k.startswith("occupancy_") and v is not None and v > 1.05}
+        if over:
+            fail(f"roofline: key {row['key_id']} reads {over}: above any "
+                 "card")
+    recs = [r for r in flight.recent() if r.get("ts", 0.0) >= t_unix]
+    bad = [r.get("trace_id") for r in recs
+           if not (r.get("ledger") or {}).get("ok")]
+    if bad:
+        fail(f"roofline: ledgers that do not sum to the wall: {bad}")
+    ovh = prof.overhead()["seconds_total"]
+    if ovh > 0.02 * sum(walls):
+        fail(f"roofline: the profiler's own {ovh:.4f} s is over 2% of the "
+             f"solves' {sum(walls):.3f} s")
+    print(f"roofline ({len(snapp['executables'])} keys; peaks "
+          + json.dumps(snapp["peaks"]) + f"; profiler overhead {ovh:.5f} s "
+          f"of {sum(walls):.3f} s of solves; {len(recs)} ledgers ok): "
+          + json.dumps(roof))
+    print("roofline keys: " + json.dumps(
+        [{k: r.get(k) for k in ("path", "scorer", "chains", "bucket",
+                                "launches", "flops", "bytes_accessed",
+                                "peak_hbm_bytes", "dispatches",
+                                "window_s", "occupancy_flops",
+                                "occupancy_hbm", "occupancy_hbm_p99")}
+         for r in snapp["executables"]]))
+
+    # 5. the profiled solve: the pinned decommission solve with a
+    # torch.profiler trace, the plan equal to the unprofiled one
+    with tempfile.TemporaryDirectory() as tmp:
+        inst = build_instance(decom.current, decom.broker_list,
+                              decom.topology, decom.target_rf)
+        res = engine.solve_tpu(inst, profile_dir=tmp, **pinned, **no_race)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        if not files:
+            fail(f"profile_dir: no trace file under it ({os.listdir(tmp)})")
+        text = open(files[0]).read()
+        missing = [f for f in ("score_grid", "site_sweep", "exchange_sweep")
+                   if f not in text]
+        if missing:
+            fail(f"profile_dir: the trace names none of {missing}")
+        if not (res.a == pinned_res.solve.a).all():
+            fail("profile_dir: the profiled plan differs from the "
+                 "unprofiled one")
+        print(f"profile_dir: {os.path.basename(files[0])} "
+              f"({len(text)} bytes) names score_grid, site_sweep and "
+              "exchange_sweep; the plan equals the unprofiled one")
+
+    # 6. the kernel-vs-torch bench at the headline's shape and adv50k's
+    for scen in ("decommission", "adv50k"):
+        rep = bench_kernel.kernel_vs_torch(scenario=scen)
+        if rep.get("skipped") or rep["platform"] != "gpu":
+            fail(f"kernel_vs_torch ({scen}) did not run on the card: "
+                 f"{rep.get('skipped')}")
+        rows = rep["rows"]
+        if len(rows) != 6 or not all(r["parity"] for r in rows):
+            fail(f"kernel_vs_torch ({scen}): "
+                 + json.dumps([(r["name"], r["lanes"], r["parity"])
+                               for r in rows]))
+        if any(r["share"] > 1.05 for r in rows):
+            fail(f"kernel_vs_torch ({scen}): a share of the bound over "
+                 "1.05")
+        print(f"kernel_vs_torch ({scen}, {rep['partitions']} partitions, "
+              f"bucket {rep['bucket']}, {rep['chains']} chains; {power}): "
+              + json.dumps(rows))
+
+    # 7. the service's measurement surfaces: --slo, --sample-devices 10,
+    # --flight-dir and --profile-dir as main() sets them
+    with tempfile.TemporaryDirectory() as tmp:
+        flight_dir = os.path.join(tmp, "flight")
+        serve._oslo.ENGINE.configure(spec="solve:5:0.99")
+        flight.configure(flight_dir)
+        serve.OBS["flight_dir"] = flight_dir
+        serve.OBS["profile_dir"] = os.path.join(tmp, "prof")
+        serve.OBS["profile_solves"] = 1
+        srv = serve.make_server(port=0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def ok(path, payload=None):
+            st, body, _wall = _http(url, path, payload)
+            if st != 200:
+                fail(f"service {path}: {st} {str(body)[:300]}")
+            return body
+
+        try:
+            # the served decommission certifies in the host race (no
+            # ladder, so no profiler session); the pinned adversarial
+            # solve of (l) runs the ladder, the first of its bucket
+            # under --profile-dir
+            adv_sc = gen.adversarial()
+            tids = []
+            for scen, moves in ((decom, decom.min_moves_lb),
+                                (decom, decom.min_moves_lb),
+                                (adv_sc, 117)):
+                body = ok("/submit", {
+                    "assignment": scen.current.to_dict(),
+                    "brokers": list(scen.broker_list),
+                    "topology": scen.topology.to_dict(), "solver": "tpu",
+                    "options": pinned})
+                if body["report"]["replica_moves"] != moves:
+                    fail(f"service: {body['report']['replica_moves']} "
+                         f"moves, expected {moves}")
+                tids.append(body["trace_id"])
+            # the pinned adversarial solve once more (its bucket's profile
+            # budget spent): the sampler's duty cycle across the request
+            # (the recorded device_s + dispatch_s it added, over the
+            # request's wall) beside a profiler session's idle share of it
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            d0 = SAMPLER.snapshot()["duty_totals"]
+            kernels.reset_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                body = ok("/submit", {
+                    "assignment": adv_sc.current.to_dict(),
+                    "brokers": list(adv_sc.broker_list),
+                    "topology": adv_sc.topology.to_dict(), "solver": "tpu",
+                    "options": pinned})
+                torch.cuda.synchronize()
+                req_wall = time.perf_counter() - t0
+            d1 = SAMPLER.snapshot()["duty_totals"]
+            counts = {k.name: k.launches for k in kernels.KERNELS}
+            solved = {k: body["report"].get(f"solver_{k}") for k in (
+                "engine", "final_cert", "dispatches", "dispatch_s",
+                "device_s", "anneal_s")}
+            busy = sum(e.time_range.elapsed_us() for e in p.events()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+            duty = ((d1["device_s"] + d1["dispatch_s"] - d0["device_s"]
+                     - d0["dispatch_s"]) / req_wall)
+            if d1["solves"] != d0["solves"] + 1 or not 0.0 < duty <= 1.0:
+                fail(f"sampler duty cycle across the served adversarial "
+                     f"solve: {duty} ({d0} -> {d1}, wall {req_wall:.3f} s)")
+            duty_line = (
+                f"served pinned adversarial solve: sampler duty cycle "
+                f"{duty:.4f} (recorded dispatch_s + device_s "
+                f"{duty * req_wall:.4f} s of the request's {req_wall:.3f} "
+                "s); profiler idle share "
+                + (f"{1 - busy / req_wall:.4f} (device busy {busy:.4f} s)"
+                   if busy else "not measured (no device event kept)")
+                + f", sampler EWMA {SAMPLER.snapshot()['duty_cycle']}; "
+                f"launches {json.dumps(counts)}; the solve "
+                + json.dumps(solved) + f" ({power})")
+            profd = ok("/debug/profile")
+            slo = ok("/debug/slo")
+            hz = ok("/healthz")
+            _st, metrics, _w = _http(url, "/metrics")
+            chrome = ok(f"/debug/solves/{tids[-1]}?format=chrome")
+            report = ok(f"/debug/solves/{tids[-1]}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            serve.OBS["profile_dir"] = None
+        if not profd["roofline"] or not profd["attribution"]:
+            fail(f"/debug/profile: {json.dumps(profd)[:300]}")
+        if not {"slo", "drift", "flight"} <= set(slo):
+            fail(f"/debug/slo keys {sorted(slo)}")
+        if not hz["devices"]["enabled"] or not hz["devices"]["devices"] \
+                or "slo" not in hz:
+            fail(f"/healthz devices/slo: {json.dumps(hz['devices'])[:300]}")
+        fams = {ln.split()[2] for ln in metrics.splitlines()
+                if ln.startswith("# TYPE")}
+        for pre in ("kao_slo_", "kao_drift_", "kao_device_", "kao_prof_"):
+            if not any(f.startswith(pre) for f in fams):
+                fail(f"/metrics has no {pre}* family")
+        if not chrome.get("traceEvents"):
+            fail("?format=chrome: no traceEvents")
+        traces = glob.glob(os.path.join(tmp, "prof", "**",
+                                        "*.pt.trace.json"), recursive=True)
+        if len(traces) != 1:
+            fail(f"--profile-dir: {len(traces)} traces of the served "
+                 "ladders, expected the adversarial solve's one")
+        rep_path = os.path.join(tmp, "report.json")
+        with open(rep_path, "w") as f:
+            json.dump(report, f)
+        cli = [sys.executable, "-m",
+               "kafka_assignment_optimizer_tpu_torch.obs.trace_cli",
+               "convert", rep_path]
+        out = subprocess.run(cli, capture_output=True, text=True,
+                             timeout=300)
+        if out.returncode != 0 or json.loads(out.stdout) != chrome:
+            fail(f"trace_cli convert: rc {out.returncode}, "
+                 f"{out.stderr[-300:]}")
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "kafka_assignment_optimizer_tpu_torch.obs.prof", flight_dir,
+             "--json"], capture_output=True, text=True, timeout=300)
+        offline = json.loads(out.stdout) if out.returncode == 0 else {}
+        if not {"records", "attribution", "worst_solves"} <= set(offline):
+            fail(f"obs.prof over the flight dir: rc {out.returncode}, "
+                 f"{out.stderr[-300:]}")
+        flight.configure(None)
+        serve.OBS["flight_dir"] = None
+    SAMPLER.configure(None)
+    print(f"service measurement surfaces: /debug/profile "
+          f"{len(profd['roofline'])} buckets, attribution "
+          + json.dumps(profd["attribution"])
+          + f"; /debug/slo status {slo['slo'].get('status')}, drift "
+          f"alarms {slo['drift'].get('alarms_total')}; /healthz devices "
+          + json.dumps(hz["devices"]["devices"])
+          + f" duty {hz['devices']['duty_cycle']}; /metrics "
+          f"{len(fams)} families; chrome {len(chrome['traceEvents'])} "
+          f"events = trace_cli convert; obs.prof over the flight dir: "
+          f"{offline['records']} records")
+    print(duty_line)
+    print(f"measurement phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1765,7 +2018,7 @@ def main() -> int:
     import numpy as np
 
     from kafka_assignment_optimizer_tpu_torch import optimize, prng
-    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.ops import bench_kernel, kernels
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1773,12 +2026,23 @@ def main() -> int:
 
     # ---- 1. header ------------------------------------------------------
     int32_ops_per_s = header(torch)
+    from kafka_assignment_optimizer_tpu_torch.obs import prof
+
+    # the bounds' rates: the profiler's (INT32 from the card's properties,
+    # device memory by the card's name), held to the header's clock
+    peaks = prof.peaks()
+    if peaks["platform"] != "gpu" or abs(peaks["flops"] / int32_ops_per_s
+                                         - 1) > 0.01:
+        fail(f"the profiler's peaks {peaks} disagree with the card's INT32 "
+             f"rate {int32_ops_per_s:.6g}")
+    print("bound rates (obs.prof.peaks): " + json.dumps(peaks))
 
     from kafka_assignment_optimizer_tpu_torch.models.instance import (
         build_instance,
     )
     from kafka_assignment_optimizer_tpu_torch.ops.exchange_cuda import (
         exchange_sweep_cuda,
+        exchange_sweep_lanes,
     )
     from kafka_assignment_optimizer_tpu_torch.ops.score import moves_batch
     from kafka_assignment_optimizer_tpu_torch.ops.score_cuda import (
@@ -1809,8 +2073,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s ({nvcc_version})")
 
     # ---- 3. kernel check at the main path's shapes -----------------------
-    N = 8
-    scen, inst, m, seed_np, a = adversarial_population(torch, dev, N)
+    # the adversarial scenario lowered to its bucket, and 8 chains of its
+    # greedy seed with one seeded random slot change per partition
+    scen, inst, m, seed_np, a = bench_kernel.population(dev, "adversarial")
+    N = a.shape[0]
     Pp, Rp = m.a0.shape
     B1, K1 = m.num_brokers + 1, m.rack_lo.shape[0]
     _f, _r, cnt, lcnt, rcnt = sweep.histograms(m, a)
@@ -1820,38 +2086,34 @@ def main() -> int:
 
     rows = []
     device_us = {}
+    # the one-lane form the engine runs (lane 0 of a stacked model), for
+    # the bounds and the library yardsticks of ops.bench_kernel
+    m1, a1l = sweep._one_lane(m), a[None]
+    hists1 = (cnt[None], lcnt[None], rcnt[None])
+    tf_ops, tf_hist = threefry_ops(kernels)
 
-    def report(k, ok_outs, ms, plain_ms, bytes_, int_ops, fp_ops,
-               library_ms, call):
+    def report(k, err, call, plain, key, library):
         events, _wall = profiled(call, torch, REPS)
         mine = [us for name, us in events
                 if any(f in name for f in KERNEL_FUNCS[k.name])]
         # a device time only where the profiler saw every launch
         device_us[k.name] = (sum(mine) / REPS if len(mine)
                              == REPS * len(KERNEL_FUNCS[k.name]) else None)
-        t_bytes = bytes_ / HBM_BYTES_PER_S
-        t_ops = max(int_ops / int32_ops_per_s, fp_ops / FP32_OPS_PER_S)
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        rows.append({
-            "name": k.name, "route": "cuda",
-            "source": f"kafka_assignment_optimizer_tpu_torch/csrc/"
-                      f"{k.source}.cu",
-            "replaces": " + ".join(r.split(" ")[0] for r in k.replaces),
-            "launches": 0, "max_abs_err": ok_outs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-        })
-        print(f"  {k.name}: exact (max_abs_err {ok_outs}); kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {bytes_} bytes, {int_ops} INT32 ops, {fp_ops} "
-              "FP32 ops), library "
-              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
-              "device (profiler) "
+        cost = bench_kernel.data_cost(k.name, m1, a1l, hists1, [key],
+                                      [temp], tf_ops / 7)
+        row = kernel_row(k, "", err, call, plain, cost, library, peaks)
+        rows.append(row)
+        print(f"  {k.name}: exact (max_abs_err {err}); kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{cost['bytes']} bytes, {cost['int_ops']} INT32 ops, "
+              f"{cost['fp_ops']} FP32 ops), library "
+              + ("n/a" if row["library_ms"] is None
+                 else f"{row['library_ms']:.4f} ms")
+              + ", device (profiler) "
               + ("not measured" if device_us[k.name] is None
                  else f"{device_us[k.name] / 1e3:.4f} ms"))
 
-    NP = N * Pp
     print("kernel check:")
     # B1 — score, with the move count in out[:, 5]; one launch a call
     kout = score(m, a)
@@ -1873,27 +2135,13 @@ def main() -> int:
     ev1, _w = profiled(lambda: score(m, a1), torch, REPS)
     dev1 = [us for n, us in ev1 if "score_grid" in n]
     print(f"  (B1: one device activity a call; moves {kout[0][:, 5].tolist()}"
-          f"; at N=1 kernel {timed(lambda: score(m, a1), torch):.4f} ms, "
+          f"; at N=1 kernel {timed(lambda: score(m, a1)):.4f} ms, "
           "device (profiler) "
           + (f"{sum(dev1) / REPS / 1e3:.5f} ms)" if len(dev1) == REPS
              else "not measured)"))
-    flat = torch.where(m.slot_valid[None], a, m.num_brokers)
-    keys_b = (torch.arange(N, device=dev)[:, None, None] * B1
-              + flat).reshape(-1)
-    lib = timed(lambda: torch.bincount(keys_b, minlength=N * B1), torch)
-    # the bytes: each input once, the distinct weight entries the valid
-    # slots read (w_lead at every valid slot for the moves, w_foll at the
-    # followers), each output once
-    b1_bytes = (nbytes(a, m.slot_valid, m.part_rack_hi, m.rack_of,
-                       m.rack_lo, m.rack_hi)
-                + gathered(B1, *((0, a[:, :, r], m.slot_valid[None, :, r])
-                                 for r in range(Rp)),
-                           *((1, a[:, :, r], m.slot_valid[None, :, r])
-                             for r in range(1, Rp)))
-                + nbytes(*kout))
-    report(kernels.SCORE, err, timed(lambda: score(m, a), torch),
-           timed(lambda: score_plain(m, a), torch), b1_bytes,
-           NP * Rp * (12 + 2 * Rp), 0, lib, lambda: score(m, a))
+    report(kernels.SCORE, err, lambda: score(m, a),
+           lambda: score_plain(m, a), prng.PRNGKey(1),
+           bench_kernel.library_calls(m1, a1l, None)[kernels.SCORE.name])
 
     # B2+B3 — the fused site sweep, at two temperatures, against the
     # plain site sweep
@@ -1909,46 +2157,12 @@ def main() -> int:
     one_launch("site_step_cuda",
                lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
                kernels.SITE, "site_sweep", torch)
-    # the bytes: each input once, the distinct a0 entries and weights the
-    # proposals read (a replace its slot's table at the old and new
-    # broker, a leader swap both tables at both brokers, legal proposals
-    # only), each output once; no random words and no records
-    bits = prng.bits(key, (N, Pp, 8), dev)
-    pp = sweep.propose_site(m, a, bits, temp,
-                            hists=sweep._carried(cnt, lcnt, rcnt))
-    s_orig = sweep._rand_idx(arrays.u01(bits[..., 3]), Rp)
-    a0_read = int(torch.unique(torch.arange(Pp, device=dev)[None] * Rp
-                               + s_orig).numel()) * 4
-    in_row = ((a == pp.b_new[..., None]) & m.slot_valid[None]).any(-1)
-    legal = torch.where(pp.is_lsw, m.rf > 1, ~in_row) & (m.rf > 0)
-    rep_, lsw = legal & ~pp.is_lsw, legal & pp.is_lsw
-    tbl = (pp.s != 0).to(torch.int64)
-    site_out = site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp)
-    site_bytes = (nbytes(a, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
-                         m.rack_lo, m.rack_hi, cnt, lcnt, rcnt)
-                  + a0_read
-                  + gathered(B1, (tbl, pp.b_new, rep_),
-                             (tbl, pp.b_at_s, rep_),
-                             (0, pp.b_lead, lsw), (1, pp.b_lead, lsw),
-                             (0, pp.b_at_s, lsw), (1, pp.b_at_s, lsw))
-                  + nbytes(*site_out))
-    # the operations: the seven threefry words of each partition that has
-    # replicas, counted in the SASS; the rest of the proposal is not
-    # counted, so the bound is below the least time. The float work: the
-    # scale multiply of each of the 7 uniforms, the delta's multiply and
-    # subtract
-    tf_ops, tf_hist = threefry_ops(kernels)
-    real = N * int((m.rf > 0).sum())
     print(f"  (threefry: {tf_ops} integer instructions for 7 words in the "
           f"SASS: {json.dumps(tf_hist, sort_keys=True)})")
-    site_int = real * tf_ops
     report(kernels.SITE, err,
-           timed(lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
-                 torch),
-           timed(lambda: sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key,
-                                                 temp), torch),
-           site_bytes, site_int, real * 9, None,
-           lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp))
+           lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
+           lambda: sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, temp),
+           key, None)
 
     # B4+B5+B6 — the fused exchange sweep, at two temperatures: its
     # records and maps against the plain proposal, its a_new and lcnt'
@@ -2012,43 +2226,16 @@ def main() -> int:
     print(f"  (one exchange sweep as the engine runs it: one device "
           f"activity, no prng draw on the device: {names})")
     # the library yardstick of the maps: one scatter_reduce_ amax over
-    # both token sets side by side
-    idx = torch.cat([ref[4], ref[5] + B1], 1).long()
-    src = torch.cat([ref[6], ref[6]], 1)
-    lib_maps = torch.zeros(N, 2 * B1, dtype=torch.float32, device=dev)
-    lib_maps.scatter_reduce_(1, idx, src, "amax")
-    if not torch.equal(lib_maps, torch.cat([ref[7], ref[8]], 1)):
+    # both token sets side by side, on the one-lane launch's records
+    lib = bench_kernel.library_calls(m1, a1l, exchange_sweep_lanes(
+        m1, a1l, lcnt[None], [key], [temp]))[kernels.EXCHANGE.name]
+    if not torch.equal(lib[1](), torch.cat([ref[7], ref[8]], 1)):
         fail("the scatter_reduce_ yardstick disagrees with the maps")
-    lib = timed(lambda: lib_maps.scatter_reduce_(1, idx, src, "amax"), torch)
-    # counted from the records: the bytes are each input once, the
-    # weights an accepted pair's sides read (its slot's table at the
-    # broker it gives and at the one it takes), each output once (a_new
-    # and lcnt'; the records and the maps are the kernel's scratch, written
-    # in phase 1 and read back in phase 2, a cost of its design and not of
-    # the function). The operations are threefry words
-    # at the SASS count of one word: a slot word for each partition that
-    # has replicas, a priority word for each accepted pair, two a chain
-    # for the phase; the float work is the scale multiply of each word's
-    # uniform. Left out, so that the bound stays below the least time: the
-    # weights of rejected legal pairs, the Metropolis words, the slot
-    # words of wrapped partners
-    s_own, b_other, acc = got[2], got[3], got[6] > 0
-    b_own = a.gather(2, s_own.clamp(min=0)[..., None].long())[..., 0]
-    tbl = (s_own != 0).to(torch.int64)
-    ex_bytes = (nbytes(a, m.rf, m.slot_valid, m.part_rack_hi, m.rack_of,
-                       lcnt)
-                + gathered(B1, (tbl, b_other, acc), (tbl, b_own, acc))
-                + nbytes(*got[:2]))
-    n_words = real + int(acc.sum()) // 2 + 2 * N
-    print(f"  (exchange: at least {n_words} threefry words, "
-          f"{tf_ops / 7:.4g} integer instructions a word)")
-    report(kernels.EXCHANGE, err, timed(lambda: exch(temp), torch),
-           timed(lambda: exch_plain(temp), torch), ex_bytes,
-           round(n_words * tf_ops / 7), n_words, lib,
-           lambda: exch(temp))
+    report(kernels.EXCHANGE, err, lambda: exch(temp),
+           lambda: exch_plain(temp), key, lib)
 
     # ---- 3b. the lane forms ----------------------------------------------
-    lane_rows = lane_kernels(torch, dev, m, a, temp, int32_ops_per_s, tf_ops,
+    lane_rows = lane_kernels(torch, dev, m, a, temp, peaks, tf_ops,
                              device_us)
 
     # ---- 4. sweep times --------------------------------------------------
@@ -2485,12 +2672,14 @@ def main() -> int:
 
     # (h) the decomposed solve; (i) the delta API; (j) the host fallback;
     # (k) the ladder's dispatch modes
-    map_rows = decomposed_phase(torch, dev, power, int32_ops_per_s, tf_ops)
+    map_rows = decomposed_phase(torch, dev, power, peaks, tf_ops)
     delta = delta_phase(torch, dev, power)
     fallback_phase(torch, dev, power)
     dispatch_phase(torch, dev, power)
     # (l) the service on the card
     service_phase(torch, power, batch3, delta)
+    # (m) the measurement plane
+    measure_phase(torch, power)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

@@ -3,26 +3,27 @@
 Usage:
     python -m kafka_assignment_optimizer_tpu_torch \\
         --input current.json --broker-list 0-18 --topology topology.json \\
-        [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
+        [--output plan.json] [--rf 3] [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
         [--engine chain|sweep] [--seed 0] [--batch 8] [--sweeps 128] \\
         [--device cuda|cpu] [--no-pipeline] [--megachunk K|off] \\
         [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report] \\
-        [--trace] [--flight-dir DIR] [--sanitize] [--emit-lp PATH]
+        [--trace] [--flight-dir DIR] [--profile-dir DIR] [--sanitize] \\
+        [--emit-lp PATH]
     python -m kafka_assignment_optimizer_tpu_torch --evaluate PLAN.json \\
         --input current.json --broker-list 0-18 [--topology ...]
     python -m kafka_assignment_optimizer_tpu_torch --events EVENTS.json \\
         [--cluster-id NAME] [--watch-dir DIR]
 
 Reads the current assignment from ``--input`` or stdin, writes the plan
-(same dialect) to stdout and, with ``--report``, a solve report to
+(same dialect) to ``--output`` or stdout and, with ``--report``, a solve report to
 stderr. ``--evaluate`` audits an existing plan instead (the report on
 stdout); ``--events`` replays a cluster-change stream through the watch
 manager. Exit codes: 0 feasible plan, 3 infeasible plan (or a fenced
 event), 2 error. The host backends (``milp``, ``native``, ``lp_solve``)
 ignore ``--device``; ``auto`` picks ``milp`` for small instances and
-``tpu`` at scale. The reference's ``--emit-waves`` (the rollout) and
-``--profile-dir`` (its profiler) are not in this package yet: given,
-they exit 2.
+``tpu`` at scale. ``--profile-dir`` writes a ``torch.profiler`` trace of
+the ``tpu`` solve there. The reference's ``--emit-waves`` (the rollout)
+is not in this package yet: given, it exits 2.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--input", "-i",
                     help="current assignment JSON file (default: stdin)")
+    ap.add_argument("--output", "-o",
+                    help="write plan JSON here (default: stdout)")
     ap.add_argument("--broker-list",
                     help="target brokers, e.g. '0,1,2' or '0-18' "
                     "(required except with --events)")
@@ -54,6 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--topology",
         help="broker->rack map: JSON file, inline JSON, or 'even-odd' "
         "(the upstream demo topology). Default: one rack.",
+    )
+    ap.add_argument(
+        "--rf",
+        help="target replication factor (RF change): an int for all "
+        "topics, or an inline/file JSON object mapping topic -> RF "
+        '(e.g. \'{"logs": 3}\'; unlisted topics keep their current RF)',
     )
     ap.add_argument("--solver", default="auto",
                     help="auto | milp | native | lp_solve | tpu")
@@ -170,10 +179,50 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--emit-waves", metavar="DIR",
                     help="not supported by this package yet (needs the "
                     "reference's rollout/); exits 2")
-    ap.add_argument("--profile-dir", metavar="DIR",
-                    help="not supported by this package yet (needs the "
-                    "reference's obs/prof.py); exits 2")
+    ap.add_argument(
+        "--profile-dir",
+        metavar="DIR",
+        help="write a torch.profiler trace of the solve here (tpu solver)",
+    )
     return ap
+
+
+def _spec_text(spec: str) -> str:
+    """Resolve a flag value that may be a file path or inline text."""
+    p = Path(spec)
+    return p.read_text() if p.exists() else spec
+
+
+def parse_rf(spec: str | None) -> int | dict | None:
+    """``--rf``: an int, inline JSON object, or a JSON file path."""
+    if spec is None:
+        return None
+    try:
+        return int(spec)
+    except ValueError:
+        pass
+    try:
+        rf = json.loads(_spec_text(spec))
+    except json.JSONDecodeError as e:
+        raise ValueError(
+            f"--rf {spec!r} is neither an int, an existing JSON file, "
+            f"nor valid inline JSON ({e})"
+        ) from e
+    if not isinstance(rf, dict) or not all(
+        isinstance(v, int) and not isinstance(v, bool) for v in rf.values()
+    ):
+        raise ValueError(
+            "--rf must be an int or a topic->int JSON object"
+        )
+    return rf
+
+
+def _write(args: argparse.Namespace, text: str) -> None:
+    """The product JSON: to ``--output`` when given, else stdout."""
+    if args.output:
+        Path(args.output).write_text(text + "\n")
+    else:
+        print(text)
 
 
 def load_topology(spec: str | None, broker_ids: list[int]) -> Topology | None:
@@ -203,14 +252,10 @@ def parse_megachunk(spec: str):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, dest, mod in (("--emit-waves", "emit_waves", "rollout/"),
-                            ("--profile-dir", "profile_dir",
-                             "obs/prof.py")):
-        if getattr(args, dest):
-            print(f"error: {flag} is not supported by this package yet "
-                  f"(needs {mod} of the reference package)",
-                  file=sys.stderr)
-            return 2
+    if args.emit_waves:
+        print("error: --emit-waves is not supported by this package yet "
+              "(needs rollout/ of the reference package)", file=sys.stderr)
+        return 2
     if args.sanitize:
         from .analysis import sanitize as _sanitize
 
@@ -238,6 +283,7 @@ def main(argv: list[str] | None = None) -> int:
             raise ValueError("--broker-list is required (unless --events)")
         text = Path(args.input).read_text() if args.input else sys.stdin.read()
         current = Assignment.from_json(text)
+        target_rf = parse_rf(args.rf)
         brokers = parse_broker_list(args.broker_list)
         all_ids = sorted(set(brokers) | set(current.broker_ids()))
         topology = load_topology(args.topology, all_ids)
@@ -245,11 +291,12 @@ def main(argv: list[str] | None = None) -> int:
             from .api import evaluate
 
             rep = evaluate(current, brokers,
-                           Path(args.evaluate).read_text(), topology)
-            print(json.dumps(rep, indent=args.indent, default=str))
+                           Path(args.evaluate).read_text(), topology,
+                           target_rf=target_rf)
+            _write(args, json.dumps(rep, indent=args.indent, default=str))
             return 0 if rep["feasible"] else 3
-        res = optimize(current, brokers, topology, solver=args.solver,
-                       **_solve_kw(args))
+        res = optimize(current, brokers, topology, target_rf=target_rf,
+                       solver=args.solver, **_solve_kw(args))
         if args.emit_lp:
             from .solvers.lp import emit_lp
 
@@ -258,7 +305,7 @@ def main(argv: list[str] | None = None) -> int:
         msg = e.args[0] if e.args and isinstance(e.args[0], str) else e
         print(f"error: {msg}", file=sys.stderr)
         return 2
-    print(res.assignment.to_json(indent=args.indent))
+    _write(args, res.assignment.to_json(indent=args.indent))
     rep = res.report()
     if args.trace and "solve_report" in res.solve.stats:
         rep["solve_report"] = res.solve.stats["solve_report"]
@@ -283,6 +330,8 @@ def _solve_kw(args: argparse.Namespace) -> dict:
         kw["sweeps"] = args.sweeps
     if args.checkpoint:
         kw["checkpoint"] = args.checkpoint
+    if args.profile_dir and args.solver not in _HOST_SOLVERS:
+        kw["profile_dir"] = args.profile_dir
     if args.no_pipeline:
         kw["pipeline"] = False
     if args.megachunk is not None:
@@ -315,6 +364,7 @@ def _run_events(args: argparse.Namespace) -> int:
         )
     kw = _solve_kw(args)
     kw.pop("checkpoint", None)
+    kw.pop("profile_dir", None)
 
     def solve_fn(state, prev_plan, budget):
         res = optimize_delta(
@@ -351,5 +401,5 @@ def _run_events(args: argparse.Namespace) -> int:
     if last_plan is None:
         info = reg.get_cluster(cluster_id) or {}
         last_plan = info.get("plan")
-    print(json.dumps(last_plan, indent=args.indent))
+    _write(args, json.dumps(last_plan, indent=args.indent))
     return rc

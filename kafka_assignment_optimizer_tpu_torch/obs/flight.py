@@ -6,13 +6,18 @@ delta, or one lane of a coalesced batch — lands ONE compact JSON record
 here: bucket identity, per-phase seconds, the compile/device/host
 split, cache movement, degradation rungs, warm/cold provenance, and
 plan quality (objective, certification, move count, warm-certify hit).
-The record stream feeds the ``kao_solve_seconds`` histograms; the
-reference's SLO engine, drift monitor and roofline profiler, which also
-read it there, are not part of this package yet.
+The record stream is what the SLO engine (``obs.slo``), the drift
+monitor (``obs.drift``), the ``kao_solve_seconds`` histograms and the
+roofline profiler's attribution (``obs.prof``) all read from —
+``/metrics`` says *that* p99 moved, the flight log says *which solves*
+moved it and *what they paid for*.
 
 Three sinks, fed by one :func:`record` call:
 
-- an **in-memory ring** (``RECENT``, bounded);
+- an **in-memory ring** (``RECENT``, bounded) behind ``GET /debug/slo``,
+  ``GET /debug/profile`` and the device sampler;
+- the **SLO engine** (``obs.slo.ENGINE.observe``) driving burn-rate
+  windows and ``kao_slo_*`` metrics, and the drift monitor;
 - the ``kao_solve_seconds{class=...}`` histograms with worst-recent
   exemplars;
 - an optional **append-only JSONL file** under ``--flight-dir`` /
@@ -175,6 +180,11 @@ _CTX: contextvars.ContextVar = contextvars.ContextVar(
 def start_accounting():
     """Begin a per-solve compile/cache accumulator on this context;
     returns the token for :func:`end_accounting`."""
+    from . import prof as _oprof
+
+    # a stale speculative dispatch from a previous solve on this
+    # context must not mispair with this solve's device waits
+    _oprof.reset_pending()
     return _ACC.set(_SolveAcc())
 
 
@@ -236,10 +246,14 @@ def note_window(category: str, seconds: float) -> None:
 
 
 def note_device(seconds: float) -> None:
-    """One retire-side device wait: the ledger's device leaf (the
-    reference also pairs it with its roofline profiler, which this
-    package does not have yet)."""
+    """One retire-side device wait: the ledger's device leaf AND the
+    profiler's occupancy pairing (enqueue->retire window against the
+    dispatch key's analytic cost model) in one call — the engine's
+    walkers feed both planes through this single funnel."""
     note_window("device", seconds)
+    from . import prof as _oprof
+
+    _oprof.note_device(seconds)
 
 
 @contextlib.contextmanager
@@ -322,6 +336,10 @@ def _ledger(acc: _SolveAcc | None, wall_s: float,
     other = wall_s - measured
     eps = max(LEDGER_EPS_S, LEDGER_EPS_FRAC * wall_s)
     ok = other >= -eps
+    if not ok:
+        from . import prof as _oprof
+
+        _oprof.note_ledger_overrun()
     led = {
         "wall_s": round(queue_wait + wall_s, 4),
         "queue_wait_s": round(queue_wait, 4),
@@ -383,8 +401,7 @@ def reset_solve_stats() -> None:
 
 class FlightRecorder:
     """Append-only JSONL sink with atomic rotation. Disabled (memory
-    ring and histograms only) until :meth:`configure` names a
-    directory."""
+    ring + SLO feed only) until :meth:`configure` names a directory."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -521,18 +538,18 @@ class FlightRecorder:
 
 
 RECORDER = FlightRecorder()
-# the in-memory tail of the record stream (GET /debug/stream, tests)
+# the in-memory tail of the record stream (GET /debug/slo, tests)
 _RECENT_LOCK = threading.Lock()
 RECENT: deque = deque(maxlen=_RECENT_CAP)
-# records that entered the STREAM (ring + histograms) — distinct
+# records that entered the STREAM (ring + SLO + histograms) — distinct
 # from the recorder's records_total, which counts only disk appends
 _STREAM_TOTAL = [0]
 # per-worker monotonic sequence, stamped into every record under the
 # same lock that orders the ring — seq order IS ring order
 _SEQ = [0]
-# device-occupancy duty accounting: cumulative device / dispatch seconds
-# landed by completed solves (the reference's device sampler differences
-# these between ticks; this package has no sampler yet)
+# device-occupancy duty accounting (obs.sampler): cumulative device /
+# dispatch seconds landed by completed solves; the sampler differences
+# these between ticks to derive the dispatch-accumulator duty cycle
 _DUTY_LOCK = threading.Lock()
 _DUTY = {"device_s": 0.0, "dispatch_s": 0.0, "wall_s": 0.0, "solves": 0}
 
@@ -648,7 +665,7 @@ def record(rec: dict) -> None:
     the ONE funnel every record builder goes through — so the fleet
     merge key exists on solve, failure, delta, lane, and exact-oracle
     records alike. Also fans the record out to live-stream subscribers
-    (``GET /debug/stream``)."""
+    (``GET /debug/stream``) and the drift monitor (``obs.drift``)."""
     try:
         with _RECENT_LOCK:
             _SEQ[0] += 1
@@ -665,6 +682,11 @@ def record(rec: dict) -> None:
         observe_solve(rec.get("kind") or "solve",
                       float(rec.get("wall_s") or 0.0),
                       rec.get("trace_id"))
+        from . import drift as _drift
+        from . import slo as _slo
+
+        _slo.ENGINE.observe_record(rec)
+        _drift.MONITOR.observe_record(rec)
     except Exception as e:  # telemetry must never fail a solve
         _olog.warn("flight_record_failed", error=repr(e)[:200])
 
@@ -797,6 +819,13 @@ def record_solve(result, inst=None, acc: _SolveAcc | None = None,
         for key, v in {**ctx, **(extra or {})}.items():
             if key != "kind" and key not in rec:
                 rec[key] = v
+        if rep:
+            # dispatch-gap series from the solve report's span
+            # timestamps (obs.prof): p99-gap exemplars carry this
+            # trace_id into the trace chain
+            from . import prof as _oprof
+
+            _oprof.observe_gaps(rep, rec.get("trace_id"))
         record(rec)
         return rec
     except Exception as e:

@@ -49,19 +49,25 @@ Endpoints:
 
 ``GET /debug/solves``, ``GET /debug/solves/<trace_id>``,
 ``GET /debug/stream``
-    Solve reports (``obs.trace``) and the live flight-record stream
-    (``obs.flight``).
+    Solve reports (``obs.trace``; ``?format=chrome`` gives the Chrome
+    trace-event JSON of ``obs.chrome``) and the live flight-record
+    stream (``obs.flight``).
+
+``GET /debug/slo`` and ``GET /debug/profile``
+    The SLO engine's burn rates and the drift monitor (``obs.slo``,
+    ``obs.drift``; ``--slo``), and the roofline observatory
+    (``obs.prof``): per-key occupancy against the analytic cost of the
+    three CUDA launches, ledger attribution, dispatch gaps.
+    ``--sample-devices HZ`` arms the device sampler (``obs.sampler``,
+    ``/healthz`` ``devices``); ``--profile-dir``/``--profile-solves``
+    capture ``torch.profiler`` traces of the first solves per bucket.
 
 Not here yet, each answering 501 with a JSON body that names the module
 still to port: ``GET /clusters/<id>/rollout`` and ``POST
-/clusters/<id>/rollout/{start,advance,pause,rollback}`` (``rollout/``),
-``GET /debug/slo`` (``obs/slo.py``, ``obs/drift.py``), ``GET
-/debug/profile`` (``obs/prof.py``), ``GET /debug/fleet``
-(``obs/fleet.py``) and ``?format=chrome`` on ``/debug/solves/<id>``
-(``obs/chrome.py``). Their flags (``--rollout-*``, ``--slo``,
-``--profile-dir``, ``--profile-solves``, ``--sample-devices``,
-``--fleet-peers``) make :func:`main` exit at startup; ``/healthz`` has no
-section for them.
+/clusters/<id>/rollout/{start,advance,pause,rollback}`` (``rollout/``)
+and ``GET /debug/fleet`` (``obs/fleet.py``). Their flags
+(``--rollout-*``, ``--fleet-peers``) make :func:`main` exit at startup;
+``/healthz`` has no ``rollout`` section.
 
 Concurrency: solves run on a bounded request queue drained by a small
 worker pool (``--workers``, default 2: two solves share the card);
@@ -87,9 +93,14 @@ from . import landing
 from .analysis import sanitize as _sanitize_mod
 from .api import optimize
 from .models.cluster import Assignment, Topology, parse_broker_list
+from .obs import chrome as _ochrome
+from .obs import drift as _odrift
 from .obs import expo as _expo
 from .obs import flight as _oflight
 from .obs import log as _olog
+from .obs import prof as _oprof
+from .obs import sampler as _osampler
+from .obs import slo as _oslo
 from .obs import trace as _otrace
 from .resilience import breaker as _breaker
 from .resilience import budget as _rbudget
@@ -140,10 +151,7 @@ SERVE = {"device": "cuda", "megachunk": None}
 # waits for (docs of this module; ROADMAP queue A)
 _DEFERRED_ROUTES = {
     "rollout": "rollout/ (exec.py, state.py, waves.py)",
-    "/debug/slo": "obs/slo.py and obs/drift.py",
-    "/debug/profile": "obs/prof.py",
     "/debug/fleet": "obs/fleet.py",
-    "chrome": "obs/chrome.py",
 }
 
 # serve-side resilience knobs (docs/RESILIENCE.md), set by main():
@@ -206,10 +214,16 @@ _CLEAR_CACHES_EVERY = 64
 # trace ID; the solve runs under an ambient obs.trace span tree whose
 # report lands in the ring buffer behind GET /debug/solves/<trace_id>
 # and is echoed as "trace_id" in the response envelope. --no-trace
-# disables it (requests then carry no trace_id). --flight-dir persists
-# one compact flight record per solve/delta/batch-lane (obs.flight)
+# disables it (requests then carry no trace_id). --profile-dir
+# additionally wraps the first --profile-solves tpu solves per bucket
+# in a torch.profiler trace capture (kernel-level evidence next to the
+# span-level reports). --flight-dir persists one compact flight record
+# per solve/delta/batch-lane (obs.flight); the SLO engine (obs.slo)
+# runs over the record stream either way
 OBS = {
     "trace": True,
+    "profile_dir": None,
+    "profile_solves": 1,
     "flight_dir": None,
 }
 
@@ -242,6 +256,30 @@ def _build_info(resolve: bool = False) -> dict:
         return {"version": "unknown", "torch": "unknown",
                 "backend": "unknown", "devices": "0"}
     return dict(_BUILD_INFO)
+
+
+_PROFILE_LOCK = threading.Lock()
+_PROFILED_BUCKETS: dict[tuple, int] = {}  # bucket key -> solves profiled
+
+
+def _profile_dir_for(bucket_key: tuple, trace_id: str | None) -> str | None:
+    """Claim one profiled solve for ``bucket_key`` if the per-bucket
+    budget (--profile-solves) has room; returns the capture directory
+    (unique per solve) or None."""
+    base = OBS["profile_dir"]
+    if not base:
+        return None
+    with _PROFILE_LOCK:
+        n = _PROFILED_BUCKETS.get(bucket_key, 0)
+        if n >= max(int(OBS["profile_solves"]), 0):
+            return None
+        _PROFILED_BUCKETS[bucket_key] = n + 1
+    import os
+
+    safe = "-".join(
+        str(x) for x in bucket_key if isinstance(x, (int, str))
+    ) or "default"
+    return os.path.join(base, safe, trace_id or _otrace.new_trace_id())
 
 
 def _tpu_kw(solver_eff: str) -> dict:
@@ -759,6 +797,14 @@ def render_metrics() -> str:
     stream = _oflight.stream_stats()
     snap["stream_clients"] = stream["clients"]
     snap["stream_dropped_total"] = stream["dropped_total"]
+    # device-occupancy sampler (obs.sampler): cached tick scalars only
+    # — the sampler thread reads the card, a scrape never touches it
+    # and never rebuilds the /healthz roofline summary
+    samp = _osampler.SAMPLER.stats()
+    snap["device_sampler_enabled"] = samp["enabled"]
+    snap["device_sampler_samples_total"] = samp["samples_total"]
+    snap["device_sampler_overhead"] = samp["overhead_frac"]
+    snap["device_duty_cycle"] = samp["duty_cycle"]
     # solve-report ring occupancy: the /debug/solves payload bound in
     # action (bytes resident + reports truncated to fit)
     ring = _otrace.RECENT.stats()
@@ -794,6 +840,15 @@ def render_metrics() -> str:
     snap["breaker_tracked_keys"] = brk["tracked"]
     snap["breaker_trips_total"] = brk["trips_total"]
     snap["chaos_armed"] = _chaos.snapshot()["armed"]
+    # roofline-observatory scalars (obs.prof): cost-model capture and
+    # pairing health, ledger-overrun tripwire, and the profiler's own
+    # self-accounted overhead
+    psnap = _oprof.snapshot()
+    for k, v in psnap["counters"].items():
+        snap[f"prof_{k}"] = v
+    snap["prof_executables"] = len(psnap["executables"])
+    snap["prof_overhead_seconds_total"] = psnap["overhead"][
+        "seconds_total"]
     lines = []
     for k, v in snap.items():
         name = f"kao_{k}"
@@ -903,6 +958,20 @@ def render_metrics() -> str:
     lines.append("# TYPE kao_degradations_total counter")
     for rung, n in _ladder.snapshot().items():
         lines.append(f'kao_degradations_total{{rung="{rung}"}} {n}')
+    # device memory in use, one gauge per card the sampler saw (on the
+    # CPU it reads no device, so the family renders empty there — the
+    # HELP/TYPE pair still pre-declares it)
+    lines.append("# HELP kao_device_hbm_bytes device memory in use by "
+                 "device (obs.sampler; --sample-devices)")
+    lines.append("# TYPE kao_device_hbm_bytes gauge")
+    for dev in sorted(samp["devices"]):
+        lines.append(
+            f'kao_device_hbm_bytes{{device="{dev}"}} '
+            f'{samp["devices"][dev]["bytes_in_use"]}'
+        )
+    # drift alarms (obs.drift): the mid-run "this got slower" tripwire,
+    # per record class and signal
+    lines.extend(_odrift.render_families(_odrift.MONITOR.metric_rows()))
     # per-phase solve latency histograms, aggregated from solve traces
     # (obs.trace): which pipeline phase the wall-clock goes to, across
     # every traced solve this process has served
@@ -929,12 +998,86 @@ def render_metrics() -> str:
                       _oflight.solve_exemplars())
     _render_exemplars(lines, "kao_phase_seconds_exemplar", "phase",
                       _otrace.phase_exemplars())
+    # SLO engine (obs.slo): cumulative per-class counters + per-window
+    # burn-rate gauges. Families are emitted only when classes exist —
+    # the engine pre-declares the default classes, so they always do.
+    slo = _oslo.ENGINE.snapshot()
+    classes = slo.get("classes") or {}
+    if classes:
+        # table-driven per-class families (same factoring discipline
+        # as _render_histogram): one loop, one place to add the next
+        slo_families = (
+            ("kao_slo_events_total", "counter",
+             "flight records observed per SLO class",
+             lambda c: c["events_total"]),
+            ("kao_slo_latency_breaches_total", "counter",
+             "observations over the class latency objective",
+             lambda c: c["latency_breaches_total"]),
+            ("kao_slo_quality_breaches_total", "counter",
+             "infeasible/degraded plans per SLO class",
+             lambda c: c["quality_breaches_total"]),
+            ("kao_slo_latency_objective_seconds", "gauge",
+             "configured per-class latency objective",
+             lambda c: c["objective"]["latency_s"]),
+            ("kao_slo_target", "gauge",
+             "configured per-class success target",
+             lambda c: c["objective"]["target"]),
+        )
+        for name, kind, help_text, get in slo_families:
+            lines.append(f"# HELP {name} {help_text}")
+            lines.append(f"# TYPE {name} {kind}")
+            for cls in sorted(classes):
+                lines.append(
+                    f'{name}{{class="{cls}"}} {get(classes[cls])}'
+                )
+        lines.append("# HELP kao_slo_burn_rate error-budget burn rate "
+                     "per class and window (>1 burns the budget)")
+        lines.append("# TYPE kao_slo_burn_rate gauge")
+        for cls in sorted(classes):
+            for win, w in sorted(classes[cls]["windows"].items()):
+                lines.append(
+                    f'kao_slo_burn_rate{{class="{cls}",'
+                    f'window="{win}"}} {w["burn_rate"]}'
+                )
     # causal-tracing families (docs/OBSERVABILITY.md "Distributed
     # traces"): tail-retention decisions + traceparent codec traffic,
     # rendered through the SAME shared helpers the kao-router uses so
     # the two surfaces cannot drift (obs.trace.trace_families)
     for fam in _otrace.trace_families():
         lines.extend(_expo.family_lines(*fam))
+    # roofline observatory (obs.prof): per-key achieved/peak occupancy
+    # + measured device seconds, keyed by the dispatch-key hash — the
+    # /debug/profile table's scrapeable projection
+    lines.append("# HELP kao_prof_occupancy achieved/peak occupancy "
+                 "per executable and dimension (obs.prof; ratios, "
+                 "peak from KAO_PROF_PEAK_*)")
+    lines.append("# TYPE kao_prof_occupancy gauge")
+    for row in psnap["executables"]:
+        for dim, f in (("flops", "occupancy_flops"),
+                       ("hbm", "occupancy_hbm")):
+            if row.get(f) is not None:
+                lines.append(
+                    f'kao_prof_occupancy{{key="{row["key_id"]}",'
+                    f'path="{row["path"]}",dim="{dim}"}} {row[f]}'
+                )
+    lines.append("# HELP kao_prof_device_seconds_total measured "
+                 "device seconds per executable (obs.prof)")
+    lines.append("# TYPE kao_prof_device_seconds_total counter")
+    for row in psnap["executables"]:
+        lines.append(
+            f'kao_prof_device_seconds_total{{key="{row["key_id"]}",'
+            f'path="{row["path"]}"}} {row["device_s"]}'
+        )
+    # dispatch-gap histogram: host time between consecutive ladder
+    # dispatches, derived from solve-report span timestamps; the
+    # exemplar sidecar links the p99 gap to its trace
+    _render_histogram(
+        lines, "kao_prof_dispatch_gap_seconds", "path",
+        _oprof.gap_snapshot(),
+        "host gap between consecutive ladder dispatches (obs.prof)",
+    )
+    _render_exemplars(lines, "kao_prof_dispatch_gap_seconds_exemplar",
+                      "path", _oprof.gap_exemplars())
     # build identity: which code and runtime produced every number
     # above
     bi = _build_info()
@@ -1584,6 +1727,10 @@ def handle_submit(
                     RESILIENCE["checkpoint_dir"],
                     instance_fingerprint(inst)[:32] + ".npz",
                 )
+            if solver_eff == "tpu" and bucket_key is not None:
+                prof = _profile_dir_for(bucket_key, trace_id)
+                if prof:
+                    kw["profile_dir"] = prof
             for k, v in _tpu_kw(solver_eff).items():
                 kw.setdefault(k, v)
             tr = _otrace.begin(trace_id, name="request", solver=solver,
@@ -1739,6 +1886,9 @@ def _watch_solve_fn(state, prev_plan, budget) -> tuple[dict, dict]:
             kw["budget"] = budget
             if max_solve_s is not None:
                 kw["time_limit_s"] = max_solve_s
+            prof = _profile_dir_for(bucket_key, trace_id)
+            if prof:
+                kw["profile_dir"] = prof
             kw.update(_tpu_kw(solver_eff))
         tr = _otrace.begin(trace_id, name="watch_event",
                            cluster=state.cluster_id, epoch=state.epoch)
@@ -1905,10 +2055,9 @@ def handle_clusters_get(cluster_id: str | None = None) -> dict:
 
 
 def handle_healthz() -> dict:
-    """GET /healthz: the reference's sections, minus the subsystems this
-    package does not have yet (the device sampler ``devices``, the SLO
-    engine ``slo``, the ``rollout``). ``platform`` is ``"gpu"`` when the
-    service solves on the card, ``"cpu"`` otherwise.
+    """GET /healthz: the reference's sections, minus the one subsystem
+    this package does not have yet (the ``rollout``). ``platform`` is
+    ``"gpu"`` when the service solves on the card, ``"cpu"`` otherwise.
 
     The ``cache`` section keeps the reference's keys. The reference
     counts XLA executables there; this package builds no executable per
@@ -1960,10 +2109,18 @@ def handle_healthz() -> dict:
             "report_ring_capacity": _otrace.RECENT.capacity,
             "report_ring": _otrace.RECENT.stats(),
             "trace_tail": _otrace.TAIL.snapshot(),
+            "profile_dir": OBS["profile_dir"],
             "flight": _oflight.snapshot(),
             "stream": _oflight.stream_stats(),
             "worker": _oflight.worker_identity(),
         },
+        # device-occupancy sampler (--sample-devices; obs.sampler):
+        # per-card memory, the dispatch-accumulator duty cycle, and the
+        # rolling per-bucket roofline summary
+        "devices": _osampler.SAMPLER.snapshot(),
+        # the SLO engine's verdict (obs.slo): worst status across
+        # classes + per-class burn rates (full detail: GET /debug/slo)
+        "slo": _healthz_slo(),
         "sanitizer": _sanitize_mod.snapshot(),
         "resilience": {
             "chaos": _chaos.snapshot(),
@@ -2029,6 +2186,66 @@ def _healthz_mesh() -> dict:
         "buckets": {},
         "processes": {"n_processes": 1, "process_index": 0,
                       "multiprocess_probe": {"probed": False}},
+    }
+
+
+def _healthz_slo() -> dict:
+    """The /healthz slo section: compact — status + per-class burn
+    rates, not the full event detail (that is GET /debug/slo)."""
+    snap = _oslo.ENGINE.snapshot()
+    return {
+        "status": snap.get("status", "ok"),
+        "classes": {
+            cls: {
+                "status": c["status"],
+                "events_total": c["events_total"],
+                "burn_rates": {
+                    win: w["burn_rate"]
+                    for win, w in c["windows"].items()
+                },
+            }
+            for cls, c in (snap.get("classes") or {}).items()
+        },
+    }
+
+
+def handle_debug_slo() -> dict:
+    """GET /debug/slo — the full SLO snapshot: per-class objectives,
+    multi-window burn rates, worst-recent exemplars, the drift-alarm
+    state (obs.drift), and the tail of the flight-record stream."""
+    return {
+        "slo": _oslo.ENGINE.snapshot(),
+        "flight": _oflight.snapshot(),
+        "drift": _odrift.MONITOR.snapshot(),
+        "exemplars": {
+            "solve_seconds": _oflight.solve_exemplars(),
+            "phase_seconds": _otrace.phase_exemplars(),
+        },
+        "recent_records": _oflight.recent(32),
+    }
+
+
+def handle_debug_profile() -> dict:
+    """GET /debug/profile — the continuous roofline observatory: the
+    per-bucket achieved-vs-peak roofline from the dispatch keys'
+    analytic cost models (obs.prof), wall-clock attribution aggregated
+    from the flight ledgers, the worst-attribution solves (trace_id
+    links into /debug/solves/<id>), and the dispatch-gap histogram with
+    p99 exemplars."""
+    recent = _oflight.recent()
+    psnap = _oprof.snapshot()
+    return {
+        "peaks": psnap["peaks"],
+        "roofline": _oprof.roofline(),
+        "executables": psnap["executables"],
+        "attribution": _oprof.attribution_summary(recent),
+        "worst_solves": _oprof.worst_solves(recent),
+        "dispatch_gaps": {
+            "histogram": _oprof.gap_snapshot(),
+            "exemplars": _oprof.gap_exemplars(),
+        },
+        "counters": psnap["counters"],
+        "overhead": psnap["overhead"],
     }
 
 
@@ -2566,14 +2783,15 @@ class Handler(BaseHTTPRequestHandler):
                              f"{_otrace.RECENT.capacity} traced solves)",
                 })
                 return
-            # ?format=chrome (the reference's Chrome trace-event export,
-            # obs/chrome.py) is not in this package yet: 501
+            # ?format=chrome: the span tree as Chrome trace-event JSON
+            # (obs.chrome) — save it and load in chrome://tracing or
+            # Perfetto; the offline path is obs.trace_cli convert
             from urllib.parse import parse_qs, urlparse
 
             fmt = (parse_qs(urlparse(self.path).query)
                    .get("format") or ["json"])[0]
             if fmt == "chrome":
-                self._send_deferred("chrome")
+                self._send(200, _ochrome.to_chrome(rep))
             elif fmt == "json":
                 self._send(200, rep)
             else:
@@ -2581,9 +2799,18 @@ class Handler(BaseHTTPRequestHandler):
                     "error": f"unknown format {fmt!r}; "
                              "want 'json' or 'chrome'",
                 })
-        elif route in ("/debug/slo", "/debug/profile", "/debug/fleet"):
-            # the SLO engine, the roofline observatory and the fleet
-            # view are not in this package yet
+        elif route == "/debug/slo":
+            # the full SLO snapshot: per-class objectives, multi-window
+            # burn rates, worst-recent exemplars, drift-alarm state,
+            # and the tail of the flight-record stream
+            self._send(200, handle_debug_slo())
+        elif route == "/debug/profile":
+            # the roofline observatory: per-bucket achieved-vs-peak
+            # occupancy from the keys' analytic cost models + wall-clock
+            # attribution over the flight ledgers
+            self._send(200, handle_debug_profile())
+        elif route == "/debug/fleet":
+            # the fleet view is not in this package yet
             self._send_deferred(route)
         elif route == "/debug/stream":
             self._stream_flight()
@@ -2792,19 +3019,12 @@ def make_server(host: str = "127.0.0.1", port: int = 8787,
 # have yet: given, each stops the service at startup (a flag accepted
 # and then ignored would silently drop what the operator asked for)
 _DEFERRED_FLAGS = {
-    "profile_dir": ("--profile-dir", "obs/prof.py"),
-    "profile_solves": ("--profile-solves", "obs/prof.py"),
-    "slo": ("--slo", "obs/slo.py"),
     "fleet_peers": ("--fleet-peers", "obs/fleet.py"),
-    "sample_devices": ("--sample-devices", "obs/sampler.py"),
     "rollout_broker_cap": ("--rollout-broker-cap", "rollout/"),
     "rollout_rack_cap": ("--rollout-rack-cap", "rollout/"),
     "rollout_packer": ("--rollout-packer", "rollout/"),
     "rollout_lanes": ("--rollout-lanes", "rollout/"),
 }
-_DEFERRED_ENV = {"KAO_SLO": "obs/slo.py",
-                 "KAO_SAMPLE_DEVICES": "obs/sampler.py"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -2874,11 +3094,35 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable per-request solve traces (responses "
                          "then carry no trace_id and /debug/solves "
                          "stays empty)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the first "
+                         "--profile-solves tpu solves per bucket under "
+                         "this directory (kernel-level traces next to "
+                         "the span-level solve reports)")
+    ap.add_argument("--profile-solves", type=int, default=1,
+                    metavar="N",
+                    help="profiled solves per bucket with "
+                         "--profile-dir (default 1)")
     ap.add_argument("--flight-dir", default=None, metavar="DIR",
                     help="solve-cost flight recorder: append one compact "
                          "JSONL record per solve/delta/batch-lane under "
-                         "this directory (crash-safe, auto-rotated). "
-                         "Same as KAO_FLIGHT_DIR")
+                         "this directory (crash-safe, auto-rotated); the "
+                         "SLO engine and kao_solve_seconds run off the "
+                         "same stream either way. Same as KAO_FLIGHT_DIR")
+    ap.add_argument("--slo", default=None, metavar="SPEC",
+                    help="per-class SLO objectives, e.g. "
+                         "'solve:5:0.99,delta:2:0.995' "
+                         "(class:latency_s[:target]). Burn rates on "
+                         "/metrics (kao_slo_*), /healthz 'slo', and "
+                         "GET /debug/slo")
+    ap.add_argument("--sample-devices", type=float, default=None,
+                    metavar="HZ",
+                    help="device-occupancy sampler (obs.sampler; same "
+                         "as KAO_SAMPLE_DEVICES): read the card's memory "
+                         "and the dispatch-accumulator duty cycle at "
+                         "this rate into kao_device_hbm_bytes/"
+                         "kao_device_duty_cycle and the /healthz "
+                         "per-bucket roofline summary. Off by default")
     ap.add_argument("--queue-wait-s", type=float,
                     default=DEFAULT_QUEUE_WAIT_S,
                     help="maintenance drain window: how long the "
@@ -2955,10 +3199,6 @@ def main(argv: list[str] | None = None) -> int:
         if getattr(args, dest) is not None:
             ap.error(f"{flag} is not supported by this package yet "
                      f"(needs {mod} of the reference package)")
-    for var, mod in _DEFERRED_ENV.items():
-        if os.environ.get(var):
-            ap.error(f"{var} is set, but this package does not support "
-                     f"it yet (needs {mod} of the reference package)")
     if args.lock_wait_s < 0:
         ap.error("--lock-wait-s must be >= 0")
     if args.max_solve_s < 0:
@@ -2979,6 +3219,8 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("--breaker-threshold must be >= 1")
     if args.breaker_cooldown_s <= 0:
         ap.error("--breaker-cooldown-s must be > 0")
+    if args.profile_solves < 0:
+        ap.error("--profile-solves must be >= 0")
     warmup_shapes = None
     if args.warmup:
         try:
@@ -3019,6 +3261,8 @@ def main(argv: list[str] | None = None) -> int:
 
         set_portfolio_default(False)
     OBS["trace"] = not args.no_trace
+    OBS["profile_dir"] = args.profile_dir
+    OBS["profile_solves"] = args.profile_solves
     flight_dir = (args.flight_dir or os.environ.get("KAO_FLIGHT_DIR")
                   or None)
     if flight_dir:
@@ -3029,6 +3273,22 @@ def main(argv: list[str] | None = None) -> int:
         except OSError as e:
             ap.error(f"--flight-dir {flight_dir!r}: {e}")
     OBS["flight_dir"] = flight_dir
+    slo_spec = args.slo or os.environ.get("KAO_SLO")
+    if slo_spec:
+        try:
+            _oslo.ENGINE.configure(spec=slo_spec)
+        except ValueError as e:
+            ap.error(f"--slo/KAO_SLO: {e}")
+    sample_hz = args.sample_devices
+    if sample_hz is None and os.environ.get("KAO_SAMPLE_DEVICES"):
+        try:
+            sample_hz = float(os.environ["KAO_SAMPLE_DEVICES"])
+        except ValueError:
+            ap.error("KAO_SAMPLE_DEVICES must be a number (Hz)")
+    if sample_hz is not None and sample_hz < 0:
+        ap.error("--sample-devices must be >= 0 (0 = off)")
+    if sample_hz:
+        _osampler.SAMPLER.configure(sample_hz)
     _SOLVES.configure(workers=args.workers, depth=args.queue_depth,
                       queue_wait_s=args.queue_wait_s)
     _COALESCER.configure(window_ms=args.batch_window_ms,

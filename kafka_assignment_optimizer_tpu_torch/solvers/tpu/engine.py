@@ -61,11 +61,14 @@ solve lands one flight record (``obs.flight``). ``precompile=True`` (the
 service's warm-up solves) switches the constructor races, the decomposed
 solve and the host fallback off, as in the reference, and records no
 flight. The sanitizer (``analysis.sanitize``, ``KAO_SANITIZE=1``) arms
-the ladder's NaN, consumed-state and rebuild guards. Not here yet: more
-than one device (``n_devices``), profiling (``profile_dir``) and the
-fused width chosen from measurements (``megachunk="auto"``); their
-keywords raise ``NotImplementedError`` unless their value names what
-this engine does.
+the ladder's NaN, consumed-state and rebuild guards. Every ladder
+dispatch feeds the roofline profiler (``obs.prof``: the key's analytic
+cost model at its first dispatch, then the enqueue->retire pairing);
+``profile_dir`` writes a ``torch.profiler`` trace of the ladder there.
+Not here yet: more than one device (``n_devices``) and the fused width
+chosen from measurements (``megachunk="auto"``); their keywords raise
+``NotImplementedError`` unless their value names what this engine
+does.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own.
@@ -73,6 +76,8 @@ Every entry point runs on ``cuda`` unless the caller passes
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import os
 import threading
@@ -90,6 +95,7 @@ from ...analysis import sanitize as _san
 from ...ops.score_cuda import score, score_lanes
 from ...obs import flight as _flight
 from ...obs import log as _olog
+from ...obs import prof as _oprof
 from ...obs import trace as _otrace
 from ...parallel.mesh import (
     fetch_global_async,
@@ -317,7 +323,6 @@ def _defaults(inst: ProblemInstance, platform: str,
 # other value asks for a path of the reference not ported yet)
 _UNPORTED = {
     "n_devices": (None, 1),
-    "profile_dir": (None,),
 }
 
 
@@ -378,8 +383,9 @@ def solve_tpu(
     solve lands one record (a retry or a lane inside another recorded
     solve feeds the outer record); a failed solve lands a failure
     record; ``precompile`` solves land none."""
-    _refuse_unported(dict(n_devices=n_devices, profile_dir=profile_dir))
+    _refuse_unported(dict(n_devices=n_devices))
     megachunk = _resolve_megachunk(megachunk)
+    prof_tok = _PROFILE_DIR.set(profile_dir)
     nested = _flight.accounting_active()
     acc_tok = None if nested else _flight.start_accounting()
     t0 = time.perf_counter()
@@ -400,6 +406,8 @@ def solve_tpu(
             # a solve that raises still lands a record
             _flight.record_failure(inst, acc, time.perf_counter() - t0, e)
         raise
+    finally:
+        _PROFILE_DIR.reset(prof_tok)
     acc = _flight.end_accounting(acc_tok) if acc_tok is not None else None
     if acc is not None and not precompile:
         _flight.record_solve(res, inst, acc,
@@ -1018,6 +1026,73 @@ def _build_chunks(inst: ProblemInstance, engine: str, rounds: int,
     return chunks
 
 
+# the directory a solve_tpu call's profile_dir names (None: no trace); a
+# nested solve (the sweep->chain retry) sets its own
+_PROFILE_DIR: contextvars.ContextVar = contextvars.ContextVar(
+    "kao_profile_dir", default=None)
+
+
+def _profiled(dev: torch.device):
+    """The ladder's ``torch.profiler`` session when the solve asked for
+    one (``profile_dir``; the reference's ``jax.profiler.trace``): host
+    activity, and the card's kernels when it runs there, written as a
+    Chrome trace (``<worker>.<time>.pt.trace.json``) under the directory
+    at the session's end."""
+    profile_dir = _PROFILE_DIR.get()
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
+def _prof_key(m, chains: int, steps_per_round: int, engine: str,
+              scorer: str, lanes: int, temps) -> tuple:
+    """A ladder dispatch's profiler key (``obs.prof``): ``((device,),
+    chains, steps_per_round, engine, scorer, tag)`` with the tag
+    ``single``/``lanes``/``mega``/``mega-lanes``, and the shapes of the
+    chains and of the dispatch's temperatures."""
+    temps = np.asarray(temps)
+    mega = temps.ndim == 2
+    tag = ("mega-lanes" if mega and lanes else "mega" if mega
+           else "lanes" if lanes else "single")
+    P, R = (int(x) for x in m.a0.shape[-2:])
+    chains_shape = ((int(lanes),) if lanes else ()) + (int(chains), P, R)
+    return (((str(m.a0.device),), int(chains), int(steps_per_round),
+             engine, scorer, tag),
+            ((chains_shape, "int32"), (tuple(temps.shape), "float32")))
+
+
+def _dispatch_desc(m, chains: int, engine: str, temps) -> dict:
+    """What a ladder dispatch launches, for its key's cost model: a sweep
+    chunk of c sweeps makes ``sweep.stage_counts(c)`` kernel calls (each
+    one launch on the card; the plain versions compute the same), a fused
+    group of K chunks K times that; a chain-engine round launches no
+    kernel. Reads the model's valid slots once (before the dispatch, so
+    the read waits for nothing it enqueues)."""
+    from ...ops.bench_kernel import dispatch_shape
+    from .sweep import _one_lane, stage_counts
+
+    temps = np.asarray(temps)
+    launches: dict = {}
+    if engine == "sweep":
+        steps = temps.shape[0] if temps.ndim == 2 else 1
+        launches = {k: v * steps
+                    for k, v in stage_counts(temps.shape[-1]).items()}
+    stacked = m if m.num_lanes else _one_lane(m)
+    return {"launches": launches,
+            "shape": dispatch_shape(stacked, chains)}
+
+
 def _sync(dev: torch.device) -> float:
     """Wait for this thread's stream on the device, then read the host
     clock (phase timing). A stream sync, never a device-wide one: the
@@ -1213,6 +1288,18 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         temperature-ladder and consumed-state guards."""
         _san.check_host(temps, "temperature ladder")
         _san.check_state(st, key)
+        pkey = _prof_key(m, batch, steps_per_round, engine, r.scorer, lanes,
+                         temps)
+        desc = None
+        if not _oprof.has_cost_model(pkey):
+            with _oprof.accounted():
+                desc = _dispatch_desc(m, batch, engine, temps)
+                on_card = m.a0.device.type == "cuda"
+                if on_card:
+                    # the dispatch's own peak: the allocator's peak reset
+                    # here, read above what was allocated at its start
+                    mem0 = torch.cuda.memory_allocated(m.a0.device)
+                    torch.cuda.reset_peak_memory_stats(m.a0.device)
         b0, s0 = _build_marks()
         td = time.perf_counter()
         with _otrace.span("dispatch") as dsp:
@@ -1222,6 +1309,12 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                      else "fallback" if r.pallas_fallback else "hit")
             if dsp is not None:
                 dsp.set(cache=cache)
+        if desc is not None:
+            if on_card:
+                desc["peak_hbm_bytes"] = (
+                    torch.cuda.max_memory_allocated(m.a0.device) - mem0)
+            _oprof.note_cost_model(pkey, desc, s1 - s0)
+        _oprof.note_dispatch(pkey, started=td)
         _flight.note_dispatch(cache)
         _flight.note_window("dispatch",
                             max(time.perf_counter() - td - (s1 - s0), 0.0))
@@ -1746,16 +1839,17 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
             pending = nxt
             i, k = j, k_next
 
-    if engine == "sweep" and mega_k > 1 and n > 1:
-        # the fused ladder; its faults drain to the per-chunk walkers
-        if pipeline:
-            run_mega_pipelined()
+    with _profiled(m.a0.device):
+        if engine == "sweep" and mega_k > 1 and n > 1:
+            # the fused ladder; its faults drain to the per-chunk walkers
+            if pipeline:
+                run_mega_pipelined()
+            else:
+                run_mega_sync()
+        elif pipeline and engine == "sweep" and n > 1:
+            run_pipelined()
         else:
-            run_mega_sync()
-    elif pipeline and engine == "sweep" and n > 1:
-        run_pipelined()
-    else:
-        run_sync()
+            run_sync()
     # every copy was started at its chunk's dispatch: by now on the host
     r.curves = [h.get() for h in handles]
     if warm_chunk_s is not None:

@@ -851,6 +851,37 @@ def snapshot_step(sc: LaneBundle, m: ModelArrays, a, best_k, best_mv,
     return tuple(torch.stack(x) for x in zip(*rows))
 
 
+def sweep_kind(i: int) -> str:
+    """The kind of sweep ``i`` of a stepper run: ``"compound"`` every
+    ``COMPOUND_EVERY``-th sweep, else ``"exchange"`` on odd sweeps and
+    ``"site"`` on even ones."""
+    if i % COMPOUND_EVERY == COMPOUND_EVERY - 1:
+        return "compound"
+    return "exchange" if i % 2 == 1 else "site"
+
+
+def is_snapshot(i: int, sweeps: int, snapshot_every: int) -> bool:
+    """Whether sweep ``i`` of a run of ``sweeps`` ends with a snapshot:
+    every ``snapshot_every`` sweeps and at the last one."""
+    return i % snapshot_every == snapshot_every - 1 or i == sweeps - 1
+
+
+def stage_counts(sweeps: int, snapshot_every: int = 8) -> dict:
+    """The kernel stages one stepper run of ``sweeps`` sweeps calls, by
+    kernel name (``ops.kernels``): B1 at entry and at every snapshot, the
+    site and exchange sweeps by :func:`sweep_kind`; the compound sweep has
+    no kernel. On the card each call is one launch for up to
+    ``kernels.MAX_LANES`` lanes (an exchange stage of fewer than two
+    chains launches nothing)."""
+    kinds = [sweep_kind(i) for i in range(sweeps)]
+    return {
+        "B1 score": 1 + sum(is_snapshot(i, sweeps, snapshot_every)
+                            for i in range(sweeps)),
+        "B2+B3 site sweep": kinds.count("site"),
+        "B4+B5+B6 exchange sweep": kinds.count("exchange"),
+    }
+
+
 def make_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
                          scorer: str = "torch"):
     """The sweep engine's stepper over L lanes: ``(m_stack, state,
@@ -883,15 +914,11 @@ def make_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
             for j in range(L):
                 keys[j], sub = prng.split(keys[j])
                 subs.append(sub)
-            if i % COMPOUND_EVERY == COMPOUND_EVERY - 1:
-                step = sc.comp_step
-            elif i % 2 == 1:
-                step = sc.exch_step
-            else:
-                step = sc.site_step
+            step = {"compound": sc.comp_step, "exchange": sc.exch_step,
+                    "site": sc.site_step}[sweep_kind(i)]
             a, cnt, lcnt, rcnt = step(m, a, cnt, lcnt, rcnt, subs,
                                       lane_temps)
-            if i % snapshot_every == snapshot_every - 1 or i == sweeps - 1:
+            if is_snapshot(i, sweeps, snapshot_every):
                 a, cnt, lcnt, rcnt, best_k, best_mv, best_a = (
                     snapshot_step(sc, m, a, best_k, best_mv, best_a))
             curve.append(best_k.max(1).values)

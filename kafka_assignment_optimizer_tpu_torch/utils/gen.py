@@ -1,22 +1,30 @@
-"""Synthetic scenario generators: the port's copy of the scenarios its
-checks drive.
+"""Synthetic scenario generators: the port's copy of the scenario
+catalogue (``SCENARIOS``) at its published sizes.
 
-- ``demo``         the upstream README example (golden: exactly 1 move);
-- ``adversarial``  256 brokers / 8 racks / 10k partitions, half the
+- ``demo``          the upstream README example (golden: exactly 1 move);
+- ``scale_out``     56 -> 64 brokers / 4 racks / 8k partitions RF 3;
+- ``decommission``  256 brokers / 8 racks / 10k partitions RF 3, drop one
+  broker (the headline scenario; the bound is tight);
+- ``rf_change``     RF 2 -> 3 across 1k partitions on 32 brokers / 4 racks;
+- ``leader_only``   128 brokers / 8 racks / 5k partitions, leader skew
+  only: 0 replica moves;
+- ``adversarial``   256 brokers / 8 racks / 10k partitions, half the
   topics at RF 2 and half at RF 4, member sets drawn by seeded shuffle,
   one broker decommissioned — the at-scale row that reaches the sweep
   engine;
-- ``ultra_jumbo``  an AZ/rack-structured decommission (200k partitions
+- ``jumbo``, ``adv50k``  ``decommission`` and ``adversarial`` grown to
+  512 brokers / 16 racks / 50k partitions;
+- ``ultra_jumbo``   an AZ/rack-structured decommission (200k partitions
   at its default size), the decomposed solve's family;
-- ``messy_case``   a small irregular cluster (the portfolio's test).
+- ``messy_case``    a small irregular cluster (the portfolio's test).
 
 Copied from ``kafka_assignment_optimizer_tpu.utils.gen``; the same seed
-gives the same scenario in both packages.
+and sizes give the same scenario in both packages.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from ..models.cluster import (
     Assignment,
@@ -123,6 +131,118 @@ def demo() -> Scenario:
         notes="golden: optimal plan moves exactly 1 replica (README.md:85-91)",
     )
 
+
+def scale_out(
+    n_old: int = 56, n_new: int = 64, n_racks: int = 4,
+    n_topics: int = 200, parts_per_topic: int = 40, rf: int = 3,
+) -> Scenario:
+    """Scale-out rebalance: cluster grew from 56 to 64
+    brokers; rebalance so the 8 empty brokers take their share."""
+    new_list = list(range(n_new))
+    topo = _mod_topology(new_list, n_racks)
+    current = balanced_assignment(
+        list(range(n_old)), topo, {f"t{i}": parts_per_topic for i in range(n_topics)}, rf
+    )
+    # every replica the new brokers must absorb is one unavoidable move:
+    # any feasible plan gives each broker >= floor(R/B) replicas
+    r_tot = n_topics * parts_per_topic * rf
+    lb = (n_new - n_old) * (r_tot // n_new)
+    return Scenario(
+        name="scale_out",
+        current=current,
+        broker_list=new_list,
+        topology=topo,
+        min_moves_lb=lb,
+        notes=f"add {n_new - n_old} brokers; each must reach floor(R/B) replicas",
+    )
+
+
+def decommission(
+    n_brokers: int = 256, n_racks: int = 8,
+    n_topics: int = 100, parts_per_topic: int = 100, rf: int = 3,
+    remove: int | None = None,
+) -> Scenario:
+    """The headline scenario: 256 brokers,
+    8 racks, 10k partitions RF=3, single-broker decommission. Minimum moves
+    = the replicas hosted on the removed broker (each must land somewhere
+    else; nothing else is forced to move since remaining-broker bands stay
+    satisfiable)."""
+    all_brokers = list(range(n_brokers))
+    remove = n_brokers - 1 if remove is None else remove
+    topo = _mod_topology(all_brokers, n_racks)
+    current = balanced_assignment(
+        all_brokers, topo, {f"t{i}": parts_per_topic for i in range(n_topics)}, rf
+    )
+    lb = sum(
+        1 for p in current.partitions for b in p.replicas if b == remove
+    )
+    return Scenario(
+        name="decommission",
+        current=current,
+        broker_list=[b for b in all_brokers if b != remove],
+        topology=topo,
+        min_moves_lb=lb,
+        lb_tight=True,
+        notes=f"drop broker {remove}; it hosts {lb} replicas -> min {lb} moves",
+    )
+
+
+def rf_change(
+    n_brokers: int = 32, n_racks: int = 4,
+    n_topics: int = 10, parts_per_topic: int = 100, rf_old: int = 2, rf_new: int = 3,
+) -> Scenario:
+    """Replication-factor increase 2->3 under strict
+    rack diversity (the reference's RF-change use case, README.md:8-10).
+    Every partition gains rf_new - rf_old replicas; each is a move."""
+    brokers = list(range(n_brokers))
+    topo = _mod_topology(brokers, n_racks)
+    current = balanced_assignment(
+        brokers, topo, {f"t{i}": parts_per_topic for i in range(n_topics)}, rf_old
+    )
+    n_parts = n_topics * parts_per_topic
+    return Scenario(
+        name="rf_change",
+        current=current,
+        broker_list=brokers,
+        topology=topo,
+        target_rf=rf_new,
+        min_moves_lb=n_parts * (rf_new - rf_old),
+        lb_tight=True,
+        notes="each partition must gain one replica on a new broker",
+    )
+
+
+def leader_only(
+    n_brokers: int = 128, n_racks: int = 8,
+    n_topics: int = 50, parts_per_topic: int = 100, rf: int = 3,
+) -> Scenario:
+    """Leader-only rebalance: replicas are perfectly
+    placed but leadership is skewed onto a subset of brokers. The optimal
+    plan fixes leader balance with in-place leader swaps: ZERO replica
+    moves. Exercises the engine's lswap move type in isolation."""
+    brokers = list(range(n_brokers))
+    topo = _mod_topology(brokers, n_racks)
+    base = balanced_assignment(
+        brokers, topo, {f"t{i}": parts_per_topic for i in range(n_topics)}, rf
+    )
+    # skew leadership: make the replica with the smallest (id mod 16)
+    # residue the leader — leaders pile onto low-residue brokers while the
+    # replica *sets* stay balanced and rack-diverse
+    parts = []
+    for p in base.partitions:
+        reps = sorted(p.replicas, key=lambda b: (b % 16, b))
+        parts.append(
+            PartitionAssignment(topic=p.topic, partition=p.partition, replicas=reps)
+        )
+    return Scenario(
+        name="leader_only",
+        current=Assignment(partitions=parts),
+        broker_list=brokers,
+        topology=topo,
+        min_moves_lb=0,
+        lb_tight=True,
+        notes="optimal plan has 0 replica moves, only leader swaps",
+    )
 
 
 def _scatter_assignment(
@@ -347,6 +467,54 @@ def adversarial(
     )
 
 
+def jumbo(
+    n_brokers: int = 512, n_racks: int = 16,
+    n_topics: int = 250, parts_per_topic: int = 200, rf: int = 3,
+) -> Scenario:
+    """Beyond the north star: 512 brokers / 16 racks / 50k partitions
+    RF=3 decommission — 5x the headline's partition count (150k replica
+    slots). It exists to demonstrate the sweep
+    engine's scaling headroom past the size that motivated the rebuild
+    (per-sweep work is O(chains * partitions); sequential depth stays
+    flat)."""
+    sc = decommission(n_brokers=n_brokers, n_racks=n_racks,
+                      n_topics=n_topics, parts_per_topic=parts_per_topic,
+                      rf=rf)
+    return replace(
+        sc, name="jumbo",
+        notes=f"{n_brokers}b/{n_topics * parts_per_topic}-part "
+              f"decommission; {sc.notes}",
+    )
+
+
+def adv50k(
+    n_brokers: int = 512, n_racks: int = 16,
+    n_topics_low: int = 126, n_topics_high: int = 124,
+    parts_per_topic: int = 200, seed: int = 7,
+) -> Scenario:
+    """Constructor-proof at JUMBO scale: the adversarial shuffled
+    mixed-RF decommission grown to 512 brokers / 16 racks / 50k
+    partitions (149,600 replica slots — jumbo's size with adversarial's
+    asymmetry). The 126/124 topic split keeps the broker bands
+    removal-invariant ([292, 292] both sides; leaders [97, 98] both),
+    so caps stay slack. ~147k symmetry classes over ~149k members, so
+    the aggregated MILP refuses, and the sweep annealer must close to
+    the bound ladder on the device at 5x the headline scale — the proof that
+    the search engine's flat sequential depth survives where the host
+    constructors cannot follow."""
+    sc = adversarial(
+        n_brokers=n_brokers, n_racks=n_racks,
+        n_topics_low=n_topics_low, n_topics_high=n_topics_high,
+        parts_per_topic=parts_per_topic, seed=seed,
+    )
+    return replace(
+        sc, name="adv50k",
+        notes=(f"{n_brokers}b/"
+               f"{(n_topics_low + n_topics_high) * parts_per_topic}-part "
+               f"shuffled mixed-RF decommission; {sc.notes}"),
+    )
+
+
 def ultra_jumbo(
     n_az: int = 4, racks_per_az: int = 4, base_brokers: int = 8,
     partitions: int = 200_000, rf: int = 3, cross_frac: float = 0.02,
@@ -481,8 +649,31 @@ def messy_case(seed: int = 0):
     return messy_cluster(_np.random.default_rng(2000 + int(seed)))
 
 
-# shrunk per-scenario kwargs for quick CPU runs (the reference's
-# SMOKE_KWARGS entry of the one scenario here that has one)
+SCENARIOS = {
+    "demo": demo,
+    "scale_out": scale_out,
+    "decommission": decommission,
+    "rf_change": rf_change,
+    "leader_only": leader_only,
+    "adversarial": adversarial,
+    "adv50k": adv50k,
+    "jumbo": jumbo,
+    "ultra_jumbo": ultra_jumbo,
+}
+
+# shrunk per-scenario kwargs for quick CPU runs: the single source of
+# truth shared by the tests and ops.bench_kernel, so a scenario solve and
+# the kernel bench measure the same instance
 SMOKE_KWARGS = {
+    "demo": dict(),
+    "scale_out": dict(n_old=12, n_new=16, n_topics=8, parts_per_topic=10),
+    "decommission": dict(n_brokers=32, n_topics=8, parts_per_topic=25),
+    "rf_change": dict(n_brokers=16, n_topics=4, parts_per_topic=25),
+    "leader_only": dict(n_brokers=32, n_topics=8, parts_per_topic=25),
+    "adversarial": dict(n_brokers=32, n_topics_low=11, n_topics_high=9,
+                        parts_per_topic=10),
+    "adv50k": dict(n_brokers=48, n_topics_low=6, n_topics_high=6,
+                   parts_per_topic=10),
+    "jumbo": dict(n_brokers=48, n_topics=10, parts_per_topic=40),
     "ultra_jumbo": dict(n_az=3, racks_per_az=4, partitions=600),
 }

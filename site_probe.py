@@ -204,6 +204,7 @@ def main(argv: list[str]) -> int:
     from kafka_assignment_optimizer_tpu_torch.ops.site_cuda import (
         site_step_cuda,
     )
+    from kafka_assignment_optimizer_tpu_torch.ops import bench_kernel
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
     out_path = argv[argv.index("--out") + 1] if "--out" in argv else None
@@ -212,7 +213,7 @@ def main(argv: list[str]) -> int:
     jobs = [(src, label, defines, *build(kernels, src, defines))
             for src, label, defines in VARIANTS if only in (None, src)]
     dev = torch.device("cuda")
-    _s, _i, m, _seed, a = chip_smoke.adversarial_population(torch, dev)
+    _s, _i, m, _seed, a = bench_kernel.population(dev, "adversarial")
     a1 = a[:1].clone()
     _f, _r, cnt, lcnt, rcnt = sweep.histograms(m, a)
     key = prng.PRNGKey(1)

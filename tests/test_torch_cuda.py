@@ -535,3 +535,49 @@ def test_sanitizer_nan_guard_on_card(card):
     np.testing.assert_array_equal(got.a, ref.a)
     assert snap["nan_aborts_total"] == snap["donation_reuse_total"] == 0
     assert snap["recompiles_total"] == 0
+
+
+def test_kernel_vs_torch_rows_on_the_card(card):
+    """The kernel-vs-torch bench on the card at the headline's smoke
+    size: one row per launch at L=1 and L=8, each kernel equal to its
+    plain version, timed, and reaching no more of its analytic bound
+    than a card can (at or below 1.05)."""
+    from kafka_assignment_optimizer_tpu_torch.ops import bench_kernel
+
+    rep = bench_kernel.kernel_vs_torch(smoke=True)
+    assert rep["platform"] == "gpu" and "skipped" not in rep
+    rows = rep["rows"]
+    assert len(rows) == 6
+    for r in rows:
+        assert r["parity"], r
+        assert r["ms"] > 0 and r["bound_ms"] > 0
+        assert r["share"] <= 1.05, r
+    assert [r["library_ms"] is None for r in rows] == [
+        False, True, False] * 2
+
+
+def test_profiler_cost_model_on_the_card(card):
+    """A pinned sweep solve on the card: each chunk key's analytic launch
+    counts (``sweep.stage_counts`` of its sweeps) equal the launches the
+    wrappers counted in the ladder, and its occupancy reads no more than
+    a card can."""
+    from kafka_assignment_optimizer_tpu_torch.obs import prof
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    inst = build_instance(*_sweep_case())
+    prof.clear()
+    kernels.reset_counts()
+    engine.solve_tpu(inst, engine="sweep", batch=8, sweeps=32,
+                     portfolio=False, precompile=True, time_limit_s=300.0,
+                     cert_min_savings_s=float("inf"))
+    counted = {k.name: k.launches for k in kernels.KERNELS}
+    (row,) = prof.snapshot()["executables"]
+    ladder = {k: v * row["dispatches"] for k, v in row["launches"].items()}
+    # final selection and verification add B1 launches of their own
+    assert ladder["B2+B3 site sweep"] == counted["B2+B3 site sweep"]
+    assert (ladder["B4+B5+B6 exchange sweep"]
+            == counted["B4+B5+B6 exchange sweep"])
+    assert ladder["B1 score"] <= counted["B1 score"]
+    assert row["peak_hbm_bytes"] is not None
+    for k in ("occupancy_flops", "occupancy_hbm", "occupancy_hbm_p99"):
+        assert row[k] is not None and row[k] <= 1.05, (k, row)

@@ -239,12 +239,12 @@ def test_unported_keywords_raise(demo):
     ``tests/test_torch_watch.py``; ``pipeline``, ``megachunk`` and
     ``checkpoint`` in ``tests/test_torch_pipeline.py``,
     ``tests/test_torch_megachunk.py`` and
-    ``tests/test_torch_checkpoint.py``.)"""
+    ``tests/test_torch_checkpoint.py``; ``profile_dir`` in
+    ``tests/test_torch_measure.py``.)"""
     current, brokers, topo = port_cluster(*demo)
     inst = build_instance(current, brokers, topo)
-    for kw in (dict(n_devices=2), dict(profile_dir="prof")):
-        with pytest.raises(NotImplementedError):
-            engine.solve_tpu(inst, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        engine.solve_tpu(inst, device="cpu", n_devices=2)
     # precompile (the service's warm-up) is ported: no constructor race,
     # so the demo's device path runs instead of the exact MILP's
     # certificate, as in the reference
@@ -431,8 +431,9 @@ def test_port_never_imports_jax():
     the chain engine), a batch through ``optimize_batch``, a decomposed
     solve (``KAO_DECOMPOSE=1``), ``optimize_delta`` with its warm start, a
     pipelined megachunk solve writing a checkpoint (``utils.checkpoint``
-    imported), a chaos-armed solve's host fallback, and importing and running
-    chip_smoke.py without a card load neither JAX nor the JAX package."""
+    imported), a chaos-armed solve's host fallback, the measurement plane
+    (its modules imported, a profiled solve), and importing and running chip_smoke.py without a card load
+    neither JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -479,6 +480,12 @@ def test_port_never_imports_jax():
         "chaos.arm('nan_chunk')\n"
         "st = solve(solver='tpu', device='cpu', engine='sweep', sweeps=8)\n"
         "assert st['degradations'] == ['anneal_to_construct'], st\n"
+        "from kafka_assignment_optimizer_tpu_torch.obs import (chrome, "
+        "drift, prof, regress, sampler, slo, trace_cli)\n"
+        "from kafka_assignment_optimizer_tpu_torch.ops import bench_kernel\n"
+        "solve(solver='tpu', device='cpu', engine='sweep', sweeps=8, "
+        "profile_dir=tempfile.mkdtemp())\n"
+        "assert prof.snapshot()['executables']\n"
         "import chip_smoke\n"
         "torch.cuda.is_available = lambda: False\n"
         "assert chip_smoke.main() != 0\n"

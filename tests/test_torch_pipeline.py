@@ -234,7 +234,7 @@ def test_batch_lane_ladder_pipelined_equals_reference():
 
 def test_process_default_and_unported_keywords(no_race):
     """``set_pipeline_default(False)`` makes a defaulted solve
-    synchronous; ``n_devices`` above 1 and ``profile_dir`` still raise,
+    synchronous; ``n_devices`` above 1 still raises,
     while ``precompile=True`` and ``trace`` (ported with the service)
     are accepted by both entry points."""
     cl = the_cluster()
@@ -245,9 +245,8 @@ def test_process_default_and_unported_keywords(no_race):
     finally:
         engine.set_pipeline_default(True)
     inst = build_instance(*port_cluster(*cl))
-    for kw in (dict(n_devices=2), dict(profile_dir="prof")):
-        with pytest.raises(NotImplementedError):
-            engine.solve_tpu(inst, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        engine.solve_tpu(inst, device="cpu", n_devices=2)
     with pytest.raises(NotImplementedError):
         engine.solve_tpu_batch([inst], device="cpu", n_devices=2)
     out = engine.solve_tpu_batch([inst], device="cpu", trace=True,

@@ -5,7 +5,9 @@ driven in-process with the same requests, plus one HTTP round trip each.
 one window), ``/evaluate``, the error table of ``tests/test_serve.py``,
 ``/`` and ``/schema`` (byte-equal), the ``/metrics`` families and the
 ``/healthz`` keys (their difference is exactly the subsystems the port
-has not ported yet, which answer 501), every flag of the JAX service
+has not ported yet, which answer 501), the measurement surfaces
+(``/debug/profile``, ``/debug/slo``, ``?format=chrome``, ``--slo``,
+``--profile-dir``, ``--sample-devices``), every flag of the JAX service
 (working in the port, or refused at startup) and the import boundary:
 the port's service loads neither JAX nor the JAX package. Plans, status
 codes and integer fields are equal exactly."""
@@ -44,9 +46,8 @@ REPORT_FIELDS = (
     "solver_bucket_parts", "solver_bucket_rf", "degradations",
 )
 # the reference's subsystems the port has not ported yet
-DEFERRED_HEALTHZ = {"devices", "slo", "rollout"}
-DEFERRED_FAMILY_PREFIXES = ("kao_device_", "kao_prof_", "kao_slo_",
-                            "kao_drift_", "kao_rollout_")
+DEFERRED_HEALTHZ = {"rollout"}
+DEFERRED_FAMILY_PREFIXES = ("kao_rollout_",)
 
 
 def _serve(mod, **kw):
@@ -234,10 +235,8 @@ def test_metrics_families_and_healthz_keys(servers):
 
 
 @pytest.mark.parametrize("method,path", [
-    ("GET", "/debug/slo"), ("GET", "/debug/profile"),
     ("GET", "/debug/fleet"), ("GET", "/clusters/c1/rollout"),
     ("POST", "/clusters/c1/rollout/start"),
-    ("GET", "/debug/solves/{tid}?format=chrome"),
 ])
 def test_deferred_routes_answer_501(servers, method, path):
     tid = serve._otrace.new_trace_id()
@@ -250,6 +249,84 @@ def test_deferred_routes_answer_501(servers, method, path):
     body = json.loads(raw)
     assert st == 501, body
     assert body["reason"] == "not_ported" and body["module"]
+
+
+def test_debug_profile_slo_and_chrome_match_reference(servers):
+    """After a pinned sweep solve through each service: ``/debug/profile``
+    and ``/debug/slo`` answer 200 with the reference's sections, the
+    profile's roofline holds the solve's bucket, and ``?format=chrome``
+    gives the Chrome export of the solve's report (the reference's
+    ``obs.chrome`` on the same report)."""
+    from kafka_assignment_optimizer_tpu.obs import chrome as jchrome
+
+    p = {**DEMO, "solver": "tpu", "options": dict(PINNED)}
+    bodies = {}
+    for name in ("jax", "port"):
+        st, raw, _ = _http(servers[name], "/submit", p)
+        assert st == 200, raw
+        tid = json.loads(raw)["trace_id"]
+        got = {}
+        for path in ("/debug/profile", "/debug/slo",
+                     f"/debug/solves/{tid}?format=chrome",
+                     f"/debug/solves/{tid}"):
+            st, raw, _ = _http(servers[name], path)
+            assert st == 200, (name, path, raw[:200])
+            got[path.split("?")[-1].split("/")[-1]] = json.loads(raw)
+        bodies[name] = got
+    j, t = bodies["jax"], bodies["port"]
+    assert set(t["profile"]) == set(j["profile"])
+    assert set(t["slo"]) == set(j["slo"])
+    assert set(t["slo"]["slo"]["classes"]) == set(j["slo"]["slo"]["classes"])
+    assert [g["bucket"] for g in t["profile"]["roofline"]]
+    assert t["profile"]["peaks"]["platform"] == "cpu"
+    chrome_t = t["format=chrome"]
+    report = next(v for k, v in t.items() if k not in (
+        "profile", "slo", "format=chrome"))
+    assert chrome_t == jchrome.to_chrome(report)
+    assert set(chrome_t) == set(j["format=chrome"])
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--slo", "solve"], {}),
+    (["--slo", "solve:x:0.9"], {}),
+    (["--profile-solves", "-1"], {}),
+    (["--sample-devices", "-1"], {}),
+    ([], {"KAO_SLO": "solve:5:2"}),
+    ([], {"KAO_SAMPLE_DEVICES": "fast"}),
+])
+def test_measurement_flags_refuse_bad_values_as_reference(argv, env,
+                                                          monkeypatch,
+                                                          capsys):
+    """``--slo``/``KAO_SLO``, ``--profile-solves`` and
+    ``--sample-devices``/``KAO_SAMPLE_DEVICES`` are the reference's: a
+    bad value stops both services at startup (exit 2), before serving."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    codes = []
+    for main, extra in ((jserve.main, []),
+                        (serve.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as ei:
+            main([*argv, *extra, "--port", "0"])
+        codes.append(ei.value.code)
+        capsys.readouterr()
+    assert codes == [2, 2]
+    assert not serve._osampler.SAMPLER.enabled()
+
+
+def test_profiled_solves_per_bucket_as_reference(tmp_path, monkeypatch):
+    """``--profile-dir`` with ``--profile-solves N``: the first N tpu
+    solves of a bucket get a capture directory of their own, the rest
+    none — the reference's budget, keyed the same way."""
+    got = []
+    for mod in (jserve, serve):
+        monkeypatch.setitem(mod.OBS, "profile_dir", str(tmp_path))
+        monkeypatch.setitem(mod.OBS, "profile_solves", 2)
+        monkeypatch.setattr(mod, "_PROFILED_BUCKETS", {})
+        got.append([mod._profile_dir_for(("b", 12, 64), f"t{i}")
+                    for i in range(3)]
+                   + [mod._profile_dir_for(("c", 12, 64), "t9")])
+    assert got[1] == got[0]
+    assert got[1][2] is None and got[1][3]
 
 
 def _reference_flags() -> list:
@@ -296,8 +373,9 @@ def test_every_reference_flag_works_or_is_refused(capsys):
 
 def test_service_never_imports_jax():
     """Importing the port's service, and a CPU ``/submit`` through it (the
-    exact MILP and a pinned sweep), ``/evaluate``, ``/healthz`` and
-    ``/metrics``, load neither JAX nor the JAX package."""
+    exact MILP and a pinned sweep), ``/evaluate``, ``/healthz``,
+    ``/metrics``, ``/debug/profile`` and ``/debug/slo``, load neither JAX
+    nor the JAX package."""
     code = (
         "import sys\n"
         "from kafka_assignment_optimizer_tpu_torch import serve\n"
@@ -314,6 +392,7 @@ def test_service_never_imports_jax():
         "assert serve.handle_evaluate({**p, 'plan': o['assignment']}, "
         "30.0)['feasible']\n"
         "serve.handle_healthz(); serve.render_metrics()\n"
+        "serve.handle_debug_profile(); serve.handle_debug_slo()\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'kafka_assignment_optimizer_tpu'"
         " or n.startswith('kafka_assignment_optimizer_tpu.')]\n"
@@ -328,8 +407,8 @@ def test_cli_evaluate_events_and_refusals_match_reference(tmp_path, capsys):
     """The CLI's ``--evaluate`` (the audit on stdout, exit 3 for the
     infeasible current assignment) and ``--events`` (the watch replay:
     the final plan on stdout, a line an event) give the reference's
-    output and exit codes; ``--emit-waves`` and ``--profile-dir`` exit 2
-    naming the module still to port."""
+    output and exit codes; ``--emit-waves`` exits 2 naming the module
+    still to port."""
     from kafka_assignment_optimizer_tpu.cli import main as jmain
     from kafka_assignment_optimizer_tpu_torch.cli import main as tmain
 
@@ -357,8 +436,6 @@ def test_cli_evaluate_events_and_refusals_match_reference(tmp_path, capsys):
             got.append((rc, json.loads(out.out), lines))
         assert got[1] == got[0], argv
     assert got[1][0] == 3 and len(got[1][2]) == 3  # the replayed epoch
-    for flag in ("--emit-waves", "--profile-dir"):
-        assert tmain(["-i", str(cur), "--broker-list", "0-18", flag,
-                      str(tmp_path)]) == 2
-        assert "not supported by this package yet" in \
-            capsys.readouterr().err
+    assert tmain(["-i", str(cur), "--broker-list", "0-18", "--emit-waves",
+                  str(tmp_path)]) == 2
+    assert "not supported by this package yet" in capsys.readouterr().err
