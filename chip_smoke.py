@@ -171,7 +171,38 @@ Phases (any failure exits non-zero; nothing is caught):
    ``/debug/slo``, ``/healthz`` (``devices``, ``slo``), the ``kao_slo_*``,
    ``kao_drift_*``, ``kao_device_*`` and ``kao_prof_*`` families on
    ``/metrics``, ``?format=chrome`` equal to ``obs.trace_cli convert`` of
-   the same report, and ``obs.prof`` over the flight directory.
+   the same report, and ``obs.prof`` over the flight directory; the
+   measured request's stop reason (every chunk and final selection, or
+   the boundary certificate) from its solve trace;
+   (n) fleet and rollout: two workers (``python -m
+   kafka_assignment_optimizer_tpu_torch.serve``, each a process of its
+   own on the card, a shared ``--watch-dir``, a ``--flight-dir`` each,
+   the scored wave packer on 8 lanes) behind ``kao-router``
+   (``fleet.router``), whose process maps no torch or jax library; a
+   fleet ``/warmup`` of the ``decommission`` and ``adv50k`` shapes
+   through the router (each bucket to its rendezvous owner, then spread
+   to the other worker, no kernel built by a worker); the pinned
+   ``decommission`` request (certified in the host race) and the pinned
+   adversarial one (one chunk of 16 sweeps) through the router, the
+   first of its key on a worker and then again, the second an affinity
+   hit and equal to the same request sent to the answering worker
+   directly (plan, moves, dispatches; the stop reasons printed), feasible
+   under the numpy oracle with B1 held to it, the adversarial one
+   launching every kernel on the worker (``/debug/kernels``), its trace
+   one tree across router and worker (``/debug/traces/<id>``,
+   ``?format=chrome`` pids 1 and 2); a rollout of ``decommission``'s drain (117 moves) and
+   one of ``adv50k``'s (292 moves, a second broker drained after the
+   first applied wave: only the remaining waves re-planned, the re-solve's
+   trace linked by ``rollout_root``), each wave within its caps and the
+   worker's ground truth the base with the applied waves, ending at the
+   plan; a rollback to the pre-rollout assignment bit for bit and a stale
+   rollout epoch answered 409 with the record on disk unchanged;
+   ``kao-fleet`` over both flight directories (the merged count the sum,
+   and worker 1's ``/debug/fleet`` with ``--fleet-peers`` the same); then
+   the owner of ``decommission``'s bucket SIGKILLed: the pinned request
+   answered by the other worker with the same plan, nothing dropped, the
+   dead worker out of the router's live set and ``/clusters/prod``
+   readable through the shared watch directory.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -1927,6 +1958,12 @@ def measure_phase(torch, power: str) -> None:
             solved = {k: body["report"].get(f"solver_{k}") for k in (
                 "engine", "final_cert", "dispatches", "dispatch_s",
                 "device_s", "anneal_s")}
+            # why its ladder stopped where it did (the JAX package's
+            # service stops the same request at the same boundary on the
+            # CPU: the savings gate reads the chunk time, which the
+            # profiler session stretches)
+            stop = _stop_reason(body["report"],
+                                ok(f"/debug/solves/{body['trace_id']}"))
             busy = sum(e.time_range.elapsed_us() for e in p.events()
                        if e.device_type == DeviceType.CUDA) / 1e6
             duty = ((d1["device_s"] + d1["dispatch_s"] - d0["device_s"]
@@ -1943,7 +1980,7 @@ def measure_phase(torch, power: str) -> None:
                    if busy else "not measured (no device event kept)")
                 + f", sampler EWMA {SAMPLER.snapshot()['duty_cycle']}; "
                 f"launches {json.dumps(counts)}; the solve "
-                + json.dumps(solved) + f" ({power})")
+                + json.dumps(solved) + f"; stop: {stop} ({power})")
             profd = ok("/debug/profile")
             slo = ok("/debug/slo")
             hz = ok("/healthz")
@@ -2007,6 +2044,528 @@ def measure_phase(torch, power: str) -> None:
           f"{offline['records']} records")
     print(duty_line)
     print(f"measurement phase: {time.perf_counter() - t_phase:.3f} s")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_up(url: str, proc, what: str, timeout_s: float = 180.0) -> None:
+    """Poll ``url/healthz`` until it answers 200; fail if the process
+    exits first or the time runs out."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if proc.poll() is not None:
+            fail(f"{what} exited with {proc.returncode} before serving")
+        try:
+            if _http(url, "/healthz")[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.25)
+    fail(f"{what} did not answer /healthz within {timeout_s:.0f} s")
+
+
+def _stop_reason(rep: dict, trace: dict | None) -> str:
+    """Why a served solve's ladder stopped, from its report and its
+    solve trace: every chunk run and final selection, the boundary
+    certificate (the chunk after it already in flight), an adopted
+    constructor plan, or the deadline."""
+    spans = list(_spans(trace["spans"])) if trace else []
+    lad = next((sp for sp in spans if sp["name"] == "ladder"), None)
+    attrs = (lad or {}).get("attrs") or {}
+    adopted = any(sp["name"] == "adopt"
+                  and (sp.get("attrs") or {}).get("certified")
+                  and "boundary" in (sp.get("attrs") or {})
+                  for sp in spans)
+    n = rep.get("solver_dispatches")
+    if lad is None or attrs.get("skipped"):
+        return (f"no ladder: {rep.get('solver_engine')}/"
+                f"{rep.get('solver_construct_path')} certified on the host")
+    if attrs.get("timed_out"):
+        return f"the deadline after {attrs.get('rounds_run')} sweeps"
+    if attrs.get("boundary_certified"):
+        how = ("the constructor race's certified plan adopted"
+               if adopted else "the boundary certificate (moves at the "
+               "lower bound, weight at the upper bound)")
+        return (f"{how} at a chunk boundary after "
+                f"{attrs.get('rounds_run')} sweeps of {attrs.get('chunks')}"
+                f" chunks; {n} dispatches (the next chunk was in flight)")
+    return (f"every chunk ({n} dispatches, {attrs.get('rounds_run')} "
+            f"sweeps), final selection {rep.get('solver_final_cert')}")
+
+
+def fleet_phase(torch, power: str, device: str = "cuda") -> None:
+    """(n) Fleet and rollout (see the module docstring): two workers, each
+    a process of its own on the card, behind ``kao-router``; every process
+    the phase starts is stopped in its ``finally``, and a failure still
+    ends the run non-zero."""
+    import shutil
+    import signal
+
+    from kafka_assignment_optimizer_tpu_torch.fleet import affinity
+    from kafka_assignment_optimizer_tpu_torch.models.cluster import (
+        Assignment,
+    )
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.rollout import waves as rw
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="kao-fleet-")
+    watch_dir = os.path.join(tmp, "watch")
+    flights = [os.path.join(tmp, f"flight{i}") for i in (1, 2)]
+    ports = [_free_port() for _ in range(3)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports[:2]]
+    rurl = f"http://127.0.0.1:{ports[2]}"
+    procs: dict = {}
+    logs: list = []
+    pinned = {"engine": "sweep", "batch": 8, "rounds": 128,
+              "portfolio": False}
+
+    def start(name, args):
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        logs.append(log)
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=root, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        return procs[name]
+
+    def ok(url, path, payload=None, want=200):
+        st, body, wall = _http(url, path, payload)
+        if st != want:
+            fail(f"fleet {path} at {url}: {st} {str(body)[:400]}")
+        return body, wall
+
+    def payload(scen, **extra):
+        return {"assignment": scen.current.to_dict(),
+                "brokers": list(scen.broker_list),
+                "topology": scen.topology.to_dict(), **extra}
+
+    # a terminated run still stops the processes it started
+    old_term = signal.signal(signal.SIGTERM,
+                             lambda *_a: fail("terminated"))
+    try:
+        # 1. the fleet: two workers on the card, a shared watch dir, a
+        # flight dir each (worker 1 names worker 2 as its fleet peer),
+        # the router in front of them
+        t0 = time.perf_counter()
+        for i in (0, 1):
+            start(f"worker{i + 1}", [
+                "kafka_assignment_optimizer_tpu_torch.serve", "--port",
+                str(ports[i]), "--device", device, "--watch-dir",
+                watch_dir, "--flight-dir", flights[i], "--sample-devices",
+                "5", "--rollout-packer", "scored", "--rollout-lanes", "8",
+                *(["--fleet-peers", urls[1]] if i == 0 else [])])
+        router = start("router", [
+            "kafka_assignment_optimizer_tpu_torch.fleet.router", "--port",
+            str(ports[2]), "--workers", ",".join(urls),
+            "--health-interval-s", "0.5"])
+        for i, u in enumerate(urls):
+            _wait_up(u, procs[f"worker{i + 1}"], f"worker {i + 1}")
+        _wait_up(rurl, router, "the router")
+        with open(f"/proc/{router.pid}/maps") as f:
+            mapped = {ln.split()[-1] for ln in f if "/" in ln}
+        heavy = sorted(p for p in mapped if any(
+            s in p for s in ("/torch/", "libtorch", "/jax/", "/jaxlib/")))
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, kafka_assignment_optimizer_tpu_torch.fleet.router"
+             "; print(sorted(n for n in ('torch', 'jax') "
+             "if n in sys.modules))"],
+            cwd=root, capture_output=True, text=True, timeout=120)
+        if heavy or probe.stdout.strip() != "[]":
+            fail(f"the router loaded torch or jax: {heavy[:4]} "
+                 f"{probe.stdout.strip()} {probe.stderr[-300:]}")
+        print(f"fleet: 2 workers ({device}) + kao-router up in "
+              f"{time.perf_counter() - t0:.3f} s; the router process maps "
+              f"no torch or jax library ({len(mapped)} files mapped) and "
+              "its import loads neither")
+
+        # 2. fleet warmup through the router, at the shapes of the
+        # requests below (their bucket keys): each bucket to its
+        # rendezvous owner once, then spread; no worker builds a kernel
+        decom = gen.SCENARIOS["decommission"]()
+        adv50k = gen.SCENARIOS["adv50k"]()
+        adv = gen.adversarial()
+        shapes = []
+        for scen in (decom, adv50k):
+            b, k, p, r = affinity.payload_shape(payload(scen))
+            shapes.append({"brokers": b, "partitions": p, "rf": r,
+                           "racks": k})
+        out, wall = ok(rurl, "/warmup", {"shapes": shapes,
+                                         "engine": "sweep"})
+        for owner, shs in out["partition"].items():
+            for sh in shs:
+                key = affinity.shape_key(sh["brokers"], sh["partitions"],
+                                         sh["rf"], sh["racks"])
+                if affinity.rendezvous_rank(key, urls)[0] != owner:
+                    fail(f"warmup: {sh} went to {owner}, not its owner")
+        owned = sorted(json.dumps(sh, sort_keys=True)
+                       for shs in out["partition"].values() for sh in shs)
+        if owned != sorted(json.dumps(sh, sort_keys=True) for sh in shapes):
+            fail(f"warmup partition {out['partition']}")
+        if out.get("errors") or out["fresh_compiles"] != 0 \
+                or out["spread_fresh_compiles"] != 0:
+            fail(f"warmup: errors {out.get('errors')}, fresh compiles "
+                 f"{out['fresh_compiles']} / "
+                 f"{out['spread_fresh_compiles']} (want 0 / 0)")
+        mem = {}
+        for i, u in enumerate(urls):
+            hz, _w = ok(u, "/healthz")
+            mem[f"worker{i + 1}"] = hz["devices"]["devices"]
+        print(f"fleet warmup (decommission and adv50k at their requests' "
+              f"shapes): wall {wall:.3f} s ({power}); partition "
+              + json.dumps({u[-5:]: [(s["brokers"], s["partitions"],
+                                      s["rf"], s["racks"]) for s in shs]
+                            for u, shs in out["partition"].items()})
+              + "; persistent misses 0 in both phases; card memory "
+              + json.dumps(mem))
+
+        # 3. pinned solves through the router, each against the same
+        # request sent to the answering worker directly, each run's stop
+        # reason printed. The pinned decommission request certifies in
+        # the host race (the race cannot be switched off over HTTP); the
+        # adversarial one reaches the kernels, as one chunk of 16
+        # sweeps: a ladder of several chunks may stop at its first
+        # boundary or run on, as the certificate's savings gate reads
+        # the chunk time, so only one chunk compares two runs exactly
+        routed = {}
+        for name, scen, opts in (
+                ("decommission", decom, pinned),
+                ("adversarial", adv, {**pinned, "rounds": 16})):
+            req = payload(scen, solver="tpu", options=opts)
+            first, f_wall = ok(rurl, "/submit", req)
+            wurl = first["route"]["worker"]
+            ftrace, _w = ok(wurl, f"/debug/solves/{first['trace_id']}")
+            # the router sees the bucket in the worker's ledger (its
+            # health poll) before the request it should route warm
+            key = list(affinity.bucket_key_of(req))
+            t0 = time.perf_counter()
+            while True:
+                hz0, _w = ok(rurl, "/healthz")
+                if key in hz0["fleet"]["workers"][wurl]["warm_buckets"]:
+                    break
+                if time.perf_counter() - t0 > 30:
+                    fail(f"the router never saw {key} warm on {wurl}")
+                time.sleep(0.2)
+            before = ok(wurl, "/debug/kernels")[0]["launches"]
+            body, r_wall = ok(rurl, "/submit", req)
+            after = ok(wurl, "/debug/kernels")[0]["launches"]
+            hz1, _w = ok(rurl, "/healthz")
+            counts = {k: after[k] - before[k] for k in after}
+            hits = (hz1["counters"]["affinity_hits_total"]
+                    - hz0["counters"]["affinity_hits_total"])
+            trace, _w = ok(wurl, f"/debug/solves/{body['trace_id']}")
+            direct, d_wall = ok(wurl, "/submit", req)
+            dtrace, _w = ok(wurl, f"/debug/solves/{direct['trace_id']}")
+            rep, drep = body["report"], direct["report"]
+            same = (body["assignment"] == direct["assignment"]
+                    and rep["replica_moves"] == drep["replica_moves"]
+                    and rep.get("solver_dispatches")
+                    == drep.get("solver_dispatches"))
+            print(f"routed pinned {name} (the first of its key on worker "
+                  f":{wurl[-5:]}): {first['report']['replica_moves']} "
+                  f"moves, dispatches "
+                  f"{first['report'].get('solver_dispatches')}, stop: "
+                  f"{_stop_reason(first['report'], ftrace)}; wall "
+                  f"{f_wall:.3f} s. Again through the router: "
+                  f"{rep['replica_moves']} moves, weight "
+                  f"{rep['objective_weight']}, proven "
+                  f"{rep['proven_optimal']}, dispatches "
+                  f"{rep.get('solver_dispatches')}, stop: "
+                  f"{_stop_reason(rep, trace)}; wall {r_wall:.3f} s; "
+                  f"launches {json.dumps(counts)}; affinity hit "
+                  f"+{hits}. Direct to the worker: "
+                  f"{drep['replica_moves']} moves, dispatches "
+                  f"{drep.get('solver_dispatches')}, stop: "
+                  f"{_stop_reason(drep, dtrace)}; wall {d_wall:.3f} s; "
+                  f"equal: {same} ({power})")
+            if not same:
+                fail(f"routed pinned {name} differs from the direct one")
+            if body["route"]["worker"] != wurl or hits != 1:
+                fail(f"routed pinned {name} again: worker "
+                     f"{body['route']['worker']}, affinity hits +{hits}")
+            for out in (first, body):
+                if not out["report"]["feasible"]:
+                    fail(f"routed pinned {name}: infeasible")
+                inst = build_instance(scen.current, scen.broker_list,
+                                      scen.topology)
+                a = inst.encode(Assignment.from_dict(out["assignment"]))
+                if not inst.is_feasible(a) or inst.move_count(a) \
+                        != out["report"]["replica_moves"]:
+                    fail(f"routed pinned {name}: the numpy oracle "
+                         "disagrees")
+                if device == "cuda":
+                    b1_holds(torch, torch.device("cuda"), inst, a,
+                             f"routed pinned {name}")
+            routed[name] = (body, wurl, counts, rep)
+        counts = routed["adversarial"][2]
+        if device == "cuda" and not all(counts.values()):
+            fail(f"routed pinned adversarial: a kernel never launched on "
+                 f"the worker: {counts}")
+        # one trace across router and worker
+        tid = routed["adversarial"][0]["trace_id"]
+        merged, _w = ok(rurl, f"/debug/traces/{tid}")
+        chrome, _w = ok(rurl, f"/debug/traces/{tid}?format=chrome")
+        names = {sp["name"] for sp in _spans(merged["root"]["spans"])}
+        wrep = [p for p in merged["processes"] if p["attached_to"]]
+        pids = sorted({e["pid"] for e in chrome["traceEvents"]})
+        wnames = {sp["name"] for p in wrep
+                  for sp in _spans(p["report"]["spans"])}
+        if not {"attempt"} <= names or not wrep \
+                or {p["report"]["trace_id"] for p in wrep} != {tid} \
+                or "ladder" not in wnames or pids[:2] != [1, 2]:
+            fail(f"merged trace {tid}: router spans {sorted(names)}, "
+                 f"worker processes {len(wrep)}, pids {pids}")
+        print(f"merged trace {tid}: router spans {sorted(names)}; worker "
+              f"spans {sorted(wnames)[:8]}... attached under one trace "
+              f"ID; chrome pids {pids} ({len(chrome['traceEvents'])} "
+              "events)")
+
+        # 4. rollouts at published size through the router
+        def rollout(cid, scen, moves_want, mid_event=None):
+            brokers = sorted(set(scen.current.broker_ids())
+                             | set(scen.broker_list))
+            drained = sorted(set(brokers) - set(scen.broker_list))
+            topo = scen.topology.to_dict()
+            t0 = time.perf_counter()
+            ok(rurl, f"/clusters/{cid}/events", {
+                "type": "bootstrap", "epoch": 1,
+                "assignment": scen.current.to_dict(), "brokers": brokers,
+                "topology": topo})
+            ev, ev_wall = ok(rurl, f"/clusters/{cid}/events", {
+                "type": "broker_drain", "epoch": 2, "brokers": drained})
+            if ev["report"]["replica_moves"] != moves_want \
+                    or not ev["report"]["proven_optimal"]:
+                fail(f"{cid}: the drain's plan has "
+                     f"{ev['report']['replica_moves']} moves, proven "
+                     f"{ev['report']['proven_optimal']}; want "
+                     f"{moves_want}, proven")
+            view, w_start = ok(rurl, f"/clusters/{cid}/rollout/start",
+                               {"epoch": 1})
+            # the ground truth start rewound to: the pre-plan assignment
+            info, _w = ok(rurl, f"/clusters/{cid}")
+            base = {(p["topic"], p["partition"]): p["replicas"]
+                    for p in info["assignment"]["partitions"]}
+            local = rw.pack_waves(
+                Assignment.from_dict(info["assignment"]),
+                Assignment.from_dict(info["plan"]), scen.topology,
+                caps=rw.WaveCaps(), packer="scored", lanes=8)
+            if view["waves"] != local.makespan or view["caps"] \
+                    != local.caps.to_dict() or not rw.verify_caps(local):
+                fail(f"{cid}: served {view['waves']} waves, caps "
+                     f"{view['caps']}; the local packing "
+                     f"{local.makespan}, {local.caps.to_dict()}")
+            truth = dict(base)
+            ep, steps, replanned = 2, [], None
+            view, w = ok(rurl, f"/clusters/{cid}/rollout/advance",
+                         {"epoch": ep})
+            steps.append(w)
+            extra = {"canary_ok": True}
+            while view["status"] in ("canary", "advancing"):
+                wave = view["current_wave"]
+                loads: dict = {}
+                racks: dict = {}
+                for p in wave["partitions"]:
+                    old = truth[(p["topic"], p["partition"])]
+                    src = old[0] if old else None
+                    for b in (b for b in p["replicas"] if b not in old):
+                        loads[b] = loads.get(b, 0) + 1
+                        r = scen.topology.rack(b)
+                        racks[r] = racks.get(r, 0) + 1
+                        if src is not None:
+                            loads[src] = loads.get(src, 0) + 1
+                if max(loads.values(), default=0) > view["caps"]["broker"] \
+                        or max(racks.values(), default=0) \
+                        > view["caps"]["rack"]:
+                    fail(f"{cid}: wave {view['wave_index']} breaks its "
+                         f"caps {view['caps']}")
+                ep += 1
+                view, w = ok(rurl, f"/clusters/{cid}/rollout/advance",
+                             {"epoch": ep, **extra})
+                steps.append(w)
+                extra = {}
+                for p in wave["partitions"]:
+                    truth[(p["topic"], p["partition"])] = p["replicas"]
+                got, _w = ok(rurl, f"/clusters/{cid}")
+                now = {(p["topic"], p["partition"]): p["replicas"]
+                       for p in got["assignment"]["partitions"]}
+                if now != truth:
+                    fail(f"{cid}: after wave {view['wave_index'] - 1} the "
+                         "worker's ground truth is not the base with the "
+                         "applied waves")
+                if mid_event and replanned is None \
+                        and view["status"] == "advancing":
+                    applied = [s for s in view["wave_summary"]
+                               if s["applied"]]
+                    ev, _w = ok(rurl, f"/clusters/{cid}/events",
+                                {**mid_event, "epoch": 3})
+                    after, _w = ok(rurl, f"/clusters/{cid}/rollout")
+                    kept = [s for s in after["wave_summary"]
+                            if s["index"] < len(applied)]
+                    tr, _w = ok(rurl, f"/debug/traces/"
+                                      f"{ev['report']['trace_id']}")
+                    roots = [(p["report"]["spans"].get("attrs") or {})
+                             .get("rollout_root")
+                             for p in tr["processes"]]
+                    if after["replans"] != 1 or kept != applied \
+                            or view["trace_id"] not in roots:
+                        fail(f"{cid}: the mid-rollout event: replans "
+                             f"{after['replans']}, applied waves kept "
+                             f"{kept == applied}, rollout_root {roots}")
+                    replanned = (len(applied), view["waves"],
+                                 after["waves"],
+                                 ev["report"]["replica_moves"])
+                    view = after
+            if view["status"] != "done":
+                fail(f"{cid}: the rollout ended {view['status']}")
+            got, _w = ok(rurl, f"/clusters/{cid}")
+            if got["assignment"] != got["plan"]:
+                fail(f"{cid}: the assignment at the end is not the plan")
+            print(f"rollout {cid} ({scen.name}, {len(base)} partitions): "
+                  f"drain plan {moves_want} moves (event wall "
+                  f"{ev_wall:.3f} s), scored packer winner lane "
+                  f"{local.winner_lane} of {local.lanes_raced}, "
+                  f"{local.makespan} waves under caps "
+                  f"{json.dumps(local.caps.to_dict())}, peak broker "
+                  f"{local.peak_broker}, peak rack {local.peak_rack}"
+                  + (f"; mid-rollout event after {replanned[0]} waves: "
+                     f"{replanned[1]} -> {replanned[2]} waves, re-plan "
+                     f"{replanned[3]} moves, rollout_root linked"
+                     if replanned else "")
+                  + f"; start {w_start:.3f} s, steps s "
+                  + json.dumps([round(s, 3) for s in steps])
+                  + f", total {time.perf_counter() - t0:.3f} s ({power})")
+            return view
+
+        rollout("prod", decom, decom.min_moves_lb)
+        brokers = sorted(adv50k.broker_list)
+        second = next(b for b in brokers
+                      if adv50k.topology.rack(b) != adv50k.topology.rack(
+                          brokers[0]))
+        rollout("big", adv50k, adv50k.min_moves_lb,
+                mid_event={"type": "broker_drain", "brokers": [second]})
+        # a rollback to the pre-rollout assignment, and a stale epoch
+        brokers = sorted(set(decom.current.broker_ids())
+                         | set(decom.broker_list))
+        ok(rurl, "/clusters/prod/events", {
+            "type": "bootstrap", "epoch": 3,
+            "assignment": decom.current.to_dict(), "brokers": brokers,
+            "topology": decom.topology.to_dict()})
+        ok(rurl, "/clusters/prod/events", {
+            "type": "broker_drain", "epoch": 4,
+            "brokers": sorted(set(brokers) - set(decom.broker_list))})
+        ok(rurl, "/clusters/prod/rollout/start", {"epoch": 100})
+        pre, _w = ok(rurl, "/clusters/prod")
+        ok(rurl, "/clusters/prod/rollout/advance", {"epoch": 101})
+        ok(rurl, "/clusters/prod/rollout/advance",
+           {"epoch": 102, "canary_ok": True})
+        ok(rurl, "/clusters/prod/rollout/advance", {"epoch": 103})
+        mid, _w = ok(rurl, "/clusters/prod")
+        back, _w = ok(rurl, "/clusters/prod/rollout/rollback",
+                      {"epoch": 104})
+        post, _w = ok(rurl, "/clusters/prod")
+        if json.dumps(post["assignment"], sort_keys=True) != json.dumps(
+                pre["assignment"], sort_keys=True) \
+                or mid["assignment"] == pre["assignment"]:
+            fail("rollback: the assignment is not the pre-rollout one")
+        rec = os.path.join(watch_dir, "rollout", "prod.json")
+        with open(rec, "rb") as f:
+            disk0 = f.read()
+        stale, _w = ok(rurl, "/clusters/prod/rollout/advance",
+                       {"epoch": 104}, want=409)
+        with open(rec, "rb") as f:
+            disk1 = f.read()
+        if stale.get("reason") != "stale_rollout_epoch" \
+                or stale.get("current_rollout_epoch") != 104 \
+                or disk1 != disk0:
+            fail(f"stale rollout epoch: {stale}, store untouched "
+                 f"{disk1 == disk0}")
+        print(f"rollback after {len(back['inverse_waves'])} applied "
+              "waves: the assignment is the pre-rollout one, bit for bit; "
+              "a stale rollout epoch answers 409 stale_rollout_epoch "
+              "(current 104) and leaves the record on disk unchanged")
+
+        # 5. kao-fleet over both flight dirs, and /debug/fleet
+        def kao_fleet(*dirs):
+            r = subprocess.run(
+                [sys.executable, "-m",
+                 "kafka_assignment_optimizer_tpu_torch.obs.fleet", *dirs,
+                 "--format", "json"], cwd=root, capture_output=True,
+                text=True, timeout=300)
+            if r.returncode != 0:
+                fail(f"kao-fleet {dirs}: rc {r.returncode} "
+                     f"{r.stderr[-300:]}")
+            return json.loads(r.stdout)
+
+        each = [kao_fleet(d)["records"] for d in flights]
+        both = kao_fleet(*flights)
+        view, _w = ok(urls[0], "/debug/fleet")
+        if both["records"] != sum(each) or both["workers"] != 2 \
+                or view["records"] != both["records"]:
+            fail(f"kao-fleet: {both['records']} merged of {each}; "
+                 f"/debug/fleet on worker 1 {view['records']}")
+        print(f"kao-fleet over both flight dirs: {both['records']} records "
+              f"= {each[0]} + {each[1]}, 2 workers; worker 1's "
+              f"/debug/fleet (--fleet-peers worker 2): {view['records']}")
+
+        # 6. failover: SIGKILL the owner of decommission's bucket
+        owner = routed["decommission"][1]
+        victim = f"worker{urls.index(owner) + 1}"
+        survivor = urls[1 - urls.index(owner)]
+        prod_before, _w = ok(rurl, "/clusters/prod")
+        os.killpg(procs[victim].pid, signal.SIGKILL)
+        procs[victim].wait(timeout=60)
+        body, f_wall = ok(rurl, "/submit", payload(
+            decom, solver="tpu", options=pinned))
+        if body["route"]["worker"] != survivor or body["assignment"] \
+                != routed["decommission"][0]["assignment"]:
+            fail(f"failover: answered by {body['route']['worker']}, the "
+                 "same plan: "
+                 f"{body['assignment'] == routed['decommission'][0]['assignment']}")
+        t0 = time.perf_counter()
+        while True:
+            hz, _w = ok(rurl, "/healthz")
+            if owner not in hz["fleet"]["live"]:
+                break
+            if time.perf_counter() - t0 > 30:
+                fail(f"the router still counts {owner} live")
+            time.sleep(0.25)
+        prod_after, _w = ok(rurl, "/clusters/prod")
+        if prod_after["assignment"] != prod_before["assignment"]:
+            fail("/clusters/prod after the failover differs")
+        print(f"failover: {victim} (decommission's bucket owner) killed; "
+              f"the pinned request answered by the other worker with the "
+              f"same plan, wall {f_wall:.3f} s; router retries "
+              + json.dumps(hz["counters"]["retries_total"])
+              + f", exhausted {hz['counters']['exhausted_total']}; "
+              f"/healthz live {len(hz['fleet']['live'])} of 2; "
+              "/clusters/prod read back equal through the shared watch "
+              "dir")
+        if hz["counters"]["exhausted_total"]:
+            fail("the router dropped a request")
+    finally:
+        for name, p in procs.items():
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGTERM)
+                    p.wait(timeout=20)
+                except (OSError, subprocess.TimeoutExpired):
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait(timeout=20)
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        signal.signal(signal.SIGTERM, old_term)
+    print(f"fleet phase: {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -2680,6 +3239,8 @@ def main() -> int:
     service_phase(torch, power, batch3, delta)
     # (m) the measurement plane
     measure_phase(torch, power)
+    # (n) fleet and rollout: a router over two workers on the card
+    fleet_phase(torch, power)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

@@ -8,7 +8,8 @@ Usage:
         [--device cuda|cpu] [--no-pipeline] [--megachunk K|off] \\
         [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report] \\
         [--trace] [--flight-dir DIR] [--profile-dir DIR] [--sanitize] \\
-        [--emit-lp PATH]
+        [--emit-lp PATH] [--emit-waves DIR [--wave-broker-cap N] \\
+        [--wave-rack-cap N] [--wave-packer greedy|scored]]
     python -m kafka_assignment_optimizer_tpu_torch --evaluate PLAN.json \\
         --input current.json --broker-list 0-18 [--topology ...]
     python -m kafka_assignment_optimizer_tpu_torch --events EVENTS.json \\
@@ -22,8 +23,9 @@ manager. Exit codes: 0 feasible plan, 3 infeasible plan (or a fenced
 event), 2 error. The host backends (``milp``, ``native``, ``lp_solve``)
 ignore ``--device``; ``auto`` picks ``milp`` for small instances and
 ``tpu`` at scale. ``--profile-dir`` writes a ``torch.profiler`` trace of
-the ``tpu`` solve there. The reference's ``--emit-waves`` (the rollout)
-is not in this package yet: given, it exits 2.
+the ``tpu`` solve there. ``--emit-waves DIR`` also writes the plan (or
+the audited plan) as bandwidth-budgeted move waves, one reassignment
+file a wave (``rollout.waves``).
 """
 
 from __future__ import annotations
@@ -175,10 +177,41 @@ def build_parser() -> argparse.ArgumentParser:
         help="durable plan store for --events: a later replay resumes "
         "at the stored epoch",
     )
-    # the reference's flags whose subsystem is not in this package yet
-    ap.add_argument("--emit-waves", metavar="DIR",
-                    help="not supported by this package yet (needs the "
-                    "reference's rollout/); exits 2")
+    ap.add_argument(
+        "--emit-waves",
+        metavar="DIR",
+        help="streaming rollout (docs/ROLLOUT.md): also decompose the "
+        "plan into bandwidth-budgeted move waves and write one "
+        "reassignment JSON file per wave (wave-000.json, ...) under "
+        "DIR, each in the plan output's schema, applied in file order; "
+        "within a wave, leader-changing moves come last",
+    )
+    ap.add_argument(
+        "--wave-broker-cap",
+        type=int,
+        default=None,
+        metavar="N",
+        help="--emit-waves: per-wave transfer cap per broker in "
+        "transfer units (replica copies in + out; default 4, raised "
+        "to the largest single move when below it)",
+    )
+    ap.add_argument(
+        "--wave-rack-cap",
+        type=int,
+        default=None,
+        metavar="N",
+        help="--emit-waves: per-wave inbound transfer cap per rack "
+        "(default 16)",
+    )
+    ap.add_argument(
+        "--wave-packer",
+        choices=["greedy", "scored"],
+        default=None,
+        help="--emit-waves: wave packer (default greedy; 'scored' "
+        "races diverse move orderings and keeps the packing "
+        "minimizing makespan x peak cross-rack traffic; same as "
+        "KAO_ROLLOUT_PACKER)",
+    )
     ap.add_argument(
         "--profile-dir",
         metavar="DIR",
@@ -252,10 +285,6 @@ def parse_megachunk(spec: str):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.emit_waves:
-        print("error: --emit-waves is not supported by this package yet "
-              "(needs rollout/ of the reference package)", file=sys.stderr)
-        return 2
     if args.sanitize:
         from .analysis import sanitize as _sanitize
 
@@ -293,6 +322,14 @@ def main(argv: list[str] | None = None) -> int:
             rep = evaluate(current, brokers,
                            Path(args.evaluate).read_text(), topology,
                            target_rf=target_rf)
+            if args.emit_waves:
+                # waves for an audited plan (ours or another tool's):
+                # the same current -> plan decomposition as a solve's
+                rep["waves"] = _emit_waves(
+                    args, current,
+                    Assignment.from_json(Path(args.evaluate).read_text()),
+                    topology,
+                )
             _write(args, json.dumps(rep, indent=args.indent, default=str))
             return 0 if rep["feasible"] else 3
         res = optimize(current, brokers, topology, target_rf=target_rf,
@@ -301,6 +338,10 @@ def main(argv: list[str] | None = None) -> int:
             from .solvers.lp import emit_lp
 
             Path(args.emit_lp).write_text(emit_lp(res.instance))
+        wave_summary = None
+        if args.emit_waves:
+            wave_summary = _emit_waves(args, current, res.assignment,
+                                       topology)
     except (ValueError, KeyError, OSError, RuntimeError) as e:
         msg = e.args[0] if e.args and isinstance(e.args[0], str) else e
         print(f"error: {msg}", file=sys.stderr)
@@ -309,9 +350,53 @@ def main(argv: list[str] | None = None) -> int:
     rep = res.report()
     if args.trace and "solve_report" in res.solve.stats:
         rep["solve_report"] = res.solve.stats["solve_report"]
+    if wave_summary is not None:
+        rep["waves"] = wave_summary
     if args.report or args.trace:
         print(json.dumps(rep, indent=2, default=str), file=sys.stderr)
     return 0 if rep["feasible"] else 3
+
+
+def _emit_waves(args: argparse.Namespace, current, plan_assignment,
+                topology) -> dict:
+    """``--emit-waves DIR``: write one upstream-compatible reassignment
+    JSON file per bandwidth-budgeted wave (docs/ROLLOUT.md). File order
+    is application order; each file is the dialect
+    ``kafka-reassign-partitions --execute`` accepts, so an operator can
+    feed the waves to the stock tooling one at a time."""
+    from .rollout.exec import wave_json
+    from .rollout.waves import (
+        DEFAULT_BROKER_CAP,
+        DEFAULT_RACK_CAP,
+        WaveCaps,
+        pack_waves,
+    )
+
+    caps = WaveCaps(
+        broker=(args.wave_broker_cap if args.wave_broker_cap is not None
+                else DEFAULT_BROKER_CAP),
+        rack=(args.wave_rack_cap if args.wave_rack_cap is not None
+              else DEFAULT_RACK_CAP),
+    )
+    plan = pack_waves(current, plan_assignment, topology, caps=caps,
+                      packer=args.wave_packer, seed=args.seed or 0)
+    outdir = Path(args.emit_waves)
+    outdir.mkdir(parents=True, exist_ok=True)
+    files = []
+    for w in plan.waves:
+        path = outdir / f"wave-{w.index:03d}.json"
+        path.write_text(json.dumps(wave_json(w), indent=2) + "\n")
+        files.append(path.name)
+    return {
+        "dir": str(outdir),
+        "files": files,
+        "makespan": plan.makespan,
+        "caps": plan.caps.to_dict(),
+        "packer": plan.packer,
+        "peak_broker": plan.peak_broker,
+        "peak_rack": plan.peak_rack,
+        "peak_cross_rack": plan.peak_cross_rack,
+    }
 
 
 def _solve_kw(args: argparse.Namespace) -> dict:

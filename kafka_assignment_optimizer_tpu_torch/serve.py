@@ -44,14 +44,26 @@ Endpoints:
     The cluster-watch delta API (``watch``): epoch-fenced typed events,
     warm-started delta solves through ``api.optimize_delta``.
 
+``GET /clusters/<id>/rollout`` and
+``POST /clusters/<id>/rollout/{start,advance,pause,rollback}``
+    Streaming plan rollout (``rollout``, docs/ROLLOUT.md): execute the
+    cluster's certified plan as bandwidth-budgeted move waves (no broker
+    or rack exceeds a per-wave transfer cap), with canary verification
+    gating advancement, epoch-fenced commands (stale -> structured 409
+    without touching the store), bit-exact rollback via inverse waves,
+    and mid-rollout cluster events re-planning the remaining waves
+    against the partially-moved ground truth. Each wave is emitted as
+    upstream-compatible reassignment JSON.
+
 ``GET /healthz`` and ``GET /metrics``
     Health and the ``kao_*`` Prometheus families.
 
 ``GET /debug/solves``, ``GET /debug/solves/<trace_id>``,
-``GET /debug/stream``
+``GET /debug/stream``, ``GET /debug/fleet``
     Solve reports (``obs.trace``; ``?format=chrome`` gives the Chrome
-    trace-event JSON of ``obs.chrome``) and the live flight-record
-    stream (``obs.flight``).
+    trace-event JSON of ``obs.chrome``), the live flight-record stream
+    (``obs.flight``), and this worker's records merged with those of its
+    ``--fleet-peers`` (``obs.fleet``).
 
 ``GET /debug/slo`` and ``GET /debug/profile``
     The SLO engine's burn rates and the drift monitor (``obs.slo``,
@@ -62,12 +74,12 @@ Endpoints:
     ``/healthz`` ``devices``); ``--profile-dir``/``--profile-solves``
     capture ``torch.profiler`` traces of the first solves per bucket.
 
-Not here yet, each answering 501 with a JSON body that names the module
-still to port: ``GET /clusters/<id>/rollout`` and ``POST
-/clusters/<id>/rollout/{start,advance,pause,rollback}`` (``rollout/``)
-and ``GET /debug/fleet`` (``obs/fleet.py``). Their flags
-(``--rollout-*``, ``--fleet-peers``) make :func:`main` exit at startup;
-``/healthz`` has no ``rollout`` section.
+``GET /debug/kernels``
+    This package's own: each CUDA kernel wrapper's launch count in this
+    process and the kernel build directory's hits and misses.
+
+Several workers sharing a ``--watch-dir`` (and a kernel build directory)
+run behind ``kao-router`` (``fleet.router``).
 
 Concurrency: solves run on a bounded request queue drained by a small
 worker pool (``--workers``, default 2: two solves share the card);
@@ -106,6 +118,9 @@ from .resilience import breaker as _breaker
 from .resilience import budget as _rbudget
 from .resilience import chaos as _chaos
 from .resilience import ladder as _ladder
+from .rollout import exec as _rexec
+from .rollout import state as _rstate
+from .rollout import waves as _rwaves
 from .utils import platform as _platform
 from .watch import events as _wevents
 from .watch import manager as _wmanager
@@ -147,13 +162,6 @@ DEFAULT_QUEUE_WAIT_S = 15.0
 # a request that sets no megachunk option gets (--megachunk K)
 SERVE = {"device": "cuda", "megachunk": None}
 
-# what answers 501 here, and the module of the reference package each
-# waits for (docs of this module; ROADMAP queue A)
-_DEFERRED_ROUTES = {
-    "rollout": "rollout/ (exec.py, state.py, waves.py)",
-    "/debug/fleet": "obs/fleet.py",
-}
-
 # serve-side resilience knobs (docs/RESILIENCE.md), set by main():
 # - default_deadline_s: per-request end-to-end deadline applied when
 #   the request carries no "deadline_s" field (None = no deadline
@@ -187,6 +195,26 @@ WATCH = {
     "lock_wait_s": DEFAULT_LOCK_WAIT_S,
     "max_solve_s": DEFAULT_MAX_SOLVE_S,
 }
+
+# streaming plan rollout (docs/ROLLOUT.md): GET /clusters/<id>/rollout
+# + POST /clusters/<id>/rollout/{start,advance,pause,rollback}. The
+# manager rides the watch registry (same plan store, same solve path
+# for mid-rollout re-plans) and is rebuilt whenever the registry is —
+# tests that reset WATCH["registry"] get a fresh manager for free.
+ROLLOUT = {
+    "manager": None,
+    "broker_cap": _rwaves.DEFAULT_BROKER_CAP,
+    "rack_cap": _rwaves.DEFAULT_RACK_CAP,
+    "packer": "greedy",
+    "lanes": _rwaves.DEFAULT_LANES,
+}
+# the kao_rollout_* counter families, pre-declared at zero so
+# dashboards see them before the first rollout
+_ROLLOUT_COUNTER_NAMES = (
+    "started_total", "commands_total", "fenced_total",
+    "waves_emitted_total", "waves_applied_total", "canary_fail_total",
+    "rollbacks_total", "replans_total", "completed_total", "active",
+)
 
 # circuit breaker on repeated solver failures per bucket key
 # (resilience.breaker): a bucket that keeps failing compile/dispatch
@@ -225,6 +253,16 @@ OBS = {
     "profile_dir": None,
     "profile_solves": 1,
     "flight_dir": None,
+}
+# fleet telemetry plane (docs/OBSERVABILITY.md "Fleet plane"):
+# GET /debug/fleet merges THIS worker's record ring with the recent
+# streams of the operator-named peers (--fleet-peers; client-supplied
+# peer URLs are deliberately not accepted — the server must never be
+# pointable at attacker-chosen endpoints)
+FLEET = {
+    "peers": [],
+    "timeout_s": 5.0,
+    "tail": 512,
 }
 
 # process start, for the kao_uptime_seconds gauge
@@ -292,17 +330,6 @@ def _tpu_kw(solver_eff: str) -> dict:
     if SERVE["megachunk"] is not None:
         kw["megachunk"] = SERVE["megachunk"]
     return kw
-
-
-def _deferred(what: str) -> "ApiError":
-    """The 501 of a route this package does not serve yet, naming the
-    reference module still to port."""
-    mod = _DEFERRED_ROUTES[what]
-    return ApiError(
-        501, f"not supported by this package yet: needs {mod} of the "
-             "reference package",
-        body={"reason": "not_ported", "module": mod},
-    )
 
 
 class _QueueItem:
@@ -832,6 +859,18 @@ def render_metrics() -> str:
         })
     for k, v in watch_zeroes.items():
         snap[f"watch_{k}"] = v
+    # streaming plan rollout counters (docs/ROLLOUT.md): the full
+    # family set is pre-declared at zero; the live manager (built on
+    # first rollout touch — never by a scrape) overlays its counts
+    rollout_zeroes = {k: 0 for k in _ROLLOUT_COUNTER_NAMES}
+    rmgr = ROLLOUT.get("manager")
+    if rmgr is not None:
+        rollout_zeroes.update({
+            k: v for k, v in rmgr.snapshot().items()
+            if isinstance(v, (int, float)) and k in rollout_zeroes
+        })
+    for k, v in rollout_zeroes.items():
+        snap[f"rollout_{k}"] = v
     # resilience gauges (docs/RESILIENCE.md): circuit-breaker state and
     # whether a chaos spec is armed (a production scrape showing
     # kao_chaos_armed 1 is itself an alert)
@@ -1892,6 +1931,17 @@ def _watch_solve_fn(state, prev_plan, budget) -> tuple[dict, dict]:
             kw.update(_tpu_kw(solver_eff))
         tr = _otrace.begin(trace_id, name="watch_event",
                            cluster=state.cluster_id, epoch=state.epoch)
+        if tr is not None:
+            # mid-rollout re-solve linkage (docs/ROLLOUT.md): while a
+            # rollout owns this cluster's ground truth, the delta
+            # re-solve trace links to the rollout's durable root trace
+            # ID (persisted in the plan-store record), so the whole
+            # wave story — start, re-solve, replan — joins under one ID
+            rmgr = ROLLOUT.get("manager")
+            if rmgr is not None:
+                root_tid = rmgr.active_trace_root(state.cluster_id)
+                if root_tid:
+                    tr.root.set(rollout_root=root_tid)
         try:
             # flight-record tagging on THIS worker thread: the watch
             # manager's own context() does not cross the queue hop, so
@@ -2034,6 +2084,85 @@ def handle_cluster_event(
     return status, out
 
 
+def _rollout_manager() -> _rexec.RolloutManager:
+    """The process's one rollout manager, lazily built over the current
+    watch registry (and rebuilt when tests swap the registry out)."""
+    reg = _watch_registry()
+    mgr = ROLLOUT.get("manager")
+    if mgr is None or mgr.registry is not reg:
+        mgr = _rexec.RolloutManager(
+            reg, reg.store,
+            broker_cap=ROLLOUT["broker_cap"],
+            rack_cap=ROLLOUT["rack_cap"],
+            packer=ROLLOUT["packer"],
+            lanes=ROLLOUT["lanes"],
+            trace=bool(OBS["trace"]),
+        )
+        ROLLOUT["manager"] = mgr
+    return mgr
+
+
+def handle_rollout_get(cluster_id: str) -> dict:
+    """GET /clusters/<id>/rollout — the rollout record: status, wave
+    schedule + per-wave transfer accounting, and the current wave as
+    upstream-compatible reassignment JSON."""
+    try:
+        view = _rollout_manager().get(cluster_id)
+    except (_wevents.EventError, ValueError) as e:
+        raise ApiError(400, str(e)) from e
+    if view is None:
+        raise ApiError(
+            404,
+            f"no rollout for cluster {cluster_id!r}; start one with "
+            "POST /clusters/<id>/rollout/start",
+        )
+    return view
+
+
+def handle_rollout_command(
+    cluster_id: str,
+    cmd: str,
+    payload: dict,
+    *,
+    lock_wait_s: float = DEFAULT_LOCK_WAIT_S,
+) -> dict:
+    """POST /clusters/<id>/rollout/{start,advance,pause,rollback} —
+    one fenced rollout command (docs/ROLLOUT.md). 400 malformed, 404
+    unknown cluster, 409 stale rollout epoch (structured, provably
+    without touching the store) or a command the state machine cannot
+    accept, 200 with the updated rollout view (including the current
+    wave's reassignment JSON) otherwise."""
+    mgr = _rollout_manager()
+    budget = _rbudget.Budget(lock_wait_s)
+    try:
+        return mgr.command(cluster_id, cmd, payload, budget=budget)
+    except _rstate.RolloutFenced as e:
+        raise ApiError(
+            409,
+            str(e),
+            body={
+                "reason": "stale_rollout_epoch",
+                "cluster_id": e.cluster_id,
+                "epoch": e.got,
+                "current_rollout_epoch": e.current,
+                "expected_min_epoch": e.current + 1,
+            },
+        ) from e
+    except _rstate.RolloutConflict as e:
+        raise ApiError(
+            409, str(e), body={"reason": "bad_state"},
+        ) from e
+    except _rstate.RolloutError as e:
+        raise ApiError(400, str(e)) from e
+    except _wevents.EventError as e:
+        raise ApiError(404, str(e)) from e
+    except ApiError:
+        raise
+    except (ValueError, KeyError) as e:
+        msg = e.args[0] if e.args and isinstance(e.args[0], str) else str(e)
+        raise ApiError(422, f"rollout rejected: {msg}") from e
+
+
 def handle_clusters_get(cluster_id: str | None = None) -> dict:
     """GET /clusters (listing) and GET /clusters/<id> (state + last
     certified plan)."""
@@ -2055,9 +2184,8 @@ def handle_clusters_get(cluster_id: str | None = None) -> dict:
 
 
 def handle_healthz() -> dict:
-    """GET /healthz: the reference's sections, minus the one subsystem
-    this package does not have yet (the ``rollout``). ``platform`` is
-    ``"gpu"`` when the service solves on the card, ``"cpu"`` otherwise.
+    """GET /healthz: the reference's sections. ``platform`` is ``"gpu"``
+    when the service solves on the card, ``"cpu"`` otherwise.
 
     The ``cache`` section keeps the reference's keys. The reference
     counts XLA executables there; this package builds no executable per
@@ -2113,6 +2241,7 @@ def handle_healthz() -> dict:
             "flight": _oflight.snapshot(),
             "stream": _oflight.stream_stats(),
             "worker": _oflight.worker_identity(),
+            "fleet_peers": list(FLEET["peers"]),
         },
         # device-occupancy sampler (--sample-devices; obs.sampler):
         # per-card memory, the dispatch-accumulator duty cycle, and the
@@ -2134,6 +2263,7 @@ def handle_healthz() -> dict:
             "queue_wait_s": _SOLVES.queue_wait_s,
         },
         "watch": _healthz_watch(),
+        "rollout": _healthz_rollout(),
     }
 
 
@@ -2209,6 +2339,18 @@ def _healthz_slo() -> dict:
     }
 
 
+def handle_debug_kernels() -> dict:
+    """GET /debug/kernels — this process's hand-written CUDA kernels:
+    each wrapper's launch count (process-wide, one a launch and nowhere
+    else, so a fleet harness can read across processes that a routed
+    solve went through them) and the build directory's traffic."""
+    from .ops import kernels as _kernels
+
+    return {"device": SERVE["device"],
+            "launches": {k.name: k.launches for k in _kernels.KERNELS},
+            "build": _kernels.cache_stats()}
+
+
 def handle_debug_slo() -> dict:
     """GET /debug/slo — the full SLO snapshot: per-class objectives,
     multi-window burn rates, worst-recent exemplars, the drift-alarm
@@ -2256,6 +2398,42 @@ def _healthz_decompose() -> dict:
     return config_snapshot()
 
 
+def handle_fleet_get() -> dict:
+    """GET /debug/fleet — this worker's record ring merged with the
+    recent streams of the --fleet-peers workers (obs.fleet): one
+    ordered, dedup'd view with fleet-wide burn rates, drift alarms,
+    and per-worker lag. A dead peer degrades to an ``errors`` entry,
+    never a 500 — the merged view over the reachable workers still
+    serves."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .obs import fleet as _ofleet
+
+    sources = [("self", _oflight.recent())]
+    errors: dict = {}
+    peers = list(FLEET["peers"])
+    if peers:
+        # fetch peers CONCURRENTLY: N dead peers must cost ~one
+        # timeout on this handler thread, not N stacked timeouts
+        def _fetch(url):
+            return _ofleet.fetch_records(
+                url, tail=FLEET["tail"], timeout=FLEET["timeout_s"],
+            )
+
+        with ThreadPoolExecutor(max_workers=min(len(peers), 8)) as ex:
+            futures = [(url, ex.submit(_fetch, url)) for url in peers]
+            for url, fut in futures:
+                try:
+                    sources.append((url, fut.result()))
+                except Exception as e:
+                    errors[url] = repr(e)[:200]
+    view = _ofleet.build_view(sources, errors=errors or None)
+    view.pop("drift_rows", None)  # exposition-internal detail
+    view["peers"] = list(FLEET["peers"])
+    view["stream"] = _oflight.stream_stats()
+    return view
+
+
 def _healthz_watch() -> dict:
     """The /healthz watch section. The registry is built lazily and its
     PlanStore touches the filesystem — a probe endpoint must degrade to
@@ -2265,6 +2443,16 @@ def _healthz_watch() -> dict:
         return {"dir": WATCH["dir"], **_watch_registry().snapshot()}
     except Exception as e:  # pragma: no cover - post-boot dir breakage
         return {"dir": WATCH["dir"], "error": repr(e)[:200]}
+
+
+def _healthz_rollout() -> dict:
+    """The /healthz rollout section — same degrade-to-error discipline
+    as the watch section (the manager's lazy build touches the plan
+    store)."""
+    try:
+        return _rollout_manager().snapshot()
+    except Exception as e:  # pragma: no cover - post-boot dir breakage
+        return {"error": repr(e)[:200]}
 
 
 def _synthetic_cluster(brokers: int, partitions: int, rf: int,
@@ -2709,12 +2897,6 @@ class Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _send_deferred(self, what: str) -> None:
-        """Answer 501 for a route of a subsystem not ported yet."""
-        e = _deferred(what)
-        _count(errors_total=1)
-        self._send(e.status, {"error": str(e), **e.body_extra})
-
     def log_message(self, fmt, *args):  # route access logs to stderr quietly
         if getattr(self.server, "verbose", False):
             super().log_message(fmt, *args)
@@ -2758,9 +2940,17 @@ class Handler(BaseHTTPRequestHandler):
                 and route.endswith("/rollout") \
                 and len(route) > len("/clusters//rollout"):
             # the length guard keeps a cluster legitimately NAMED
-            # "rollout" readable (GET /clusters/rollout falls through to
-            # the cluster view below); the rollout is not ported yet
-            self._send_deferred("rollout")
+            # "rollout" readable: GET /clusters/rollout has no cluster
+            # segment before the suffix and falls through to the
+            # normal cluster view below
+            try:
+                self._send(200, handle_rollout_get(
+                    route[len("/clusters/"):-len("/rollout")]
+                ))
+            except ApiError as e:
+                if e.status != 503:
+                    _count(errors_total=1)
+                self._send(e.status, {"error": str(e), **e.body_extra})
         elif route.startswith("/clusters/"):
             try:
                 self._send(200, handle_clusters_get(
@@ -2809,9 +2999,14 @@ class Handler(BaseHTTPRequestHandler):
             # occupancy from the keys' analytic cost models + wall-clock
             # attribution over the flight ledgers
             self._send(200, handle_debug_profile())
+        elif route == "/debug/kernels":
+            self._send(200, handle_debug_kernels())
         elif route == "/debug/fleet":
-            # the fleet view is not in this package yet
-            self._send_deferred(route)
+            # the merged fleet view: this worker + --fleet-peers
+            # (docs/OBSERVABILITY.md "Fleet plane"); peer failures
+            # degrade to an "errors" field inside the handler, so
+            # this always answers 200
+            self._send(200, handle_fleet_get())
         elif route == "/debug/stream":
             self._stream_flight()
         else:
@@ -2846,7 +3041,7 @@ class Handler(BaseHTTPRequestHandler):
 
         follow = (qs.get("follow") or ["1"])[0] not in ("0", "false")
         kind = (qs.get("kind") or [None])[0]
-        tail = _qint("tail", 0 if follow else 512)
+        tail = _qint("tail", 0 if follow else FLEET["tail"])
         client = None
         if follow:
             try:
@@ -2952,7 +3147,11 @@ class Handler(BaseHTTPRequestHandler):
                 ))
                 return
             if rollout_cmd is not None:
-                raise _deferred("rollout")
+                self._send(200, handle_rollout_command(
+                    cluster_id, rollout_cmd, payload,
+                    lock_wait_s=lock_wait_s,
+                ))
+                return
             if cluster_id is not None:
                 status, body = handle_cluster_event(
                     cluster_id, payload, lock_wait_s=lock_wait_s,
@@ -3014,17 +3213,6 @@ def make_server(host: str = "127.0.0.1", port: int = 8787,
     srv.max_solve_s = max_solve_s
     return srv
 
-
-# the reference service's flags whose subsystem this package does not
-# have yet: given, each stops the service at startup (a flag accepted
-# and then ignored would silently drop what the operator asked for)
-_DEFERRED_FLAGS = {
-    "fleet_peers": ("--fleet-peers", "obs/fleet.py"),
-    "rollout_broker_cap": ("--rollout-broker-cap", "rollout/"),
-    "rollout_rack_cap": ("--rollout-rack-cap", "rollout/"),
-    "rollout_packer": ("--rollout-packer", "rollout/"),
-    "rollout_lanes": ("--rollout-lanes", "rollout/"),
-}
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -3115,6 +3303,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "(class:latency_s[:target]). Burn rates on "
                          "/metrics (kao_slo_*), /healthz 'slo', and "
                          "GET /debug/slo")
+    ap.add_argument("--fleet-peers", default=None, metavar="URL,URL",
+                    help="peer worker base URLs for GET /debug/fleet "
+                         "(e.g. 'http://10.0.0.2:8787,"
+                         "http://10.0.0.3:8787'): the merged "
+                         "fleet-wide flight/SLO/drift view. Peers are "
+                         "operator-named only; clients cannot point "
+                         "the server at URLs")
     ap.add_argument("--sample-devices", type=float, default=None,
                     metavar="HZ",
                     help="device-occupancy sampler (obs.sampler; same "
@@ -3163,6 +3358,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="event-storm backpressure: events piling up "
                          "behind one in-flight solve past this count "
                          "shed with 503 reason=event_storm")
+    ap.add_argument("--rollout-broker-cap", type=int,
+                    default=_rwaves.DEFAULT_BROKER_CAP, metavar="N",
+                    help="streaming plan rollout (docs/ROLLOUT.md): "
+                         "default per-wave transfer cap per broker, in "
+                         "transfer units (replica copies in + out); a "
+                         "rollout start may override per rollout")
+    ap.add_argument("--rollout-rack-cap", type=int,
+                    default=_rwaves.DEFAULT_RACK_CAP, metavar="N",
+                    help="default per-wave inbound transfer cap per "
+                         "rack")
+    ap.add_argument("--rollout-packer", default="greedy",
+                    choices=["greedy", "scored"],
+                    help="default wave packer: 'greedy' (first-fit-"
+                         "decreasing) or 'scored' (races diverse move "
+                         "orderings and keeps the packing minimizing "
+                         "makespan x peak cross-rack traffic; same as "
+                         "KAO_ROLLOUT_PACKER)")
+    ap.add_argument("--rollout-lanes", type=int,
+                    default=_rwaves.DEFAULT_LANES, metavar="N",
+                    help="orderings the scored packer races (>= 1)")
     ap.add_argument("--breaker-threshold", type=int, default=3,
                     metavar="N",
                     help="consecutive solver failures on one bucket "
@@ -3182,11 +3397,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "consumed-state guard and the rebuild sentinel; "
                          "trips are counted on /metrics "
                          "(kao_sanitizer_*) and fail the offending solve")
-    # the reference's flags of subsystems not ported yet: refused
-    for dest, (flag, mod) in _DEFERRED_FLAGS.items():
-        ap.add_argument(flag, dest=dest, default=None, metavar="X",
-                        help=f"not supported by this package yet "
-                             f"(needs {mod}); refused at startup")
     return ap
 
 
@@ -3195,10 +3405,6 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest, (flag, mod) in _DEFERRED_FLAGS.items():
-        if getattr(args, dest) is not None:
-            ap.error(f"{flag} is not supported by this package yet "
-                     f"(needs {mod} of the reference package)")
     if args.lock_wait_s < 0:
         ap.error("--lock-wait-s must be >= 0")
     if args.max_solve_s < 0:
@@ -3279,6 +3485,14 @@ def main(argv: list[str] | None = None) -> int:
             _oslo.ENGINE.configure(spec=slo_spec)
         except ValueError as e:
             ap.error(f"--slo/KAO_SLO: {e}")
+    if args.fleet_peers:
+        peers = [p.strip().rstrip("/")
+                 for p in args.fleet_peers.split(",") if p.strip()]
+        bad = [p for p in peers
+               if not p.startswith(("http://", "https://"))]
+        if bad:
+            ap.error(f"--fleet-peers URLs must be http(s)://: {bad}")
+        FLEET["peers"] = peers
     sample_hz = args.sample_devices
     if sample_hz is None and os.environ.get("KAO_SAMPLE_DEVICES"):
         try:
@@ -3320,6 +3534,17 @@ def main(argv: list[str] | None = None) -> int:
     WATCH["lock_wait_s"] = args.lock_wait_s
     WATCH["max_solve_s"] = args.max_solve_s or None
     WATCH["registry"] = None  # rebuilt lazily with this config
+    if args.rollout_broker_cap < 1:
+        ap.error("--rollout-broker-cap must be >= 1")
+    if args.rollout_rack_cap < 1:
+        ap.error("--rollout-rack-cap must be >= 1")
+    if args.rollout_lanes < 1:
+        ap.error("--rollout-lanes must be >= 1")
+    ROLLOUT["broker_cap"] = args.rollout_broker_cap
+    ROLLOUT["rack_cap"] = args.rollout_rack_cap
+    ROLLOUT["packer"] = args.rollout_packer
+    ROLLOUT["lanes"] = args.rollout_lanes
+    ROLLOUT["manager"] = None  # rebuilt lazily over the new registry
     _BREAKER.configure(threshold=args.breaker_threshold,
                        cooldown_s=args.breaker_cooldown_s)
     if args.chaos:

@@ -17,7 +17,8 @@ exchange launcher's host draws against ``prng``'s; and the pipelined
 ladder's two promises on the card: a chunk enqueued from the retired
 chunk's state and then abandoned leaves the retired chunk's outputs as a
 synchronous run left them, and the asynchronous fetch equals a blocking
-copy. Exact equality throughout.
+copy; and ``kao-router`` in front of a worker solving on the card. Exact
+equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -506,6 +507,83 @@ def test_served_solve_launches_the_kernels(card):
     assert out["report"]["solver_device"].startswith("cuda")
     rep = serve._otrace.RECENT.get(out["trace_id"])
     assert "ladder" in rep["phases"]
+
+
+def test_router_over_a_card_worker(card, tmp_path):
+    """``kao-router`` (the port's ``fleet.router``) in front of a worker
+    process solving on the card: the routed ``tpu`` solve launches all
+    three kernels on the worker (its ``/debug/kernels`` counters), the
+    envelope names the worker, and ``/debug/traces/<id>`` attaches the
+    worker's solve tree to the router's attempt span under one trace
+    ID."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    import threading
+    import time
+    import urllib.request
+    from pathlib import Path
+
+    from kafka_assignment_optimizer_tpu_torch.fleet import health, router
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    wurl = f"http://127.0.0.1:{port}"
+    log = open(tmp_path / "worker.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kafka_assignment_optimizer_tpu_torch.serve",
+         "--port", str(port)], cwd=Path(__file__).resolve().parent.parent,
+        stdout=log, stderr=subprocess.STDOUT)
+
+    def call(url, path, payload=None):
+        req = urllib.request.Request(
+            url + path, method="GET" if payload is None else "POST",
+            data=None if payload is None else json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    rsrv = None
+    try:
+        for _ in range(480):
+            try:
+                call(wurl, "/healthz")
+                break
+            except OSError:
+                assert proc.poll() is None, (tmp_path / "worker.log")\
+                    .read_text()[-2000:]
+                time.sleep(0.25)
+        tracker = health.FleetTracker([wurl], interval_s=3600,
+                                      timeout_s=5.0)
+        tracker.poll_once()
+        rtr = router.Router(tracker, lock_wait_s=30.0,
+                            solve_timeout_s=300.0, connect_timeout_s=5.0)
+        rsrv = router.make_router_server("127.0.0.1", 0, rtr)
+        threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+        rurl = f"http://127.0.0.1:{rsrv.server_address[1]}"
+        current, brokers, topo = _sweep_case()
+        before = call(wurl, "/debug/kernels")["launches"]
+        out = call(rurl, "/submit", {
+            "assignment": current.to_dict(), "brokers": brokers,
+            "topology": topo.to_dict(), "solver": "tpu",
+            "options": {"engine": "sweep", "batch": 8, "sweeps": 32,
+                        "portfolio": False}})
+        after = call(wurl, "/debug/kernels")["launches"]
+        merged = call(rurl, f"/debug/traces/{out['trace_id']}")
+    finally:
+        if rsrv is not None:
+            rsrv.shutdown()
+            rsrv.server_close()
+        proc.terminate()
+        proc.wait(timeout=60)
+        log.close()
+    assert out["route"]["worker"] == wurl
+    assert out["report"]["solver_device"].startswith("cuda")
+    assert all(after[k] > before[k] for k in after), (before, after)
+    attached = [p for p in merged["processes"] if p["attached_to"]]
+    assert len(attached) == 1
+    assert attached[0]["report"]["trace_id"] == out["trace_id"]
 
 
 def test_sanitizer_nan_guard_on_card(card):

@@ -4,11 +4,11 @@ driven in-process with the same requests, plus one HTTP round trip each.
 ``/submit`` (the exact MILP, a pinned sweep solve, a coalesced pair in
 one window), ``/evaluate``, the error table of ``tests/test_serve.py``,
 ``/`` and ``/schema`` (byte-equal), the ``/metrics`` families and the
-``/healthz`` keys (their difference is exactly the subsystems the port
-has not ported yet, which answer 501), the measurement surfaces
+``/healthz`` keys (the same sets), the routes once deferred
+(``/debug/fleet``, ``/clusters/<id>/rollout*``), the measurement surfaces
 (``/debug/profile``, ``/debug/slo``, ``?format=chrome``, ``--slo``,
 ``--profile-dir``, ``--sample-devices``), every flag of the JAX service
-(working in the port, or refused at startup) and the import boundary:
+(each one working in the port) and the import boundary:
 the port's service loads neither JAX nor the JAX package. Plans, status
 codes and integer fields are equal exactly."""
 
@@ -45,9 +45,6 @@ REPORT_FIELDS = (
     "solver_feasible", "solver_lane", "solver_lanes", "solver_lane_bucket",
     "solver_bucket_parts", "solver_bucket_rf", "degradations",
 )
-# the reference's subsystems the port has not ported yet
-DEFERRED_HEALTHZ = {"rollout"}
-DEFERRED_FAMILY_PREFIXES = ("kao_rollout_",)
 
 
 def _serve(mod, **kw):
@@ -213,20 +210,16 @@ def _families(text: str) -> set:
 
 
 def test_metrics_families_and_healthz_keys(servers):
-    """The port renders every family of the reference's ``/metrics``
-    except the deferred subsystems' (and nothing else), and ``/healthz``
-    every section except theirs."""
+    """The port renders exactly the families of the reference's
+    ``/metrics`` (the ``kao_rollout_*`` ones declared at zero), and
+    ``/healthz`` exactly its sections."""
     fj = _families(jserve.render_metrics())
     ft = _families(serve.render_metrics())
-    assert ft <= fj, ft - fj
-    missing = fj - ft
-    assert missing and all(f.startswith(DEFERRED_FAMILY_PREFIXES)
-                           for f in missing), missing
-    assert not {f for f in ft if f.startswith(DEFERRED_FAMILY_PREFIXES)}
+    assert ft == fj, (ft - fj, fj - ft)
     assert {"kao_sanitizer_nan_aborts_total", "kao_phase_seconds",
-            "kao_solve_seconds"} <= ft
+            "kao_solve_seconds", "kao_rollout_started_total"} <= ft
     kj, kt = set(jserve.handle_healthz()), set(serve.handle_healthz())
-    assert kj - kt == DEFERRED_HEALTHZ and kt <= kj
+    assert kt == kj
     hz = serve.handle_healthz()
     assert hz["platform"] == "cpu"
     assert set(hz["cache"]) == set(jserve.handle_healthz()["cache"])
@@ -239,16 +232,22 @@ def test_metrics_families_and_healthz_keys(servers):
     ("POST", "/clusters/c1/rollout/start"),
 ])
 def test_deferred_routes_answer_501(servers, method, path):
-    tid = serve._otrace.new_trace_id()
-    if "{tid}" in path:
-        tr = serve._otrace.begin(tid, name="request")
-        serve._otrace.finish(tr)
-        path = path.format(tid=tid)
-    st, raw, _ = _http(servers["port"], path,
-                       {} if method == "POST" else None)
-    body = json.loads(raw)
-    assert st == 501, body
-    assert body["reason"] == "not_ported" and body["module"]
+    """The routes that answered 501 before the rollout and the fleet
+    view were ported now answer as the reference's service does: the
+    same status and error body (``/debug/fleet``: 200 with the
+    reference's keys)."""
+    got = []
+    for name in ("jax", "port"):
+        st, raw, _ = _http(servers[name], path,
+                           {} if method == "POST" else None)
+        got.append((st, json.loads(raw)))
+    (sj, bj), (st, bt) = got
+    assert st == sj and st != 501, (st, bt)
+    if path == "/debug/fleet":
+        assert st == 200 and set(bt) == set(bj)
+        assert bt["workers"] == bj["workers"]
+    else:
+        assert bt == bj
 
 
 def test_debug_profile_slo_and_chrome_match_reference(servers):
@@ -340,24 +339,62 @@ def _reference_flags() -> list:
             and isinstance(c.args[0], ast.Constant)]
 
 
-def test_every_reference_flag_works_or_is_refused(capsys):
-    """Each flag of the JAX service parses in the port's service, and
-    either is one the port serves or stops ``main`` at startup with a
-    message naming the module still to port. The port's service also
-    refuses to start without a card unless ``--device cpu``."""
+# the flags once refused at startup, a value each, and where main()
+# puts it
+ONCE_DEFERRED = {
+    "--fleet-peers": ("http://127.0.0.1:9", lambda: serve.FLEET["peers"],
+                      ["http://127.0.0.1:9"]),
+    "--rollout-broker-cap": ("2", lambda: serve.ROLLOUT["broker_cap"], 2),
+    "--rollout-rack-cap": ("3", lambda: serve.ROLLOUT["rack_cap"], 3),
+    "--rollout-packer": ("scored", lambda: serve.ROLLOUT["packer"],
+                         "scored"),
+    "--rollout-lanes": ("5", lambda: serve.ROLLOUT["lanes"], 5),
+}
+
+
+def test_every_reference_flag_works_or_is_refused(capsys, monkeypatch):
+    """Each flag of the JAX service parses in the port's service. The
+    flags once refused at startup (``--fleet-peers``, ``--rollout-*``)
+    now start it and land where the reference's ``main`` puts them, and
+    a bad value of each stops both services (exit 2). The port's
+    service also refuses to start without a card unless ``--device
+    cpu``."""
     flags = _reference_flags()
     assert len(flags) > 30
     ap = serve.build_parser()
     known = {a for act in ap._actions for a in act.option_strings}
-    deferred = {f for f, _m in serve._DEFERRED_FLAGS.values()}
     for flag in flags:
         assert flag in known, flag
-        if flag in deferred:
+
+    class _Stub:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve, "make_server", lambda *a, **k: _Stub())
+    monkeypatch.setitem(serve.SERVE, "device", serve.SERVE["device"])
+    for mod in (serve, jserve):
+        monkeypatch.setattr(mod, "ROLLOUT", dict(mod.ROLLOUT))
+        monkeypatch.setattr(mod, "FLEET", dict(mod.FLEET))
+    for mod in (serve, jserve):
+        monkeypatch.setattr(mod, "WATCH", dict(mod.WATCH))
+    for flag, (value, where, want) in ONCE_DEFERRED.items():
+        assert flag in flags, flag
+        assert serve.main([flag, value, "--device", "cpu"]) == 0, flag
+        assert where() == want, flag
+        bad = "ftp://x" if flag == "--fleet-peers" else "0"
+        codes = []
+        for main in (jserve.main, serve.main):
             with pytest.raises(SystemExit) as ei:
-                serve.main([flag, "1", "--device", "cpu"])
-            assert ei.value.code == 2, flag
-            err = capsys.readouterr().err
-            assert "not supported by this package yet" in err, flag
+                main([flag, bad, "--device", "cpu"] if main is serve.main
+                     else [flag, bad, "--port", "0"])
+            codes.append(ei.value.code)
+        assert codes == [2, 2], flag
+        capsys.readouterr()
     assert "--device" in known
     with pytest.raises(SystemExit) as ei:
         serve.main(["--megachunk", "auto", "--device", "cpu"])
@@ -374,8 +411,10 @@ def test_every_reference_flag_works_or_is_refused(capsys):
 def test_service_never_imports_jax():
     """Importing the port's service, and a CPU ``/submit`` through it (the
     exact MILP and a pinned sweep), ``/evaluate``, ``/healthz``,
-    ``/metrics``, ``/debug/profile`` and ``/debug/slo``, load neither JAX
-    nor the JAX package."""
+    ``/metrics``, ``/debug/profile``, ``/debug/slo``, ``/debug/fleet``,
+    the rollout manager and the fleet modules (``rollout``, ``fleet``,
+    ``obs.fleet``, ``obs.causal``), load neither JAX nor the JAX
+    package."""
     code = (
         "import sys\n"
         "from kafka_assignment_optimizer_tpu_torch import serve\n"
@@ -393,6 +432,11 @@ def test_service_never_imports_jax():
         "30.0)['feasible']\n"
         "serve.handle_healthz(); serve.render_metrics()\n"
         "serve.handle_debug_profile(); serve.handle_debug_slo()\n"
+        "from kafka_assignment_optimizer_tpu_torch import fleet, rollout\n"
+        "from kafka_assignment_optimizer_tpu_torch.fleet import router\n"
+        "from kafka_assignment_optimizer_tpu_torch.obs import causal\n"
+        "from kafka_assignment_optimizer_tpu_torch.obs import fleet as of\n"
+        "serve.handle_fleet_get(); serve._healthz_rollout()\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'kafka_assignment_optimizer_tpu'"
         " or n.startswith('kafka_assignment_optimizer_tpu.')]\n"
@@ -407,8 +451,8 @@ def test_cli_evaluate_events_and_refusals_match_reference(tmp_path, capsys):
     """The CLI's ``--evaluate`` (the audit on stdout, exit 3 for the
     infeasible current assignment) and ``--events`` (the watch replay:
     the final plan on stdout, a line an event) give the reference's
-    output and exit codes; ``--emit-waves`` exits 2 naming the module
-    still to port."""
+    output and exit codes; ``--emit-waves`` writes the reference's wave
+    files byte for byte."""
     from kafka_assignment_optimizer_tpu.cli import main as jmain
     from kafka_assignment_optimizer_tpu_torch.cli import main as tmain
 
@@ -436,6 +480,54 @@ def test_cli_evaluate_events_and_refusals_match_reference(tmp_path, capsys):
             got.append((rc, json.loads(out.out), lines))
         assert got[1] == got[0], argv
     assert got[1][0] == 3 and len(got[1][2]) == 3  # the replayed epoch
-    assert tmain(["-i", str(cur), "--broker-list", "0-18", "--emit-waves",
-                  str(tmp_path)]) == 2
-    assert "not supported by this package yet" in capsys.readouterr().err
+    files = []
+    for name, main in (("jax", jmain), ("port", tmain)):
+        d = tmp_path / f"waves-{name}"
+        assert main(["-i", str(cur), "--broker-list", "0-18", "--topology",
+                     "even-odd", "--solver", "milp", "--emit-waves",
+                     str(d), "--wave-broker-cap", "1"]) == 0
+        capsys.readouterr()
+        files.append({f.name: f.read_bytes() for f in d.iterdir()})
+    assert files[1] == files[0] and files[1]
+
+
+def test_served_stop_at_the_first_boundary_matches_reference():
+    """A pinned sweep request whose greedy seed is already at the move
+    bound (the adversarial family) stops at the first chunk boundary in
+    both services once the remaining chunks' estimated time passes the
+    boundary certificate's 1 s savings gate (the chunks slowed here by
+    the chaos harness's ``chunk_overrun`` delay, as a profiler session
+    slows them on the card): 2 dispatches (the next chunk already in
+    flight), 16 sweeps, no final certificate, a certified ladder span,
+    and the same plan."""
+    from kafka_assignment_optimizer_tpu.resilience import chaos as jchaos
+    from kafka_assignment_optimizer_tpu.utils import gen as jgen
+    from kafka_assignment_optimizer_tpu_torch.resilience import chaos
+
+    s = jgen.adversarial(**jgen.SMOKE_KWARGS["adversarial"])
+    p = {"assignment": s.current.to_dict(), "brokers": list(s.broker_list),
+         "topology": s.topology.to_dict(), "solver": "tpu",
+         "options": {"engine": "sweep", "batch": 8, "rounds": 128,
+                     "seed": 0, "portfolio": False, "n_devices": 1}}
+    got = []
+    for mod, harness in ((jserve, jchaos), (serve, chaos)):
+        harness.arm("delay=0.3,chunk_overrun:1:-1")
+        try:
+            out = mod.handle_submit(json.loads(json.dumps(p)))
+        finally:
+            harness.disarm()
+        rep = out["report"]
+        ladder = next(sp for sp in _tree(mod._otrace.RECENT.get(
+            out["trace_id"])["spans"]) if sp["name"] == "ladder")
+        got.append((out["assignment"], rep["solver_dispatches"],
+                    rep["solver_rounds_run"], rep.get("solver_final_cert"),
+                    rep["replica_moves"], rep["proven_optimal"],
+                    ladder["attrs"]["boundary_certified"]))
+    assert got[1] == got[0]
+    assert got[1][1:] == (2, 16, None, got[1][4], True, True)
+
+
+def _tree(span):
+    yield span
+    for child in span.get("spans", ()):
+        yield from _tree(child)
