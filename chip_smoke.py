@@ -202,7 +202,26 @@ Phases (any failure exits non-zero; nothing is caught):
    the owner of ``decommission``'s bucket SIGKILLed: the pinned request
    answered by the other worker with the same plan, nothing dropped, the
    dead worker out of the router's live set and ``/clusters/prod``
-   readable through the shared watch directory.
+   readable through the shared watch directory;
+   (o) the sharded mesh: two chain shards on the one card (the mesh
+   ``[cuda:0, cuda:0]``, one launch of each kernel a stage for both),
+   every run held equal to the CPU's two-shard run (``device="cpu",
+   n_devices=2``, which the tier-1 tests hold to the JAX package's two
+   devices): the pinned adversarial solo (``batch=8, rounds=16,
+   portfolio=False``: plan, moves, curve, and the launches of one
+   shard's ladder) and each shard's winners of one chunk through
+   ``solve_on_mesh``; a batch of 4 adversarial instances under
+   ``KAO_MESH_SHARDING=2x1`` and ``1x2`` (equal plans) and the sharding
+   search on that bucket (parity asserted), both over two blocks on the
+   one card (positions ``cuda:0`` and ``cuda``, which the mesh keeps
+   apart: the several-card layout's launches, one a block, and its
+   copies between blocks; on one block every split is the same work and
+   the chooser is skipped); the chain engine (64 chains x
+   2 rounds); a megachunk whose certificate exits (the ``decommission``
+   smoke case, the weight bound forced to 1); and two processes on the
+   card under ``init_distributed`` (gloo: they share the card), one shard
+   each, both giving the one-process plan. Each run prints its wall, its
+   launches and the migration's host time as a share of ``anneal_s``.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -2494,7 +2513,16 @@ def fleet_phase(torch, power: str, device: str = "cuda") -> None:
               "a stale rollout epoch answers 409 stale_rollout_epoch "
               "(current 104) and leaves the record on disk unchanged")
 
-        # 5. kao-fleet over both flight dirs, and /debug/fleet
+        # 5. kao-fleet over both flight dirs, and /debug/fleet. Which
+        # worker served the routed work above follows the rendezvous
+        # hash of the workers' (random) ports, so one demo solve is sent
+        # to each worker directly: both flight dirs hold a record
+        demo = gen.demo()
+        for u in urls:
+            body, _w = ok(u, "/submit", payload(demo, solver="milp"))
+            if body["report"]["replica_moves"] != 1:
+                fail(f"demo /submit at {u}: {body['report']}")
+
         def kao_fleet(*dirs):
             r = subprocess.run(
                 [sys.executable, "-m",
@@ -2568,11 +2596,369 @@ def fleet_phase(torch, power: str, device: str = "cuda") -> None:
     print(f"fleet phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+# phase (o)'s child: one process of a two-process group on the card, its
+# launcher's environment naming the group; it solves the pinned solo on
+# its own chain shard and prints the plan, its launches and its times
+_MESH_CHILD = r"""
+import json, sys
+from kafka_assignment_optimizer_tpu_torch.models.instance import (
+    build_instance)
+from kafka_assignment_optimizer_tpu_torch.ops import kernels
+from kafka_assignment_optimizer_tpu_torch.parallel import distributed as dist
+from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+from kafka_assignment_optimizer_tpu_torch.utils import gen
+device, kw = sys.argv[1], json.loads(sys.argv[2])
+rank, world = dist.init_distributed(device=device)
+s = gen.adversarial()
+inst = build_instance(s.current, s.broker_list, s.topology)
+if device == "cuda":
+    kernels.build_all()
+kernels.reset_counts()
+res = engine.solve_tpu(inst, device=device, **kw)
+print(json.dumps({
+    "rank": rank, "world": world, "backend": dist.backend(),
+    "a": res.a.tolist(), "moves": res.stats["moves"],
+    "devices": res.stats["devices"], "mesh": res.stats["mesh"],
+    "anneal_s": res.stats["anneal_s"], "wall": res.wall_clock_s,
+    "launches": {k.name: k.launches for k in kernels.KERNELS}}))
+dist.shutdown_distributed()
+"""
+
+
+def mesh_phase(torch, power: str, device: str = "cuda") -> None:
+    """(o) The sharded mesh (see the module docstring): the runs on the
+    mesh ``[cuda:0, cuda:0]`` (two chain shards on the one card, one
+    launch of each kernel a stage for both) held equal to the CPU's
+    two-shard run, the batch's splits and the search over two blocks on
+    the card (``[cuda:0, cuda]``); the two-process run's children are
+    stopped in the ``finally``, and a failure still ends the run
+    non-zero. ``device`` ``"cpu"`` rehearses the phase on the CPU."""
+    import signal
+
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch import prng
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.parallel import mesh as pm
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        anneal,
+        arrays,
+        bucket,
+        engine,
+        sweep,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu.seed import (
+        greedy_seed,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    t_phase = time.perf_counter()
+    card = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    two = [card, card]
+    # two positions the mesh keeps apart on the one device (a device
+    # with and without its index): a block each
+    spread = [torch.device(device, 0), torch.device(device)]
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # the migration's host time: sweep._migrate_blocks (the sweep's
+    # snapshot) and anneal._migrate_blocks (the chain round's end) timed
+    # around each call; the ladder is host-bound, so its host time is
+    # its cost
+    mig = {"s": 0.0}
+    real = {mod: mod._migrate_blocks for mod in (sweep, anneal)}
+
+    def timed_migration(fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                mig["s"] += time.perf_counter() - t
+
+        return run
+
+    def counted(label, fn):
+        """``fn()`` with the launch counts and the migration's time set
+        to 0 just before it and read just after: ``(result, wall,
+        launches, migration s)``."""
+        kernels.reset_counts()
+        mig["s"] = 0.0
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        return (out, wall, {k.name: k.launches for k in kernels.KERNELS},
+                mig["s"])
+
+    def share(mig_s, anneal_s):
+        return f"{mig_s / anneal_s:.4f}" if anneal_s > 0 else "n/a"
+
+    def same(label, x, y):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            fail(f"mesh {label}: the card's run differs from the CPU's")
+
+    procs = []
+    old_term = signal.signal(signal.SIGTERM, lambda *_a: fail("terminated"))
+    for mod in real:
+        mod._migrate_blocks = timed_migration(real[mod])
+    try:
+        # 1. the pinned adversarial solo on two shards: plan, moves,
+        # curve and launches; one launch of each kernel a stage for both
+        # shards, the launches of one shard's ladder
+        scen = gen.adversarial()
+        inst = build_instance(scen.current, scen.broker_list, scen.topology)
+        solo = dict(seed=0, engine="sweep", batch=8, rounds=16,
+                    portfolio=False, cert_min_savings_s=float("inf"))
+        runs = {}
+        for where, kw in (("card", dict(device=two)),
+                          ("cpu", dict(device="cpu"))):
+            runs[where] = counted(where, lambda kw=kw: engine.solve_tpu(
+                inst, n_devices=2, **solo, **kw))
+        (res, wall, counts, mig_s), cpu = runs["card"], runs["cpu"][0]
+        st = res.stats
+        same("solo plan", res.a, cpu.a)
+        for f in ("moves", "score_curve", "rounds_run", "devices",
+                  "chains_per_device", "final_cert"):
+            if st[f] != cpu.stats[f]:
+                fail(f"mesh solo: {f} {st[f]} on the card, {cpu.stats[f]} "
+                     "on the CPU")
+        if (st["devices"], st["chains_per_device"]) != (2, 4) or \
+                st["mesh"]["devices"] != [str(card)] * 2:
+            fail(f"mesh solo: ran on {st['mesh']}, {st['devices']} shards "
+                 f"of {st['chains_per_device']}")
+        chunk = st["rounds_run"] // st["dispatches"]
+        per = sweep.stage_counts(chunk)
+        expect = {k: v * st["dispatches"] for k, v in per.items()}
+        expect["B1 score"] += 3  # the seed, final selection, verification
+        if on_card and counts != expect:
+            fail(f"mesh solo: launches {counts}, expected {expect} (one a "
+                 "stage for both shards)")
+        print(f"mesh solo (adversarial, 2 shards x 4 chains x 16 sweeps on "
+              f"{[str(d) for d in two]}): plan equal to the CPU's "
+              f"two-shard run, {st['moves']} moves, weight {res.objective}, "
+              f"final_cert {st.get('final_cert')}, wall {wall:.3f} s, "
+              f"anneal_s {st['anneal_s']}, migration {mig_s:.4f} s "
+              f"(share of anneal_s {share(mig_s, st['anneal_s'])}), "
+              f"launches {json.dumps(counts)} ({power})")
+        # the two-shard solo against the one-shard solo (the same knobs:
+        # 8 chains in all), in the order 2 1 1 2 on the warm process
+        walls = {1: [], 2: []}
+        for n in (2, 1, 1, 2):
+            r_n, w_n, _c, m_n = counted(f"solo {n}", lambda n=n: (
+                engine.solve_tpu(inst, n_devices=n, device=[card] * n,
+                                 **solo)))
+            walls[n].append((w_n, r_n.stats["anneal_s"], m_n))
+        print("mesh solo warm, order 2 1 1 2 (wall s, anneal_s, migration "
+              "s): two shards " + json.dumps(walls[2]) + ", one shard "
+              + json.dumps(walls[1]) + f" ({power})")
+        # each shard's winners of one chunk, through solve_on_mesh
+        Pp, Rp = bucket.bucket_shape(inst)
+        seed_np = np.asarray(greedy_seed(inst), np.int32)
+        temps = arrays.geometric_temps(2.0, 0.02, 16)[:8]
+        outs = {}
+        for where, dev, scorer, mesh in (
+                ("card", card, "cuda" if on_card else "torch",
+                 pm.make_mesh(device=two)),
+                ("cpu", torch.device("cpu"), "torch",
+                 pm.make_mesh(2, device="cpu"))):
+            m = arrays.from_instance(inst, dev, num_parts=Pp, max_rf=Rp)
+            seed = torch.from_numpy(arrays.pad_candidate(seed_np, m)).to(dev)
+            st0 = pm.init_sweep_state(m, seed, prng.PRNGKey(0), 4, mesh)
+            outs[where] = [x.cpu() for x in pm.solve_on_mesh(
+                m, seed, None, mesh, 4, 8, 1, engine="sweep", temps=temps,
+                scorer=scorer, state=st0)[1:]]
+        for name, x, y in zip(("best_a", "best_k", "curve"), outs["card"],
+                              outs["cpu"]):
+            same(f"per-shard {name}", x, y)
+        print(f"mesh per-shard winners (one chunk of 8 sweeps): best_k "
+              f"{outs['card'][1].tolist()} on both devices")
+
+        # 2. a batch of 4 adversarial instances on two shards over two
+        # blocks under both splits: equal plans
+        insts4 = [build_instance(x.current, x.broker_list, x.topology)
+                  for x in (gen.adversarial(seed=i) for i in range(4))]
+        bkw = dict(seeds=0, engine="sweep", batch=8, rounds=16)
+        plans = {}
+        saved = os.environ.get(pm.MESH_ENV)
+        try:
+            for spec in ("2x1", "1x2"):
+                os.environ[pm.MESH_ENV] = spec
+                out, wall_b, counts_b, mig_b = counted(
+                    spec, lambda: engine.solve_tpu_batch(
+                        insts4, n_devices=2, device=spread, **bkw))
+                plans[spec] = [r.a for r in out]
+                sb = out[0].stats
+                if sb["mesh"]["axes"] != dict(zip(
+                        ("chains", "lanes"),
+                        (int(x) for x in spec.split("x")))):
+                    fail(f"mesh batch {spec}: ran on {sb['mesh']}")
+                if not all(r.stats["feasible"] for r in out):
+                    fail(f"mesh batch {spec}: an infeasible lane")
+                print(f"mesh batch {spec} (4 adversarial instances, 2 shards "
+                      f"x 4 chains x 16 sweeps, blocks on "
+                      f"{[str(d) for d in spread]}): wall {wall_b:.3f} s, "
+                      f"anneal_s {sb['anneal_s']}, migration {mig_b:.4f} s "
+                      f"(share {share(mig_b, sb['anneal_s'])}), moves "
+                      f"{[r.stats['moves'] for r in out]}, launches "
+                      f"{json.dumps(counts_b)} ({power})")
+        finally:
+            if saved is None:
+                os.environ.pop(pm.MESH_ENV, None)
+            else:
+                os.environ[pm.MESH_ENV] = saved
+        for i, (x, y) in enumerate(zip(plans["2x1"], plans["1x2"])):
+            same(f"batch lane {i} under 2x1 and 1x2", x, y)
+        # 3. the sharding search on that bucket, parity asserted
+        m_stack, lane_seeds, keys = engine.stack_lanes(insts4, [0, 1, 2, 3],
+                                                       card)
+        rows_s = pm.run_sharding_search(
+            m_stack, lane_seeds, keys, temps, n_devices=2,
+            chains_per_device=4, bucket_key=(256, 8, Pp, Rp),
+            scorer="cuda" if on_card else "torch", repeats=1, device=spread)
+        if not all(r["parity_vs_default"] for r in rows_s):
+            fail(f"mesh sharding search: parity {rows_s}")
+        print("mesh sharding search (4 lanes, 2 shards over two blocks, "
+              "8 sweeps): "
+              + json.dumps(rows_s) + f" ({power})")
+
+        # 4. the chain engine on two shards, 64 chains x 2 rounds
+        case = random_cluster(np.random.default_rng(0), n_brokers=12,
+                              n_parts=40, rf=2, n_racks=2, drop=2)
+        inst_c = build_instance(*case)
+        ckw = dict(seed=0, engine="chain", batch=64, rounds=2,
+                   precompile=True, n_devices=2)
+        (rc, wall_c, counts_c, mig_c), (rcc, *_r) = (
+            counted("chain", lambda: engine.solve_tpu(inst_c, device=two,
+                                                      **ckw)),
+            counted("chain cpu", lambda: engine.solve_tpu(
+                inst_c, device="cpu", **ckw)))
+        same("chain plan", rc.a, rcc.a)
+        if rc.stats["score_curve"] != rcc.stats["score_curve"]:
+            fail("mesh chain: curves differ between the card and the CPU")
+        print(f"mesh chain engine (2 shards x 32 chains x 2 rounds x "
+              f"{rc.stats['steps_per_round']} steps): plan equal to the "
+              f"CPU's, {rc.stats['moves']} moves, wall {wall_c:.3f} s, "
+              f"anneal_s {rc.stats['anneal_s']}, migration {mig_c:.4f} s "
+              f"(share {share(mig_c, rc.stats['anneal_s'])}), launches "
+              f"{json.dumps(counts_c)} ({power})")
+
+        # 5. a megachunk whose certificate exits, on two shards: the
+        # bounds prewarmed, the constructor stood down, the weight bound
+        # forced to 1 and the certificate's economics off
+        def no_worker(*_a, **_k):
+            return None, False, False
+
+        sc = gen.SCENARIOS["decommission"](**gen.SMOKE_KWARGS["decommission"])
+        mkw = dict(seed=0, engine="sweep", batch=8, rounds=32,
+                   time_limit_s=3600.0, cert_min_savings_s=-1.0,
+                   megachunk=4, n_devices=2)
+        saved_worker = engine._construct_worker
+        engine._construct_worker = no_worker
+        try:
+            mres = {}
+            for where, d in (("card", two), ("cpu", "cpu")):
+                inst_m = build_instance(sc.current, sc.broker_list,
+                                        sc.topology, sc.target_rf)
+                inst_m.move_lower_bound_exact()
+                inst_m.weight_upper_bound = lambda *a, **k: 1
+                mres[where] = counted(where, lambda d=d, i=inst_m:
+                                      engine.solve_tpu(i, device=d, **mkw))
+        finally:
+            engine._construct_worker = saved_worker
+        (rm, wall_m, counts_m, mig_m), rmc = mres["card"], mres["cpu"][0]
+        mg = rm.stats["megachunk"]
+        same("megachunk plan", rm.a, rmc.a)
+        if not mg["early_exit"] or mg != rmc.stats["megachunk"] or \
+                rm.stats["rounds_run"] >= rm.stats["rounds"]:
+            fail(f"mesh megachunk: {mg}, rounds_run "
+                 f"{rm.stats['rounds_run']}; the CPU's "
+                 f"{rmc.stats['megachunk']}")
+        print(f"mesh megachunk (decommission smoke, 2 shards, portfolio, "
+              f"K=4): the certificate exit after {mg['chunks']} chunk(s) "
+              f"({rm.stats['rounds_run']} of {rm.stats['rounds']} sweeps), "
+              f"winner lane {rm.stats['portfolio']['winner_lane']}, plan "
+              f"equal to the CPU's, wall {wall_m:.3f} s, anneal_s "
+              f"{rm.stats['anneal_s']}, migration {mig_m:.4f} s (share "
+              f"{share(mig_m, rm.stats['anneal_s'])}), launches "
+              f"{json.dumps(counts_m)} ({power})")
+
+        # 6. two processes on the card under gloo, one shard each: the
+        # plan of the in-process two-shard solo of step 1
+        root = os.path.dirname(os.path.abspath(__file__))
+        port = _free_port()
+        t0 = time.perf_counter()
+        for rank in (0, 1):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE="2",
+                       RANK=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _MESH_CHILD, device,
+                 json.dumps(solo)], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True))
+        got = []
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                fail("mesh two processes: a process hung past 300 s")
+            if p.returncode != 0:
+                fail(f"mesh two processes: rc {p.returncode}: {err[-1500:]}")
+            got.append(json.loads(out.strip().splitlines()[-1]))
+        wall_p = time.perf_counter() - t0
+        for g in got:
+            if (g["world"], g["devices"]) != (2, 2):
+                fail(f"mesh two processes: rank {g['rank']} ran world "
+                     f"{g['world']}, {g['devices']} shards")
+            same(f"two-process plan (rank {g['rank']})", g["a"], res.a)
+            if on_card and g["launches"] != counts:
+                fail(f"mesh two processes: rank {g['rank']} launches "
+                     f"{g['launches']}, expected the one-process run's "
+                     f"{counts}")
+        print(f"mesh two processes ({got[0]['backend']}, one shard each on "
+              f"{device}): both plans equal to the one-process two-shard "
+              f"plan; solve walls "
+              f"{[round(g['wall'], 3) for g in got]} s, anneal_s "
+              f"{[g['anneal_s'] for g in got]}, launches a process "
+              f"{json.dumps(got[0]['launches'])}; {wall_p:.3f} s with the "
+              f"processes' start ({power})")
+    finally:
+        for mod, fn in real.items():
+            mod._migrate_blocks = fn
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGTERM)
+                    p.wait(timeout=20)
+                except (OSError, subprocess.TimeoutExpired):
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait(timeout=20)
+        signal.signal(signal.SIGTERM, old_term)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.3f} s ({power})")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() != 1:
+        # a solve's default mesh takes every visible card: with several,
+        # every phase would run the several-card path its counts and
+        # plans are not pinned to
+        print(f"chip_smoke: {torch.cuda.device_count()} cards visible; "
+              "run it with exactly one (CUDA_VISIBLE_DEVICES)",
+              file=sys.stderr)
         return 1
     import numpy as np
 
@@ -3183,6 +3569,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st1, bk, ba = run(m_r, st0, bk, ba, np.float32(1.0))
+        st1 = anneal._migrate(st1, anneal.best_key(st1), 1)
         torch.cuda.synchronize()
         rounds.setdefault(graph, []).append(
             (time.perf_counter() - t0,
@@ -3241,6 +3628,8 @@ def main() -> int:
     measure_phase(torch, power)
     # (n) fleet and rollout: a router over two workers on the card
     fleet_phase(torch, power)
+    # (o) the sharded mesh: two chain shards on the one card
+    mesh_phase(torch, power)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

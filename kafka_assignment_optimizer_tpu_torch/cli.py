@@ -8,8 +8,9 @@ Usage:
         [--device cuda|cpu] [--no-pipeline] [--megachunk K|off] \\
         [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report] \\
         [--trace] [--flight-dir DIR] [--profile-dir DIR] [--sanitize] \\
-        [--emit-lp PATH] [--emit-waves DIR [--wave-broker-cap N] \\
-        [--wave-rack-cap N] [--wave-packer greedy|scored]]
+        [--distributed] [--emit-lp PATH] \\
+        [--emit-waves DIR [--wave-broker-cap N] [--wave-rack-cap N] \\
+        [--wave-packer greedy|scored]]
     python -m kafka_assignment_optimizer_tpu_torch --evaluate PLAN.json \\
         --input current.json --broker-list 0-18 [--topology ...]
     python -m kafka_assignment_optimizer_tpu_torch --events EVENTS.json \\
@@ -25,7 +26,9 @@ ignore ``--device``; ``auto`` picks ``milp`` for small instances and
 ``tpu`` at scale. ``--profile-dir`` writes a ``torch.profiler`` trace of
 the ``tpu`` solve there. ``--emit-waves DIR`` also writes the plan (or
 the audited plan) as bandwidth-budgeted move waves, one reassignment
-file a wave (``rollout.waves``).
+file a wave (``rollout.waves``). ``--distributed`` joins a process group
+first (``parallel.distributed``): every process runs the same command and
+writes the same plan.
 """
 
 from __future__ import annotations
@@ -217,6 +220,16 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="DIR",
         help="write a torch.profiler trace of the solve here (tpu solver)",
     )
+    ap.add_argument(
+        "--distributed",
+        action="store_true",
+        help="join a torch.distributed process group before solving: run "
+        "the CLI on EVERY process with the same input (the launcher's "
+        "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK, or "
+        "JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/JAX_PROCESS_ID); the "
+        "solve mesh then spans every process's shards. No-op without a "
+        "cluster environment (parallel/distributed.py)",
+    )
     return ap
 
 
@@ -285,6 +298,16 @@ def parse_megachunk(spec: str):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    try:
+        return _main(args)
+    finally:
+        if args.distributed:
+            from .parallel.distributed import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _main(args: argparse.Namespace) -> int:
     if args.sanitize:
         from .analysis import sanitize as _sanitize
 
@@ -298,6 +321,10 @@ def main(argv: list[str] | None = None) -> int:
             print(f"error: bad --chaos spec: {e}", file=sys.stderr)
             return 2
     try:
+        if args.distributed:
+            from .parallel.distributed import init_distributed
+
+            init_distributed(device=args.device)
         flight_dir = args.flight_dir or os.environ.get("KAO_FLIGHT_DIR")
         if flight_dir:
             from .obs import flight as _flight

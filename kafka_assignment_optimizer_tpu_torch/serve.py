@@ -942,8 +942,9 @@ def render_metrics() -> str:
         f"kao_decompose_last_subproblems "
         f'{int(dsnap["last"].get("subproblems") or 0)}'
     )
-    # the solve mesh: one card here (the multi-GPU mesh is not ported),
-    # its families pre-declared as the reference's
+    # the solve mesh: axis sizes of the last built mesh, the counter
+    # families pre-declared at zero, and one row per bucket the sharding
+    # chooser has evidence for (the choice its next dispatch gets)
     msnap = _healthz_mesh()
     lines.append("# HELP kao_mesh_axis_size solve-mesh axis sizes "
                  "(chains x lanes device split, docs/MESH.md)")
@@ -2302,21 +2303,27 @@ def _healthz_megachunk() -> dict:
 
 
 def _healthz_mesh() -> dict:
-    """The /healthz mesh section: the solve mesh is one card (the
-    reference's multi-device mesh and its multi-process wiring are not
-    in this package), so the axes are 1 x 1 and the evidence is empty.
-    The same snapshot renders the ``kao_mesh_*`` families."""
-    return {
-        "axes": {"chains": 1, "lanes": 1},
-        "sharding_mode": "single",
-        "sharding_env": "",
-        "forced_spec": None,
-        "min_solves": None,
-        "counters": {"search_evals": 0, "reshard_bytes": 0},
-        "buckets": {},
-        "processes": {"n_processes": 1, "process_index": 0,
-                      "multiprocess_probe": {"probed": False}},
+    """The /healthz mesh section: the solve mesh's axis sizes and
+    devices, the ``KAO_MESH_SHARDING`` mode, the per-bucket sharding
+    evidence and current choice, the running search/reshard counters
+    (``parallel.mesh.mesh_snapshot``), and the processes, with the
+    multi-process probe's MEMOIZED verdict (never probed here: /healthz
+    stays cheap). The same snapshot renders the ``kao_mesh_*``
+    families."""
+    from .parallel import distributed as _dist
+    from .parallel.mesh import mesh_snapshot
+
+    snap = mesh_snapshot()
+    probe = _dist._PROBE_MEMO
+    snap["processes"] = {
+        "n_processes": _dist.process_count(),
+        "process_index": _dist.process_index(),
+        "backend": _dist.backend(),
+        "multiprocess_probe": (
+            {"probed": True, "ok": probe[0], "reason": probe[1]}
+            if probe is not None else {"probed": False}),
     }
+    return snap
 
 
 def _healthz_slo() -> dict:

@@ -18,9 +18,12 @@ model (:func:`make_lane_solver_fn`): L lanes' chains are one ``[L·N]``
 chain axis, each chain reading its own lane's tables, bands, penalty
 scale and temperature, the same per-chain arithmetic as L single-model
 runs, in one step's operations; a single model is its one lane
-(:func:`make_solver_fn`). The reference computes this
-engine in XLA with no Pallas kernel, so it is plain PyTorch on either
-device. On the card a round's step loop is captured as CUDA graphs
+(:func:`make_solver_fn`). On a solve mesh (``parallel.mesh``) each lane
+runs C chain shards, a device's shards one chain axis, and every round
+ends with the best migration over the shards of each lane
+(:func:`_migrate_blocks`), outside the captured steps. The reference
+computes this engine in XLA with no Pallas kernel, so it is plain
+PyTorch on either device. On the card a round's step loop is captured as CUDA graphs
 (``_StepGraphs``) and replayed, so the host launches one graph per
 ``_GRAPH_STEPS`` steps instead of each operation of each step. Every
 operation reproduces the reference's int32 and float32 arithmetic: the
@@ -44,8 +47,9 @@ from ... import prng
 from ...analysis import sanitize as _sanitize
 from ...obs import flight as _flight
 from ...ops.score_cuda import score
+from ...parallel.mesh import TRIVIAL, Block, Layout, owner_rows, put_rows
 from .arrays import LAMBDA, SCALE_W, ModelArrays, u01
-from .sweep import _one_lane
+from .sweep import _one_lane, first_argmax_rows, first_argmin_rows
 
 # move-type proposal mix (the reference's constants); the comparisons run
 # in float32, so the thresholds are taken as float32 values
@@ -345,25 +349,44 @@ def _cast(st: ChainState, dtype: torch.dtype, key=None) -> ChainState:
                       key=st.key if key is None else key)
 
 
+def _migrate_blocks(blocks, sts: list, ks: list, red) -> list:
+    """The reference's round-end migration over the chain shards of a
+    mesh, each lane on its own: the lane's best chain (highest key over
+    every shard, the owner the lowest shard index holding it, the first
+    such chain within it) cloned over each shard's worst chain (lowest
+    key, first index), keys untouched. ``sts``/``ks`` hold each block's
+    chains (``[C_b·L_b·N]``, shard-major flat lanes of N chains, as
+    ``parallel.mesh.Block`` lays them) and their keys; one shard of one lane is
+    the reference's one-device mesh."""
+    kl = [k.view(b.c1 - b.c0, b.l1 - b.l0, -1) for b, k in zip(blocks, ks)]
+    local = [x.amax(2) for x in kl]
+    gbest = red([x.amax(0) for x in local], "max")
+    own = [lb == g for lb, g in zip(local, gbest)]
+    leaves = [[getattr(st, f).reshape(k.shape[0] * k.shape[1], k.shape[2],
+                                      *getattr(st, f).shape[1:])
+               for f in _INT_FIELDS] for st, k in zip(sts, kl)]
+    rows, sizes = owner_rows(blocks, red, own, first_argmax_rows, kl,
+                              leaves)
+    out = []
+    for st, k, lv, row in zip(sts, kl, leaves, rows):
+        C, L, N = k.shape
+        fi = torch.arange(C * L, device=k.device) * N + first_argmin_rows(
+            k.reshape(C * L, N))
+        vals = [x.repeat(C, 1) for x in row.split(sizes, 1)]
+        out.append(ChainState(
+            **{f: put_rows(x, fi, v).reshape(getattr(st, f).shape)
+               for f, x, v in zip(_INT_FIELDS, lv, vals)},
+            key=st.key))
+    return out
+
+
 def _migrate(st: ChainState, k: torch.Tensor, lanes: int) -> ChainState:
     """The reference's round-end migration on a mesh of one device, within
-    each lane's block of chains: the best chain (first index among ties)
-    cloned over the worst (first index), keys untouched."""
-    kl = k.reshape(lanes, -1)
-    nc = kl.shape[1]
-    idx = torch.arange(nc, device=k.device)
-    base = torch.arange(lanes, device=k.device) * nc
-    src = torch.where(kl == kl.max(1, keepdim=True).values, idx,
-                      nc).min(1).values + base
-    dst = torch.where(kl == kl.min(1, keepdim=True).values, idx,
-                      nc).min(1).values + base
-
-    def put(x):
-        return x.index_copy(0, dst, x[src])
-
-    return ChainState(a=put(st.a), cnt=put(st.cnt), lcnt=put(st.lcnt),
-                      rcnt=put(st.rcnt), pen=put(st.pen), w=put(st.w),
-                      key=st.key)
+    each lane's block of chains (:func:`_migrate_blocks` of one shard):
+    the best chain (first index among ties) cloned over the worst (first
+    index), keys untouched."""
+    return _migrate_blocks([Block(None, 0, 1, 0, lanes)], [st], [k],
+                           TRIVIAL)[0]
 
 
 # every round runner's number: the recompile sentinel's key names the
@@ -447,8 +470,10 @@ class _StepGraphs:
 
 def make_round_runner(steps_per_round: int, graph: bool | None = None):
     """``(m, state, best_k, best_a, temp) -> (state, best_k, best_a)``:
-    ``steps_per_round`` steps of every chain, the feasible-best snapshot,
-    then the one-device migration of the reference's mesh path. ``m`` is
+    ``steps_per_round`` steps of every chain and the feasible-best
+    snapshot. The round's migration is the caller's: the solver runs it
+    over its mesh after every round (:func:`_migrate_blocks`;
+    :func:`_migrate` is its one-shard case). ``m`` is
     a stacked model, or a single model run as its one lane. The
     temperature is scaled by each lane's ``temp_scale`` in float32; each
     chain's key splits once and its ``[steps_per_round, 8]`` words are
@@ -484,7 +509,7 @@ def make_round_runner(steps_per_round: int, graph: bool | None = None):
         improved = k > best_k
         best_k = torch.where(improved, k, best_k)
         best_a = torch.where(improved[:, None, None], st.a, best_a)
-        return _migrate(st, k, m.num_lanes), best_k, best_a
+        return st, best_k, best_a
 
     return run_round
 
@@ -508,57 +533,89 @@ def chain_keys(key, n_chains: int, device) -> torch.Tensor:
                         device=device)
 
 
-def make_lane_solver_fn(n_chains: int, steps_per_round: int):
+def _solve(lay: Layout, run_round, n_chains: int, m: ModelArrays, seeds,
+           keys, temps):
+    """The whole anneal of the L lanes of ``m`` on the blocks of ``lay``:
+    lane l's key splits into one key a shard of the mesh (``split(keys[l],
+    C)``, the reference's), each into one a chain; every chain of shard c
+    and lane l starts at ``seeds[l]``. Each round runs every block's
+    chains (one round runner a block), then the migration over the mesh.
+    Returns each block's ``(best_a, best_k, curve)`` gathered by
+    ``lay``."""
+    from .arrays import lane_model
+
+    L = m.num_lanes
+    keys = np.asarray(keys, np.uint32).reshape(L, 2)
+    shard_keys = np.stack([prng.split(k, lay.C) for k in keys], 1)
+    models = lay.models(m)
+    sts, bks, bas = [], [], []
+    for b, mb in zip(lay.blocks, models):
+        Lb = b.l1 - b.l0
+        parts = [init_chain(
+            lane_model(mb, (c - b.c0) * Lb + (l - b.l0)),
+            seeds[l].to(mb.device),
+            torch.tensor(prng.split(shard_keys[c, l], n_chains)
+                         .astype(np.int64), device=mb.device))
+            for c in range(b.c0, b.c1) for l in range(b.l0, b.l1)]
+        st = ChainState(**{f: torch.cat([getattr(x, f) for x in parts])
+                           for f in (*_INT_FIELDS, "key")})
+        sts.append(st)
+        bks.append(best_key(st))
+        bas.append(st.a.clone())
+    curves = [[] for _ in sts]
+    for temp in np.asarray(temps, np.float32):
+        for i, mb in enumerate(models):
+            sts[i], bks[i], bas[i] = run_round(mb, sts[i], bks[i], bas[i],
+                                               temp)
+        sts = _migrate_blocks(lay.blocks, sts, [best_key(st) for st in sts],
+                              lay.red)
+        for c, bk in zip(curves, bks):
+            c.append(bk.reshape(-1, n_chains).max(1).values)
+    tas, tks, cvs = [], [], []
+    for st, bk, ba, c in zip(sts, bks, bas, curves):
+        bk = bk.reshape(-1, n_chains)
+        top = first_argmax_rows(bk)
+        lanes = torch.arange(bk.shape[0], device=bk.device)
+        tas.append(ba.reshape(bk.shape[0], n_chains, *ba.shape[1:])[
+            lanes, top])
+        tks.append(bk[lanes, top])
+        cvs.append(torch.stack(c, 1) if c else torch.zeros(
+            (bk.shape[0], 0), dtype=torch.int32, device=bk.device))
+    return lay.gather(tas), lay.gather(tks), lay.gather(cvs)
+
+
+def make_lane_solver_fn(n_chains: int, steps_per_round: int, mesh=None):
     """The whole anneal of L lanes at once: ``(m_stack, seeds [L, P, R],
     keys [L, 2], temps) -> (best_a [L, P, R], best_k [L], curve [L,
     rounds])``. Lane l's ``n_chains`` chains start at ``seeds[l]`` on
     ``lane_model(m_stack, l)`` with ``keys[l]`` and run as one block of
     the ``[L·n_chains]`` chain axis (each lane's migration and winner
-    within its block), so each lane's result equals its one-lane run."""
-    from .arrays import lane_model
-
+    within its block), so each lane's result equals its one-lane run. On
+    a solve mesh (``mesh``) each lane runs C chain shards (their chains
+    one axis on each device, the migration over every shard of the
+    lane) and every output gains the leading shard axis ``[C, ...]``:
+    each shard's winner, as the reference's sharded solver returns
+    them."""
     run_round = make_round_runner(steps_per_round)
 
     def solve(m: ModelArrays, seeds: torch.Tensor, keys, temps):
-        L = m.num_lanes
-        keys = np.asarray(keys, np.uint32).reshape(L, 2)
-        sts = [init_chain(lane_model(m, lane), seeds[lane],
-                          chain_keys(keys[lane], n_chains, m.device))
-               for lane in range(L)]
-        st = ChainState(**{f: torch.cat([getattr(x, f) for x in sts])
-                           for f in (*_INT_FIELDS, "key")})
-        best_k = best_key(st)
-        best_a = st.a.clone()
-        curve = []
-        for temp in np.asarray(temps, np.float32):
-            st, best_k, best_a = run_round(m, st, best_k, best_a, temp)
-            curve.append(best_k.reshape(L, n_chains).max(1).values)
-        bk = best_k.reshape(L, n_chains)
-        idx = torch.arange(n_chains, device=bk.device)
-        top = torch.where(bk == bk.max(1, keepdim=True).values, idx,
-                          n_chains).min(1).values
-        lanes = torch.arange(L, device=bk.device)
-        curve = (torch.stack(curve, 1) if curve
-                 else torch.zeros((L, 0), dtype=torch.int32,
-                                  device=m.device))
-        return (best_a.reshape(L, n_chains, *best_a.shape[1:])[lanes, top],
-                bk[lanes, top], curve)
+        return _solve(Layout(mesh, m.num_lanes, solo=False), run_round,
+                      n_chains, m, seeds, keys, temps)
 
     return solve
 
 
-def make_solver_fn(n_chains: int, steps_per_round: int):
+def make_solver_fn(n_chains: int, steps_per_round: int, mesh=None):
     """The whole anneal of one model, the one-lane case of
     :func:`make_lane_solver_fn`: ``(m, a_seed [P, R], key, temps) ->
-    (best_a [P, R], best_key, curve [rounds])``. Every chain starts at the
-    seed and the seed is the first best snapshot, so the result never
-    ranks below it. ``key`` is a host ``uint32[2]`` key (the per-chunk
-    key of the engine's ladder)."""
-    solve_lanes = make_lane_solver_fn(n_chains, steps_per_round)
+    (best_a [P, R], best_key, curve [rounds])`` (on a mesh, each
+    ``[C, ...]``). Every chain starts at the seed and the seed is the
+    first best snapshot, so the result never ranks below it. ``key`` is a
+    host ``uint32[2]`` key (the per-chunk key of the engine's ladder)."""
+    run_round = make_round_runner(steps_per_round)
 
     def solve(m: ModelArrays, a_seed: torch.Tensor, key, temps):
-        best_a, best_k, curve = solve_lanes(_one_lane(m), a_seed[None],
-                                            [key], temps)
-        return best_a[0], best_k[0], curve[0]
+        return _solve(Layout(mesh, 1, solo=True), run_round, n_chains,
+                      _one_lane(m), a_seed[None], [key], temps)
 
     return solve

@@ -374,6 +374,45 @@ def lane_range(m: ModelArrays, lo: int, hi: int) -> ModelArrays:
     return ranges[lo, hi]
 
 
+def shard_models(m: ModelArrays, shards: int) -> ModelArrays:
+    """The stacked model ``m`` of L lanes as ``shards * L`` lanes, lane
+    ``c * L + l`` being lane ``l`` (the lanes of ``shards`` chain shards
+    in shard order, as one launch takes them). A table the lanes share
+    stays one lane-stride-0 view; any other repeats. Cached on ``m``."""
+    if shards == 1:
+        return m
+    cache = m.__dict__.get("_shard_models")
+    if cache is None:
+        cache = {}
+        object.__setattr__(m, "_shard_models", cache)
+    if shards not in cache:
+        out = {}
+        for f in _FIELDS:
+            t = getattr(m, f)
+            if t.stride(0) == 0:
+                out[f] = t[:1].expand(shards * t.shape[0], *t.shape[1:])
+            else:
+                out[f] = t.repeat(shards, *([1] * (t.dim() - 1)))
+        cache[shards] = ModelArrays(**out)
+    return cache[shards]
+
+
+def model_on(m: ModelArrays, device) -> ModelArrays:
+    """``m`` with every table on ``device`` (``m`` itself when it is
+    there already; cached on ``m``)."""
+    device = torch.device(device)
+    if m.device == device:
+        return m
+    cache = m.__dict__.get("_model_on")
+    if cache is None:
+        cache = {}
+        object.__setattr__(m, "_model_on", cache)
+    if str(device) not in cache:
+        cache[str(device)] = ModelArrays(
+            **{f: getattr(m, f).contiguous().to(device) for f in _FIELDS})
+    return cache[str(device)]
+
+
 def state_from_numpy(state, device):
     """The sweep state ``(a, best_k, best_mv, best_a, key)`` from host
     arrays: the four population leaves become int32 tensors on
@@ -386,7 +425,8 @@ def state_from_numpy(state, device):
     lanes = key.ndim == 3
     if lanes and key.shape[0] != 1:
         raise ValueError(f"a lane state of {key.shape[0]} devices; this "
-                         "package runs one")
+                         "converts the one-shard layout (a mesh's state "
+                         "keeps its shard axis)")
 
     def t(x):
         x = np.asarray(x, np.int32)

@@ -2,7 +2,9 @@
 
 Counterpart of ``kafka_assignment_optimizer_tpu.solvers.tpu.engine``
 (the reference's name ``"tpu"`` is kept so calls match call for call),
-taking the reference's decisions on one device:
+taking the reference's decisions on its solve mesh (``parallel.mesh``:
+``n_devices`` chain shards of ``max(1, batch // n_devices)`` chains
+each, exchanging their best chain at every snapshot):
 
 0. **The decomposed solve.** AZ/rack-structured instances of 150,000
    partitions or more (or on request: ``decompose=True``,
@@ -65,10 +67,12 @@ the ladder's NaN, consumed-state and rebuild guards. Every ladder
 dispatch feeds the roofline profiler (``obs.prof``: the key's analytic
 cost model at its first dispatch, then the enqueue->retire pairing);
 ``profile_dir`` writes a ``torch.profiler`` trace of the ladder there.
-Not here yet: more than one device (``n_devices``) and the fused width
-chosen from measurements (``megachunk="auto"``); their keywords raise
-``NotImplementedError`` unless their value names what this engine
-does.
+Under a process group (``parallel.distributed``) every process runs the
+whole deterministic ladder on its shards, with no constructor race, no
+boundary certificate, no portfolio, no deadline and no host fallback, as
+the reference's multi-controller solve. Not here yet: the fused width
+chosen from measurements (``megachunk="auto"`` raises
+``NotImplementedError``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own.
@@ -97,11 +101,16 @@ from ...obs import flight as _flight
 from ...obs import log as _olog
 from ...obs import prof as _oprof
 from ...obs import trace as _otrace
+from ...parallel import distributed as _dist
 from ...parallel.mesh import (
     fetch_global_async,
     init_lane_state,
     init_sweep_state,
+    make_mesh,
+    make_solve_mesh,
+    mesh_spec,
     note_lane_serve,
+    note_sharding_evidence,
     solve_lanes,
     solve_lanes_megachunk,
     solve_megachunk,
@@ -250,8 +259,15 @@ def _resolve_portfolio_width(portfolio) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The solve device: ``cuda`` unless the caller asks for ``cpu``.
-    Raises when the card is asked for (or defaulted to) and absent."""
+    """The solve device: ``cuda`` unless the caller asks for ``cpu``; for
+    an explicit list of devices (a mesh's positions,
+    ``parallel.mesh.make_mesh``), the first. Raises when the card is
+    asked for (or defaulted to) and absent."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        devs = [resolve_device(d) for d in device]
+        return devs[0]
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
@@ -319,24 +335,6 @@ def _defaults(inst: ProblemInstance, platform: str,
     }
 
 
-# keyword -> the values that name what this engine already does (every
-# other value asks for a path of the reference not ported yet)
-_UNPORTED = {
-    "n_devices": (None, 1),
-}
-
-
-def _refuse_unported(kw: dict) -> None:
-    for name, value in kw.items():
-        ok = _UNPORTED[name]
-        if not any(value is v or (type(value) is type(v) and value == v)
-                   for v in ok):
-            raise NotImplementedError(
-                f"{name}={value!r} is not supported by this package yet "
-                f"(accepted: {', '.join(repr(v) for v in ok)})"
-            )
-
-
 @register("tpu")
 def solve_tpu(
     inst: ProblemInstance,
@@ -383,7 +381,6 @@ def solve_tpu(
     solve lands one record (a retry or a lane inside another recorded
     solve feeds the outer record); a failed solve lands a failure
     record; ``precompile`` solves land none."""
-    _refuse_unported(dict(n_devices=n_devices))
     megachunk = _resolve_megachunk(megachunk)
     prof_tok = _PROFILE_DIR.set(profile_dir)
     nested = _flight.accounting_active()
@@ -395,7 +392,7 @@ def solve_tpu(
                 inst, trace, seed, batch, rounds, sweeps, steps_per_round,
                 t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
                 portfolio, warm_start, budget, decompose, device,
-                checkpoint, pipeline, megachunk, precompile,
+                checkpoint, pipeline, megachunk, precompile, n_devices,
             )
             if rungs:
                 res.stats["degradations"] = list(rungs)
@@ -442,11 +439,18 @@ def _solve_tpu_traced(inst, trace, *args) -> SolveResult:
 def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
                t_lo, engine, time_limit_s, cert_min_savings_s, portfolio,
                warm_start, budget, decompose, device, checkpoint, pipeline,
-               megachunk, precompile=False) -> SolveResult:
+               megachunk, precompile=False, n_devices=None) -> SolveResult:
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if _san.enabled():
         _san.install()
+    # a process group (parallel.distributed): every process must take
+    # the same decisions in front of every collective, so the solve runs
+    # the whole deterministic ladder with no host race, no deadline and
+    # no host fallback, as the reference's multi-controller solve
+    multi = _dist.process_count() > 1
+    if multi:
+        time_limit_s, budget = None, Budget(None, t0=t0)
     if budget is None:
         budget = Budget(time_limit_s, t0=t0)
     # None defers to the process default (KAO_NO_PIPELINE)
@@ -472,7 +476,7 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             dres = maybe_decompose(
                 inst, seed=seed, engine=engine, time_limit_s=time_limit_s,
                 budget=budget, portfolio=portfolio, rounds=rounds or sweeps,
-                t_hi=t_hi, t_lo=t_lo, device=device,
+                t_hi=t_hi, t_lo=t_lo, device=device, n_devices=n_devices,
             )
             if dres is not None:
                 inst.cancel_pending_bounds()
@@ -482,7 +486,7 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
             portfolio, warm_start, checkpoint, pipeline, megachunk,
-            precompile,
+            precompile, n_devices, device, multi,
         )
         # a DEFAULTED sweep that ends infeasible on an instance small
         # enough for chains retries the chain engine on what is LEFT of
@@ -492,7 +496,7 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             and engine is None
             and res.stats["engine"] == "sweep"
             and inst.num_parts < _SWEEP_THRESHOLD_PARTS
-            and not budget.expired()
+            and (multi or not budget.expired())
         ):
             remaining = budget.remaining()
             _ladder.note_rung("sweep_to_chain", parts=inst.num_parts,
@@ -507,6 +511,7 @@ def _solve_tpu(inst, seed, batch, rounds, sweeps, steps_per_round, t_hi,
                     time_limit_s=remaining,
                     cert_min_savings_s=cert_min_savings_s, pipeline=pipeline,
                     warm_start=warm_start, budget=budget, device=device,
+                    n_devices=n_devices,
                 )
 
             def rank(r):
@@ -529,12 +534,14 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
                  budget, t0, portfolio=None, warm_start=None,
                  checkpoint=None, pipeline=True, megachunk=None,
-                 precompile=False) -> SolveResult:
+                 precompile=False, n_devices=None, mesh_device=None,
+                 multi=False) -> SolveResult:
     """Start the bounds prefetch and the constructor worker this
     instance class races (behind the warm-start certificate when there
     is a warm start; none for a ``precompile`` solve, which exists to
-    run the device path), then run the solve; a degradable fault in it
-    returns the host fallback's plan."""
+    run the device path, nor under a process group, whose processes
+    must not race), then run the solve; a degradable fault in it returns
+    the host fallback's plan (never under a process group)."""
 
     def _bounds_body():
         # the flow/LP bound computation's own span, inside "bounds"
@@ -550,7 +557,7 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     big = members > _instance_mod.AGG_MEMBER_THRESHOLD
     worker_fn = None
     worker_path = None
-    if precompile:
+    if precompile or multi:
         lp_wait_s = 0.0
     elif inst.caps_bind() or big or inst.agg_effective():
         reseat_ok = _RESEAT_RACE and not knobs_set
@@ -583,7 +590,7 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         )
     else:
         lp_wait_s = 0.0
-    if warm_start is not None and not precompile:
+    if warm_start is not None and not precompile and not multi:
         # the adapted previous plan gets first shot at the certificate,
         # IN FRONT of the race worker this class would run (its
         # fall-through), not instead of it
@@ -603,7 +610,8 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             inst, dev, seed, batch, rounds, sweeps, steps_per_round, t_hi,
             t_lo, engine, time_limit_s, cert_min_savings_s, budget, t0,
             bounds_fut, lp_fut, lp_wait_s, portfolio, warm_start,
-            checkpoint, pipeline, megachunk,
+            checkpoint, pipeline, megachunk, n_devices,
+            dev if mesh_device is None else mesh_device, multi,
         )
     except Exception as e:
         # the ladder's last rung: an injected fault or a NaN abort in the
@@ -612,7 +620,7 @@ def _solve_raced(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         # build error, an out-of-memory error, a failed verification, a
         # sanitizer trip and every other fault raise with their own
         # traceback, and a precompile solve exists to run the device
-        if precompile or not _degradable(e):
+        if precompile or multi or not _degradable(e):
             raise
         return _host_fallback(inst, e, checkpoint, budget, t0,
                               time_limit_s, dev, warm_start=warm_start)
@@ -1056,41 +1064,61 @@ def _profiled(dev: torch.device):
 
 
 def _prof_key(m, chains: int, steps_per_round: int, engine: str,
-              scorer: str, lanes: int, temps) -> tuple:
-    """A ladder dispatch's profiler key (``obs.prof``): ``((device,),
+              scorer: str, lanes: int, temps, mesh) -> tuple:
+    """A ladder dispatch's profiler key (``obs.prof``): ``(devices,
     chains, steps_per_round, engine, scorer, tag)`` with the tag
-    ``single``/``lanes``/``mega``/``mega-lanes``, and the shapes of the
-    chains and of the dispatch's temperatures."""
+    ``single``/``lanes``/``mega``/``mega-lanes`` (``@<dc>x<dl>`` on a
+    mesh of several shards), and the shapes of the chains (the shard
+    axis first on such a mesh) and of the dispatch's temperatures."""
     temps = np.asarray(temps)
     mega = temps.ndim == 2
     tag = ("mega-lanes" if mega and lanes else "mega" if mega
            else "lanes" if lanes else "single")
     P, R = (int(x) for x in m.a0.shape[-2:])
     chains_shape = ((int(lanes),) if lanes else ()) + (int(chains), P, R)
-    return (((str(m.a0.device),), int(chains), int(steps_per_round),
-             engine, scorer, tag),
+    devices = (str(m.a0.device),)
+    if mesh.size > 1:
+        tag += "@%dx%d" % mesh_spec(mesh)
+        chains_shape = (mesh.size, *chains_shape)
+        devices = tuple(str(d) for d in mesh.devices)
+    return ((devices, int(chains), int(steps_per_round), engine, scorer,
+             tag),
             ((chains_shape, "int32"), (tuple(temps.shape), "float32")))
 
 
-def _dispatch_desc(m, chains: int, engine: str, temps) -> dict:
+def _dispatch_desc(m, chains: int, engine: str, temps, mesh) -> dict:
     """What a ladder dispatch launches, for its key's cost model: a sweep
     chunk of c sweeps makes ``sweep.stage_counts(c)`` kernel calls (each
-    one launch on the card; the plain versions compute the same), a fused
-    group of K chunks K times that; a chain-engine round launches no
-    kernel. Reads the model's valid slots once (before the dispatch, so
-    the read waits for nothing it enqueues)."""
+    one launch a mesh block on the card, for all its shards; the plain
+    versions compute the same), a fused group of K chunks K times that;
+    a chain-engine round launches no kernel. The shape counts every
+    shard's lanes. Reads the model's valid slots once (before the
+    dispatch, so the read waits for nothing it enqueues)."""
     from ...ops.bench_kernel import dispatch_shape
     from .sweep import _one_lane, stage_counts
 
     temps = np.asarray(temps)
     launches: dict = {}
+    stacked = m if m.num_lanes else _one_lane(m)
+    blocks = 1
+    if mesh.size > 1:
+        blocks = len(mesh.blocks(stacked.num_lanes))
+        stacked = arrays.shard_models(stacked, mesh.size)
     if engine == "sweep":
         steps = temps.shape[0] if temps.ndim == 2 else 1
-        launches = {k: v * steps
+        launches = {k: v * steps * blocks
                     for k, v in stage_counts(temps.shape[-1]).items()}
-    stacked = m if m.num_lanes else _one_lane(m)
     return {"launches": launches,
             "shape": dispatch_shape(stacked, chains)}
+
+
+def _mesh_stats(mesh) -> dict:
+    """A solve's mesh in its stats: the axes, the positions' devices and
+    the processes."""
+    return {"axes": {"chains": mesh.dc, "lanes": mesh.dl},
+            "devices": [str(d) if d is not None else "remote"
+                        for d in mesh.devices],
+            "processes": mesh.processes}
 
 
 def _sync(dev: torch.device) -> float:
@@ -1136,8 +1164,8 @@ def _build_marks() -> tuple:
 class _LadderResult:
     """What the ladder hands to final selection and the stats."""
 
-    pop_a: torch.Tensor | None = None  # [1 or Lp, P, R] the winners
-    pop_k: torch.Tensor | None = None  # [1 or Lp]
+    pop_a: torch.Tensor | None = None  # [C, (Lp,) P, R] each shard's winners
+    pop_k: torch.Tensor | None = None  # [C, (Lp,)]
     fetched: object = None  # the last retired dispatch's host copies
     curves: list = field(default_factory=list)
     rounds_run: int = 0
@@ -1162,9 +1190,10 @@ class _LadderResult:
 
 def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 seed_dev, key, sweep_state, lp_fut, bounds_fut,
-                cert_min_savings_s, budget, warm_key, lanes: int = 0,
-                pipeline: bool = True, mega_k: int = 1,
-                chain_lanes: tuple | None = None) -> _LadderResult:
+                cert_min_savings_s, budget, warm_key, *, mesh,
+                lanes: int = 0, pipeline: bool = True, mega_k: int = 1,
+                chain_lanes: tuple | None = None,
+                multi: bool = False) -> _LadderResult:
     """The chunked ladder. Between chunks: adopt a finished certified
     constructor plan; try the optimality certificate on the top winner
     when the ladder left to skip costs more than ``cert_min_savings_s``
@@ -1206,8 +1235,16 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
     every fused group runs disarmed). A batch's chain engine passes
     ``chain_lanes = (lane_seeds [Lp, P, R], keys [Lp, 2])``: each chunk
     is one lane anneal (``mesh.solve_lanes``), and at each boundary
-    every lane, padding lanes too, reseeds from its own winner with the
-    next key of its own stream.
+    every lane, padding lanes too, reseeds from its own winner (the best
+    of its shards) with the next key of its own stream.
+
+    ``mesh`` is the solve mesh (``parallel.mesh``): every chunk runs its
+    C chain shards, and the winners are each shard's (``[C, P, R]``, or
+    ``[C, Lp, P, R]`` with lanes), the candidate pool of the certificate
+    and of final selection flattened shard-major, a lane's flat index j
+    decoding to lane ``j % lanes``. Under a process group (``multi``)
+    the boundary certificate and the fused group's exit stay off: every
+    process must take the same decisions.
 
     ``mega_k`` > 1 fuses K consecutive sweep chunks into one group
     (``mesh.solve_megachunk``): one host round trip retires K chunks,
@@ -1272,13 +1309,15 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         if fn is None:
             fn = steppers[name] = (
                 (make_lane_stepper_fn if lanes else make_sweep_stepper_fn)(
-                    batch, scorer=r.scorer)
-                if engine == "sweep" else make_solver_fn(batch,
-                                                         steps_per_round))
+                    batch, scorer=r.scorer, mesh=mesh)
+                if engine == "sweep" else make_solver_fn(
+                    batch, steps_per_round, mesh))
         return fn
 
-    def _winners(top_a, top_k):
-        return (top_a, top_k) if lanes else (top_a[None], top_k[None])
+    def _pool(x):
+        """A host copy of the shards' winners as the candidate pool: the
+        real lanes only (padding lanes are never read), shard-major."""
+        return x[:, :lanes].reshape(-1, *x.shape[2:]) if lanes else x
 
     def _launch(fn, key, temps, st):
         """One stepper call under the dispatch accounting: the
@@ -1289,11 +1328,11 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         _san.check_host(temps, "temperature ladder")
         _san.check_state(st, key)
         pkey = _prof_key(m, batch, steps_per_round, engine, r.scorer, lanes,
-                         temps)
+                         temps, mesh)
         desc = None
         if not _oprof.has_cost_model(pkey):
             with _oprof.accounted():
-                desc = _dispatch_desc(m, batch, engine, temps)
+                desc = _dispatch_desc(m, batch, engine, temps, mesh)
                 on_card = m.a0.device.type == "cuda"
                 if on_card:
                     # the dispatch's own peak: the allocator's peak reset
@@ -1338,17 +1377,17 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 lambda: solve_lanes(
                     m, batch, chunks[i], lane_seeds=chain_lanes[0],
                     keys=chain_lanes[1], engine="chain",
-                    steps_per_round=steps_per_round),
+                    steps_per_round=steps_per_round, mesh=mesh),
                 ("chunk", i), chunks[i], None)
         else:
             new_state = None
             top_a, top_k, curve = _launch(
                 lambda: _stepper()(m, seed_dev, subs[i], chunks[i]),
                 ("chunk", i), chunks[i], None)
-        pop_a, pop_k = _winners(top_a, top_k)
-        h = fetch_global_async((pop_a, pop_k, curve))
+        # each shard's winners, [C, ...]
+        h = fetch_global_async((top_a, top_k, curve))
         r.dispatches += 1
-        return new_state, pop_a, pop_k, h, time.perf_counter() - td
+        return new_state, top_a, top_k, h, time.perf_counter() - td
 
     def _note_fallback(i, e) -> None:
         nonlocal warm_chunk_s, prior_s, mega_warm_s, mega_prior_s
@@ -1424,17 +1463,20 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                     r.constructed = True
                 return True
         remaining_s = (n - i - 1) * (_est_chunk_s() or 0.0)
-        do_cert = (remaining_s > cert_min_savings_s
+        do_cert = (not multi and remaining_s > cert_min_savings_s
                    and bounds_fut is not None and bounds_fut.done())
         if engine != "sweep" or do_cert:
             pa, pk = r.fetched.get()[:2]
             if chain_lanes is not None:
+                # each lane's best shard (first index among ties)
+                top = pk.argmax(0)
+                pa = pa[top, np.arange(pa.shape[1])]
                 chain_lanes = (pa, np.stack([prng.split(k)[1]
                                              for k in chain_lanes[1]]))
                 return False
-            if lanes:
-                # the real lanes' winners; index j is lane j
-                pa, pk = pa[:lanes], pk[:lanes]
+            # the real lanes' winners, shard-major: index j is lane
+            # j % lanes
+            pa, pk = _pool(pa), _pool(pk)
             for j in np.argsort(-pk)[:1] if do_cert else []:
                 cand = arrays.unpad_candidate(pa[j], inst)
                 mc = inst.move_count(cand)
@@ -1460,7 +1502,7 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                         break
             if r.certified_a is not None:
                 if lanes:
-                    r.winner_lane = int(j)
+                    r.winner_lane = int(j) % lanes
                 r.certified_at_s = round(time.perf_counter() - budget.t0, 4)
                 return True
             if engine != "sweep":
@@ -1581,7 +1623,7 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         the boundary certificate's own gate: armed only when skipping the
         ladder past chunk ``i`` saves more than ``cert_min_savings_s`` and
         the bounds are in hand; else None (a disarmed group)."""
-        if bounds_fut is None or not bounds_fut.done():
+        if multi or bounds_fut is None or not bounds_fut.done():
             return None
         remaining_s = (n - i - 1) * (_est_chunk_s() or 0.0)
         if remaining_s <= cert_min_savings_s:
@@ -1611,14 +1653,14 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         (new_state, top_a, top_k, cert_a, cert_ok, cert_mvs, curves,
          execd) = _launch(
             lambda: fn(m, batch, temps, st, active=np.asarray(active),
-                       cert_k=cert_k, cert_mv=cert_mv, scorer=r.scorer),
+                       cert_k=cert_k, cert_mv=cert_mv, scorer=r.scorer,
+                       mesh=mesh),
             ("megachunk", i), temps, st)
-        pop_a, pop_k = _winners(top_a, top_k)
         # an armed group also copies its certificate snapshot
         certs = (cert_a, cert_ok, cert_mvs) if arm is not None else ()
-        h = fetch_global_async((pop_a, pop_k, curves, *certs))
+        h = fetch_global_async((top_a, top_k, curves, *certs))
         r.dispatches += 1
-        return ((new_state, pop_a, pop_k, h, execd), arm is not None,
+        return ((new_state, top_a, top_k, h, execd), arm is not None,
                 time.perf_counter() - td)
 
     def _read_exec(execd, k, armed) -> tuple:
@@ -1637,9 +1679,10 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         nonlocal reseat_tries
         ca, ok, mv = h.get()[3:]
         if lanes:
-            ok, mv, ca = ok[:lanes], mv[:lanes], ca[:lanes]
+            ok, mv, ca = _pool(ok), _pool(mv), _pool(ca)
         else:
-            ok, mv, ca = ok.reshape(-1), mv.reshape(-1), ca[None]
+            ok, mv = ok.reshape(-1), mv.reshape(-1)
+            ca = ca.reshape(-1, *ca.shape[-2:])
         qual = [j for j in range(ok.shape[0]) if ok[j]]
         if not qual:
             return False
@@ -1662,7 +1705,7 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
             if w_cand >= ub0:
                 r.certified_a = cand
                 if lanes:
-                    r.winner_lane = int(j)
+                    r.winner_lane = int(j) % lanes
                 r.certified_at_s = round(time.perf_counter() - budget.t0, 4)
                 r.mega_early_exit = True
                 return True
@@ -1684,7 +1727,8 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         r.device_s += device_s
         for j in range(n_exec):
             r.rounds_run += int(chunks[i + j].shape[0])
-            handles.append(_CurveSlice(h, j, 1 if lanes else 0))
+            # curves [C, (Lp,) K, c]: chunk j along the K axis
+            handles.append(_CurveSlice(h, j, 2 if lanes else 1))
         per_chunk = group_s / max(1, n_exec)
         last_chunk_s = per_chunk
         if i > 0 and n_exec == k == mega_k:
@@ -1860,7 +1904,7 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
 
 
 def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
-                     lanes: int = 0):
+                     lanes: int = 0, multi: bool = False):
     """Exact rescore of the shard winners (B1 on the card, which also
     counts the moves) ranked by feasibility, then weight, then fewest
     moves; then certify FIRST — moves against the exact move bound,
@@ -1868,9 +1912,13 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
     and polish only when no check certified, followed by a reseat;
     last, an uncertified constructor plan may outrank the result.
 
-    ``lanes`` > 0 is the portfolio: the pool is the real lanes' winners
-    (``pop_a [Lp, P, R]``, padding lanes dropped), scored with the base
-    model ``m``; polish and reseat use it too.
+    ``pop_a`` holds each chain shard's winner (``[C, P, R]``). ``lanes``
+    > 0 is the portfolio: the pool is the real lanes' winners of every
+    shard (``pop_a [C, Lp, P, R]``, padding lanes dropped, flattened
+    shard-major so index j is lane ``j % lanes``), scored with the base
+    model ``m``; polish and reseat use it too. Under a process group
+    (``multi``) the joins wait without a cap, so every process reaches
+    the same verdict.
 
     Returns ``(best_a, final_cert, lp_plan_won, t_select,
     winner_lane)``: ``final_cert`` names the check that decided
@@ -1879,7 +1927,7 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
     portfolio lane of the champion (None without lanes, or when the
     constructor's plan won)."""
     if lanes:
-        pop_a = pop_a[:lanes]
+        pop_a = pop_a[:, :lanes].reshape(-1, *pop_a.shape[2:])
     out, _cnt, _lcnt, _rcnt = score(m, pop_a)
     primary, moves = out_key(out), out[:, 5]
     tied = primary == primary.max()
@@ -1887,12 +1935,12 @@ def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
     with _otrace.span("device_transfer"):
         top = int(first_argmax(torch.where(tied, -moves, _IMIN)))
     cand = pop_a[top]
-    winner_lane = int(top) if lanes else None
+    winner_lane = int(top) % lanes if lanes else None
     certified_final = None
     final_cert = "budget_spent"
     left = budget.remaining()
     if left is None or left > 0:
-        join_cap = left if left is not None else 15.0
+        join_cap = left if (multi or left is not None) else 15.0
         try:
             lb_exact, ub0 = bounds_fut.result(timeout=join_cap)
         except Exception:
@@ -1983,7 +2031,8 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                  t_hi, t_lo, engine, time_limit_s, cert_min_savings_s,
                  budget, t0, bounds_fut, lp_fut, lp_wait_s,
                  portfolio=None, warm_start=None, checkpoint=None,
-                 pipeline=True, megachunk=None) -> SolveResult:
+                 pipeline=True, megachunk=None, n_devices=None,
+                 mesh_device=None, multi=False) -> SolveResult:
     # the phase spans (obs.trace): every stage gets exactly one span on
     # every path; a stage that does not run is a zero-length span marked
     # skipped, as in the reference
@@ -2004,6 +2053,7 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
     chunks: list = []
     mega_mode = "off"
     pw, port_lanes, port_cfgs = 1, 0, []
+    mesh, n_dev, chains_per_device = None, 0, 0
     if certified_a is None:
         platform = "gpu" if dev.type == "cuda" else "cpu"
         d = _defaults(inst, platform, engine)
@@ -2041,8 +2091,16 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         key = prng.PRNGKey(seed)
         chunks = _build_chunks(inst, engine, rounds, t_hi, t_lo,
                                time_limit_s)
-        # the portfolio: the sweep engine only
-        pw = _resolve_portfolio_width(portfolio) if engine == "sweep" else 1
+        # the solve mesh: C chain shards of max(1, batch // C) chains
+        mesh = make_mesh(n_devices, device=mesh_device or dev)
+        n_dev = mesh.size
+        chains_per_device = max(1, batch // n_dev)
+        bkt_key = (inst.num_brokers, inst.num_racks, int(bkt_parts),
+                   int(bkt_rf))
+        # the portfolio: the sweep engine only, and never under a process
+        # group (its first-to-certify exit is a host race)
+        pw = (_resolve_portfolio_width(portfolio)
+              if engine == "sweep" and not multi else 1)
         if pw > 1:
             # pw configs padded up the lane ladder; padding lanes rerun
             # lane 0's config and are never read. Lane 0 takes the solo
@@ -2060,18 +2118,27 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             lane_seeds = np.broadcast_to(
                 arrays.pad_candidate(a_seed, m),
                 (port_lanes, *m.a0.shape))
-            note_lane_serve((inst.num_brokers, inst.num_racks,
-                             int(bkt_parts), int(bkt_rf)), pw, port_lanes)
+            note_lane_serve(bkt_key, pw, port_lanes)
+            # the portfolio rides the solve mesh with the (chains x
+            # lanes) split the chooser picks for its bucket
+            mesh = make_solve_mesh(n_devices, lanes=port_lanes,
+                                   bucket_key=bkt_key, engine=engine,
+                                   multi=multi, device=mesh_device or dev)
             sweep_state = init_lane_state(m_solver, lane_seeds, lane_keys,
-                                          batch)
-            warm_key = ("lanes", port_lanes, engine, batch,
+                                          chains_per_device, mesh)
+            warm_key = ("lanes", port_lanes, engine, chains_per_device,
                         steps_per_round, int(bkt_parts), int(bkt_rf))
         else:
             m_solver = m
-            sweep_state = (init_sweep_state(m, seed_dev, key, batch)
+            sweep_state = (init_sweep_state(m, seed_dev, key,
+                                            chains_per_device, mesh)
                            if engine == "sweep" else None)
-            warm_key = (engine, batch, steps_per_round, int(bkt_parts),
-                        int(bkt_rf))
+            warm_key = (engine, chains_per_device, steps_per_round,
+                        int(bkt_parts), int(bkt_rf))
+        if n_dev > 1:
+            # a sharded ladder's chunks do C times the work: its own
+            # estimates, by split
+            warm_key = (*warm_key, "%dx%d" % mesh_spec(mesh))
         mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
         if port_lanes:
             # the racing geometry, on the report even when the ladder's
@@ -2082,11 +2149,11 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         with _otrace.span("ladder", engine=engine,
                           chunks=len(chunks)) as _sp:
             lad = _run_ladder(
-                inst, m_solver, batch, steps_per_round, engine, scorer,
-                chunks, seed_dev, key, sweep_state, lp_fut, bounds_fut,
-                cert_min_savings_s, budget, warm_key,
+                inst, m_solver, chains_per_device, steps_per_round, engine,
+                scorer, chunks, seed_dev, key, sweep_state, lp_fut,
+                bounds_fut, cert_min_savings_s, budget, warm_key,
                 lanes=pw if port_lanes else 0, pipeline=pipeline,
-                mega_k=mega_k,
+                mega_k=mega_k, mesh=mesh, multi=multi,
             )
             if _sp is not None:
                 # the funnel's own dispatch and device windows around
@@ -2151,7 +2218,8 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
         with _otrace.span("polish") as _sp:
             best_a, final_cert, lp_won, t_select, winner_lane = (
                 _final_selection(inst, m, lad.pop_a, bounds_fut, lp_fut,
-                                 budget, lanes=pw if port_lanes else 0))
+                                 budget, lanes=pw if port_lanes else 0,
+                                 multi=multi))
             if _sp is not None:
                 _sp.set(final_cert=final_cert, lp_plan_won=lp_won)
         constructed = constructed or lp_won
@@ -2213,8 +2281,9 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             "device": str(dev) if m is not None else None,
             "engine": engine,
             "scorer": scorer,
-            "devices": 1 if m is not None else 0,
-            "chains_per_device": batch,
+            "devices": n_dev,
+            "chains_per_device": chains_per_device,
+            **({"mesh": _mesh_stats(mesh)} if mesh is not None else {}),
             "rounds": rounds,
             "rounds_run": lad.rounds_run,
             "chunks": len(lad.curves),
@@ -2346,7 +2415,6 @@ def solve_tpu_batch(
     stats carry its ``trace_id`` and ``solve_report``. Flight records:
     one a lane (kind ``"lane"``), sharing the batch's accounting; none
     for a ``precompile`` batch (the service's warm-up)."""
-    _refuse_unported(dict(n_devices=n_devices))
     megachunk = _resolve_megachunk(megachunk)
     nested = _flight.accounting_active()
     acc_tok = None if nested else _flight.start_accounting()
@@ -2356,7 +2424,7 @@ def solve_tpu_batch(
             results = _solve_tpu_batch(
                 insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
                 time_limit_s, certify, portfolio, device, pipeline,
-                megachunk, trace)
+                megachunk, trace, n_devices)
             for r in results:
                 combined = (list(rungs or ())
                             + r.stats.get("degradations", []))
@@ -2380,7 +2448,7 @@ def solve_tpu_batch(
 
 def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                      t_lo, time_limit_s, certify, portfolio, device,
-                     pipeline, megachunk, trace=None):
+                     pipeline, megachunk, trace=None, n_devices=None):
     t0 = time.perf_counter()
     dev = resolve_device(device)
     pipeline = _PIPELINE_DEFAULT if pipeline is None else bool(pipeline)
@@ -2407,7 +2475,8 @@ def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                                   rounds=rounds, sweeps=sweeps, t_hi=t_hi,
                                   t_lo=t_lo, time_limit_s=time_limit_s,
                                   pipeline=pipeline, portfolio=portfolio,
-                                  megachunk=megachunk, device=device)
+                                  megachunk=megachunk, device=device,
+                                  n_devices=n_devices)
                 if lane_rungs:
                     r.stats["degradations"] = list(lane_rungs)
                 r.stats["lane_fallback"] = (
@@ -2416,7 +2485,8 @@ def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
         else:
             results = _solve_batch_body(
                 insts, seeds, engine, batch, rounds, sweeps, t_hi, t_lo,
-                time_limit_s, certify, t0, dev, pipeline, megachunk)
+                time_limit_s, certify, t0, dev, pipeline, megachunk,
+                n_devices, device)
     except BaseException as e:
         if isinstance(e, FloatingPointError):
             _san.note_nan_abort_once(e, "solve_tpu_batch")
@@ -2439,7 +2509,7 @@ def _solve_tpu_batch(insts, seeds, engine, batch, rounds, sweeps, t_hi,
 
 def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                       t_lo, time_limit_s, certify, t0, dev, pipeline=True,
-                      megachunk=None):
+                      megachunk=None, n_devices=None, mesh_device=None):
     for inst in insts:
         inst._bounds_cancelled = False
         inst._construct_path = None
@@ -2471,23 +2541,41 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
         lane_seeds[i], inst))) for i, inst in enumerate(insts)]
     scorer = "cuda" if dev.type == "cuda" else "torch"
 
+    # a process group runs the whole ladder on every process alike
+    multi = _dist.process_count() > 1
+    if multi:
+        time_limit_s = None
     chunks = _build_chunks(biggest, engine, rounds, t_hi, t_lo,
                            time_limit_s)
-    warm_key = ("lanes", Lp, engine, batch, steps_per_round, int(bkt_parts),
-                int(bkt_rf))
+    # the lanes ride the solve mesh with the (chains x lanes) split the
+    # chooser picks for the bucket; every split replays one trajectory
+    bkt_key = (insts[0].num_brokers, insts[0].num_racks, int(bkt_parts),
+               int(bkt_rf))
+    mesh = make_solve_mesh(n_devices, lanes=Lp, bucket_key=bkt_key,
+                           engine=engine, multi=multi,
+                           device=mesh_device or dev)
+    n_dev = mesh.size
+    chains_per_device = max(1, batch // n_dev)
+    warm_key = ("lanes", Lp, engine, chains_per_device, steps_per_round,
+                int(bkt_parts), int(bkt_rf))
+    if n_dev > 1:
+        warm_key = (*warm_key, "%dx%d" % mesh_spec(mesh))
     mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
     # the single path's ladder with the certificate off (no bounds): the
     # lanes are independent instances, so no lane retires the others and
     # every fused group runs disarmed
     with _otrace.span("ladder", engine=engine, chunks=len(chunks)) as _lsp:
+        marks0 = _flight.ledger_marks()
         lad = _run_ladder(
-            insts[0], m_stack, batch, steps_per_round, engine, scorer,
-            chunks, None, None,
-            (init_lane_state(m_stack, lane_seeds, keys, batch)
+            insts[0], m_stack, chains_per_device, steps_per_round, engine,
+            scorer, chunks, None, None,
+            (init_lane_state(m_stack, lane_seeds, keys, chains_per_device,
+                             mesh)
              if engine == "sweep" else None),
             None, None, 0.0, Budget(time_limit_s, t0=t0), warm_key,
             lanes=L, pipeline=pipeline, mega_k=mega_k,
             chain_lanes=None if engine == "sweep" else (lane_seeds, keys),
+            mesh=mesh, multi=multi,
         )
         if _lsp is not None:
             _lsp.set(rounds_run=lad.rounds_run, timed_out=lad.timed_out,
@@ -2496,8 +2584,19 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
     if lad.timed_out:
         _ladder.note_rung("deadline_truncated", rounds_run=lad.rounds_run)
     t_solve = _sync(dev)
-    curve = np.concatenate(lad.curves, -1)  # [Lp, rounds]
-    plans = lad.fetched.get()[0]
+    if engine == "sweep" and lad.dispatches:
+        # production batches keep the sharding evidence honest about the
+        # split they ran: the ledger's device window over the ladder, or
+        # its own tally when no accounting is active
+        marks1 = _flight.ledger_marks()
+        n_ev = marks1["dispatches"] - marks0["dispatches"]
+        dev_s = marks1["device_s"] - marks0["device_s"]
+        if n_ev <= 0:
+            n_ev, dev_s = lad.dispatches, lad.device_s
+        note_sharding_evidence(bkt_key, mesh_spec(mesh), lanes=Lp,
+                               solves=n_ev, device_s=dev_s)
+    curve = np.concatenate(lad.curves, -1)  # [C, Lp, rounds]
+    plans = _select_shards(insts, lad.fetched.get()[0])
     wall = time.perf_counter() - t0
     with _otrace.span("verify", lanes=L) as _vsp:
         viols = _verify_lanes(insts, m_stack, plans)
@@ -2528,8 +2627,9 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                 "lanes": L,
                 "lane": i,
                 "lane_bucket": Lp,
-                "devices": 1,
-                "chains_per_device": batch,
+                "devices": n_dev,
+                "chains_per_device": chains_per_device,
+                "mesh": _mesh_stats(mesh),
                 "rounds": rounds,
                 "rounds_run": lad.rounds_run,
                 "timed_out": lad.timed_out,
@@ -2550,10 +2650,30 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                 "violations": sum(viol.values()),
                 "anneal_s": round(t_solve - t0, 4),
                 "batch_wall_s": round(wall, 4),
-                "score_curve": _downsample(curve[i], 32),
+                "score_curve": _downsample(curve[:, i].max(0), 32),
             },
         ))
     return results
+
+
+def _select_shards(insts, pa: np.ndarray) -> np.ndarray:
+    """Each lane's plan from its shards' winners ``pa [C, Lp, P, R]``:
+    the best under the solve's order (feasible, fewest violations, then
+    weight, then fewest moves; the first shard among ties), by the numpy
+    oracle; a padding lane keeps shard 0's. Returns ``[Lp, P, R]``."""
+    if pa.shape[0] == 1:
+        return pa[0]
+    plans = pa[0].copy()
+    for i, inst in enumerate(insts):
+        best = None
+        for c in range(pa.shape[0]):
+            cand = arrays.unpad_candidate(pa[c, i], inst)
+            pen = sum(inst.violations(cand).values())
+            rank = (pen == 0, -pen, inst.preservation_weight(cand),
+                    -inst.move_count(cand))
+            if best is None or rank > best:
+                best, plans[i] = rank, pa[c, i]
+    return plans
 
 
 def stack_lanes(insts, seeds, dev):

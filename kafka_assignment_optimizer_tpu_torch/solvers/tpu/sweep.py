@@ -27,8 +27,16 @@ each, the models stacked by ``arrays.stack_models``) through one stepper:
 the three kernels take every lane in one launch, and each lane's
 trajectory is the one the single-model stepper runs on that lane's model
 and key (the reference's ``jax.vmap`` of its stepper). The compound sweep
-and the snapshot's bookkeeping and migration have no kernel in either
-package; they run lane by lane.
+and the snapshot's bookkeeping have no kernel in either package; they run
+lane by lane.
+
+On a solve mesh (``parallel.mesh``) the stepper runs C chain shards of
+every lane: shards on one device as ``C * L`` lanes of one launch of each
+kernel (``parallel.mesh.Block``, ``arrays.shard_models``), and at every
+snapshot the best migration over the shards of each lane
+(:func:`_migrate_blocks`, the reference's ``pmax``/``pmin``/``psum`` over
+its mesh axis as tensor selections on the device, ``all_reduce`` across
+processes); one shard is the reference's one-device mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 
 from ... import prng
 from ...ops.score_cuda import _count, chain_scores, histograms, score_plain
+from ...parallel.mesh import TRIVIAL, Block, Layout, owner_rows, put_rows
 from .arrays import (
     SCALE_W,
     ModelArrays,
@@ -59,6 +68,7 @@ COMPOUND_EVERY = 4
 
 _EPS = float(np.float32(1e-6))  # thinning-priority floor, float32-exact
 _IMAX = int(np.iinfo(np.int32).max)
+_IMIN = int(np.iinfo(np.int32).min)
 
 
 def _temp_div(temp: float, device) -> torch.Tensor:
@@ -807,48 +817,106 @@ def first_argmin_rows(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == low, idx, x.shape[1]).min(1).values
 
 
+def first_argmax_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`first_argmax` of every row of a 2-D tensor: ``[rows]``."""
+    idx = torch.arange(x.shape[1], device=x.device)[None, :]
+    high = x.max(1, keepdim=True).values
+    return torch.where(x == high, idx, x.shape[1]).min(1).values
+
+
+def _migrate_blocks(blocks, rows, red):
+    """The snapshot-boundary best migration over the chain shards of a
+    mesh, each lane on its own: locate the lane's best current chain
+    (highest key over every shard, then the fewest moves among the
+    key-tied chains, the owner the lowest shard index holding one, the
+    first such chain within it), clone it with its histogram rows over
+    each shard's worst chain (lowest key, first index), and harvest the
+    clone into that chain's best snapshot at once. ``rows`` holds one
+    ``[a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a]`` a block,
+    each flat ``[C*L, N, ...]``; returns ``(a, cnt, lcnt, rcnt, best_k,
+    best_mv, best_a)`` a block, in fresh tensors. One shard reduces to
+    the reference's one-device mesh."""
+    kl, mvt, local = [], [], []
+    for b, r in zip(blocks, rows):
+        C, L = b.c1 - b.c0, b.l1 - b.l0
+        kl.append(r[4].view(C, L, -1))
+        local.append(kl[-1].amax(2))
+    gbest = red([x.amax(0) for x in local], "max")
+    for k, g, r in zip(kl, gbest, rows):
+        mvt.append(torch.where(k == g[None, :, None], r[5].view_as(k),
+                               _IMAX))
+    local_mv = [x.amin(2) for x in mvt]
+    gmv = red([x.amin(0) for x in local_mv], "min")
+    own = [(lb == g) & (lm == gm)
+           for lb, g, lm, gm in zip(local, gbest, local_mv, gmv)]
+    g_rows, sizes = owner_rows(blocks, red, own, first_argmin_rows, mvt,
+                                [r[:4] for r in rows])
+    out = []
+    for b, r, k, g, gm, gr in zip(blocks, rows, kl, gbest, gmv, g_rows):
+        C, L, N = k.shape
+        a, cnt, lcnt, rcnt, _k, _mv, best_k, best_mv, best_a = r
+        fi = torch.arange(C * L, device=k.device) * N + first_argmin_rows(
+            k.reshape(C * L, N))
+        ga, gc, gl, grk = (x.repeat(C, 1) for x in gr.split(sizes, 1))
+        G, GM = g.repeat(C), gm.repeat(C)
+        bk, bm = best_k.reshape(-1)[fi], best_mv.reshape(-1)[fi]
+        take = (G > bk) | ((G == bk) & (GM < bm))
+        ba = best_a.reshape(C * L * N, -1)
+        out.append((
+            put_rows(a, fi, ga), put_rows(cnt, fi, gc),
+            put_rows(lcnt, fi, gl), put_rows(rcnt, fi, grk),
+            best_k.reshape(-1).index_copy(0, fi, torch.maximum(bk, G))
+            .view(best_k.shape),
+            best_mv.reshape(-1).index_copy(0, fi, torch.where(take, GM, bm))
+            .view(best_mv.shape),
+            ba.index_copy(0, fi, torch.where(take[:, None], ga, ba[fi]))
+            .view(best_a.shape)))
+    return out
+
+
 def _migrate(a, cnt, lcnt, rcnt, k, mv, best_k, best_mv, best_a):
     """The snapshot-boundary best migration of the reference's one-device
-    mesh: clone the best current chain (highest key, then fewest moves,
-    first index on ties) over the worst (lowest key, first index), with
-    its histogram rows, and harvest the clone into the worst chain's
-    best snapshot at once. Writes into fresh tensors only."""
-    top = k.max()
-    src = first_argmin(torch.where(k == top, mv, _IMAX))
-    dst = first_argmin(k)
-    top_mv = mv[src]
-    a = a.index_copy(0, dst[None], a[src][None])
-    cnt = cnt.index_copy(0, dst[None], cnt[src][None])
-    lcnt = lcnt.index_copy(0, dst[None], lcnt[src][None])
-    rcnt = rcnt.index_copy(0, dst[None], rcnt[src][None])
-    take = (top > best_k[dst]) | ((top == best_k[dst]) & (top_mv < best_mv[dst]))
-    best_k = best_k.index_copy(0, dst[None], torch.maximum(best_k[dst], top)[None])
-    best_mv = best_mv.index_copy(
-        0, dst[None], torch.where(take, top_mv, best_mv[dst])[None])
-    best_a = best_a.index_copy(
-        0, dst[None], torch.where(take, a[dst], best_a[dst])[None])
-    return a, cnt, lcnt, rcnt, best_k, best_mv, best_a
+    mesh (:func:`_migrate_blocks` of one shard of one lane): leaves
+    ``[N, ...]``."""
+    out = _migrate_blocks(
+        [Block(None, 0, 1, 0, 1)],
+        [[x[None] for x in (a, cnt, lcnt, rcnt, k, mv, best_k, best_mv,
+                            best_a)]], TRIVIAL)[0]
+    return tuple(x[0] for x in out)
+
+
+def _snapshot_blocks(sc: LaneBundle, models, state, hist, blocks, red):
+    """The stepper's snapshot of every block: an exact rescore through
+    bundle ``sc`` (one B1 a block; its histograms overwrite the carried
+    ones, its ``out[..., 5]`` is the move count), each chain's best kept
+    (fewest moves breaks key ties), then the best migration over the
+    mesh (:func:`_migrate_blocks`). ``state`` (``[a, best_k, best_mv,
+    best_a, keys]`` a block) and ``hist`` (``[cnt, lcnt, rcnt]`` a
+    block) are updated in place."""
+    rows = []
+    for m, st in zip(models, state):
+        out, cnt, lcnt, rcnt = sc.full(m, st[0])
+        k = best_key(out[..., 0], out[..., 1:5].sum(-1, dtype=torch.int32))
+        mv = out[..., 5]
+        improved = (k > st[1]) | ((k == st[1]) & (mv < st[2]))
+        st[2] = torch.where(improved, mv, st[2])
+        st[1] = torch.where(improved, k, st[1])
+        st[3] = torch.where(improved[..., None, None], st[0], st[3])
+        rows.append([st[0], cnt, lcnt, rcnt, k, mv, st[1], st[2], st[3]])
+    for st, h, new in zip(state, hist, _migrate_blocks(blocks, rows, red)):
+        st[0], h[0], h[1], h[2], st[1], st[2], st[3] = new
 
 
 def snapshot_step(sc: LaneBundle, m: ModelArrays, a, best_k, best_mv,
                   best_a):
-    """The stepper's snapshot of every lane of the stacked model ``m``:
-    an exact rescore through bundle ``sc`` (one B1 for all lanes; its
-    histograms overwrite the carried ones, its ``out[..., 5]`` is the
-    move count), each chain's best kept (fewest moves breaks key ties),
-    then each lane's one-device best migration. Returns ``(a, cnt, lcnt,
-    rcnt, best_k, best_mv, best_a)``, every leaf ``[L, ...]``."""
-    out, cnt, lcnt, rcnt = sc.full(m, a)
-    k = best_key(out[..., 0], out[..., 1:5].sum(-1, dtype=torch.int32))
-    mv = out[..., 5]
-    improved = (k > best_k) | ((k == best_k) & (mv < best_mv))
-    best_mv = torch.where(improved, mv, best_mv)
-    best_k = torch.where(improved, k, best_k)
-    best_a = torch.where(improved[..., None, None], a, best_a)
-    rows = [_migrate(a[i], cnt[i], lcnt[i], rcnt[i], k[i], mv[i],
-                     best_k[i], best_mv[i], best_a[i])
-            for i in range(a.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*rows))
+    """The stepper's snapshot of every lane of the stacked model ``m`` on
+    one shard (:func:`_snapshot_blocks`): returns ``(a, cnt, lcnt, rcnt,
+    best_k, best_mv, best_a)``, every leaf ``[L, ...]``."""
+    st = [a, best_k, best_mv, best_a, None]
+    hist = [None, None, None]
+    _snapshot_blocks(sc, [m], [st], [hist],
+                     [Block(None, 0, 1, 0, a.shape[0])], TRIVIAL)
+    return st[0], *hist, st[1], st[2], st[3]
 
 
 def sweep_kind(i: int) -> str:
@@ -882,8 +950,56 @@ def stage_counts(sweeps: int, snapshot_every: int = 8) -> dict:
     }
 
 
+def _sweeps(sc: LaneBundle, lay: Layout, models, state, temps,
+            snapshot_every: int) -> list:
+    """One stepper run of ``len(temps)`` sweeps over the blocks' state
+    (updated in place): the chunk-entry rescore, each sweep one launch of
+    its kernel a block, each snapshot one B1 a block and the migration
+    over the mesh. Returns each block's curve ``[C_b*L_b, sweeps]``."""
+    temps = np.asarray(temps, np.float32)
+    sweeps = temps.shape[0]
+    scales = [np.asarray(m.lane_scalars()[2], np.float32) for m in models]
+    hist = [list(sc.full(m, st[0])[1:]) for m, st in zip(models, state)]
+    curves = [[] for _ in state]
+    for i in range(sweeps):
+        step = {"compound": sc.comp_step, "exchange": sc.exch_step,
+                "site": sc.site_step}[sweep_kind(i)]
+        for m, st, h, sc_b in zip(models, state, hist, scales):
+            keys = st[4]
+            subs = []
+            for j in range(keys.shape[0]):
+                keys[j], sub = prng.split(keys[j])
+                subs.append(sub)
+            lane_temps = [float(temps[i] * s) for s in sc_b]
+            st[0], h[0], h[1], h[2] = step(m, st[0], h[0], h[1], h[2], subs,
+                                           lane_temps)
+        if is_snapshot(i, sweeps, snapshot_every):
+            _snapshot_blocks(sc, models, state, hist, lay.blocks, lay.red)
+        for st, c in zip(state, curves):
+            c.append(st[1].max(1).values)
+    return [torch.stack(c, 1) if c
+            else torch.zeros(st[0].shape[0], 0, dtype=torch.int32,
+                             device=st[0].device)
+            for st, c in zip(state, curves)]
+
+
+def _tops(state) -> tuple:
+    """Each block's winner a flat lane: the best snapshot with the
+    highest key, fewest moves among ties, first index: ``(top_a, top_k)``
+    lists."""
+    tas, tks = [], []
+    for st in state:
+        best_k, best_mv, best_a = st[1], st[2], st[3]
+        tied = best_k == best_k.max(1, keepdim=True).values
+        top = first_argmin_rows(torch.where(tied, best_mv, _IMAX))
+        lanes = torch.arange(best_k.shape[0], device=best_k.device)
+        tas.append(best_a[lanes, top])
+        tks.append(best_k[lanes, top])
+    return tas, tks
+
+
 def make_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                         scorer: str = "torch"):
+                         scorer: str = "torch", mesh=None):
     """The sweep engine's stepper over L lanes: ``(m_stack, state,
     temps) -> (state', best_a [L, P, R], best_k [L], curve [L, sweeps])``
     with state = (a [L, N, P, R], best_k [L, N], best_mv [L, N], best_a
@@ -894,41 +1010,25 @@ def make_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
     the cadences are lane-invariant, each lane draws its own sweep keys
     and scales the shared ladder by its own ``temp_scale`` in float32.
     Every kernel stage is one launch for all lanes; the compound sweep
-    and the snapshot's bookkeeping and migration run lane by lane.
-    Neither the state tensors passed in nor their views are written in
-    place."""
+    and the snapshot's bookkeeping run lane by lane.
+
+    On a solve mesh (``mesh``, ``parallel.mesh.make_mesh``) the state is
+    C chain shards of every lane (:class:`Layout`: ``[C, L, N, ...]``,
+    keys ``[C, L, 2]``) and the outputs ``[C, L, ...]``, each shard's
+    winners, as the reference's sharded stepper returns them. Shards on
+    one device ride the lane axis of one launch (C*L lanes); the
+    snapshot's migration runs over every shard of a lane. Neither the
+    state tensors passed in nor their views are written in place."""
     sc = _make_lane_scorer(scorer)
 
     def solve(m: ModelArrays, state, temps):
-        a, best_k, best_mv, best_a, keys = state
-        keys = np.array(keys, np.uint32)
-        L = a.shape[0]
-        temps = np.asarray(temps, np.float32)
-        sweeps = temps.shape[0]
-        scales = np.asarray(m.lane_scalars()[2], np.float32)
-        _out, cnt, lcnt, rcnt = sc.full(m, a)
-        curve = []
-        for i in range(sweeps):
-            lane_temps = [float(temps[i] * scales[j]) for j in range(L)]
-            subs = []
-            for j in range(L):
-                keys[j], sub = prng.split(keys[j])
-                subs.append(sub)
-            step = {"compound": sc.comp_step, "exchange": sc.exch_step,
-                    "site": sc.site_step}[sweep_kind(i)]
-            a, cnt, lcnt, rcnt = step(m, a, cnt, lcnt, rcnt, subs,
-                                      lane_temps)
-            if is_snapshot(i, sweeps, snapshot_every):
-                a, cnt, lcnt, rcnt, best_k, best_mv, best_a = (
-                    snapshot_step(sc, m, a, best_k, best_mv, best_a))
-            curve.append(best_k.max(1).values)
-        tied = best_k == best_k.max(1, keepdim=True).values
-        top = first_argmin_rows(torch.where(tied, best_mv, _IMAX))
-        lanes = torch.arange(L, device=a.device)
-        curve = (torch.stack(curve, 1) if curve
-                 else torch.zeros(L, 0, dtype=torch.int32, device=a.device))
-        return ((a, best_k, best_mv, best_a, keys),
-                best_a[lanes, top], best_k[lanes, top], curve)
+        lay = Layout(mesh, m.num_lanes, solo=False)
+        blocks = lay.split(state)
+        curves = _sweeps(sc, lay, lay.models(m), blocks, temps,
+                         snapshot_every)
+        tas, tks = _tops(blocks)
+        return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
+                lay.gather(curves))
 
     return solve
 
@@ -943,7 +1043,7 @@ def _one_lane(m: ModelArrays) -> ModelArrays:
 
 
 def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                          scorer: str = "torch"):
+                          scorer: str = "torch", mesh=None):
     """The state-carrying core of the sweep engine: ``(m, state, temps)
     -> (state', best_a [P, R], best_key, curve [sweeps])`` with state =
     (a [N, P, R], best_k [N], best_mv [N], best_a [N, P, R], key): the
@@ -954,18 +1054,23 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
     an exact snapshot every ``snapshot_every`` sweeps and at the last
     one, with fewest moves breaking key ties, followed by the best
     migration the reference runs on its device mesh (its ``axis_name``
-    path) with one device. The full state (the RNG key included) threads
-    through chunk boundaries, so a run cut into chunks whose length is a
-    multiple of ``snapshot_every`` replays the uncut run exactly. Neither
-    the state tensors passed in nor their views are written in place."""
-    lanes = make_lane_stepper_fn(n_chains, snapshot_every, scorer)
+    path). On a solve mesh (``mesh``) every leaf gains the shard axis
+    (``[C, N, ...]``, keys ``[C, 2]``) and the outputs are each shard's
+    (``[C, P, R]``, ``[C]``, ``[C, sweeps]``). The full state (the RNG
+    keys included) threads through chunk boundaries, so a run cut into
+    chunks whose length is a multiple of ``snapshot_every`` replays the
+    uncut run exactly. Neither the state tensors passed in nor their
+    views are written in place."""
+    sc = _make_lane_scorer(scorer)
 
     def solve(m: ModelArrays, state, temps):
-        a, best_k, best_mv, best_a, key = state
-        state, top_a, top_k, curve = lanes(
-            _one_lane(m), (a[None], best_k[None], best_mv[None],
-                           best_a[None], np.asarray(key)[None]), temps)
-        return (tuple(x[0] for x in state), top_a[0], top_k[0], curve[0])
+        lay = Layout(mesh, 1, solo=True)
+        blocks = lay.split(state)
+        curves = _sweeps(sc, lay, lay.models(_one_lane(m)), blocks, temps,
+                         snapshot_every)
+        tas, tks = _tops(blocks)
+        return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
+                lay.gather(curves))
 
     return solve
 
@@ -998,13 +1103,66 @@ MEGA_DISARMED_KEY = _IMAX
 MEGA_DISARMED_MOVES = -1
 
 
+def _mega(sc: LaneBundle, lay: Layout, m: ModelArrays, state, temps,
+          active, cert_k, cert_mv, snapshot_every: int) -> tuple:
+    """A fused group over the blocks of ``lay`` (see
+    :func:`make_mega_lane_stepper_fn`)."""
+    temps = np.asarray(temps, np.float32)
+    active = np.asarray(active, bool)
+    K, c = temps.shape
+    cert_k, cert_mv = int(cert_k), int(cert_mv)
+    armed = (cert_k, cert_mv) != (MEGA_DISARMED_KEY, MEGA_DISARMED_MOVES)
+    models = lay.models(m)
+    blocks = lay.split(state)
+    done = False
+    curves, execd = [[] for _ in blocks], []
+    for j in range(K):
+        run = bool(active[j]) and not done
+        if run:
+            for c_b, cv in zip(curves, _sweeps(sc, lay, models, blocks,
+                                               temps[j], snapshot_every)):
+                c_b.append(cv)
+            if armed:
+                # one qualifying chain in any lane of any shard stops the
+                # group (the reference's pmax over its shard and lane
+                # axes): one host read a block
+                done = lay.any([((st[1] >= cert_k) & (st[2] <= cert_mv))
+                                .any() for st in blocks])
+        else:
+            for c_b, st in zip(curves, blocks):
+                c_b.append(torch.zeros(st[1].shape[0], c,
+                                       dtype=st[1].dtype,
+                                       device=st[1].device))
+        execd.append(run)
+    tas, tks = _tops(blocks)
+    cas, oks, cms = [], [], []
+    for st in blocks:
+        best_k, best_mv, best_a = st[1], st[2], st[3]
+        lanes = torch.arange(best_k.shape[0], device=best_k.device)
+        qual = (best_k >= cert_k) & (best_mv <= cert_mv)
+        ok = qual.any(1)
+        cidx = first_argmin_rows(torch.where(qual, best_mv, _IMAX))
+        cas.append(best_a[lanes, cidx])
+        oks.append(ok)
+        cms.append(torch.where(ok, best_mv[lanes, cidx], _IMAX))
+    lead = (lay.L,) if lay.mesh is None else (lay.C, lay.L)
+    if lay.solo:
+        lead = lead[:-1]
+    return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
+            lay.gather(cas), lay.gather(oks), lay.gather(cms),
+            lay.gather([torch.stack(cb, 1) for cb in curves]),
+            np.broadcast_to(np.asarray(execd, bool), (*lead, K)).copy())
+
+
 def make_mega_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                              scorer: str = "torch"):
+                              scorer: str = "torch", mesh=None):
     """K consecutive chunk steps as one fused group over L lanes (the
     reference's ``make_mega_lane_stepper_fn``): ``(m_stack, state, temps
     [K, c], active [K] bool, cert_k, cert_mv) -> (state', top_a [L, P,
     R], top_k [L], cert_a [L, P, R], cert_ok [L], cert_mv_out [L], curves
-    [L, K, c], execd [L, K])``.
+    [L, K, c], execd [L, K])``; on a solve mesh (``mesh``) every output
+    gains the leading shard axis ``[C, ...]``, as the state does
+    (:func:`make_lane_stepper_fn`).
 
     Each executed step is the UNCHANGED :func:`make_lane_stepper_fn` run
     on the carried state, so a group replays the chunked ladder bit for
@@ -1014,74 +1172,40 @@ def make_mega_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
     zero curve. After each executed step of an ARMED group, a chain
     qualifies when ``best_k >= cert_k and best_mv <= cert_mv`` (the
     boundary certificate's device-side precheck); one qualifying chain in
-    any lane sets the group's shared ``done`` flag (the reference's
-    ``pmax`` over its lane axis) and the remaining steps are skipped.
+    any lane of any shard sets the group's shared ``done`` flag (the
+    reference's ``pmax`` over its shard and lane axes) and the remaining
+    steps are skipped.
 
     The keys live on the host, so a skip is a host decision, not a
     device-side select: a DISARMED group (the sentinels
     ``MEGA_DISARMED_KEY``/``MEGA_DISARMED_MOVES``) skips exactly where
     ``active`` is clear, which the host already knows, and reads nothing
     from the device; an ARMED group reads its one-element ``done`` flag
-    after each executed step (one small device-to-host copy, which waits
-    for that step: the only host read inside a group). ``execd`` is
-    therefore host data (numpy). ``cert_a`` is each lane's qualifying
-    snapshot with the fewest moves (``cert_mv_out`` its moves, int32 max
-    when none qualifies)."""
-    chunk = make_lane_stepper_fn(n_chains, snapshot_every, scorer)
+    after each executed step (one small device-to-host copy a block,
+    which waits for that step: the only host read inside a group).
+    ``execd`` is therefore host data (numpy). ``cert_a`` is each lane's
+    qualifying snapshot with the fewest moves (``cert_mv_out`` its
+    moves, int32 max when none qualifies)."""
+    sc = _make_lane_scorer(scorer)
 
     def solve(m: ModelArrays, state, temps, active, cert_k, cert_mv):
-        temps = np.asarray(temps, np.float32)
-        active = np.asarray(active, bool)
-        K, c = temps.shape
-        cert_k, cert_mv = int(cert_k), int(cert_mv)
-        armed = (cert_k, cert_mv) != (MEGA_DISARMED_KEY, MEGA_DISARMED_MOVES)
-        a0 = state[0]
-        L = a0.shape[0]
-        done = False
-        curves, execd = [], []
-        for j in range(K):
-            run = bool(active[j]) and not done
-            if run:
-                state, _top_a, _top_k, curve = chunk(m, state, temps[j])
-                if armed:
-                    best_k, best_mv = state[1], state[2]
-                    done = bool(((best_k >= cert_k)
-                                 & (best_mv <= cert_mv)).any())
-            else:
-                curve = torch.zeros(L, c, dtype=state[1].dtype,
-                                    device=a0.device)
-            curves.append(curve)
-            execd.append(run)
-        _a, best_k, best_mv, best_a, _keys = state
-        lanes = torch.arange(L, device=a0.device)
-        tied = best_k == best_k.max(1, keepdim=True).values
-        top = first_argmin_rows(torch.where(tied, best_mv, _IMAX))
-        qual = (best_k >= cert_k) & (best_mv <= cert_mv)
-        cert_ok = qual.any(1)
-        cidx = first_argmin_rows(torch.where(qual, best_mv, _IMAX))
-        cert_mv_out = torch.where(cert_ok, best_mv[lanes, cidx], _IMAX)
-        return (state, best_a[lanes, top], best_k[lanes, top],
-                best_a[lanes, cidx], cert_ok, cert_mv_out,
-                torch.stack(curves, 1),
-                np.broadcast_to(np.asarray(execd, bool), (L, K)).copy())
+        return _mega(sc, Layout(mesh, m.num_lanes, solo=False), m, state,
+                     temps, active, cert_k, cert_mv, snapshot_every)
 
     return solve
 
 
 def make_mega_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                         scorer: str = "torch"):
+                         scorer: str = "torch", mesh=None):
     """:func:`make_mega_lane_stepper_fn` on one model: ``(m, state,
     temps [K, c], active [K], cert_k, cert_mv) -> (state', top_a [P, R],
     top_k, cert_a [P, R], cert_ok, cert_mv_out, curves [K, c], execd
     [K])`` with the single-model sweep state of
-    :func:`make_sweep_stepper_fn`."""
-    lanes = make_mega_lane_stepper_fn(n_chains, snapshot_every, scorer)
+    :func:`make_sweep_stepper_fn` (on a mesh, each output ``[C, ...]``)."""
+    sc = _make_lane_scorer(scorer)
 
     def solve(m: ModelArrays, state, temps, active, cert_k, cert_mv):
-        a, best_k, best_mv, best_a, key = state
-        out = lanes(_one_lane(m), (a[None], best_k[None], best_mv[None],
-                                   best_a[None], np.asarray(key)[None]),
-                    temps, active, cert_k, cert_mv)
-        return (tuple(x[0] for x in out[0]), *(x[0] for x in out[1:]))
+        return _mega(sc, Layout(mesh, 1, solo=True), _one_lane(m), state,
+                     temps, active, cert_k, cert_mv, snapshot_every)
 
     return solve

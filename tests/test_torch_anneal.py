@@ -1,9 +1,10 @@
 """PyTorch port: the chain engine (``solvers/tpu/anneal.py``) against the
 JAX package's — ``init_chain`` and whole rounds of ``make_round_runner``
-(the steps of every chain, the best snapshot and the one-device
-migration of the reference's mesh path) give the reference's
-``ChainState`` field for field, on a small instance and on a
-bucket-padded one (``rf = 0`` rows, null slot columns)."""
+(the steps of every chain and the best snapshot), each followed by
+``_migrate`` (the one-device migration of the reference's mesh path),
+give the reference's ``ChainState`` field for field, on a small
+instance and on a bucket-padded one (``rf = 0`` rows, null slot
+columns)."""
 
 import dataclasses
 
@@ -86,6 +87,8 @@ def test_init_chain_and_rounds_match_reference(bucket, rng):
             bat = torch.from_numpy(np.array(baj))
         stj, bkj, baj = _J_ROUND(mj, stj, bkj, baj, jnp.float32(temp))
         stt, bkt, bat = run(mt, stt, bkt, bat, np.float32(temp))
+        # the round's migration, as the solver runs it after every round
+        stt = anneal._migrate(stt, anneal.best_key(stt), 1)
         assert_state(stj, stt, f"round {i}")
         assert_same(bkj, bkt, f"round {i}: best_key")
         assert_same(baj, bat, f"round {i}: best_a")

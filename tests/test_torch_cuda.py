@@ -17,8 +17,10 @@ exchange launcher's host draws against ``prng``'s; and the pipelined
 ladder's two promises on the card: a chunk enqueued from the retired
 chunk's state and then abandoned leaves the retired chunk's outputs as a
 synchronous run left them, and the asynchronous fetch equals a blocking
-copy; and ``kao-router`` in front of a worker solving on the card. Exact
-equality throughout.
+copy; ``kao-router`` in front of a worker solving on the card; and the
+solve mesh on the card: two chain shards of three lanes as one launch of
+each kernel, and a two-shard solve over ``[cuda:0, cuda:0]`` equal to
+the CPU's two-shard run. Exact equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -217,6 +219,7 @@ def test_chain_round_graphs_replay_eager_steps(card, case):
         outs = []
         for temp in (2.0, 0.5, 0.05):
             st, bk, ba = run(m, st, bk, ba, np.float32(temp))
+            st = anneal._migrate(st, anneal.best_key(st), 1)
             outs.append((st.a, st.cnt, st.lcnt, st.rcnt, st.pen, st.w,
                          st.key, bk, ba))
         runs.append(outs)
@@ -381,6 +384,75 @@ def test_lane_stepper_cuda_bundle_replays_torch_bundle(card, kind):
         runs.append(outs)
     for xs, ys in zip(*runs):
         _equal(xs, ys)
+
+
+@pytest.mark.parametrize("kind", ["portfolio", "batch"])
+def test_two_shard_lane_kernels_equal_plain(card, kind):
+    """Two chain shards of three lanes ride one launch of each kernel as
+    six lanes (``arrays.shard_models``: the lanes repeated shard-major,
+    shared tables still at lane stride 0), equal to the lane plain
+    versions."""
+    ms, a, _seeds = (_portfolio_lanes(CASES[2], card, 3) if kind ==
+                     "portfolio" else _batch_lanes(card, 3))
+    ms2 = arrays.shard_models(ms, 2)
+    assert ms2.num_lanes == 6
+    assert (ms2.w_lead.stride(0) == 0) == (kind == "portfolio")
+    a2 = torch.cat([a, a.roll(1, 1)])
+    (cnt, lcnt, rcnt), keys, temps = _lane_inputs(ms2, a2, 0.5)
+    before = [k.launches for k in kernels.KERNELS]
+    _equal(score_cuda.score_lanes(ms2, a2),
+           score_cuda.score_lanes_plain(ms2, a2))
+    _equal(site_cuda.site_step_lanes(ms2, a2, cnt, lcnt, rcnt, keys, temps),
+           sweep.site_lanes_delta(ms2, a2, cnt, lcnt, rcnt, keys, temps))
+    _equal(exchange_cuda.exchange_step_lanes(ms2, a2, cnt, lcnt, rcnt, keys,
+                                             temps),
+           sweep.exchange_lanes_delta(ms2, a2, cnt, lcnt, rcnt, keys, temps))
+    assert [k.launches - b for k, b in zip(kernels.KERNELS, before)] == \
+        [1, 1, 1]
+    torch.cuda.synchronize()
+
+
+def test_two_shard_solve_on_one_card_equals_cpu(card):
+    """A mesh over ``[cuda:0, cuda:0]``: the two shards' lane solve (one
+    launch of each kernel a stage for both) and the engine's two-shard
+    solve equal the CPU's two-shard runs."""
+    from kafka_assignment_optimizer_tpu_torch.parallel import mesh as pm
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    c0 = torch.device("cuda", 0)
+    ms, _a, seeds = _batch_lanes(card, 3)
+    ms_cpu, _a, _s = _batch_lanes(torch.device("cpu"), 3)
+    keys = np.stack([prng.fold_in(prng.PRNGKey(9), i) for i in range(3)])
+    temps = arrays.geometric_temps(2.0, 0.02, 16)
+    runs = []
+    for m, mesh, scorer in ((ms, pm.make_mesh(device=[c0, c0]), "cuda"),
+                            (ms_cpu, pm.make_mesh(2, device="cpu"),
+                             "torch")):
+        st = init_lane_state(m, seeds.cpu().numpy(), keys, 4, mesh)
+        before = [k.launches for k in kernels.KERNELS]
+        out = pm.solve_lanes(m, 4, temps, state=st, scorer=scorer,
+                             mesh=mesh)
+        runs.append([x.cpu() for x in (*out[0][:4], *out[1:])])
+        if scorer == "cuda":
+            assert [k.launches - b for k, b in zip(kernels.KERNELS,
+                                                   before)] == \
+                list(sweep.stage_counts(16).values())
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    case = CASES[0]
+    rng = np.random.default_rng(3)
+    parts = [PartitionAssignment("t", p, [int(b) for b in rng.choice(
+        case["nb"], size=3, replace=False)]) for p in range(case["npart"])]
+    topo = Topology(rack_of={b: f"r{b % 3}" for b in range(case["nb"])})
+    inst = build_instance(Assignment(partitions=parts),
+                          list(range(case["nb"] - 1)), topo)
+    kw = dict(precompile=True, engine="sweep", sweeps=16, batch=8,
+              portfolio=False)
+    on_card = engine.solve_tpu(inst, device=[c0, c0], **kw)
+    on_cpu = engine.solve_tpu(inst, device="cpu", n_devices=2, **kw)
+    np.testing.assert_array_equal(on_card.a, on_cpu.a)
+    for f in ("devices", "chains_per_device", "moves", "score_curve"):
+        assert on_card.stats[f] == on_cpu.stats[f], f
 
 
 def test_abandoned_chunk_leaves_the_retired_chunk_intact(card):

@@ -233,7 +233,9 @@ def test_sweep_to_chain_retry_keeps_the_better_plan(demo, monkeypatch):
 def test_unported_keywords_raise(demo):
     """A keyword of the reference's solver asks for a path the port does
     not have: it raises instead of being ignored; values naming what the
-    port does pass. (``portfolio`` is ported: its values are held to the
+    port does pass. (``n_devices`` is ported: two shards equal the
+    reference's two devices here, and ``tests/test_torch_mesh.py`` holds
+    the mesh to the reference.) (``portfolio`` is ported: its values are held to the
     reference's in ``tests/test_torch_portfolio.py``; ``decompose`` and
     ``warm_start`` in ``tests/test_torch_decompose.py`` and
     ``tests/test_torch_watch.py``; ``pipeline``, ``megachunk`` and
@@ -243,8 +245,17 @@ def test_unported_keywords_raise(demo):
     ``tests/test_torch_measure.py``.)"""
     current, brokers, topo = port_cluster(*demo)
     inst = build_instance(current, brokers, topo)
-    with pytest.raises(NotImplementedError):
-        engine.solve_tpu(inst, device="cpu", n_devices=2)
+    # n_devices above 1 is ported: two chain shards on the CPU give the
+    # reference's two-device plan and stats
+    kw = dict(precompile=True, engine="sweep", sweeps=8, batch=4,
+              portfolio=False, n_devices=2)
+    want = jengine.solve_tpu(jax_build(*demo), **kw)
+    got = engine.solve_tpu(inst, device="cpu", **kw)
+    np.testing.assert_array_equal(got.a, want.a)
+    for f in ("devices", "chains_per_device", "rounds_run", "moves",
+              "score_curve", "final_cert"):
+        assert got.stats[f] == want.stats[f], f
+    assert got.stats["devices"] == 2 and got.stats["chains_per_device"] == 2
     # precompile (the service's warm-up) is ported: no constructor race,
     # so the demo's device path runs instead of the exact MILP's
     # certificate, as in the reference

@@ -406,8 +406,15 @@ def test_solve_tpu_batch_unstackable_falls_back(batch_cases):
     rep = traced[0].stats["solve_report"]
     assert [sp["name"] for sp in rep["spans"]["spans"]] == ["lane", "lane"]
     assert traced[1].stats["trace_id"] == rep["trace_id"]
-    with pytest.raises(NotImplementedError):
-        engine.solve_tpu_batch(insts, device="cpu", n_devices=2)
+    # n_devices is ported: each unstackable lane is its own two-shard
+    # solve (held to the reference's in tests/test_torch_mesh.py)
+    two = engine.solve_tpu_batch(insts, seeds=0, device="cpu", n_devices=2,
+                                 **kw)
+    for i, res in enumerate(two):
+        alone = engine.solve_tpu(insts[i], seed=i, device="cpu",
+                                 n_devices=2, **kw)
+        np.testing.assert_array_equal(res.a, alone.a)
+        assert res.stats["devices"] == alone.stats["devices"] == 2
     with pytest.raises(ValueError, match="seeds for"):
         engine.solve_tpu_batch(insts, seeds=[1], device="cpu")
     assert engine.solve_tpu_batch([], device="cpu") == []

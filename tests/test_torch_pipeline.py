@@ -234,8 +234,8 @@ def test_batch_lane_ladder_pipelined_equals_reference():
 
 def test_process_default_and_unported_keywords(no_race):
     """``set_pipeline_default(False)`` makes a defaulted solve
-    synchronous; ``n_devices`` above 1 still raises,
-    while ``precompile=True`` and ``trace`` (ported with the service)
+    synchronous; ``n_devices`` above 1 solves as the reference's mesh
+    does, and ``precompile=True`` and ``trace`` (ported with the service)
     are accepted by both entry points."""
     cl = the_cluster()
     assert engine._PIPELINE_DEFAULT is jengine._PIPELINE_DEFAULT is True
@@ -245,10 +245,15 @@ def test_process_default_and_unported_keywords(no_race):
     finally:
         engine.set_pipeline_default(True)
     inst = build_instance(*port_cluster(*cl))
-    with pytest.raises(NotImplementedError):
-        engine.solve_tpu(inst, device="cpu", n_devices=2)
-    with pytest.raises(NotImplementedError):
-        engine.solve_tpu_batch([inst], device="cpu", n_devices=2)
+    # n_devices above 1 is ported: the pipelined batch ladder on two
+    # shards gives the reference's two-device plan
+    kw = dict(engine="sweep", sweeps=8, batch=4, n_devices=2)
+    want = jengine.solve_tpu_batch([jax_build(*cl)], **kw)
+    got = engine.solve_tpu_batch([inst], device="cpu", **kw)
+    np.testing.assert_array_equal(got[0].a, want[0].a)
+    for f in ("devices", "chains_per_device", "moves", "score_curve",
+              "pipeline"):
+        assert got[0].stats[f] == want[0].stats[f], f
     out = engine.solve_tpu_batch([inst], device="cpu", trace=True,
                                  precompile=True, engine="sweep", sweeps=8,
                                  batch=2)

@@ -17,6 +17,7 @@ import json
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -136,8 +137,15 @@ def test_coalesced_pair_matches_reference(monkeypatch):
                 "options": {**PINNED, "seed": i}})
 
         ths = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
-        for t in ths:
-            t.start()
+        # request 1 starts once request 0 has joined the pending group:
+        # a lane is the arrival order, which the threads alone leave to
+        # the scheduler
+        ths[0].start()
+        deadline = time.monotonic() + 120
+        while not any(g.entries for g in list(co._groups.values())):
+            assert time.monotonic() < deadline, "request 0 never queued"
+            time.sleep(0.01)
+        ths[1].start()
         for t in ths:
             t.join(timeout=300)
         with mod._METRICS_LOCK:
