@@ -221,7 +221,23 @@ Phases (any failure exits non-zero; nothing is caught):
    smoke case, the weight bound forced to 1); and two processes on the
    card under ``init_distributed`` (gloo: they share the card), one shard
    each, both giving the one-process plan. Each run prints its wall, its
-   launches and the migration's host time as a share of ``anneal_s``.
+   launches and the migration's host time as a share of ``anneal_s``;
+   (p) ``kao-check`` over the port: ``python -m
+   kafka_assignment_optimizer_tpu_torch.analysis --baseline
+   analysis_baseline_torch.json`` in a child process (the default
+   ``--device cuda``: lint, then the runtime contracts on the card) must
+   exit 0; meanwhile ``run_contracts(device="cuda")`` in this process
+   must give 0 findings, the sweep stepper's chunk launching B1, the site and
+   the exchange kernel as ``sweep.stage_counts(8)`` says (the counts set
+   to 0 just before each step) and the lane stepper at L=2 one launch a
+   stage. Then the lock sanitizer: a child arms ``analysis.lsan`` before
+   it imports the port and runs the C8 scenario three times (a chain
+   solve whose rounds are captured as CUDA graphs, 64 chains x 4 rounds
+   x 256 steps, in one thread beside a sweep solve, 8 chains x 64
+   sweeps, in another); each plan must equal the solve's alone and no
+   violation may be recorded (a ``_CAPTURE_LOCK`` hold over the 5 s
+   budget is one). It prints the acquisitions, the order edges and the
+   longest hold of ``_CAPTURE_LOCK`` with its site.
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -2946,6 +2962,167 @@ def mesh_phase(torch, power: str, device: str = "cuda") -> None:
     print(f"mesh phase: {time.perf_counter() - t_phase:.3f} s ({power})")
 
 
+# phase (p)'s child: the lock sanitizer armed BEFORE the port binds its
+# locks, then the C8 scenario of tests/test_torch_cuda.py (a chain-engine
+# solve whose rounds are captured as CUDA graphs, in one thread, beside a
+# sweep solve in another) three times, each plan held to the solve alone
+_LSAN_CHILD = r"""
+import json, sys, threading, time
+from kafka_assignment_optimizer_tpu_torch.analysis import lsan
+lsan.install()
+import numpy as np
+from kafka_assignment_optimizer_tpu_torch.models.cluster import (
+    Assignment, PartitionAssignment, Topology)
+from kafka_assignment_optimizer_tpu_torch.models.instance import (
+    build_instance)
+from kafka_assignment_optimizer_tpu_torch.ops import kernels
+from kafka_assignment_optimizer_tpu_torch.solvers.tpu import anneal, engine
+from kafka_assignment_optimizer_tpu_torch.utils import gen
+device, kw, runs = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+if device == "cuda":
+    kernels.build_all()
+rng = np.random.default_rng(0)
+parts = [PartitionAssignment("t", p, [int(b) for b in rng.choice(
+    12, size=2, replace=False)]) for p in range(40)]
+s = gen.adversarial(n_brokers=24, n_racks=4, n_topics_low=3,
+                    n_topics_high=3, parts_per_topic=10)
+cases = {"chain": (Assignment(partitions=parts), list(range(10)),
+                   Topology(rack_of={b: f"r{b % 2}" for b in range(12)})),
+         "sweep": (s.current, s.broker_list, s.topology)}
+
+def solve(name):
+    return engine.solve_tpu(build_instance(*cases[name]), seed=0,
+                            device=device, **kw[name])
+
+t0 = time.perf_counter()
+alone = {n: solve(n) for n in kw}
+walls, equal, errs = [], [], []
+for _ in range(runs):
+    got = {}
+
+    def run(name):
+        try:
+            got[name] = solve(name)
+        except BaseException as e:
+            errs.append(repr(e))
+
+    t1 = time.perf_counter()
+    ths = [threading.Thread(target=run, args=(n,)) for n in kw]
+    for t in ths: t.start()
+    for t in ths: t.join(timeout=300)
+    walls.append(time.perf_counter() - t1)
+    equal.append({n: n in got and bool(np.array_equal(got[n].a, alone[n].a))
+                  and got[n].stats["feasible"] == alone[n].stats["feasible"]
+                  for n in kw})
+print(json.dumps({
+    "engines": {n: alone[n].stats["engine"] for n in kw},
+    "equal": equal, "errors": errs, "walls": walls,
+    "wall": time.perf_counter() - t0,
+    "capture_site": anneal._CAPTURE_LOCK._site,
+    "captures": anneal.GRAPH_CAPTURES["captures"],
+    "violations": [[v.kind, v.detail, v.site_a] for v in lsan.violations()],
+    "edges": lsan.edges(), "holds": lsan.holds(),
+    "budget_s": lsan.hold_budget_s()}))
+"""
+
+
+def analysis_phase(torch, power: str, device: str = "cuda") -> None:
+    """(p) ``kao-check`` over the port on the card, then the lock
+    sanitizer around the capture lock (see the module docstring). Each
+    child runs under a timeout that kills it; ``device`` ``"cpu"``
+    rehearses the phase on the CPU, the scenario cut to CPU sizes."""
+    from kafka_assignment_optimizer_tpu_torch.analysis.contracts import (
+        run_contracts,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    on_card = device == "cuda"
+
+    # 1. kao-check in a child (the default --device cuda on the card),
+    # and meanwhile the runtime contracts in this process with the
+    # launches; the child is killed if it outlives its timeout
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-m", "kafka_assignment_optimizer_tpu_torch"
+            ".analysis", "--baseline", "analysis_baseline_torch.json"]
+    if not on_card:
+        argv += ["--device", "cpu"]
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        rep = run_contracts(device=device)
+        wall_c = time.perf_counter() - t0
+        out = proc.communicate(timeout=240)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=20)
+    wall_cli = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"kao-check exited {proc.returncode}: {out[-3000:]}")
+    if not rep.ok:
+        fail("runtime contracts: " + "; ".join(f.render()
+                                               for f in rep.findings))
+    want = sweep.stage_counts(8) if on_card else {
+        k.name: 0 for k in kernels.KERNELS}
+    for step in ("sweep stepper", "lane stepper"):
+        if rep.launches[step] != want:
+            fail(f"contracts' {step}: launches {rep.launches[step]}, "
+                 f"expected {want} (one launch a stage)")
+    print(f"kao-check over the port: {out.strip().splitlines()[-1]!r}"
+          f" in {wall_cli:.3f} s (a child process, lint and contracts on "
+          f"{device}); runtime contracts in process beside it: 0 findings, "
+          f"{rep.checks_run} checks run, {rep.ops} aten ops recorded, "
+          f"launches {json.dumps(rep.launches)}, {wall_c:.3f} s ({power})")
+
+    # 2. the lock sanitizer around the capture lock: the C8 scenario
+    kw = ({"chain": dict(engine="chain", batch=64, rounds=4,
+                         steps_per_round=256),
+           "sweep": dict(engine="sweep", batch=8, sweeps=64,
+                         portfolio=False)} if on_card else
+          {"chain": dict(engine="chain", batch=8, rounds=2,
+                         steps_per_round=16),
+           "sweep": dict(engine="sweep", batch=4, sweeps=16,
+                         portfolio=False)})
+    runs = 3
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _LSAN_CHILD, device,
+                        json.dumps(kw), str(runs)], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"lsan child exited {r.returncode}: {r.stderr[-2000:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    wall_l = time.perf_counter() - t0
+    if got["engines"] != {"chain": "chain", "sweep": "sweep"}:
+        fail(f"lsan scenario engines {got['engines']}")
+    if got["errors"] or got["equal"] != [{"chain": True,
+                                          "sweep": True}] * runs:
+        fail(f"lsan scenario: errors {got['errors']}, plans equal to the "
+             f"solves alone {got['equal']}")
+    if got["violations"]:
+        fail(f"lock sanitizer violations: {got['violations']}")
+    cap = got["holds"].get(got["capture_site"])
+    if on_card and (cap is None or not cap["acquisitions"]):
+        fail(f"the capture lock ({got['capture_site']}) was never taken: "
+             f"{got['holds']}")
+    cap = cap or {"acquisitions": 0, "max_hold_s": 0.0, "max_hold_at": ""}
+    print(f"lock sanitizer (armed before import), C8 scenario x{runs} "
+          f"(chain {kw['chain']} with CUDA graphs beside sweep "
+          f"{kw['sweep']}): plans equal to the solves alone, 0 violations; "
+          f"{sum(h['acquisitions'] for h in got['holds'].values())} "
+          f"acquisitions of {len(got['holds'])} locks, "
+          f"{len(got['edges'])} order edges; _CAPTURE_LOCK "
+          f"({got['capture_site']}): {cap['acquisitions']} acquisitions, "
+          f"{got['captures']} graph captures, longest hold "
+          f"{cap['max_hold_s']:.4f} s at {cap['max_hold_at']} (budget "
+          f"{got['budget_s']} s); concurrent walls "
+          f"{[round(w, 3) for w in got['walls']]} s; child {wall_l:.3f} s "
+          f"({power})")
+    print(f"analysis phase: {time.perf_counter() - t_phase:.3f} s ({power})")
+
+
 def main() -> int:
     import torch
 
@@ -3630,6 +3807,9 @@ def main() -> int:
     fleet_phase(torch, power)
     # (o) the sharded mesh: two chain shards on the one card
     mesh_phase(torch, power)
+    # (p) kao-check over the port, and the lock sanitizer around the
+    # capture lock
+    analysis_phase(torch, power)
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

@@ -14,7 +14,8 @@ package imports neither JAX nor the reference package.
 - ``watch``   — the cluster watch: events, the plan store, the manager,
   and the warm-start adaptation of the delta API
 - ``obs``     — structured log lines, solve traces, flight records
-- ``analysis`` — the runtime sanitizer
+- ``analysis`` — ``kao-check`` (lint rules, runtime contracts), the runtime
+  sanitizer and the lock sanitizer
 - ``serve``   — the HTTP service (``python -m ...serve``)
 - ``native``  — the bundled C++ sources (built with g++ at first use)
 - ``ops``     — scoring in plain PyTorch, and the CUDA kernels' wrappers

@@ -268,6 +268,7 @@ def _write(args: argparse.Namespace, text: str) -> None:
     if args.output:
         Path(args.output).write_text(text + "\n")
     else:
+        # kao: disable=KAO106 -- the plan JSON on stdout IS the product
         print(text)
 
 
@@ -318,6 +319,7 @@ def _main(args: argparse.Namespace) -> int:
         try:
             _chaos.arm(args.chaos)
         except ValueError as e:
+            # kao: disable=KAO106 -- "error: ..." on stderr is the CLI's UX contract
             print(f"error: bad --chaos spec: {e}", file=sys.stderr)
             return 2
     try:
@@ -371,6 +373,7 @@ def _main(args: argparse.Namespace) -> int:
                                        topology)
     except (ValueError, KeyError, OSError, RuntimeError) as e:
         msg = e.args[0] if e.args and isinstance(e.args[0], str) else e
+        # kao: disable=KAO106 -- "error: ..." on stderr is the CLI's UX contract
         print(f"error: {msg}", file=sys.stderr)
         return 2
     _write(args, res.assignment.to_json(indent=args.indent))
@@ -380,6 +383,7 @@ def _main(args: argparse.Namespace) -> int:
     if wave_summary is not None:
         rep["waves"] = wave_summary
     if args.report or args.trace:
+        # kao: disable=KAO106 -- --report's stderr JSON is the CLI's UX contract
         print(json.dumps(rep, indent=2, default=str), file=sys.stderr)
     return 0 if rep["feasible"] else 3
 
@@ -494,10 +498,12 @@ def _run_events(args: argparse.Namespace) -> int:
         try:
             out = reg.handle_event(cluster_id, ev)
         except FencedEpoch as e:
+            # kao: disable=KAO106 -- per-event stderr lines are the replay's UX contract
             print(f"event[{i}] FENCED: {e}", file=sys.stderr)
             rc = 3
             continue
         rep = out.get("report") or {}
+        # kao: disable=KAO106 -- per-event stderr lines are the replay's UX contract
         print(
             f"event[{i}] type={ev.get('type')} epoch={out['epoch']} "
             f"status={out['status']} "

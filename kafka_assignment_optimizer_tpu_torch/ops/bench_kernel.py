@@ -358,14 +358,16 @@ def timed_ms(fn, on_card: bool = True, reps: int = REPS,
     times = []
     for _ in range(windows):
         if on_card:
-            torch.cuda.synchronize()
+            # this thread's stream only: a device-wide synchronize would
+            # fail another thread's CUDA-graph capture in progress
+            torch.cuda.current_stream().synchronize()
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
             for _ in range(reps):
                 fn()
             t1.record()
-            torch.cuda.synchronize()
+            t1.synchronize()
             times.append(t0.elapsed_time(t1) / reps)
         else:
             t0 = time.perf_counter()

@@ -59,9 +59,11 @@ NVCC_FLAGS = [
 SOURCES = ("score", "site", "exchange")
 HEADERS = ("common.cuh",)
 
+# guards the bookkeeping below; never held while nvcc runs
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _CACHE = {"hits": 0, "misses": 0, "build_s": 0.0}
+_BUILDING: dict[str, threading.Event] = {}  # a source's build in flight
 _BUILT: set = set()  # the libraries this process built (its misses)
 
 
@@ -119,33 +121,60 @@ def _finish(name: str, job) -> None:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     dt = time.perf_counter() - t0
-    _CACHE["misses"] += 1
-    _CACHE["build_s"] += dt
-    _BUILT.add(out)
+    with _LOCK:
+        _CACHE["misses"] += 1
+        _CACHE["build_s"] += dt
+        _BUILT.add(out)
     # a build inside a solve is that solve's compile time (obs.flight),
     # and the recompile sentinel's evidence (analysis.sanitize)
     _flight.note_compile(dt)
     _sanitize.note_compile(("kernel", out.name))
 
 
-def build_all() -> None:
-    """Compile every kernel source, one ``nvcc`` per source, in parallel."""
+def _build(names) -> None:
+    """Build the libraries of ``names`` not built yet, one ``nvcc`` per
+    source, all at once, and wait for them. A source that another thread
+    is building is waited for, never built twice in the process. The
+    lock covers the bookkeeping only: nvcc runs with it released, so a
+    thread that only reads the counters never waits for a build."""
+    mine, theirs = [], []
     with _LOCK:
-        jobs = {n: _start(n) for n in SOURCES}
+        for n in names:
+            if n in _BUILDING:
+                theirs.append(_BUILDING[n])
+            elif not _target(n).exists():
+                _BUILDING[n] = threading.Event()
+                mine.append(n)
+    try:
+        jobs = {n: _start(n) for n in mine}
         for n, job in jobs.items():
             if job is not None:
                 _finish(n, job)
+    finally:
+        with _LOCK:
+            done = [_BUILDING.pop(n) for n in mine]
+        for ev in done:
+            ev.set()
+    for ev in theirs:
+        ev.wait()
+
+
+def build_all() -> None:
+    """Compile every kernel source, one ``nvcc`` per source, in parallel."""
+    _build(SOURCES)
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    _build([name])
+    target = _target(name)
+    with _LOCK:
+        lib = _LIBS.get(name)
         if lib is None:
-            job = _start(name)
-            if job is not None:
-                _finish(name, job)
-            target = _target(name)
             if target not in _BUILT:
                 _CACHE["hits"] += 1
             lib = ctypes.CDLL(str(target))

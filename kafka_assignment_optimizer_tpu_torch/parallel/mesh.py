@@ -943,7 +943,8 @@ class _AsyncFetch:
         if any(t.device.type == "cuda" for t in xs):
             self._host = []
             for t in xs:
-                dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                dst = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                                  pin_memory=True)
                 dst.copy_(t, non_blocking=True)
                 self._host.append(dst)
             self._event = torch.cuda.Event()

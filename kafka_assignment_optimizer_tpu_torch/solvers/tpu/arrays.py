@@ -208,9 +208,12 @@ class ModelArrays:
 
     def lane_scalars(self) -> tuple[list, list, list]:
         """The scalar leaves the kernels take as arguments, one entry a
-        lane (one for a single model), read to the host once per model:
-        ``(bands, lam, temp_scale)`` with bands ``(broker_lo,
-        broker_hi, leader_lo, leader_hi)``, float32-exact floats."""
+        lane (one for a single model): ``(bands, lam, temp_scale)`` with
+        bands ``(broker_lo, broker_hi, leader_lo, leader_hi)``,
+        float32-exact floats. Every constructor of this module carries
+        them over from the host arrays or the models it derives from
+        (:func:`_carry`), so the chunk step never reads them from the
+        device; a model built otherwise reads them once."""
         cached = self.__dict__.get("_host_scalars")
         if cached is None:
             bands = torch.cat([self.broker_band, self.leader_band],
@@ -227,13 +230,28 @@ _FIELDS = [f.name for f in dataclasses.fields(ModelArrays)]
 _FLOAT_FIELDS = ("lam", "temp_scale", "comp_enable")
 
 
+def _carry(m: ModelArrays, scalars) -> ModelArrays:
+    """Cache ``scalars`` (:meth:`ModelArrays.lane_scalars`'s value, or
+    None when the source had none) on ``m``; returns ``m``."""
+    if scalars is not None:
+        object.__setattr__(m, "_host_scalars", scalars)
+    return m
+
+
+def _picked(m: ModelArrays, pick):
+    """The host scalars cached on ``m``, each lane list through
+    ``pick``; None when ``m`` has none cached."""
+    sc = m.__dict__.get("_host_scalars")
+    return None if sc is None else tuple(pick(x) for x in sc)
+
+
 def from_numpy(leaves: dict, device) -> ModelArrays:
     """Build a ``ModelArrays`` from host arrays keyed by field name — the
     reference's ``ModelArrays`` leaves taken as numpy arrays carry over
     unchanged, so both packages compute on identical inputs. Stacked
     leaves (a leading lane axis, the reference's ``stack_models``) carry
     over as a stacked model."""
-    out = {}
+    out, host = {}, {}
     for name in _FIELDS:
         x = np.asarray(leaves[name])
         if name in _FLOAT_FIELDS:
@@ -242,8 +260,14 @@ def from_numpy(leaves: dict, device) -> ModelArrays:
             x = x.astype(bool)
         else:
             x = x.astype(np.int32)
+        host[name] = x
         out[name] = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    return ModelArrays(**out)
+    bands = np.concatenate([host["broker_band"], host["leader_band"]],
+                           -1).reshape(-1, 4).tolist()
+    return _carry(ModelArrays(**out), (
+        [tuple(int(v) for v in b) for b in bands],
+        [float(v) for v in host["lam"].reshape(-1).tolist()],
+        [float(v) for v in host["temp_scale"].reshape(-1).tolist()]))
 
 
 def from_instance(
@@ -308,7 +332,13 @@ def _config_leaves(cfg: LaneConfig, device) -> dict:
 def with_config(m: ModelArrays, cfg: LaneConfig) -> ModelArrays:
     """``m`` with its config leaves replaced; the model tables are the
     same tensors (a portfolio's stack shares them across lanes)."""
-    return dataclasses.replace(m, **_config_leaves(cfg, m.device))
+    out = dataclasses.replace(m, **_config_leaves(cfg, m.device))
+    sc = m.__dict__.get("_host_scalars")
+    if sc is None or m.num_lanes:
+        return out
+    vals = _config_values(cfg)
+    return _carry(out, (sc[0], [float(vals["lam"])],
+                        [float(vals["temp_scale"])]))
 
 
 def model_config(m: ModelArrays) -> dict:
@@ -344,7 +374,9 @@ def stack_models(models: list[ModelArrays]) -> ModelArrays:
             out[f] = xs[0].unsqueeze(0).expand(len(xs), *xs[0].shape)
         else:
             out[f] = torch.stack(xs)
-    return ModelArrays(**out)
+    scs = [m.__dict__.get("_host_scalars") for m in models]
+    return _carry(ModelArrays(**out), None if None in scs else tuple(
+        [x for sc in scs for x in sc[i]] for i in range(3)))
 
 
 def lane_model(m: ModelArrays, lane: int) -> ModelArrays:
@@ -355,8 +387,9 @@ def lane_model(m: ModelArrays, lane: int) -> ModelArrays:
         views = [None] * m.num_lanes
         object.__setattr__(m, "_lane_views", views)
     if views[lane] is None:
-        views[lane] = ModelArrays(**{f: getattr(m, f)[lane]
-                                     for f in _FIELDS})
+        views[lane] = _carry(ModelArrays(**{f: getattr(m, f)[lane]
+                                            for f in _FIELDS}),
+                             _picked(m, lambda x: [x[lane]]))
     return views[lane]
 
 
@@ -369,8 +402,9 @@ def lane_range(m: ModelArrays, lo: int, hi: int) -> ModelArrays:
         ranges = {}
         object.__setattr__(m, "_lane_ranges", ranges)
     if (lo, hi) not in ranges:
-        ranges[lo, hi] = ModelArrays(**{f: getattr(m, f)[lo:hi]
-                                        for f in _FIELDS})
+        ranges[lo, hi] = _carry(ModelArrays(**{f: getattr(m, f)[lo:hi]
+                                               for f in _FIELDS}),
+                                _picked(m, lambda x: x[lo:hi]))
     return ranges[lo, hi]
 
 
@@ -393,7 +427,8 @@ def shard_models(m: ModelArrays, shards: int) -> ModelArrays:
                 out[f] = t[:1].expand(shards * t.shape[0], *t.shape[1:])
             else:
                 out[f] = t.repeat(shards, *([1] * (t.dim() - 1)))
-        cache[shards] = ModelArrays(**out)
+        cache[shards] = _carry(ModelArrays(**out),
+                               _picked(m, lambda x: x * shards))
     return cache[shards]
 
 
@@ -408,8 +443,9 @@ def model_on(m: ModelArrays, device) -> ModelArrays:
         cache = {}
         object.__setattr__(m, "_model_on", cache)
     if str(device) not in cache:
-        cache[str(device)] = ModelArrays(
-            **{f: getattr(m, f).contiguous().to(device) for f in _FIELDS})
+        cache[str(device)] = _carry(ModelArrays(
+            **{f: getattr(m, f).contiguous().to(device) for f in _FIELDS}),
+            _picked(m, list))
     return cache[str(device)]
 
 

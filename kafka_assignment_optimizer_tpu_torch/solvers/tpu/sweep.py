@@ -956,8 +956,10 @@ def _sweeps(sc: LaneBundle, lay: Layout, models, state, temps,
     (updated in place): the chunk-entry rescore, each sweep one launch of
     its kernel a block, each snapshot one B1 a block and the migration
     over the mesh. Returns each block's curve ``[C_b*L_b, sweeps]``."""
+    # kao: disable=KAO113 -- host data: the temperature ladder is a numpy array
     temps = np.asarray(temps, np.float32)
     sweeps = temps.shape[0]
+    # kao: disable=KAO113 -- host data: lane_scalars() are host floats, cached per model
     scales = [np.asarray(m.lane_scalars()[2], np.float32) for m in models]
     hist = [list(sc.full(m, st[0])[1:]) for m, st in zip(models, state)]
     curves = [[] for _ in state]
@@ -1107,7 +1109,9 @@ def _mega(sc: LaneBundle, lay: Layout, m: ModelArrays, state, temps,
           active, cert_k, cert_mv, snapshot_every: int) -> tuple:
     """A fused group over the blocks of ``lay`` (see
     :func:`make_mega_lane_stepper_fn`)."""
+    # kao: disable=KAO113 -- host data: the group's temperature ladders are a numpy array
     temps = np.asarray(temps, np.float32)
+    # kao: disable=KAO113 -- host data: the group's active mask is a numpy array
     active = np.asarray(active, bool)
     K, c = temps.shape
     cert_k, cert_mv = int(cert_k), int(cert_mv)
@@ -1151,6 +1155,7 @@ def _mega(sc: LaneBundle, lay: Layout, m: ModelArrays, state, temps,
     return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
             lay.gather(cas), lay.gather(oks), lay.gather(cms),
             lay.gather([torch.stack(cb, 1) for cb in curves]),
+            # kao: disable=KAO113 -- host data: execd is a list of Python bools
             np.broadcast_to(np.asarray(execd, bool), (*lead, K)).copy())
 
 

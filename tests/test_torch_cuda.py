@@ -20,7 +20,9 @@ synchronous run left them, and the asynchronous fetch equals a blocking
 copy; ``kao-router`` in front of a worker solving on the card; and the
 solve mesh on the card: two chain shards of three lanes as one launch of
 each kernel, and a two-shard solve over ``[cuda:0, cuda:0]`` equal to
-the CPU's two-shard run. Exact equality throughout.
+the CPU's two-shard run; and ``kao-check``'s runtime contracts on the
+card, with the kernels' launches of each step. Exact equality
+throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -731,3 +733,24 @@ def test_profiler_cost_model_on_the_card(card):
     assert row["peak_hbm_bytes"] is not None
     for k in ("occupancy_flops", "occupancy_hbm", "occupancy_hbm_p99"):
         assert row[k] is not None and row[k] <= 1.05, (k, row)
+
+
+def test_runtime_contracts_on_the_card(card):
+    """``kao-check``'s runtime contracts on the card (the ``cuda``
+    scorer): zero findings, the sweep stepper's chunk launching B1, the
+    site kernel and the exchange kernel as ``sweep.stage_counts`` says,
+    the lane stepper at L=2 one launch a stage (the same counts), and the
+    eager chain round B1 never."""
+    from kafka_assignment_optimizer_tpu_torch.analysis.contracts import (
+        run_contracts,
+    )
+
+    rep = run_contracts(device="cuda")
+    assert rep.ok, [f.render() for f in rep.findings]
+    assert rep.checks_run >= 16 and rep.ops > 0
+    want = sweep.stage_counts(8)
+    assert rep.launches["sweep stepper"] == want
+    assert rep.launches["lane stepper"] == want
+    assert all(n > 0 for n in want.values())
+    assert rep.launches["chain round"] == {k.name: 0
+                                           for k in kernels.KERNELS}

@@ -443,8 +443,10 @@ def test_port_never_imports_jax():
     solve (``KAO_DECOMPOSE=1``), ``optimize_delta`` with its warm start, a
     pipelined megachunk solve writing a checkpoint (``utils.checkpoint``
     imported), a chaos-armed solve's host fallback, the measurement plane
-    (its modules imported, a profiled solve), and importing and running chip_smoke.py without a card load
-    neither JAX nor the JAX package."""
+    (its modules imported, a profiled solve), ``kao-check``'s lint and
+    runtime contracts (``analysis`` and ``analysis.lsan`` imported), and
+    importing and running chip_smoke.py without a card load neither JAX
+    nor the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -497,6 +499,12 @@ def test_port_never_imports_jax():
         "solve(solver='tpu', device='cpu', engine='sweep', sweeps=8, "
         "profile_dir=tempfile.mkdtemp())\n"
         "assert prof.snapshot()['executables']\n"
+        "from kafka_assignment_optimizer_tpu_torch.analysis import (lint_paths, "
+        "lsan)\n"
+        "from kafka_assignment_optimizer_tpu_torch.analysis.contracts import "
+        "run_contracts\n"
+        "assert lint_paths() == []\n"
+        "assert run_contracts(device='cpu').ok\n"
         "import chip_smoke\n"
         "torch.cuda.is_available = lambda: False\n"
         "assert chip_smoke.main() != 0\n"
