@@ -92,7 +92,8 @@ Phases (any failure exits non-zero; nothing is caught):
    its defaults (the auto trigger decides): the map through the lane
    kernels, one AZ lane of its first call replayed through the CPU's
    plain path with the same budget and held equal to the card's (plan,
-   weight, violations), then the stitched plan or ``decompose_to_flat``
+   weight, violations; that CPU solve runs after the last timed phase,
+   so it takes no core from a timed one), then the stitched plan or ``decompose_to_flat``
    and the flat path, the plan feasible under the numpy oracle with B1
    held to it; build, split, the AZ seeds, map and reduce by iteration,
    certify, total and the cold total;
@@ -234,10 +235,40 @@ Phases (any failure exits non-zero; nothing is caught):
    it imports the port and runs the C8 scenario three times (a chain
    solve whose rounds are captured as CUDA graphs, 64 chains x 4 rounds
    x 256 steps, in one thread beside a sweep solve, 8 chains x 64
-   sweeps, in another); each plan must equal the solve's alone and no
-   violation may be recorded (a ``_CAPTURE_LOCK`` hold over the 5 s
-   budget is one). It prints the acquisitions, the order edges and the
-   longest hold of ``_CAPTURE_LOCK`` with its site.
+   sweeps, in another), then (q)'s two step-graph captures (the
+   adversarial solo and portfolio under ``megachunk="auto"``, one
+   thread each: one capture each, 8 dispatches, no degradation); each
+   plan must equal the solve's alone and no violation may be recorded
+   (a ``_CAPTURE_LOCK`` hold over the 5 s budget is one). It prints the
+   acquisitions, the order edges and the longest hold of
+   ``_CAPTURE_LOCK`` with its site;
+   (q) the fused group as CUDA-graph replays of one step graph, and the
+   measured width on top of it, on the adversarial instance at full
+   width (bucket 10,240 x 4, 8 chains, 128 sweeps in 8 chunks of 16, the boundary
+   certificate off), the solo (``portfolio=False``) and the portfolio
+   (8 lanes): per chunk eagerly (the default), as one replay a chunk
+   (``megachunk="auto"`` with no evidence: K=1) and fused at K=2, 4 and
+   8, with the counts set to 0 just before each solve: dispatches 8 / 8 /
+   4 / 2 / 1, 64 site and 32 exchange launches each (a replay adds its
+   graph's captured launches), every plan equal to the others and to
+   (k)'s, exactly one step graph captured per (bucket, L) on the first
+   fused solve and none after it (other widths, seed 1), printed with
+   ``dispatch_s``, ``device_s``, ``anneal_s``, the capture seconds and
+   the card's idle share of the ladder (a profiler session around the
+   second solve's ladder); the armed exit through the graph (the
+   ``decommission`` smoke solo at K=4, the weight bound forced to 1:
+   ``early_exit``, the per-chunk ladder's plan, no degradation); two
+   threads replaying K=4 groups of the solo's bucket at once, each plan
+   equal to its solo run; and the chooser: 16 ``megachunk="auto"``
+   solves of the pinned solo from empty evidence, then a 17th, which
+   must run at the width ``choose_megachunk_k`` gives (recomputed from
+   the printed evidence ``o`` and ``d``) with the same plan; the solo's
+   step graph replayed alone (host launch against device time). Phase
+   (k)'s forced exit launches all four steps (four replays; the host
+   cannot see the exit, so the steps after it run and are dropped),
+   (p)'s contracts run the armed fused groups too (two steps: twice the
+   chunk's launches), and (p)'s lock-sanitizer child also runs (q)'s two
+   captures (the solo and the portfolio, one thread each).
 
 The last two lines of stdout are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -422,18 +453,24 @@ def sweep_times(torch, m, a, reps: int = 20) -> dict:
     around each call; also, for scale, the wall of the plain draws that
     the fused kernels make in registers: the site sweep's random words,
     and the exchange sweep's words and pairing (the stride and the
-    phases' keys are drawn in the exchange launcher's C code)."""
+    phases' keys are drawn in the exchange kernel's first phase)."""
     import numpy as np
 
     from kafka_assignment_optimizer_tpu_torch import prng
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+
     sc, m1, st, best = engine_stages(m, a)
     temps = [float(np.float32(0.5))]
     key = prng.PRNGKey(5)
+    # the kernels take their lane values on the card, as the ladder
+    # hands them (one copy a chunk), the compound sweep on the host
     calls = {
-        "site": lambda k: sc.site_step(m1, *st, [k], temps),
-        "exchange": lambda k: sc.exch_step(m1, *st, [k], temps),
+        "site": lambda k: sc.site_step(
+            m1, *st, *kernels.lane_values([k], temps, 1, a.device)),
+        "exchange": lambda k: sc.exch_step(
+            m1, *st, *kernels.lane_values([k], temps, 1, a.device)),
         "compound": lambda k: sc.comp_step(m1, *st, [k], temps),
         "snapshot": lambda k: sweep.snapshot_step(sc, m1, st[0], *best),
         "site bits draw": lambda k: prng.bits(k, (*a.shape[:2], 8),
@@ -465,14 +502,18 @@ def call_activities(torch, m, a) -> dict:
     from kafka_assignment_optimizer_tpu_torch import prng
     from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
 
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+
     sc, m1, st, best = engine_stages(m, a)
     a1 = a[:1].clone()[None]
     temps = [float(np.float32(0.5))]
     key = prng.PRNGKey(5)
+    # the kernel's lane values on the card, as the ladder hands them
+    dkey, dtemp = kernels.lane_values([key], temps, 1, a.device)
     calls = {
         "B1 call": lambda: sc.full(m1, st[0]),
         "B1 call N=1": lambda: sc.full(m1, a1),
-        "exchange sweep": lambda: sc.exch_step(m1, *st, [key], temps),
+        "exchange sweep": lambda: sc.exch_step(m1, *st, dkey, dtemp),
         "snapshot": lambda: sweep.snapshot_step(sc, m1, st[0], *best),
     }
     res = {}
@@ -693,16 +734,20 @@ def lane_rows(torch, ms, al, errs: dict, hists, keys, temps,
 
     L = al.shape[0]
     cnt, lcnt, rcnt = hists
+    # the kernels as the engine's ladder calls them: the lanes' keys and
+    # temperatures already on the card (one copy a chunk), so a call is
+    # its launch alone
+    dkeys, dtemps = kernels.lane_values(keys, temps, L, al.device)
     calls = {
         kernels.SCORE.name: (lambda: score_lanes(ms, al),
                              lambda: score_lanes_plain(ms, al)),
         kernels.SITE.name: (
-            lambda: site_step_lanes(ms, al, cnt, lcnt, rcnt, keys, temps),
+            lambda: site_step_lanes(ms, al, cnt, lcnt, rcnt, dkeys, dtemps),
             lambda: sweep.site_lanes_delta(ms, al, cnt, lcnt, rcnt, keys,
                                            temps)),
         kernels.EXCHANGE.name: (
             lambda: exchange_cuda.exchange_step_lanes(
-                ms, al, cnt, lcnt, rcnt, keys, temps),
+                ms, al, cnt, lcnt, rcnt, dkeys, dtemps),
             lambda: sweep.exchange_lanes_delta(ms, al, cnt, lcnt, rcnt,
                                                keys, temps)),
     }
@@ -830,6 +875,50 @@ def b1_holds(torch, dev, inst, a, label: str) -> None:
               viol["part_rack_diversity"]]
     if out != oracle:
         fail(f"{label}: B1 scores {out} disagree with the oracle {oracle}")
+
+
+# the decomposed map's witness, held for the script's last lines: AZ lane
+# g of ultra_jumbo_case(seed=0)'s split, its sub-instance, seed, budget
+# and the card's result for it
+WITNESS: dict = {}
+
+
+def map_witness() -> None:
+    """Solve (h)'s AZ lane again through the CPU's plain path with the
+    card's budget, after the last timed phase (it takes ~80 s of the
+    host's cores, which would compete with the host-bound phases), and
+    hold it to the card's lane: the same plan, weight, violations and
+    sweeps."""
+    import numpy as np
+
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    w = WITNESS
+    budget, g, bkt = w["budget"], w["g"], w["bkt"]
+    t0 = time.perf_counter()
+    cpu_lane = engine.solve_tpu_batch(
+        [w["sub"]], seeds=[w["seed"]], engine=budget["engine"],
+        batch=budget["batch"], rounds=budget["rounds"], device="cpu")[0]
+    t_witness = time.perf_counter() - t0
+    card_lane = w["card"]
+    if (not np.array_equal(cpu_lane.a, card_lane.a)
+            or [cpu_lane.objective, cpu_lane.stats["violations"],
+                cpu_lane.stats["rounds_run"]]
+            != [card_lane.objective, card_lane.stats["violations"],
+                card_lane.stats["rounds_run"]]):
+        fail(f"ultra_jumbo_case: AZ lane {g} of the map on the card "
+             f"(weight {card_lane.objective}, violations "
+             f"{card_lane.stats['violations']}) differs from the CPU's "
+             f"plain path (weight {cpu_lane.objective}, violations "
+             f"{cpu_lane.stats['violations']})")
+    print(f"map witness: AZ lane {g} of the first map call ({budget['engine']}"
+          f", {budget['batch']} chains x {budget['rounds']} sweeps, seed "
+          f"{w['seed']}, bucket {bkt[0]} x {bkt[1]}) through the CPU's "
+          f"plain path (after the last timed phase) equals the card's lane: "
+          f"the same plan, weight {cpu_lane.objective}, "
+          f"{cpu_lane.stats['violations']} violations (its seed's "
+          f"{w['seed_viol']}), {cpu_lane.stats['moves']} moves; CPU "
+          f"{t_witness:.3f} s")
 
 
 def decomposed_phase(torch, dev, power: str, peaks: dict,
@@ -999,29 +1088,15 @@ def decomposed_phase(torch, dev, power: str, peaks: dict,
              if (bucket.part_bucket(sub.num_parts),
                  bucket.rf_bucket(sub.max_rf)) == bkt)
     budget = engine._defaults(subs[g], "gpu", None)
-    t0_w = time.perf_counter()
-    cpu_lane = engine.solve_tpu_batch(
-        [subs[g]], seeds=[kw["seeds"][g]], engine=budget["engine"],
-        batch=budget["batch"], rounds=budget["rounds"], device="cpu")[0]
-    t_witness = time.perf_counter() - t0_w
-    card_lane = lane_res[g]
-    if (not np.array_equal(cpu_lane.a, card_lane.a)
-            or [cpu_lane.objective, cpu_lane.stats["violations"],
-                cpu_lane.stats["rounds_run"]]
-            != [card_lane.objective, card_lane.stats["violations"],
-                card_lane.stats["rounds_run"]]):
-        fail(f"ultra_jumbo_case: AZ lane {g} of the map on the card "
-             f"(weight {card_lane.objective}, violations "
-             f"{card_lane.stats['violations']}) differs from the CPU's "
-             f"plain path (weight {cpu_lane.objective}, violations "
-             f"{cpu_lane.stats['violations']})")
-    print(f"map witness: AZ lane {g} of the first map call ({budget['engine']}"
-          f", {budget['batch']} chains x {budget['rounds']} sweeps, seed "
-          f"{kw['seeds'][g]}, bucket {bkt[0]} x {bkt[1]}) through the CPU's "
-          f"plain path equals the card's lane: the same plan, weight "
-          f"{cpu_lane.objective}, {cpu_lane.stats['violations']} violations "
-          f"(its seed's {seed_viol[g]}), {cpu_lane.stats['moves']} moves; "
-          f"CPU {t_witness:.3f} s")
+    if (subs[g].num_parts, subs[g].num_brokers) != (
+            sp.subs[g].num_parts, sp.subs[g].num_brokers) or \
+            not np.array_equal(subs[g].a0, sp.subs[g].a0):
+        fail("ultra_jumbo_case: the map's first call is not on the split's "
+             "sub-instances the witness rebuilds")
+    # the CPU's plain path takes ~80 s here: it runs after the last timed
+    # phase (map_witness)
+    WITNESS.update(card=lane_res[g], g=g, sub=subs[g], seed=kw["seeds"][g],
+                   budget=budget, bkt=bkt, seed_viol=seed_viol[g])
     if st["engine"] == "decomposed":
         if (d.get("subproblems"),
                 (d.get("sub_shape") or {}).get("lane_bucket")) != (4, 8):
@@ -1376,11 +1451,16 @@ def dispatch_phase(torch, dev, power: str) -> None:
         if not np.array_equal(x, y):
             fail(f"forced exit: {name} differs between the card and the "
                  "CPU's plain path")
-    if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) != (8, 4):
-        fail(f"forced exit: launches {counts}, expected one step's")
+    # the group is four replays of its step graph: the host cannot see the
+    # exit without a read, so the steps after it run and are dropped (the
+    # reference's lax.cond under vmap), and it launches four steps'
+    if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]) != (32,
+                                                                      16):
+        fail(f"forced exit: launches {counts}, expected four steps'")
     print("forced exit on the card: a group of 4 steps x 16 sweeps "
           f"retired after step 0 (execd {card[-1].tolist()}), every output "
-          "equal to the CPU's plain path; launches " + json.dumps(counts))
+          "equal to the CPU's plain path; launches (four replays, every step "
+          "run, the ones after the exit dropped) " + json.dumps(counts))
 
     # the injected kernel fault at the second chunk, pipelined: the
     # speculation drains, the chunk and the rest re-run on the plain
@@ -1430,6 +1510,7 @@ def dispatch_phase(torch, dev, power: str) -> None:
         fail("checkpoint: the second solve did not resume to the same plan")
     print(f"checkpoint: written, resumed (resumed_from_checkpoint True), "
           f"the same plan; resumed solve wall {w2:.3f} s ({power})")
+    return base.solve.a, port[False][0][0].solve.a
 
 
 def _http(url: str, path: str, payload=None):
@@ -2965,7 +3046,10 @@ def mesh_phase(torch, power: str, device: str = "cuda") -> None:
 # phase (p)'s child: the lock sanitizer armed BEFORE the port binds its
 # locks, then the C8 scenario of tests/test_torch_cuda.py (a chain-engine
 # solve whose rounds are captured as CUDA graphs, in one thread, beside a
-# sweep solve in another) three times, each plan held to the solve alone
+# sweep solve in another) three times, each plan held to the solve alone;
+# then, on the card, phase (q)'s captures: the adversarial solo and
+# portfolio under megachunk="auto", one thread each, each capturing its
+# bucket's step graph
 _LSAN_CHILD = r"""
 import json, sys, threading, time
 from kafka_assignment_optimizer_tpu_torch.analysis import lsan
@@ -2979,6 +3063,7 @@ from kafka_assignment_optimizer_tpu_torch.ops import kernels
 from kafka_assignment_optimizer_tpu_torch.solvers.tpu import anneal, engine
 from kafka_assignment_optimizer_tpu_torch.utils import gen
 device, kw, runs = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+fused = json.loads(sys.argv[4])
 if device == "cuda":
     kernels.build_all()
 rng = np.random.default_rng(0)
@@ -3014,7 +3099,29 @@ for _ in range(runs):
     equal.append({n: n in got and bool(np.array_equal(got[n].a, alone[n].a))
                   and got[n].stats["feasible"] == alone[n].stats["feasible"]
                   for n in kw})
+caps0, fused_out = anneal.GRAPH_CAPTURES["captures"], {}
+if fused:
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+    big = gen.adversarial()
+
+    def fsolve(name):
+        try:
+            r = engine.solve_tpu(build_instance(
+                big.current, big.broker_list, big.topology), seed=0,
+                device=device, megachunk="auto", **fused[name])
+            fused_out[name] = [r.stats["dispatches"],
+                               r.stats["megachunk"]["mode"],
+                               r.stats.get("degradations", [])]
+        except BaseException as e:
+            errs.append(repr(e))
+
+    sweep.clear_group_graphs()
+    ths = [threading.Thread(target=fsolve, args=(n,)) for n in fused]
+    for t in ths: t.start()
+    for t in ths: t.join(timeout=300)
+    fused_out["captures"] = anneal.GRAPH_CAPTURES["captures"] - caps0
 print(json.dumps({
+    "fused": fused_out,
     "engines": {n: alone[n].stats["engine"] for n in kw},
     "equal": equal, "errors": errs, "walls": walls,
     "wall": time.perf_counter() - t0,
@@ -3067,10 +3174,11 @@ def analysis_phase(torch, power: str, device: str = "cuda") -> None:
                                                for f in rep.findings))
     want = sweep.stage_counts(8) if on_card else {
         k.name: 0 for k in kernels.KERNELS}
-    for step in ("sweep stepper", "lane stepper"):
-        if rep.launches[step] != want:
+    for step, k in (("sweep stepper", 1), ("lane stepper", 1),
+                    ("group stepper", 2), ("lane group stepper", 2)):
+        if rep.launches[step] != {n: k * v for n, v in want.items()}:
             fail(f"contracts' {step}: launches {rep.launches[step]}, "
-                 f"expected {want} (one launch a stage)")
+                 f"expected {k} x {want} (one launch a stage a step)")
     print(f"kao-check over the port: {out.strip().splitlines()[-1]!r}"
           f" in {wall_cli:.3f} s (a child process, lint and contracts on "
           f"{device}); runtime contracts in process beside it: 0 findings, "
@@ -3087,10 +3195,17 @@ def analysis_phase(torch, power: str, device: str = "cuda") -> None:
            "sweep": dict(engine="sweep", batch=4, sweeps=16,
                          portfolio=False)})
     runs = 3
+    # (q)'s captures, on the card: the adversarial solo and portfolio
+    fused = {n: dict(engine="sweep", batch=8, rounds=128,
+                     cert_min_savings_s=1e9, time_limit_s=3600.0,
+                     portfolio=p)
+             for n, p in (("solo", False), ("portfolio", None))
+             } if on_card else {}
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", _LSAN_CHILD, device,
-                        json.dumps(kw), str(runs)], cwd=root,
-                       capture_output=True, text=True, timeout=300)
+                        json.dumps(kw), str(runs), json.dumps(fused)],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=420)
     if r.returncode != 0:
         fail(f"lsan child exited {r.returncode}: {r.stderr[-2000:]}")
     got = json.loads(r.stdout.strip().splitlines()[-1])
@@ -3103,6 +3218,10 @@ def analysis_phase(torch, power: str, device: str = "cuda") -> None:
              f"solves alone {got['equal']}")
     if got["violations"]:
         fail(f"lock sanitizer violations: {got['violations']}")
+    if fused and (got["fused"].pop("captures") != 2 or got["fused"] != {
+            "solo": [8, "auto", []], "portfolio": [8, "auto", []]}):
+        fail(f"lsan: (q)'s captures {got['fused']}, expected one step "
+             "graph each, 8 dispatches, no degradation")
     cap = got["holds"].get(got["capture_site"])
     if on_card and (cap is None or not cap["acquisitions"]):
         fail(f"the capture lock ({got['capture_site']}) was never taken: "
@@ -3110,7 +3229,11 @@ def analysis_phase(torch, power: str, device: str = "cuda") -> None:
     cap = cap or {"acquisitions": 0, "max_hold_s": 0.0, "max_hold_at": ""}
     print(f"lock sanitizer (armed before import), C8 scenario x{runs} "
           f"(chain {kw['chain']} with CUDA graphs beside sweep "
-          f"{kw['sweep']}): plans equal to the solves alone, 0 violations; "
+          f"{kw['sweep']})"
+          + (", then (q)'s step graphs (the adversarial solo and "
+             "portfolio under megachunk=\"auto\", one thread each)"
+             if fused else "")
+          + ": plans equal to the solves alone, 0 violations; "
           f"{sum(h['acquisitions'] for h in got['holds'].values())} "
           f"acquisitions of {len(got['holds'])} locks, "
           f"{len(got['edges'])} order edges; _CAPTURE_LOCK "
@@ -3121,6 +3244,294 @@ def analysis_phase(torch, power: str, device: str = "cuda") -> None:
           f"{[round(w, 3) for w in got['walls']]} s; child {wall_l:.3f} s "
           f"({power})")
     print(f"analysis phase: {time.perf_counter() - t_phase:.3f} s ({power})")
+
+
+def replay_probe(torch, power: str) -> None:
+    """(q) The solo's step graphs of the adversarial bucket (captured in
+    step 1 of the phase, replayed on their last inputs): the host seconds
+    of one step's ``replay()`` calls (their launch) against the device
+    seconds of the step (CUDA events), the median of 5 each."""
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import sweep
+
+    with sweep._GROUP_LOCK:
+        graphs = [v[0] for k, v in sweep._GROUP_GRAPHS.items()
+                  if k[3] and k[5] == 1]
+    if len(graphs) != 1:
+        fail(f"(q) replay probe: {len(graphs)} step graphs of the solo")
+    host, dev = [], []
+    for _ in range(5):
+        torch.cuda.current_stream().synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        e0.record()
+        t0 = time.perf_counter()
+        for g in graphs[0].graphs:
+            g.replay()
+        host.append(time.perf_counter() - t0)
+        e1.record()
+        e1.synchronize()
+        dev.append(e0.elapsed_time(e1) / 1e3)
+    print(f"(q) one step of the solo's step graphs ({len(graphs[0].graphs)} "
+          "pieces), host launch against device time (s, median of 5): "
+          f"{json.dumps({'launch_s': statistics.median(host), 'device_s': statistics.median(dev)})}"
+          f" ({power})")
+
+
+def megachunk_phase(torch, power: str, k_plans) -> None:
+    """(q) The fused group as CUDA-graph replays of one step, and the
+    measured width on top of it, at full width on the adversarial
+    instance (10,240 x 4 bucket, N=8, 128 sweeps in 8 chunks of 16; the
+    boundary certificate off): the solo (``portfolio=False``) and the
+    portfolio (L=8), each per chunk eagerly (the default), as K=1 group
+    replays (``megachunk="auto"`` with no evidence) and fused at K=2, 4
+    and 8 (dispatches 8 / 8 / 4 / 2 / 1), equal plans among the modes and
+    to (k)'s; one step graph captured per (bucket, L) on the first
+    fused solve and none after it (other widths, another seed); the
+    launches, dispatch
+    and device seconds, ``anneal_s`` and the card's idle share of the
+    ladder (a profiler session around the second solve's ladder). Then
+    the armed exit through the graph (the ``decommission`` smoke solo,
+    the weight bound forced to 1), two threads replaying groups of one
+    bucket at once, and the chooser: 16 "auto" solves of the pinned
+    solo, then a 17th at the width its printed evidence gives."""
+    import threading
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_assignment_optimizer_tpu_torch.models.instance import (
+        build_instance,
+    )
+    from kafka_assignment_optimizer_tpu_torch.ops import kernels
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        anneal,
+        engine,
+        sweep,
+    )
+    from kafka_assignment_optimizer_tpu_torch.utils import gen
+
+    t_phase = time.perf_counter()
+    sweep.clear_group_graphs()
+    engine.reset_megachunk_adapt()
+    scen = gen.adversarial()
+    kw = dict(engine="sweep", batch=8, rounds=128, cert_min_savings_s=1e9,
+              time_limit_s=3600.0, device="cuda")
+    real_ladder = engine._run_ladder
+    seen = {}
+
+    def profiled_ladder(*a, **k):
+        torch.cuda.current_stream().synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = real_ladder(*a, **k)
+            torch.cuda.current_stream().synchronize()
+            seen["window_s"] = time.perf_counter() - t0
+        seen["busy_s"] = sum(e.time_range.elapsed_us()
+                             for e in prof.events()
+                             if e.device_type == DeviceType.CUDA) / 1e6
+        return out
+
+    def solve_one(seed, portfolio, megachunk, profiled=False,
+                  inst=None):
+        inst = inst or build_instance(scen.current, scen.broker_list,
+                                      scen.topology)
+        kernels.reset_counts()
+        caps = anneal.GRAPH_CAPTURES["captures"]
+        cap_s = anneal.GRAPH_CAPTURES["capture_s"]
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            seen.clear()
+            engine._run_ladder = profiled_ladder
+        try:
+            res = engine.solve_tpu(inst, seed=seed, portfolio=portfolio,
+                                   megachunk=megachunk, **kw)
+        finally:
+            engine._run_ladder = real_ladder
+        torch.cuda.current_stream().synchronize()
+        res.stats["_capture_s"] = round(
+            anneal.GRAPH_CAPTURES["capture_s"] - cap_s, 4)
+        return (res, time.perf_counter() - t0,
+                {k.name: k.launches for k in kernels.KERNELS},
+                anneal.GRAPH_CAPTURES["captures"] - caps)
+
+    modes = (("per chunk", None, 8), ("K=1 replays", "auto", 8),
+             ("K=2", 2, 4), ("K=4", 4, 2), ("K=8", 8, 1))
+    # the profiler's own cost grows with the launches it records (in PR
+    # 15's call 2 a profiled ladder took 9-25 s solo and 57-117 s at 8
+    # lanes): the idle share is taken on the solo's second solve of the
+    # K=1 replays and of K=8 (the per-chunk ladder's is (k)'s)
+    profiled_modes = {("solo", "K=1 replays"), ("solo", "K=8")}
+    plans = {}
+    k_plans = k_plans or (None, None)
+    captured = set()  # the configs whose step graph is captured
+    for config, portfolio, want_plan in (("solo", False, k_plans[0]),
+                                         ("portfolio", None, k_plans[1])):
+        rows = {}
+        for name, mk, n_disp in modes:
+            first = solve_one(0, portfolio, mk)
+            # the per-chunk ladder captures nothing: one solve
+            seen.clear()
+            second = (solve_one(1, portfolio, mk, profiled=(
+                config, name) in profiled_modes) if mk is not None
+                else None)
+            runs = [x for x in (first, second) if x is not None]
+            for i, (res, _w, counts, caps) in enumerate(runs):
+                st = res.stats
+                mg = st["megachunk"]
+                graph = mk is not None
+                if (st["dispatches"], st["rounds_run"]) != (n_disp, 128) or (
+                        mg["k"] != (1 if mk in (None, "auto") else mk)):
+                    fail(f"(q) {config} {name}: dispatches "
+                         f"{st['dispatches']}, rounds {st['rounds_run']}, "
+                         f"megachunk {mg}")
+                if st.get("degradations"):
+                    fail(f"(q) {config} {name}: degradations "
+                         f"{st['degradations']}")
+                if caps != (0 if not graph or config in captured else 1):
+                    fail(f"(q) {config} {name}: {caps} graph captures on "
+                         f"solve {i + 1} of the mode")
+                if graph:
+                    captured.add(config)
+                if (counts[kernels.SITE.name], counts[kernels.EXCHANGE.name]
+                        ) != (64, 32) or counts[kernels.SCORE.name] <= 0:
+                    fail(f"(q) {config} {name}: launches {counts}")
+            plans.setdefault(config, []).append(first[0].a)
+            if want_plan is not None and not np.array_equal(first[0].a,
+                                                            want_plan):
+                fail(f"(q) {config} {name}: the plan differs from (k)'s")
+            st = first[0].stats
+            idle = ("see (k)" if second is None else
+                    "not measured (the profiler's cost)"
+                    if (config, name) not in profiled_modes else
+                    "not measured (no device event kept)"
+                    if not seen.get("busy_s") else
+                    round(1 - seen["busy_s"] / seen["window_s"], 4))
+            rows[name] = {
+                "dispatches": st["dispatches"],
+                "dispatch_s": [r[0].stats["dispatch_s"] for r in runs],
+                "device_s": [r[0].stats["device_s"] for r in runs],
+                "anneal_s": [r[0].stats["anneal_s"] for r in runs],
+                "dispatch_share": [
+                    round(r[0].stats["dispatch_s"]
+                          / r[0].stats["anneal_s"], 4)
+                    if r[0].stats["anneal_s"] else None for r in runs],
+                "idle_share": idle, "launches": first[2],
+                "captures": [r[3] for r in runs],
+                "capture_s": [r[0].stats["_capture_s"] for r in runs],
+                "wall_s": [round(r[1], 4) for r in runs]}
+        for name, r in rows.items():
+            print(f"(q) {config} {name}: " + json.dumps(r) + f" ({power})")
+        if any(not np.array_equal(p, plans[config][0])
+               for p in plans[config]):
+            fail(f"(q) {config}: the modes' plans differ")
+    snap = sweep.group_graphs_snapshot()
+    print(f"(q) group graphs: {json.dumps(snap)}; capture seconds "
+          f"{anneal.GRAPH_CAPTURES['capture_s']:.3f} in the process "
+          f"({power})")
+    # the host time of one replay (the graph's launch) against its device
+    # time, for the solo's step graph
+    replay_probe(torch, power)
+
+    # 3. the armed exit through the graph: the decommission smoke solo,
+    # bounds prewarmed, the constructor stood down, the weight bound
+    # forced to 1 and the certificate's economics off
+    sc = gen.SCENARIOS["decommission"](**gen.SMOKE_KWARGS["decommission"])
+    ex = {}
+    saved = engine._construct_worker
+    engine._construct_worker = lambda *_a, **_k: (None, False, False)
+    try:
+        for mk in (None, 4):
+            inst = build_instance(sc.current, sc.broker_list, sc.topology,
+                                  sc.target_rf)
+            inst.move_lower_bound_exact()
+            inst.weight_upper_bound = lambda *a, **k: 1
+            kernels.reset_counts()
+            caps = sweep.GROUP_STATS["replays"]
+            ex[mk] = engine.solve_tpu(
+                inst, seed=0, engine="sweep", batch=8, rounds=32,
+                time_limit_s=3600.0, cert_min_savings_s=-1.0,
+                megachunk=mk, portfolio=False, device="cuda")
+            ex[mk].stats["_replays"] = sweep.GROUP_STATS["replays"] - caps
+            ex[mk].stats["_launches"] = {k.name: k.launches
+                                         for k in kernels.KERNELS}
+    finally:
+        engine._construct_worker = saved
+    mg = ex[4].stats["megachunk"]
+    if not mg["early_exit"] or ex[4].stats.get("degradations") or \
+            not np.array_equal(ex[4].a, ex[None].a) or \
+            ex[4].stats["_replays"] < 1:
+        fail(f"(q) armed exit: megachunk {mg}, degradations "
+             f"{ex[4].stats.get('degradations')}, replays "
+             f"{ex[4].stats['_replays']}, plan equal "
+             f"{np.array_equal(ex[4].a, ex[None].a)}")
+    print(f"(q) armed exit (decommission smoke solo, K=4, "
+          f"{ex[4].stats['_replays']} steps replayed): "
+          f"early_exit after {mg['chunks']} chunk(s), "
+          f"{ex[4].stats['rounds_run']} of 32 sweeps, {ex[4].stats['moves']} "
+          f"moves, plan equal to the per-chunk ladder's "
+          f"({ex[None].stats['rounds_run']} sweeps), no degradation; "
+          f"launches {json.dumps(ex[4].stats['_launches'])} ({power})")
+
+    # 4. two threads replaying groups of one bucket at once (K=4 solo,
+    # seeds 0 and 1): each plan equal to its solo run above
+    solo = {0: None, 1: None}
+    for seed in solo:
+        solo[seed] = solve_one(seed, False, 4)[0].a
+    got, errs = {}, []
+
+    def worker(seed):
+        try:
+            got[seed] = engine.solve_tpu(
+                build_instance(scen.current, scen.broker_list,
+                               scen.topology),
+                seed=seed, portfolio=False, megachunk=4, **kw).a
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errs.append(repr(e))
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(s,)) for s in solo]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail("(q) concurrency: a solve thread hung past 600 s")
+    if errs or any(not np.array_equal(got[s], solo[s]) for s in solo):
+        fail(f"(q) concurrency: errors {errs}, plans equal "
+             f"{[np.array_equal(got.get(s), solo[s]) for s in solo]}")
+    print(f"(q) two threads, K=4 solo, seeds 0 and 1 at once: each plan "
+          f"equal to its solo run, {time.perf_counter() - t0:.3f} s; "
+          f"graphs {json.dumps(sweep.group_graphs_snapshot())} ({power})")
+
+    # 5. the chooser: 16 "auto" solves of the pinned solo, then a 17th at
+    # the width its evidence gives
+    engine.reset_megachunk_adapt()
+    autos = [solve_one(0, False, "auto")[0] for _ in range(16)]
+    snap = engine.megachunk_snapshot()
+    if len(snap["buckets"]) != 1:
+        fail(f"(q) chooser: evidence under {list(snap['buckets'])}")
+    (key, ev), = snap["buckets"].items()
+    o = ev["dispatch_s"] / max(1, ev["dispatches"])
+    d = ev["device_s"] / max(1, ev["chunks"])
+    k_ev = next((k for k in snap["candidates"]
+                 if o <= snap["host_fraction"] * (o + k * d)),
+                snap["candidates"][-1])
+    chosen = snap["chosen"][key]
+    last = solve_one(0, False, "auto")[0]
+    mg = last.stats["megachunk"]
+    anneal = [r.stats["anneal_s"] for r in autos] + [last.stats["anneal_s"]]
+    if ev["solves"] != 16 or chosen != k_ev or mg["k"] != chosen or \
+            mg["mode"] != "auto" or \
+            not np.array_equal(last.a, autos[0].a) or any(
+                not np.array_equal(r.a, autos[0].a) for r in autos):
+        fail(f"(q) chooser: evidence {ev}, chosen {chosen}, recomputed "
+             f"{k_ev}, the 17th solve's megachunk {mg}")
+    print(f"(q) chooser: evidence {json.dumps(ev)} -> o {o:.6f} s a "
+          f"dispatch, d {d:.6f} s a chunk, chosen K={chosen} (recomputed "
+          f"{k_ev}); the 17th solve ran {json.dumps(mg)}, the same plan; "
+          f"anneal_s of the 17 solves {anneal} ({power})")
+    print(f"(q) phase {time.perf_counter() - t_phase:.3f} s ({power})")
 
 
 def main() -> int:
@@ -3276,13 +3687,17 @@ def main() -> int:
         err = max(err, check_equal(f"B2+B3 (temp {t})", got, ref))
         print(f"  (site sweep at temp {t:.4g}: "
               f"{int((ref[0] != a).any(-1).sum())} partitions changed)")
+    # the kernel as the ladder calls it: its key and temperature on the
+    # card already (a host key and float cost one copy a call)
+    dkey, dtemp = kernels.lane_values([key], [temp], 1, dev)
     one_launch("site_step_cuda",
-               lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
+               lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, dkey[0],
+                                      dtemp[0]),
                kernels.SITE, "site_sweep", torch)
     print(f"  (threefry: {tf_ops} integer instructions for 7 words in the "
           f"SASS: {json.dumps(tf_hist, sort_keys=True)})")
     report(kernels.SITE, err,
-           lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, key, temp),
+           lambda: site_step_cuda(m, a, cnt, lcnt, rcnt, dkey[0], dtemp[0]),
            lambda: sweep._site_sweep_delta(m, a, cnt, lcnt, rcnt, key, temp),
            key, None)
 
@@ -3294,6 +3709,14 @@ def main() -> int:
 
     def exch(t):
         a2, l2, rec, m_out, m_in = exchange_sweep_cuda(m, a, lcnt, key, t)
+        return (a2, l2, *rec, m_out, m_in)
+
+    # the kernel as the ladder calls it, its lane values on the card
+    dkey, dtemp = kernels.lane_values([key], [temp], 1, dev)
+
+    def exch_dev():
+        a2, l2, rec, m_out, m_in = exchange_sweep_cuda(m, a, lcnt, dkey[0],
+                                                       dtemp[0])
         return (a2, l2, *rec, m_out, m_in)
 
     def exch_plain(t):
@@ -3336,14 +3759,14 @@ def main() -> int:
     bits_fn, randint_fn = prng.bits, prng.randint
     prng.bits, prng.randint = spy(bits_fn, 2), spy(randint_fn, 4)
     try:
-        sc.exch_step(m1, *st, [key], [temp])
+        sc.exch_step(m1, *st, dkey, dtemp)
     finally:
         prng.bits, prng.randint = bits_fn, randint_fn
     if drawn:
         fail(f"one exchange sweep drew {drawn} on the device")
     names = one_launch(
         "an exchange sweep",
-        lambda: sc.exch_step(m1, *st, [key], [temp]),
+        lambda: sc.exch_step(m1, *st, dkey, dtemp),
         kernels.EXCHANGE, "exchange_sweep", torch)
     print(f"  (one exchange sweep as the engine runs it: one device "
           f"activity, no prng draw on the device: {names})")
@@ -3353,8 +3776,10 @@ def main() -> int:
         m1, a1l, lcnt[None], [key], [temp]))[kernels.EXCHANGE.name]
     if not torch.equal(lib[1](), torch.cat([ref[7], ref[8]], 1)):
         fail("the scatter_reduce_ yardstick disagrees with the maps")
-    report(kernels.EXCHANGE, err, lambda: exch(temp),
-           lambda: exch_plain(temp), key, lib)
+    if not all(torch.equal(x, y) for x, y in zip(exch_dev(), got)):
+        fail("the exchange sweep differs with its lane values on the card")
+    report(kernels.EXCHANGE, err, exch_dev, lambda: exch_plain(temp), key,
+           lib)
 
     # ---- 3b. the lane forms ----------------------------------------------
     lane_rows = lane_kernels(torch, dev, m, a, temp, peaks, tf_ops,
@@ -3798,7 +4223,7 @@ def main() -> int:
     map_rows = decomposed_phase(torch, dev, power, peaks, tf_ops)
     delta = delta_phase(torch, dev, power)
     fallback_phase(torch, dev, power)
-    dispatch_phase(torch, dev, power)
+    k_plans = dispatch_phase(torch, dev, power)
     # (l) the service on the card
     service_phase(torch, power, batch3, delta)
     # (m) the measurement plane
@@ -3810,6 +4235,10 @@ def main() -> int:
     # (p) kao-check over the port, and the lock sanitizer around the
     # capture lock
     analysis_phase(torch, power)
+    # (q) the fused group as CUDA-graph replays, and the measured width
+    megachunk_phase(torch, power, k_plans)
+    # (h)'s witness on the CPU, after the last timed phase
+    map_witness()
     print("kernel device time per call (profiler, ms): " + json.dumps(
         {k: (None if v is None else v / 1e3) for k, v in device_us.items()}))
     print(json.dumps({"kernels": rows + lane_rows + map_rows}))

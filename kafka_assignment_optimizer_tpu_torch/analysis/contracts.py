@@ -5,10 +5,15 @@ The reference traces its solvers with ``jax.make_jaxpr`` and reads the
 equations. This package has no trace to read, so the pass RUNS the real
 steppers once, on the demo instance's bucket shape, under a
 ``TorchDispatchMode`` that records every aten op: the recorder is the
-counterpart of walking the jaxpr. Three steps run:
+counterpart of walking the jaxpr. Five steps run:
 
 - the sweep stepper (``sweep.make_sweep_stepper_fn``) over one chunk;
 - the lane stepper (``sweep.make_lane_stepper_fn``) at L=2;
+- the fused group steppers (``sweep.make_mega_stepper_fn`` and
+  ``make_mega_lane_stepper_fn`` at L=2), armed, K=2, run eagerly with the
+  device keys a fused ladder carries: the work a group graph captures,
+  which must read nothing from the host (its ``done`` flag, keys and
+  temperatures live on the device);
 - one eager round of the chain engine (``anneal.make_round_runner``).
 
 On the card the steppers take the ``cuda`` scorer, so the chunk launches
@@ -217,6 +222,30 @@ def check_stepper(name: str, stepper, m, state, temps, want: dict,
     return ops
 
 
+def check_group(name: str, stepper, args, want: dict,
+                findings: list) -> int:
+    """One fused group's contract: the op census (KAO201), the state's
+    storage before and after and its round trip, and the shapes of
+    ``(top_a, top_k, curves, execd)`` against ``want`` (six checks).
+    Returns the ops recorded."""
+    state = args[1]
+    check_storage(name, state, "before", findings)
+    out, ops = run_step(name, stepper, args, findings)
+    if not isinstance(out, tuple) or len(out) != 8:
+        n = len(out) if isinstance(out, tuple) else 1
+        findings.append(Finding(
+            "KAO202", name, 0,
+            "expected (state, top_a, top_k, cert_a, cert_ok, cert_mv, "
+            f"curves, execd), got {type(out).__name__} of {n}"))
+        return ops
+    check_round_trip(name, state, out[0], findings)
+    check_storage(name, out[0], "after", findings)
+    for what, got in zip(("top_a", "top_k", "curves", "execd"),
+                         (out[1], out[2], out[6], out[7])):
+        check_shape(name, what, got, want[what], findings)
+    return ops
+
+
 def _demo_instance():
     from ..api import build_instance
     from ..models.cluster import (
@@ -311,6 +340,28 @@ def run_contracts(chains: int = 2, sweeps: int = 8,
         findings)
     launches["lane stepper"] = _launched(kernels)
     checks += 5
+
+    # ---- the fused groups, armed (thresholds no chain reaches), K=2,
+    # eagerly, with the device keys of a fused ladder
+    K = 2
+    group_in = (np.stack([temps] * K), np.ones(K, bool),
+                sweep.MEGA_DISARMED_KEY - 1, 0)
+    for name, fn, mm, st, lead in (
+            ("group stepper", sweep.make_mega_stepper_fn, m,
+             pm.init_sweep_state(m, seed, key, chains), ()),
+            ("lane group stepper", sweep.make_mega_lane_stepper_fn,
+             m_stack, pm.init_lane_state(
+                 m_stack, np.stack([seed.cpu().numpy()] * L),
+                 prng.split(key, L), chains), (L,))):
+        st = (*st[:4], prng.to_device_keys(st[4], dev))
+        kernels.reset_counts()
+        ops += check_group(
+            name, fn(chains, scorer=scorer, graph=False),
+            (mm, st, *group_in),
+            {"top_a": (*lead, bkt_p, bkt_r), "top_k": lead,
+             "curves": (*lead, K, sweeps), "execd": (*lead, K)}, findings)
+        launches[name] = _launched(kernels)
+        checks += 6
 
     # ---- one eager round of the chain engine
     st0 = anneal.init_chain(m, seed, anneal.chain_keys(key, chains, dev))

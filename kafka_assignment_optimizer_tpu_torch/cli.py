@@ -5,7 +5,7 @@ Usage:
         --input current.json --broker-list 0-18 --topology topology.json \\
         [--output plan.json] [--rf 3] [--solver auto|milp|native|lp_solve|tpu] [--time-limit S] \\
         [--engine chain|sweep] [--seed 0] [--batch 8] [--sweeps 128] \\
-        [--device cuda|cpu] [--no-pipeline] [--megachunk K|off] \\
+        [--device cuda|cpu] [--no-pipeline] [--megachunk K|auto|off] \\
         [--checkpoint PATH] [--decompose] [--chaos SPEC] [--report] \\
         [--trace] [--flight-dir DIR] [--profile-dir DIR] [--sanitize] \\
         [--distributed] [--emit-lp PATH] \\
@@ -99,10 +99,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--megachunk",
         default=None,
-        metavar="K|off",
+        metavar="K|auto|off",
         help="fused ladder megachunks (tpu sweep engine): run K "
         "consecutive schedule chunks as one group, one dispatch per K "
-        "chunks, with the same plan; 'off' keeps the per-chunk ladder",
+        "chunks (one CUDA-graph replay a chunk on the card), with the same "
+        "plan. An int pins the width, 'auto' reads the per-bucket "
+        "evidence table, 'off' keeps the per-chunk ladder (same as "
+        "KAO_MEGACHUNK)",
     )
     ap.add_argument(
         "--checkpoint",
@@ -283,17 +286,20 @@ def load_topology(spec: str | None, broker_ids: list[int]) -> Topology | None:
 
 
 def parse_megachunk(spec: str):
-    """``--megachunk``: an int width or 'off'. A typo fails (exit 2), and
-    so does the reference's 'auto', which this package does not offer."""
+    """``--megachunk``: an int width, 'auto', or 'off'. A typo fails
+    (exit 2; the engine's resolver is tolerant because it also reads the
+    environment)."""
     v = spec.strip().lower()
+    if v == "auto":
+        return "auto"
     if v in ("off", "0", "none"):
         return "off"
     try:
         return max(1, int(v))
     except ValueError:
         raise ValueError(
-            f"--megachunk {spec!r}: expected an integer width or 'off' "
-            "('auto' is not supported by this package yet)"
+            f"--megachunk {spec!r}: expected an integer width, "
+            "'auto', or 'off'"
         ) from None
 
 

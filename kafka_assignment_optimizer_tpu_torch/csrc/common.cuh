@@ -12,8 +12,12 @@
 
 // The model tables of every lane of a launch: lane l's table starts at
 // base + l * stride elements, stride 0 where the lanes share one table
-// (a portfolio's lanes differ only in their scalars). The wrappers fill
-// it from a single model (every stride 0) or a stacked one.
+// (a portfolio's lanes share every table but their bands and penalty
+// scale). The wrappers fill it from a single model (every stride 0) or a
+// stacked one. The per-lane scalars are tables too (bands, penalty scale),
+// read from device memory like the sweep's keys and temperatures, so one
+// launch captured in a CUDA graph serves every model whose tables are
+// copied into the same buffers.
 struct ModelTabs {
   const int* a0;            // [P, R]
   long long a0_s;
@@ -33,10 +37,23 @@ struct ModelTabs {
   long long rack_lo_s;
   const int* rack_hi;       // [K1]
   long long rack_hi_s;
+  const int* broker_band;   // [2] (lo, hi)
+  long long broker_band_s;
+  const int* leader_band;   // [2] (lo, hi)
+  long long leader_band_s;
+  const float* lam;         // [] penalty scale
+  long long lam_s;
 };
 
 // lane l's copy of table x of a ModelTabs
 #define KAO_LANE(t, x, l) ((t).x + (size_t)(l) * (t).x##_s)
+
+// lane l's sweep key from the device keys [L, 2] (int64 words < 2^32)
+__device__ __forceinline__ void lane_key(const long long* keys, int l,
+                                         uint32_t& k0, uint32_t& k1) {
+  k0 = (uint32_t)keys[2 * l];
+  k1 = (uint32_t)keys[2 * l + 1];
+}
 
 // integer band-violation magnitude of count c vs [lo, hi]
 __device__ __forceinline__ int band_pen(int c, int lo, int hi) {

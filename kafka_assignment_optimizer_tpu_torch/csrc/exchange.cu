@@ -15,13 +15,17 @@
 //
 // Lanes: one launch runs the sweep of L lanes (the portfolio's configs or
 // a batch's instances), each against its own tables (ModelTabs, lane
-// stride 0 where they are shared), leader band, penalty scale, temperature
-// and key; the grid-stride loops run over all L * N chains, and one
-// grid.sync() serves every lane. The host draws of a lane's sweep (the
-// stride d, the key of its words and the two keys of its phases: ten
-// threefry words, sweep.propose_exchange's) are made here in the launcher,
-// from the lane's sweep key, in a loop over the lanes. A lane's outputs
-// are what a launch on that lane alone writes.
+// stride 0 where they are shared), leader band and penalty scale (tables
+// too), temperature temps[l] and key keys[l], all read from device memory;
+// the grid-stride loops run over all L * N chains, and one grid.sync()
+// serves every lane. The draws of a lane's sweep key that
+// sweep.propose_exchange makes before its words (the stride d, the key of
+// the words and the two keys of the phases: ten threefry words) are made
+// in phase 0, from the lane's key, and kept in the scratch for the phases
+// behind the barrier. So nothing of a sweep passes by value, and a launch
+// captured in a CUDA graph serves every sweep of a fused group and every
+// model of a bucket. A lane's outputs are what a launch on that lane alone
+// writes.
 //
 // Design, for Hopper:
 //
@@ -30,9 +34,10 @@
 //   chain's finished maps, a dependency across the whole chain; a grid
 //   barrier keeps it inside the launch, so an exchange sweep is one device
 //   activity: no zero fills, no second launch, no separate lcnt add.
-//     phase 0: zero the maps [2, N, B+1], copy lcnt into lcnt', and draw
-//              each chain's pairing phase once into a scratch [N];
-//              grid.sync()
+//     phase 0: zero the maps [2, N, B+1], copy lcnt into lcnt', make the
+//              lanes' draws (a thread a chain; chain 0's keeps them in
+//              the scratch [L]) and draw each chain's pairing phase once
+//              into a scratch [N]; grid.sync()
 //     phase 1: the proposals and the maps (below); grid.sync()
 //     phase 2: the keep test for both sides of each pair (token B bypasses
 //              its map), the apply into a fully written a_new, and +1/-1
@@ -43,10 +48,10 @@
 //   every bucket size runs.
 // - The pairing in the launch. The reference keeps the pairing, the
 //   partner views and the combination of the halves in XLA because a TPU
-//   gather is slow; here a partner's row is one load. The stride d stays a
-//   host draw (a shift amount, known before the launch: the launcher draws
-//   it). Each chain's phase is jax.random.randint(kph, (N, 1), 0, 2d): the
-//   randint's two words at counter n (the launcher splits kph) and its
+//   gather is slow; here a partner's row is one load. The stride d is a
+//   draw of phase 0 (the same words for every chain of a lane). Each
+//   chain's phase is jax.random.randint(kph, (N, 1), 0, 2d): the randint's
+//   two words at counter n (phase 0 splits kph) and its
 //   uint32 arithmetic. Then partition p is on the lower side iff ((p + phase) / d)
 //   is even, and pairs with p + d (lower) or p - d (upper).
 // - Random words in registers. Word j of partition q is threefry2x32 of the
@@ -98,14 +103,7 @@ namespace cg = cooperative_groups;
 #define KAO_EXCH_FAKE_WORDS 0
 #endif
 
-// a lane's scalars as the wrapper passes them: the sweep's key
-struct ExchLaneIn {
-  uint32_t k0, k1;
-  float temp, lam;
-  int llo, lhi;
-};
-
-// a lane's scalars in the launch, with the launcher's host draws
+// a lane's scalars and the draws of its sweep key, made in phase 0
 struct ExchLane {
   uint32_t k0, k1;          // the key of the bits [N, P, 4]
   uint32_t h0, h1, l0, l1;  // the phase randint's keys: higher, lower word
@@ -116,7 +114,9 @@ struct ExchLane {
 // what the launch takes: every lane
 struct ExchLaunch {
   ModelTabs t;
-  ExchLane lane[KAO_MAX_LANES];
+  const long long* keys;  // [L, 2] each lane's sweep key
+  const float* temps;     // [L] each lane's sweep temperature
+  ExchLane* lane;         // [L] scratch: each lane's draws (phase 0)
   const int* a;     // [L, N, P, R]
   const int* lcnt;  // [L, N, B1]
   int* a_new;       // [L, N, P, R], every element written
@@ -294,13 +294,13 @@ __device__ __forceinline__ void put(const ExchArgs& g, size_t i, int s,
   g.rec[4 * NP + i] = prio;
 }
 
-// randint(kph, (N, 1), 0, 2d)[n], in uint32
-__device__ __forceinline__ int draw_phase(const ExchArgs& g, int n) {
-  const uint32_t span = 2u * (uint32_t)g.d;
+// randint(kph, (N, 1), 0, 2d)[n], in uint32, from a lane's draws
+__device__ __forceinline__ int draw_phase(const ExchLane& x, int n) {
+  const uint32_t span = 2u * (uint32_t)x.d;
   uint32_t mul = (1u << 16) % span;
   mul = (mul * mul) % span;
-  const uint32_t hi = word(g.h0, g.h1, g.h0 ^ g.h1 ^ 0x1BD11BDAu, n);
-  const uint32_t lo = word(g.l0, g.l1, g.l0 ^ g.l1 ^ 0x1BD11BDAu, n);
+  const uint32_t hi = word(x.h0, x.h1, x.h0 ^ x.h1 ^ 0x1BD11BDAu, n);
+  const uint32_t lo = word(x.l0, x.l1, x.l0 ^ x.l1 ^ 0x1BD11BDAu, n);
   return (int)(((hi % span) * mul + lo % span) % span);
 }
 
@@ -371,6 +371,89 @@ __device__ __forceinline__ void finish(const ExchArgs& g, int n, int p) {
   }
 }
 
+// ---- the draws of one lane's sweep key --------------------------------------
+
+// threefry2x32 of the count pair (x0, x1) under key (k0, k1), as
+// prng._threefry2x32; out = the two output words
+__host__ __device__ inline void threefry_pair(uint32_t k0, uint32_t k1,
+                                              uint32_t x0, uint32_t x1,
+                                              uint32_t out[2]) {
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+  for (int i = 0; i < 5; ++i) {
+    for (int j = 0; j < 4; ++j) {
+      const int r = rot[i % 2][j];
+      x0 += x1;
+      x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  out[0] = x0;
+  out[1] = x1;
+}
+
+// jax.random.split(key)[i]
+__host__ __device__ inline void split_key(const uint32_t key[2], uint32_t i,
+                                          uint32_t out[2]) {
+  threefry_pair(key[0], key[1], 0u, i, out);
+}
+
+// jax.random.bits(key, (), uint32)
+__host__ __device__ inline uint32_t key_word(const uint32_t key[2]) {
+  uint32_t o[2];
+  threefry_pair(key[0], key[1], 0u, 0u, o);
+  return o[0] ^ o[1];
+}
+
+// sweep.propose_exchange's draws from the sweep key (k0, k1), as
+// exchange_cuda.host_keys makes them: out = (the key of the words, the
+// stride d, the phase randint's higher and lower keys), 7 words
+__host__ __device__ inline void exchange_draws(uint32_t k0, uint32_t k1,
+                                               int P, uint32_t* out) {
+  const uint32_t key[2] = {k0, k1};
+  uint32_t kd[2], kbits[2], kr[2], kph[2], r1[2], r2[2], hi[2], lo[2];
+  split_key(key, 0, kd);
+  split_key(key, 1, kbits);
+  // _pair_stride: d = randint(split(kd)[0], (), 1, max(P // 2, 2))
+  split_key(kd, 0, kr);
+  split_key(kd, 1, kph);
+  split_key(kr, 0, r1);
+  split_key(kr, 1, r2);
+  const uint32_t top = (uint32_t)(P / 2 > 2 ? P / 2 : 2);
+  const uint32_t span = top <= 1u ? 1u : top - 1u;
+  uint32_t mul = (1u << 16) % span;
+  mul = (mul * mul) % span;
+  const uint32_t off = (key_word(r1) % span) * mul + key_word(r2) % span;
+  split_key(kph, 0, hi);
+  split_key(kph, 1, lo);
+  out[0] = kbits[0];
+  out[1] = kbits[1];
+  out[2] = 1u + off % span;
+  out[3] = hi[0];
+  out[4] = hi[1];
+  out[5] = lo[0];
+  out[6] = lo[1];
+}
+
+// lane l's scalars and the draws of its sweep key keys[l]
+__device__ __forceinline__ ExchLane lane_draws(const ExchLaunch& G, int l) {
+  uint32_t k0, k1, w[7];
+  lane_key(G.keys, l, k0, k1);
+  exchange_draws(k0, k1, G.P, w);
+  const int* lb = KAO_LANE(G.t, leader_band, l);
+  return ExchLane{w[0], w[1], w[3], w[4], w[5], w[6], G.temps[l],
+                  *KAO_LANE(G.t, lam, l), (int)w[2], lb[0], lb[1]};
+}
+
+// the draws of a host key (the card tests hold them to prng's)
+extern "C" void kao_exchange_host_keys(uint32_t k0, uint32_t k1, int P,
+                                       uint32_t* out) {
+  exchange_draws(k0, k1, P, out);
+}
+
 __global__ void __launch_bounds__(KAO_THREADS)
     exchange_sweep(const ExchLaunch G) {
   cg::grid_group grid = cg::this_grid();
@@ -380,12 +463,14 @@ __global__ void __launch_bounds__(KAO_THREADS)
   const size_t NB1 = (size_t)chains * G.B1;
   const int tiles = chains * G.nblk;
 
-  // ---- phase 0: maps, lcnt', the chains' phases -----------------------
+  // ---- phase 0: maps, lcnt', the lanes' draws, the chains' phases -----
   for (size_t j = tid; j < 2 * NB1; j += stride) G.maps[j] = 0;
   for (size_t j = tid; j < NB1; j += stride) G.lcnt_new[j] = G.lcnt[j];
   for (size_t j = tid; j < (size_t)chains; j += stride) {
-    const ExchArgs g = exch_view(G, (int)j / G.N);
-    g.phase[j % G.N] = draw_phase(g, (int)(j % G.N));
+    const int l = (int)(j / G.N), n = (int)(j % G.N);
+    const ExchLane x = lane_draws(G, l);
+    if (n == 0) G.lane[l] = x;  // read by every phase behind the barrier
+    G.phase[j] = draw_phase(x, n);
   }
   if (KAO_EXCH_PHASES < 1) return;
   grid.sync();
@@ -411,98 +496,30 @@ __global__ void __launch_bounds__(KAO_THREADS)
   }
 }
 
-// ---- the host draws of one lane's sweep ------------------------------------
-
-// threefry2x32 of the count pair (x0, x1) under key (k0, k1) on the host,
-// as prng._threefry2x32; out = the two output words
-static void threefry_host(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1,
-                          uint32_t out[2]) {
-  static const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  x0 += ks[0];
-  x1 += ks[1];
-  for (int i = 0; i < 5; ++i) {
-    for (int j = 0; j < 4; ++j) {
-      const int r = rot[i % 2][j];
-      x0 += x1;
-      x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-  out[0] = x0;
-  out[1] = x1;
-}
-
-// jax.random.split(key)[i]
-static void split_host(const uint32_t key[2], uint32_t i, uint32_t out[2]) {
-  threefry_host(key[0], key[1], 0u, i, out);
-}
-
-// jax.random.bits(key, (), uint32)
-static uint32_t word_host(const uint32_t key[2]) {
-  uint32_t o[2];
-  threefry_host(key[0], key[1], 0u, 0u, o);
-  return o[0] ^ o[1];
-}
-
-// sweep.propose_exchange's host draws from the sweep key (k0, k1), as
-// exchange_cuda.host_keys makes them: out = (the key of the words, the
-// stride d, the phase randint's higher and lower keys), 7 words
-extern "C" void kao_exchange_host_keys(uint32_t k0, uint32_t k1, int P,
-                                       uint32_t* out) {
-  const uint32_t key[2] = {k0, k1};
-  uint32_t kd[2], kbits[2], kr[2], kph[2], r1[2], r2[2], hi[2], lo[2];
-  split_host(key, 0, kd);
-  split_host(key, 1, kbits);
-  // _pair_stride: d = randint(split(kd)[0], (), 1, max(P // 2, 2))
-  split_host(kd, 0, kr);
-  split_host(kd, 1, kph);
-  split_host(kr, 0, r1);
-  split_host(kr, 1, r2);
-  const uint32_t top = (uint32_t)(P / 2 > 2 ? P / 2 : 2);
-  const uint32_t span = top <= 1u ? 1u : top - 1u;
-  uint32_t mul = (1u << 16) % span;
-  mul = (mul * mul) % span;
-  const uint32_t off = (word_host(r1) % span) * mul + word_host(r2) % span;
-  split_host(kph, 0, hi);
-  split_host(kph, 1, lo);
-  out[0] = kbits[0];
-  out[1] = kbits[1];
-  out[2] = 1u + off % span;
-  out[3] = hi[0];
-  out[4] = hi[1];
-  out[5] = lo[0];
-  out[6] = lo[1];
-}
-
 // One exchange sweep of L lanes: a cooperative launch of min(L * N *
 // ceil(P / KAO_THREADS) tiles, the blocks resident on the card) blocks of
-// KAO_THREADS threads, lane l from its tables (tabs), lanes[l] and the host
-// draws of its sweep key. a_new and lcnt_new are fully written; scratch
-// holds the records [L, 5, N, P], the maps [L, 2, N, B1] and the phases
-// [L, N], in that order. Returns the CUDA error of the occupancy queries or
-// the launch (0 on success).
+// KAO_THREADS threads, lane l from its tables (tabs), its key keys[l] and
+// its temperature temps[l] (device memory), the draws of its key made in
+// phase 0. a_new and lcnt_new are fully written; scratch holds the records
+// [L, 5, N, P], the maps [L, 2, N, B1], the phases [L, N] and the lanes'
+// draws [L, 11], in that order. Returns the CUDA error of the occupancy
+// queries or the launch (0 on success).
 extern "C" int kao_exchange_sweep(const ModelTabs* tabs,
-                                  const ExchLaneIn* lanes, int L, int N,
-                                  int P, int R, int B1, const int* a,
+                                  const long long* keys, const float* temps,
+                                  int L, int N, int P, int R, int B1,
+                                  const int* a,
                                   const int* lcnt, int* a_new, int* lcnt_new,
                                   int* scratch, cudaStream_t stream) {
   if (L < 1 || L > KAO_MAX_LANES) return (int)cudaErrorInvalidValue;
   const int nblk = (P + KAO_THREADS - 1) / KAO_THREADS;
   ExchLaunch g;
   g.t = *tabs;
-  for (int l = 0; l < L; ++l) {
-    const ExchLaneIn& x = lanes[l];
-    uint32_t w[7];
-    kao_exchange_host_keys(x.k0, x.k1, P, w);
-    g.lane[l] = ExchLane{w[0], w[1], w[3], w[4], w[5], w[6], x.temp,
-                         x.lam, (int)w[2], x.llo, x.lhi};
-  }
+  g.keys = keys, g.temps = temps;
   g.a = a, g.lcnt = lcnt, g.a_new = a_new, g.lcnt_new = lcnt_new;
   g.rec = scratch;
   g.maps = g.rec + (size_t)5 * L * N * P;
   g.phase = g.maps + (size_t)2 * L * N * B1;
+  g.lane = reinterpret_cast<ExchLane*>(g.phase + (size_t)L * N);
   g.L = L, g.N = N, g.P = P, g.R = R, g.B1 = B1, g.nblk = nblk;
   // the resident grid, once per device
   static int resident[64];

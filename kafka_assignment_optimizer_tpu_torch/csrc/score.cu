@@ -62,14 +62,9 @@ namespace cg = cooperative_groups;
 #define KAO_SCORE_ROWS 1
 #endif
 
-struct ScoreLane {
-  int blo, bhi, llo, lhi;
-};
-
-// what the launch takes: every lane
+// what the launch takes: every lane (each lane's bands in its tables)
 struct ScoreLaunch {
   ModelTabs t;
-  ScoreLane lane[KAO_MAX_LANES];
   const int* a;  // [L, N, P, R]
   int L, N, P, R, B1, K1;
   int nblk;   // tiles of KAO_THREADS partitions a chain
@@ -100,7 +95,8 @@ struct ScoreArgs {
 };
 
 __device__ __forceinline__ ScoreArgs score_view(const ScoreLaunch& G, int l) {
-  const ScoreLane& x = G.lane[l];
+  const int* bb = KAO_LANE(G.t, broker_band, l);
+  const int* lb = KAO_LANE(G.t, leader_band, l);
   const size_t n0 = (size_t)l * G.N;
   return ScoreArgs{G.a + n0 * G.P * G.R,
                    KAO_LANE(G.t, valid, l),
@@ -110,7 +106,7 @@ __device__ __forceinline__ ScoreArgs score_view(const ScoreLaunch& G, int l) {
                    KAO_LANE(G.t, part_rack_hi, l),
                    KAO_LANE(G.t, rack_lo, l),
                    KAO_LANE(G.t, rack_hi, l),
-                   x.blo, x.bhi, x.llo, x.lhi,
+                   bb[0], bb[1], lb[0], lb[1],
                    G.N, G.P, G.R, G.B1, G.K1, G.nblk, G.local,
                    G.out + n0 * 8, G.cnt + n0 * G.B1, G.lcnt + n0 * G.B1,
                    G.rcnt + n0 * G.K1};
@@ -262,13 +258,13 @@ __global__ void __launch_bounds__(KAO_THREADS)
 
 // out [L, N, 8] = (weight, pen_broker, pen_leader, pen_rack,
 // pen_part_rack, moves, 0, 0), cnt/lcnt [L, N, B1], rcnt [L, N, K1]: every
-// entry written, lane l from its tables (tabs) and bands (lanes[l]). A
+// entry written, lane l from its tables and bands (tabs). A
 // cooperative launch of min(L * N * ceil(P / KAO_THREADS) tiles, the
 // blocks resident on the card) blocks of KAO_THREADS threads. Returns the
 // CUDA error of the attribute and occupancy calls or the launch (0 on
 // success).
-extern "C" int kao_score(const ModelTabs* tabs, const ScoreLane* lanes,
-                         int L, int N, int P, int R, int B1, int K1,
+extern "C" int kao_score(const ModelTabs* tabs, int L, int N, int P, int R,
+                         int B1, int K1,
                          const int* a, int* out, int* cnt, int* lcnt,
                          int* rcnt, cudaStream_t stream) {
   if (L < 1 || L > KAO_MAX_LANES) return (int)cudaErrorInvalidValue;
@@ -278,7 +274,6 @@ extern "C" int kao_score(const ModelTabs* tabs, const ScoreLane* lanes,
   const size_t smem = local ? 8 * (size_t)B1 : 0;
   ScoreLaunch g;
   g.t = *tabs;
-  for (int l = 0; l < L; ++l) g.lane[l] = lanes[l];
   g.a = a;
   g.L = L, g.N = N, g.P = P, g.R = R, g.B1 = B1, g.K1 = K1;
   g.nblk = nblk;

@@ -10,9 +10,12 @@
 //
 // Lanes: one launch runs the sweep of L lanes (the portfolio's configs or
 // a batch's instances), grid (C, N, L): each lane against its own tables
-// (ModelTabs, lane stride 0 where they are shared), bands, penalty scale,
-// temperature and key (SiteLane). A lane's outputs are what a launch on
-// that lane alone writes.
+// (ModelTabs, lane stride 0 where they are shared), bands and penalty
+// scale (tables too), temperature temps[l] and key keys[l]. Every
+// per-lane value is read from device memory, none passed by value, so a
+// launch captured in a CUDA graph serves every sweep of a fused group and
+// every model of a bucket. A lane's outputs are what a launch on that
+// lane alone writes.
 //
 // Design, for Hopper:
 //
@@ -96,16 +99,11 @@ namespace cg = cooperative_groups;
 
 constexpr int C = KAO_SITE_CLUSTER;
 
-struct SiteLane {
-  uint32_t k0, k1;  // the sweep's key
-  float temp, lam;
-  int blo, bhi, llo, lhi;
-};
-
 // what the launch takes: every lane
 struct SiteLaunch {
   ModelTabs t;
-  SiteLane lane[KAO_MAX_LANES];
+  const long long* keys;  // [L, 2] each lane's sweep key
+  const float* temps;     // [L] each lane's sweep temperature
   const int* a;    // [L, N, P, R]
   const int* cnt;  // [L, N, B1]
   const int* lcnt;
@@ -147,7 +145,10 @@ struct SiteArgs {
 };
 
 __device__ __forceinline__ SiteArgs site_view(const SiteLaunch& G, int l) {
-  const SiteLane& x = G.lane[l];
+  uint32_t k0, k1;
+  lane_key(G.keys, l, k0, k1);
+  const int* bb = KAO_LANE(G.t, broker_band, l);
+  const int* lb = KAO_LANE(G.t, leader_band, l);
   const size_t n0 = (size_t)l * G.N;
   const size_t rows = n0 * G.P * G.R;
   return SiteArgs{G.a + rows,
@@ -164,7 +165,8 @@ __device__ __forceinline__ SiteArgs site_view(const SiteLaunch& G, int l) {
                   G.rcnt + n0 * G.K1, G.a_new + rows,
                   G.cnt_new + n0 * G.B1, G.lcnt_new + n0 * G.B1,
                   G.rcnt_new + n0 * G.K1, G.rec + n0 * G.P,
-                  x.k0, x.k1, x.temp, x.lam, x.blo, x.bhi, x.llo, x.lhi,
+                  k0, k1, G.temps[l], *KAO_LANE(G.t, lam, l), bb[0], bb[1],
+                  lb[0], lb[1],
                   G.N, G.P, G.R, G.B1, G.K1, G.Pc};
 }
 
@@ -358,10 +360,12 @@ __global__ void __launch_bounds__(KAO_SITE_THREADS)
 }
 
 // One site sweep of L lanes: grid (C, N, L) in clusters of (C, 1, 1), lane
-// l from its tables (tabs) and lanes[l]. Returns the CUDA error of the
-// attribute calls or the launch (0 on success).
-extern "C" int kao_site_sweep(const ModelTabs* tabs, const SiteLane* lanes,
-                              int L, int N, int P, int R, int B1, int K1,
+// l from its tables (tabs), its key keys[l] and its temperature temps[l]
+// (device memory). Returns the CUDA error of the attribute calls or the
+// launch (0 on success).
+extern "C" int kao_site_sweep(const ModelTabs* tabs, const long long* keys,
+                              const float* temps, int L, int N, int P,
+                              int R, int B1, int K1,
                               const int* a, const int* cnt, const int* lcnt,
                               const int* rcnt, int* a_new, int* cnt_new,
                               int* lcnt_new, int* rcnt_new, int4* rec,
@@ -369,7 +373,7 @@ extern "C" int kao_site_sweep(const ModelTabs* tabs, const SiteLane* lanes,
   if (L < 1 || L > KAO_MAX_LANES) return (int)cudaErrorInvalidValue;
   SiteLaunch g;
   g.t = *tabs;
-  for (int l = 0; l < L; ++l) g.lane[l] = lanes[l];
+  g.keys = keys, g.temps = temps;
   g.a = a, g.cnt = cnt, g.lcnt = lcnt, g.rcnt = rcnt;
   g.a_new = a_new, g.cnt_new = cnt_new, g.lcnt_new = lcnt_new;
   g.rcnt_new = rcnt_new, g.rec = rec;

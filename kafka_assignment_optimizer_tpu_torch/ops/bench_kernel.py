@@ -398,7 +398,7 @@ def kernel_vs_torch(smoke: bool = False, device="cuda",
     from ..obs import prof
     from ..solvers.tpu import sweep
     from ..utils.platform import pin_platform
-    from . import exchange_cuda
+    from . import exchange_cuda, kernels
     from .score_cuda import score_lanes, score_lanes_plain
     from .site_cuda import site_step_lanes
 
@@ -427,15 +427,18 @@ def kernel_vs_torch(smoke: bool = False, device="cuda",
         _o, cnt, lcnt, rcnt = score_lanes_plain(ms, al)
         library = library_calls(ms, al, exchange_cuda.exchange_sweep_lanes(
             ms, al, lcnt, keys, temps))
+        # the kernels as the ladder calls them: the lanes' keys and
+        # temperatures already on the card
+        dkeys, dtemps = kernels.lane_values(keys, temps, L, al.device)
         calls = {
             SCORE: (lambda: score_lanes(ms, al),
                     lambda: score_lanes_plain(ms, al)),
-            SITE: (lambda: site_step_lanes(ms, al, cnt, lcnt, rcnt, keys,
-                                           temps),
+            SITE: (lambda: site_step_lanes(ms, al, cnt, lcnt, rcnt, dkeys,
+                                           dtemps),
                    lambda: sweep.site_lanes_delta(ms, al, cnt, lcnt, rcnt,
                                                   keys, temps)),
             EXCHANGE: (lambda: exchange_cuda.exchange_step_lanes(
-                ms, al, cnt, lcnt, rcnt, keys, temps),
+                ms, al, cnt, lcnt, rcnt, dkeys, dtemps),
                 lambda: sweep.exchange_lanes_delta(
                     ms, al, cnt, lcnt, rcnt, keys, temps)),
         }

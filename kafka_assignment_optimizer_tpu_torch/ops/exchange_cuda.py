@@ -12,9 +12,11 @@ barrier keeps, applies and updates ``lcnt``; see ``csrc/exchange.cu``.
 Its plain version is ``sweep._exchange_sweep_delta``: the proposal
 ``sweep.exchange_propose``, then ``sweep.exch_finish``.
 
-The sweep's host draws (the stride and the keys of the words and of the
-phases, :func:`host_keys`) are made by the launcher's C code from the
-sweep key. The lane forms (:func:`exchange_step_lanes`,
+The draws of the sweep key that precede the words (the stride and the
+keys of the words and of the phases, :func:`host_keys`) are made in the
+kernel's first phase, on the card, from the lane's key in device memory
+(its temperature, band and penalty scale are read there too). The lane
+forms (:func:`exchange_step_lanes`,
 :func:`exchange_sweep_lanes`) sweep the L lanes of a stacked model in one
 launch, each with its own key and temperature. Each wrapper launches the
 kernel for CUDA tensors and runs the plain version for CPU tensors.
@@ -24,7 +26,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from .. import prng
@@ -41,11 +42,11 @@ from .kernels import check
 
 
 def host_keys(key, P: int):
-    """The host draws of one exchange proposal, as ``propose_exchange``
-    makes them: ``(kbits, d, k_hi, k_lo)``, the key of the words ``bits
-    [N, P, 4]``, the stride, and the two keys of the phases'
-    ``randint``. The launcher draws the same words in C
-    (``kernels.exchange_host_keys``)."""
+    """The draws of one exchange proposal's host key, as
+    ``propose_exchange`` makes them: ``(kbits, d, k_hi, k_lo)``, the key
+    of the words ``bits [N, P, 4]``, the stride, and the two keys of the
+    phases' ``randint``. The kernel draws the same words on the card
+    (``kernels.exchange_host_keys`` runs its C code on the host)."""
     kd, kbits = prng.split(key)
     d, kph = _pair_stride(kd, P)
     k_hi, k_lo = prng.split(kph)
@@ -69,11 +70,13 @@ def exchange_sweep_cuda(m: ModelArrays, a, lcnt, key, temp: float):
     fills, allocated uninitialized), the plain versions
     (``sweep.exchange_propose``, then ``sweep.exch_finish``) for CPU
     tensors. ``key`` is the sweep's host ``uint32[2]`` key, ``temp`` the
-    sweep temperature as a float32 value."""
+    sweep temperature as a float32 value (or a device key and scalar)."""
     if a.device.type == "cpu":
         return _plain_sweep(m, a, lcnt, key, temp)
-    a2, l2, rec, m_out, m_in = _launch(m, a[None], lcnt[None], [key],
-                                       [temp])
+    from .site_cuda import _one
+
+    a2, l2, rec, m_out, m_in = _launch(m, a[None], lcnt[None],
+                                       *_one(key, temp, a.device))
     return (a2[0], l2[0], tuple(x[0] for x in rec), m_out[0], m_in[0])
 
 
@@ -91,7 +94,8 @@ def exchange_sweep_lanes(m: ModelArrays, a, lcnt, keys, temps):
         return (torch.stack(a2), torch.stack(l2),
                 tuple(torch.stack(x) for x in zip(*rec)),
                 torch.stack(m_out), torch.stack(m_in))
-    return _launch(m, a, lcnt, keys, temps)
+    return _launch(m, a, lcnt, *kernels.lane_values(keys, temps, a.shape[0],
+                                                    a.device))
 
 
 def exchange_step_cuda(m: ModelArrays, a, cnt, lcnt, rcnt, key,
@@ -118,15 +122,17 @@ def exchange_step_lanes(m: ModelArrays, a, cnt, lcnt, rcnt, keys, temps):
         return exchange_lanes_delta(m, a, cnt, lcnt, rcnt, keys, temps)
     if a.shape[2] < 2:
         return a, cnt, lcnt, rcnt
-    a2, lcnt2, _rec, _m_out, _m_in = _launch(m, a, lcnt, keys, temps)
+    a2, lcnt2, _rec, _m_out, _m_in = _launch(
+        m, a, lcnt, *kernels.lane_values(keys, temps, a.shape[0], a.device))
     return a2, cnt, lcnt2, rcnt
 
 
 @kernels.in_lane_groups
 def _launch(m: ModelArrays, a, lcnt, keys, temps):
-    """One launch of the fused exchange sweep on ``a [L, N, P, R]`` (a
-    single model is one lane; above ``kernels.MAX_LANES`` lanes, one
-    launch a group of lanes)."""
+    """One launch of the fused exchange sweep on ``a [L, N, P, R]`` with
+    the lanes' device keys ``[L, 2]`` and temperatures ``[L]`` (a single
+    model is one lane; above ``kernels.MAX_LANES`` lanes, one launch a
+    group of lanes)."""
     tabs = kernels.model_tabs(m)
     L, N = a.shape[:2]
     kernels.lane_count(m, L)
@@ -135,26 +141,21 @@ def _launch(m: ModelArrays, a, lcnt, keys, temps):
     dev = m.a0.device
     check("a", a, torch.int32, (L, N, P, R), dev)
     check("lcnt", lcnt, torch.int32, (L, N, B1), dev)
-    bands, lams, _scales = m.lane_scalars()
-    lanes = np.zeros(L, kernels.EXCH_LANE)
-    words = np.asarray(keys, np.uint32).reshape(L, 2)
-    lanes["k0"], lanes["k1"] = words[:, 0], words[:, 1]
-    lanes["temp"] = temps
-    lanes["lam"] = lams
-    lanes["llo"] = [b[2] for b in bands]
-    lanes["lhi"] = [b[3] for b in bands]
     a_new = torch.empty_like(a)
     lcnt_new = torch.empty_like(lcnt)
-    scratch = torch.empty(L * (5 * N * P + 2 * N * B1 + N),
+    # the records, the maps, the phases and the lanes' draws (11 words a
+    # lane: csrc/exchange.cu's ExchLane)
+    scratch = torch.empty(L * (5 * N * P + 2 * N * B1 + N + 11),
                           dtype=torch.int32, device=dev)
     kernels.EXCHANGE(
-        ctypes.byref(tabs), lanes.ctypes.data, L, N, P, R, B1,
+        ctypes.byref(tabs), keys.data_ptr(), temps.data_ptr(), L, N, P, R,
+        B1,
         a.data_ptr(), lcnt.data_ptr(), a_new.data_ptr(),
         lcnt_new.data_ptr(), scratch.data_ptr(),
     )
     rec = scratch[:5 * L * N * P].view(L, 5, N, P)
-    maps = scratch[5 * L * N * P:-L * N].view(torch.float32).view(
-        L, 2, N, B1)
+    maps = scratch[5 * L * N * P:5 * L * N * P + 2 * L * N * B1].view(
+        torch.float32).view(L, 2, N, B1)
     s, b_other, tok_out, tok_in, prio = rec.unbind(1)
     return (a_new, lcnt_new,
             (s, b_other, tok_out, tok_in, prio.view(torch.float32)),

@@ -24,15 +24,22 @@ show which kernels the main path went through.
 
 Every kernel takes L lanes (1 to ``MAX_LANES``) in one launch: the model
 tables of every lane (:class:`ModelTabs`, built once per model by
-:func:`model_tabs`, lane stride 0 where the lanes share a table) and an
-array of per-lane scalars (bands, penalty scale, and for the sweeps the
-temperature and the sweep's key), passed in the launch's parameters. A
+:func:`model_tabs`, lane stride 0 where the lanes share a table), the
+bands and penalty scale among them, and for the sweeps each lane's sweep
+key and temperature as device tensors (:func:`lane_values`). Every
+per-lane value is read from device memory and none passes by value, so a
+launch captured in a CUDA graph (``sweep``'s group graph) serves every
+sweep and every model whose values are copied into the same buffers. A
 single model is one lane. More lanes than one launch takes run as
 launches of up to ``MAX_LANES`` lanes each (:func:`in_lane_groups`).
+Launches made under :func:`recording` (a graph's warm-up and capture)
+count into the recording instead; a graph's replay adds what it captured
+(:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -46,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import prng
 from ..analysis import sanitize as _sanitize
 from ..obs import flight as _flight
 from ..solvers.tpu.arrays import lane_range
@@ -192,7 +200,9 @@ MAX_LANES = 64  # KAO_MAX_LANES in csrc/common.cuh
 _TABLES = (("a0", "a0"), ("rf", "rf"), ("slot_valid", "valid"),
            ("part_rack_hi", "part_rack_hi"), ("w_lead", "w_lead"),
            ("w_foll", "w_foll"), ("rack_of", "rack_of"),
-           ("rack_lo", "rack_lo"), ("rack_hi", "rack_hi"))
+           ("rack_lo", "rack_lo"), ("rack_hi", "rack_hi"),
+           ("broker_band", "broker_band"), ("leader_band", "leader_band"),
+           ("lam", "lam"))
 
 
 class ModelTabs(ctypes.Structure):
@@ -203,15 +213,9 @@ class ModelTabs(ctypes.Structure):
                 for x in ((c, ctypes.c_void_p), (c + "_s", ctypes.c_int64))]
 
 
-# the per-lane scalars of each kernel (its ScoreLane, SiteLane and
-# ExchLaneIn): 4-byte fields, no padding
-SCORE_LANE = np.dtype([("blo", "<i4"), ("bhi", "<i4"), ("llo", "<i4"),
-                       ("lhi", "<i4")])
-SITE_LANE = np.dtype([("k0", "<u4"), ("k1", "<u4"), ("temp", "<f4"),
-                      ("lam", "<f4"), ("blo", "<i4"), ("bhi", "<i4"),
-                      ("llo", "<i4"), ("lhi", "<i4")])
-EXCH_LANE = np.dtype([("k0", "<u4"), ("k1", "<u4"), ("temp", "<f4"),
-                      ("lam", "<f4"), ("llo", "<i4"), ("lhi", "<i4")])
+# a thread's launch recording (recording()), or None: its launches count
+# there, not in the kernels' counts
+_TLS = threading.local()
 
 
 class Kernel:
@@ -243,7 +247,32 @@ class Kernel:
                 f"{self.name} ({self.symbol}) failed to launch: CUDA "
                 f"error {err}"
             )
-        self.launches += 1
+        rec = getattr(_TLS, "rec", None)
+        if rec is None:
+            self.launches += 1
+        else:
+            rec[self.name] = rec.get(self.name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into the yielded dict (kernel name ->
+    launches) instead of the kernels' counts: a CUDA graph's warm-up and
+    capture, whose launches are no solve's work."""
+    rec: dict = {}
+    prev = getattr(_TLS, "rec", None)
+    _TLS.rec = rec
+    try:
+        yield rec
+    finally:
+        _TLS.rec = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Add a replayed CUDA graph's captured launches (kernel name ->
+    launches) to the kernels' counts: what the card ran."""
+    for k in KERNELS:
+        k.launches += counts.get(k.name, 0)
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -279,9 +308,16 @@ def model_tabs(m) -> ModelTabs:
         raise ValueError(f"a launch takes at most {MAX_LANES} lanes, got {L}")
     shapes = {"a0": (P, R), "rf": (P,), "slot_valid": (P, R),
               "part_rack_hi": (P,), "w_lead": (P, B1), "w_foll": (P, B1),
-              "rack_of": (B1,), "rack_lo": (K1,), "rack_hi": (K1,)}
-    dtypes = {"slot_valid": torch.bool}
+              "rack_of": (B1,), "rack_lo": (K1,), "rack_hi": (K1,),
+              "broker_band": (2,), "leader_band": (2,), "lam": ()}
+    dtypes = {"slot_valid": torch.bool, "lam": torch.float32}
     tabs = ModelTabs()
+    # the penalty scale is one value a lane: [] or [1] (as from_numpy
+    # lays a scalar out)
+    shapes["lam"] = tuple(m.lam.shape[1:] if L else m.lam.shape)
+    if shapes["lam"] not in ((), (1,)):
+        raise ValueError(f"lam: shape {tuple(m.lam.shape)}, one value a "
+                         "lane expected")
     for name, field in _TABLES:
         t = getattr(m, name)
         dtype = dtypes.get(name, torch.int32)
@@ -298,6 +334,27 @@ def model_tabs(m) -> ModelTabs:
         setattr(tabs, field + "_s", stride)
     object.__setattr__(m, "_tabs", tabs)
     return tabs
+
+
+def lane_values(keys, temps, L: int, device) -> tuple:
+    """A sweep launch's per-lane values as the kernels read them: ``(keys
+    int64 [L, 2], temps float32 [L])`` on ``device``. Device tensors (a
+    chunk's sweep keys and temperature table rows) pass through checked;
+    host keys and temperatures (lists, arrays, floats) go to the device in
+    one copy each, without waiting for the card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if not isinstance(keys, torch.Tensor):
+        keys = prng.to_device_keys(np.asarray(keys, np.uint32).reshape(L, 2),
+                                   device)
+    if not isinstance(temps, torch.Tensor):
+        temps = torch.tensor(np.asarray(temps, np.float32).reshape(L))
+        temps = (temps.pin_memory().to(device, non_blocking=True)
+                 if device.type == "cuda" else temps.to(device))
+    check("keys", keys, torch.int64, (L, 2), device)
+    check("temps", temps, torch.float32, (L,), device)
+    return keys, temps
 
 
 def lane_count(m, L: int) -> None:
@@ -339,9 +396,10 @@ def in_lane_groups(launch):
 
 
 def exchange_host_keys(key, parts: int) -> tuple:
-    """The exchange launcher's host draws of one lane's sweep key, as
+    """The exchange kernel's draws of one lane's sweep key (made in its
+    phase 0 on the card), from the same C code on the host, as
     ``exchange_cuda.host_keys`` returns them: ``(kbits, d, k_hi, k_lo)``
-    (for the card tests; every launch makes them itself)."""
+    (for the card tests)."""
     fn = library("exchange").kao_exchange_host_keys
     fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, I, P]
     fn.restype = None
@@ -351,12 +409,13 @@ def exchange_host_keys(key, parts: int) -> tuple:
     return out[0:2].copy(), int(out[2]), out[3:5].copy(), out[5:7].copy()
 
 
-# the C signatures: the tables, the lane scalars, the lane count and the
-# sizes, then the tensors, then the stream (added by Kernel.__call__)
+# the C signatures: the tables, the sweeps' keys and temperatures, the lane
+# count and the sizes, then the tensors, then the stream (added by
+# Kernel.__call__)
 SCORE = Kernel(
     "B1 score", "score", "kao_score",
     ("kafka_assignment_optimizer_tpu/ops/score_pallas.py:55 _score_kernel",),
-    [P, P] + [I] * 6 + [P] * 5 + [P],
+    [P] + [I] * 6 + [P] * 5 + [P],
 )
 SITE = Kernel(
     "B2+B3 site sweep", "site", "kao_site_sweep",
@@ -364,7 +423,7 @@ SITE = Kernel(
      "_propose_kernel",
      "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:59 "
      "_site_finish_kernel"),
-    [P, P] + [I] * 6 + [P] * 9 + [P],
+    [P, P, P] + [I] * 6 + [P] * 9 + [P],
 )
 EXCHANGE = Kernel(
     "B4+B5+B6 exchange sweep", "exchange", "kao_exchange_sweep",
@@ -374,7 +433,7 @@ EXCHANGE = Kernel(
      "_exch_maps_kernel",
      "kafka_assignment_optimizer_tpu/ops/thin_pallas.py:277 "
      "_exch_finish_kernel"),
-    [P, P] + [I] * 5 + [P] * 5 + [P],
+    [P, P, P] + [I] * 5 + [P] * 5 + [P],
 )
 
 KERNELS = (SCORE, SITE, EXCHANGE)

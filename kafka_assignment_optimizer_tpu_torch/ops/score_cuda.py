@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..solvers.tpu.arrays import ModelArrays, band_pen, lane_model
@@ -137,18 +136,6 @@ def score_lanes(m: ModelArrays, a: torch.Tensor):
     return _launch(m, a)
 
 
-def _lane_bands(m: ModelArrays) -> np.ndarray:
-    """The model's per-lane bands as B1's lane scalars (cached)."""
-    lanes = m.__dict__.get("_score_lanes")
-    if lanes is None:
-        bands = m.lane_scalars()[0]
-        lanes = np.zeros(len(bands), kernels.SCORE_LANE)
-        for i, name in enumerate(("blo", "bhi", "llo", "lhi")):
-            lanes[name] = [b[i] for b in bands]
-        object.__setattr__(m, "_score_lanes", lanes)
-    return lanes
-
-
 @kernels.in_lane_groups
 def _launch(m: ModelArrays, a: torch.Tensor):
     """One launch of B1 on ``a [L, N, P, R]`` (a single model is one
@@ -167,7 +154,7 @@ def _launch(m: ModelArrays, a: torch.Tensor):
         x.view(L, N, -1)
         for x in buf.split((8 * L * N, B1 * L * N, B1 * L * N, K1 * L * N)))
     kernels.SCORE(
-        ctypes.byref(tabs), _lane_bands(m).ctypes.data, L, N, P, R, B1, K1,
+        ctypes.byref(tabs), L, N, P, R, B1, K1,
         a.data_ptr(), out.data_ptr(), cnt.data_ptr(), lcnt.data_ptr(),
         rcnt.data_ptr(),
     )

@@ -288,10 +288,19 @@ def put_rows(x, fi, val):
         x.shape)
 
 
+def _flat_keys(keys):
+    """A block's keys as rows ``[lanes, 2]``: host keys as a private
+    ``uint32`` copy, device keys as a view (never written in place)."""
+    if isinstance(keys, torch.Tensor):
+        return keys.reshape(-1, 2)
+    return np.array(keys, np.uint32).reshape(-1, 2)
+
+
 class Layout:
     """How a stepper's state lies on a solve mesh: ``split`` turns the
     state into one flat block a :class:`Block` (leaves ``[C*L, N, ...]``,
-    keys ``uint32[C*L, 2]``, a private copy), ``join`` turns the blocks
+    keys ``[C*L, 2]``, host or device keys, :func:`_flat_keys`), ``join``
+    turns the blocks
     back, ``gather`` assembles one per-block output ``[C*L, ...]`` into
     the global one, ``models`` gives each block its model of ``C*L``
     lanes on its device.
@@ -322,13 +331,13 @@ class Layout:
             leaves = (a, best_k, best_mv, best_a)
             if self.solo:
                 leaves = tuple(x[None] for x in leaves)
-            return [[*leaves, np.array(keys, np.uint32).reshape(-1, 2)]]
+            return [[*leaves, _flat_keys(keys)]]
         per = [(a, best_k, best_mv, best_a, keys)] if self.whole else list(
             zip(a, best_k, best_mv, best_a, keys))
         # the leading axes [C_b] (solo) or [C_b, L_b] flatten to lanes
         n = 1 if self.solo else 2
         return [[x.reshape(-1, *x.shape[n:]) for x in leaves[:4]]
-                + [np.array(leaves[4], np.uint32).reshape(-1, 2)]
+                + [_flat_keys(leaves[4])]
                 for leaves in per]
 
     def _unflat(self, b: Block, x):
@@ -385,15 +394,19 @@ class Layout:
             out.append(shard_models(mb, b.c1 - b.c0))
         return out
 
-    def any(self, flags: list) -> bool:
-        """Whether any block's flag holds, on every process alike (one
-        host read a block)."""
-        hit = any(bool(f) for f in flags)
+    def any(self, flags: list) -> list:
+        """Whether any block's flag (a device bool scalar a block) holds,
+        on every block and process alike: one device bool scalar a block,
+        combined on the first block's device (copies between cards, no
+        host read) and across processes (``mesh.all_reduce``)."""
+        if self.whole:
+            return flags
+        dev0 = flags[0].device
+        hit = torch.stack([f.to(dev0) for f in flags]).any()
         if self.mesh is not None and self.mesh.multi:
-            t = torch.tensor([int(hit)], dtype=torch.int32,
-                             device=flags[0].device)
-            hit = bool(self.mesh.all_reduce(t, "max")[0])
-        return hit
+            hit = self.mesh.all_reduce(
+                hit.to(torch.int32).reshape(1), "max")[0] > 0
+        return [hit.to(f.device) for f in flags]
 
 
 # ---------------------------------------------------------------------------
@@ -794,7 +807,8 @@ def solve_megachunk(m: ModelArrays, n_chains: int, temps_stack, state, *,
     ``(state', top_a [P, R], top_k, cert_a [P, R], cert_ok, cert_mv,
     curves [K, c], execd [K])`` (``sweep.make_mega_stepper_fn``; on a
     ``mesh`` each ``[C, ...]``). Omitting the certificate arguments runs
-    the group disarmed."""
+    the group disarmed. On a card with every shard on it the group runs
+    as replays of its bucket's CUDA graph (``sweep.make_mega_stepper_fn``)."""
     from ..solvers.tpu.sweep import make_mega_stepper_fn
 
     return make_mega_stepper_fn(n_chains, scorer=scorer, mesh=mesh)(

@@ -8,11 +8,14 @@ pairing. This module reproduces those functions bit for bit, so that the
 port replays the reference's trajectories exactly and the tests can
 compare whole runs.
 
-Keys are numpy ``uint32[2]`` arrays and live on the host: deriving a key
-is two 32-bit words of arithmetic, and scalars drawn from keys (the
-exchange stride) are needed on the host anyway. Host draws run on Python
-ints, a word at a time (every host draw of the program is a word or
-two); ``bits`` for a large shape runs on the device when given one.
+A key is a numpy ``uint32[2]`` array on the host, or an int64 tensor
+``[2]`` of its two words on a device (a device key). Host draws run on
+Python ints, a word at a time; ``bits`` for a large shape runs on the
+device when given one. Every function here also takes a device key and
+then draws on the key's device with no host read: ``split``, ``bits``
+and ``randint`` (whose bounds may be device scalars too), so a chunk
+step whose keys live on the card (a captured group, ``sweep``) splits
+its sweep keys and draws its exchange and compound strides there.
 
 Arithmetic is masked to 32 bits (``& 0xFFFFFFFF``), on torch int64
 tensors on a device (torch has no unsigned 32-bit shifts on every
@@ -52,6 +55,32 @@ def _threefry2x32(k0: int, k1: int, x0, x1):
     return x0, x1
 
 
+def is_device_key(key) -> bool:
+    """Whether ``key`` is a device key (a tensor), not a host array."""
+    return isinstance(key, torch.Tensor)
+
+
+def to_device_keys(keys, device) -> torch.Tensor:
+    """Host keys ``uint32[..., 2]`` as device keys (int64 words) on
+    ``device``: one copy, from pinned memory and without waiting on the
+    card when ``device`` is a card. A device key passes through."""
+    if is_device_key(keys):
+        return keys
+    host = torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def to_host_keys(keys) -> np.ndarray:
+    """Device keys as host ``uint32[..., 2]`` (a device read); host keys
+    pass through."""
+    if not is_device_key(keys):
+        return keys
+    return keys.cpu().numpy().astype(np.uint32)
+
+
 def _key_words(key) -> tuple[int, int]:
     k = np.asarray(key, dtype=np.uint32)
     if k.shape != (2,):
@@ -79,8 +108,11 @@ def PRNGKey(seed: int) -> np.ndarray:
     return np.array([0, int(seed) & _MASK], dtype=np.uint32)
 
 
-def split(key, num: int = 2) -> np.ndarray:
-    """``jax.random.split(key, num)`` -> ``uint32[num, 2]``."""
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)`` -> ``uint32[num, 2]`` (device keys
+    ``[num, 2]`` for a device key)."""
+    if is_device_key(key):
+        return split_rows(key.reshape(1, 2), num)[0]
     o0, o1 = _hash(key, (num,))
     return np.stack([o0, o1], axis=1).astype(np.uint32)
 
@@ -95,26 +127,34 @@ def fold_in(key, data: int) -> np.ndarray:
 def bits(key, shape, device=None):
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
     ``[0, 2**32)``: a numpy array when ``device`` is None, else a torch
-    tensor computed on ``device``."""
+    tensor computed on ``device`` (a device key draws on its own
+    device)."""
+    if is_device_key(key):
+        return bits_rows(key.reshape(1, 2), shape)[0]
     o0, o1 = _hash(key, shape, device)
     return o0 ^ o1
 
 
-def randint(key, shape, minval: int, maxval: int, device=None):
+def randint(key, shape, minval, maxval, device=None):
     """``jax.random.randint(key, shape, minval, maxval)`` for int32 scalar
     bounds: int32 values, a numpy array when ``device`` is None, else a
     torch tensor computed on ``device``. Every product wraps at 32 bits,
-    as the reference's uint32 arithmetic does."""
+    as the reference's uint32 arithmetic does. A device key draws on its
+    device, and its bounds may be device scalars (int64 tensors)."""
     k1, k2 = split(key)
     higher = bits(k1, shape, device)
     lower = bits(k2, shape, device)
-    minval, maxval = int(minval), int(maxval)
-    span = 1 if maxval <= minval else (maxval - minval) & _MASK
+    if isinstance(minval, torch.Tensor) or isinstance(maxval, torch.Tensor):
+        span = torch.where(torch.as_tensor(maxval <= minval),
+                           1, (maxval - minval) & _MASK)
+    else:
+        minval, maxval = int(minval), int(maxval)
+        span = 1 if maxval <= minval else (maxval - minval) & _MASK
     multiplier = (1 << 16) % span
     multiplier = ((multiplier * multiplier) & _MASK) % span
     offset = (((higher % span) * multiplier) & _MASK) + lower % span
     out = minval + (offset & _MASK) % span
-    if device is None:
+    if device is None and not isinstance(out, torch.Tensor):
         return out.astype(np.int32)
     return out.to(torch.int32)
 
@@ -141,3 +181,27 @@ def bits_rows(keys: torch.Tensor, shape) -> torch.Tensor:
     shape = tuple(int(s) for s in shape)
     o0, o1 = _hash_rows(keys, math.prod(shape))
     return (o0 ^ o1).reshape(keys.shape[0], *shape)
+
+
+def split_chain(keys, n: int):
+    """``n`` successive splits of every key row of ``keys`` (``[rows,
+    2]``), as the sweep engine splits a lane's key once a sweep: the
+    sweep keys ``[n, rows, 2]`` and the keys after the ``n`` splits, in
+    the keys' own form. Host keys split on the host (Python ints) into
+    host keys; device keys split on their device (no host read) into
+    device keys."""
+    if is_device_key(keys):
+        subs = []
+        for _ in range(n):
+            ks = split_rows(keys)
+            keys = ks[:, 0]
+            subs.append(ks[:, 1])
+        if not subs:
+            return keys.new_zeros((0, *keys.shape)), keys
+        return torch.stack(subs), keys
+    keys = np.array(keys, dtype=np.uint32).reshape(-1, 2)
+    subs = np.zeros((n, *keys.shape), np.uint32)
+    for i in range(n):
+        for j in range(keys.shape[0]):
+            keys[j], subs[i, j] = split(keys[j])
+    return subs, keys

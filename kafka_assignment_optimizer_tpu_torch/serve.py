@@ -158,9 +158,8 @@ DEFAULT_QUEUE_DEPTH = 4
 DEFAULT_QUEUE_WAIT_S = 15.0
 
 # the solve device of every tpu solve this service runs (--device; the
-# card unless the operator asks for the CPU), and the fused ladder width
-# a request that sets no megachunk option gets (--megachunk K)
-SERVE = {"device": "cuda", "megachunk": None}
+# card unless the operator asks for the CPU)
+SERVE = {"device": "cuda"}
 
 # serve-side resilience knobs (docs/RESILIENCE.md), set by main():
 # - default_deadline_s: per-request end-to-end deadline applied when
@@ -322,14 +321,12 @@ def _profile_dir_for(bucket_key: tuple, trace_id: str | None) -> str | None:
 
 def _tpu_kw(solver_eff: str) -> dict:
     """The solver keywords every ``tpu`` solve of this service gets: its
-    device (the host backends take none) and the service's fused width
-    unless the request set one."""
+    device (the host backends take none). The fused width of a request
+    that sets no megachunk option is the engine's process default
+    (``--megachunk``, ``KAO_MEGACHUNK``)."""
     if solver_eff != "tpu":
         return {}
-    kw: dict = {"device": SERVE["device"]}
-    if SERVE["megachunk"] is not None:
-        kw["megachunk"] = SERVE["megachunk"]
-    return kw
+    return {"device": SERVE["device"]}
 
 
 class _QueueItem:
@@ -1588,15 +1585,6 @@ def handle_submit(
         options["megachunk"], bool
     ):
         raise ApiError(400, "'megachunk' must be a boolean")
-    if options.get("megachunk") is True:
-        # the reference's evidence chooser (megachunk "auto") is not in
-        # this package: false (the per-chunk ladder) is
-        raise ApiError(
-            501, "'megachunk': true (the measured fused width) is not "
-                 "supported by this package yet",
-            body={"reason": "not_ported",
-                  "module": "the megachunk evidence table of "
-                            "solvers/tpu/engine.py"})
     if max_solve_s is not None:
         # cap every solve: client may tighten the limit but not exceed it
         options["time_limit_s"] = (
@@ -2294,12 +2282,16 @@ def _healthz_portfolio() -> dict:
 
 
 def _healthz_megachunk() -> dict:
-    """The /healthz megachunk section: the service's fused width for
-    requests that set none (``--megachunk K``; None is the per-chunk
-    ladder). The reference's measured width and its evidence table are
-    not in this package (``megachunk="auto"`` is refused)."""
-    return {"default": SERVE["megachunk"],
-            "auto": "not supported by this package yet"}
+    """The /healthz megachunk section: the resolved process default
+    (``--megachunk`` / ``KAO_MEGACHUNK``), the per-bucket evidence table
+    and the width "auto" picks from it (``choose_megachunk_k``), and the
+    group graphs this process holds (one step graph a bucket, the CUDA
+    graphs of a step's pieces, replayed once an active step of a fused
+    group):
+    ``engine.megachunk_snapshot()``."""
+    from .solvers.tpu.engine import megachunk_snapshot
+
+    return megachunk_snapshot()
 
 
 def _healthz_mesh() -> dict:
@@ -3279,12 +3271,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable portfolio lane racing by default; "
                          "clients may still opt a request back in with "
                          "options.portfolio=true")
-    ap.add_argument("--megachunk", default=None, metavar="K|off",
-                    help="fused ladder megachunks: the fused width of "
-                         "sweep solves whose request sets no megachunk "
-                         "option (an integer K; 'off' keeps the "
-                         "per-chunk ladder). The reference's 'auto' is "
-                         "not supported by this package yet")
+    ap.add_argument("--megachunk", default=None, metavar="K|auto|off",
+                    help="fused ladder megachunks: the default fused "
+                         "width of sweep solves. An integer pins K chunks "
+                         "a dispatch (one CUDA-graph replay a chunk on "
+                         "the card), 'auto' engages the per-bucket "
+                         "evidence chooser, 'off'/unset keeps the "
+                         "per-chunk ladder. Same as KAO_MEGACHUNK; "
+                         "clients may opt a request out with "
+                         "options.megachunk=false")
     ap.add_argument("--no-trace", action="store_true",
                     help="disable per-request solve traces (responses "
                          "then carry no trace_id and /debug/solves "
@@ -3441,16 +3436,13 @@ def main(argv: list[str] | None = None) -> int:
         except ValueError as e:
             ap.error(str(e))
     if args.megachunk is not None:
-        v = args.megachunk.strip().lower()
-        if v in ("off", "0", "none"):
-            SERVE["megachunk"] = None
-        else:
-            try:
-                SERVE["megachunk"] = max(1, int(v))
-            except ValueError:
-                ap.error(f"--megachunk {args.megachunk!r}: expected an "
-                         "integer width or 'off' ('auto' is not "
-                         "supported by this package yet)")
+        from .solvers.tpu.engine import set_megachunk_default
+
+        try:
+            set_megachunk_default(args.megachunk)
+        except ValueError:
+            ap.error(f"--megachunk {args.megachunk!r}: expected an "
+                     "integer width, 'auto', or 'off'")
     try:
         # the card unless --device cpu; no card and no --device cpu
         # stops the service here, never a silent CPU service

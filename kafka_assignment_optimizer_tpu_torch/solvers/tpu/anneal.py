@@ -51,6 +51,10 @@ from ...parallel.mesh import TRIVIAL, Block, Layout, owner_rows, put_rows
 from .arrays import LAMBDA, SCALE_W, ModelArrays, u01
 from .sweep import _one_lane, first_argmax_rows, first_argmin_rows
 
+# no fused megachunk groups here (the engine's width resolver reads the
+# flag; ``sweep.SUPPORTS_MEGACHUNK`` is True), as in the reference
+SUPPORTS_MEGACHUNK = False
+
 # move-type proposal mix (the reference's constants); the comparisons run
 # in float32, so the thresholds are taken as float32 values
 P_REPLACE = 0.45

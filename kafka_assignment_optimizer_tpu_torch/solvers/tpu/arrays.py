@@ -226,6 +226,16 @@ class ModelArrays:
         return cached
 
 
+def lane_temps(temps, m: ModelArrays) -> np.ndarray:
+    """The temperature of every sweep of ``temps [..., c]`` (the shared
+    ladder) on every lane of the stacked model ``m``: host float32
+    ``[..., c, lanes]``, each entry the float32 product ``temps[i] *
+    temp_scale[l]`` of the reference's per-lane scaling, from the model's
+    host scalars."""
+    scales = np.asarray(m.lane_scalars()[2], np.float32)
+    return np.asarray(temps, np.float32)[..., None] * scales
+
+
 _FIELDS = [f.name for f in dataclasses.fields(ModelArrays)]
 _FLOAT_FIELDS = ("lam", "temp_scale", "comp_enable")
 

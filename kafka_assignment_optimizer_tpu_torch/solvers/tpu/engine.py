@@ -31,8 +31,14 @@ each, exchanging their best chain at every snapshot):
    chunk i+1 is enqueued before chunk i is retired, so chunk i's
    boundary work overlaps chunk i+1 on the card; ``megachunk`` K fuses K
    chunks into one group with the certificate's device-side precheck
-   between its steps. Both are scheduling only: the plans, curves and
-   stats equal the one-chunk-at-a-time ladder's.
+   between its steps, on the card each step one replay of the bucket's
+   step graph (CUDA graphs of the step's pieces, captured once). ``megachunk="auto"`` (or
+   True, or the ``KAO_MEGACHUNK`` / ``set_megachunk_default`` process
+   default) picks K per bucket from the measured host and device time a
+   dispatch (``choose_megachunk_k`` over the evidence its own width-1
+   ladders file, each chunk one replay on the card). Both are scheduling
+   only: the plans, curves and stats equal the one-chunk-at-a-time
+   ladder's.
 3. **Certify-first final selection.** Rescore (B1 on the card), then
    moves against the exact move bound, feasibility, weight against the
    weight bound, one exact reseat; polish only when no check certifies.
@@ -70,9 +76,9 @@ cost model at its first dispatch, then the enqueue->retire pairing);
 Under a process group (``parallel.distributed``) every process runs the
 whole deterministic ladder on its shards, with no constructor race, no
 boundary certificate, no portfolio, no deadline and no host fallback, as
-the reference's multi-controller solve. Not here yet: the fused width
-chosen from measurements (``megachunk="auto"`` raises
-``NotImplementedError``).
+the reference's multi-controller solve ("auto" then keeps the per-chunk
+ladder). A group whose shards span several cards runs its steps from
+the host (a graph belongs to one card), and "auto" takes width 1 there.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; it never moves to the CPU on its own.
@@ -126,8 +132,12 @@ from .anneal import make_solver_fn
 from .polish import polish
 from .seed import greedy_seed
 from .sweep import (
+    MEGA_DISARMED_KEY,
+    MEGA_DISARMED_MOVES,
     first_argmax,
     make_lane_stepper_fn,
+    make_mega_lane_stepper_fn,
+    make_mega_stepper_fn,
     make_sweep_stepper_fn,
     out_key,
 )
@@ -151,40 +161,208 @@ def set_pipeline_default(enabled: bool) -> None:
 
 
 # ladder megachunks: K consecutive sweep chunks as ONE fused group, one
-# dispatch per K chunks. The reference's "auto" width (megachunk="auto"
-# or True, and its KAO_MEGACHUNK process default) picks K from measured
-# host and device time on the premise that a group pays its host time
-# once; a group here is the chunk stepper called K times from Python, so
-# its host time grows with K and that rule would always pick the widest
-# K. Until a fused group is one captured CUDA graph, "auto" raises and
-# KAO_MEGACHUNK is not read: a solve fuses only at an explicit width
-def _resolve_megachunk(megachunk) -> int | None:
-    """The requested fused width: None for the per-chunk ladder (None,
-    False and a non-numeric string such as ``"off"``), else the int
-    (a numeric string counts); ``"auto"`` and True raise
-    ``NotImplementedError``."""
-    if megachunk is True or (isinstance(megachunk, str)
-                             and megachunk.strip().lower() == "auto"):
-        raise NotImplementedError(
-            f"megachunk={megachunk!r} is not supported by this package yet "
-            "(accepted: None, 'off' or an integer width)"
-        )
-    if megachunk is None or megachunk is False:
+# dispatch per K chunks. On the card each step of a group is one replay of
+# its bucket's step graph, CUDA graphs of the step's pieces captured once
+# (``sweep.make_mega_lane_stepper_fn``), the state and the ``done`` flag
+# carried on the card between the replays, as the reference's group is one
+# device-resident scan; a replay's host launch (~8 ms at the adversarial
+# bucket) stays under its device time, so the host keeps ahead of the card. KAO_MEGACHUNK=auto|K|off, with the
+# reference's conventions: unset keeps the per-chunk ladder, an integer
+# pins the fused width, and "auto" opts into the evidence chooser below,
+# which measures and then chooses, never a hand-written constant.
+def _env_megachunk():
+    """Parse KAO_MEGACHUNK: None (unset/off), "auto", or a width >= 1.
+    Malformed overrides fall back to unset instead of failing the first
+    engine import."""
+    raw = os.environ.get("KAO_MEGACHUNK", "").strip().lower()
+    if not raw or raw in ("0", "off", "none", "false"):
         return None
+    if raw == "auto":
+        return "auto"
     try:
-        return int(megachunk)
+        return max(1, int(raw))
     except ValueError:
         return None
 
 
-def _mega_width(req: int | None, engine: str, n_chunks: int) -> tuple:
-    """``(K, mode)`` of a ladder, as the reference resolves an explicit
-    width: 1 ("off") unless the engine fuses (the sweep engine), the
-    ladder has more than one chunk and a width other than 1 was asked
-    for; else the width capped by the chunk count ("static")."""
-    if engine != "sweep" or n_chunks <= 1 or req is None or req == 1:
+_MEGACHUNK_DEFAULT = _env_megachunk()
+
+
+def set_megachunk_default(value) -> None:
+    """Process-wide default for solves that do not pass ``megachunk=``
+    (the service's ``--megachunk``): None/"off" keeps the per-chunk
+    ladder, "auto" engages the evidence table, an int pins the width."""
+    global _MEGACHUNK_DEFAULT
+    if isinstance(value, str):
+        value = value.strip().lower()
+        if value in ("", "0", "off", "none", "false"):
+            value = None
+        elif value != "auto":
+            value = max(1, int(value))
+    elif isinstance(value, bool):
+        value = "auto" if value else None
+    elif value is not None:
+        value = max(1, int(value))
+    _MEGACHUNK_DEFAULT = value
+
+
+def megachunk_default():
+    """The resolved process default (the service's /healthz)."""
+    return _MEGACHUNK_DEFAULT
+
+
+# per-bucket fusion-width evidence: every sweep ladder files its measured
+# dispatch and device split under its warm-chunk identity, and the "auto"
+# chooser picks the smallest width that makes a dispatch's host time at
+# most MEGA_HOST_FRACTION of a fused group's wall
+_MEGA_CANDIDATES = (1, 2, 4, 8)
+MEGA_MIN_SOLVES = 16  # evidence quorum before auto departs from 1
+MEGA_HOST_FRACTION = 0.05
+_MEGA_LOCK = threading.Lock()
+_MEGA_EVIDENCE: dict = {}
+
+
+def note_megachunk_evidence(key: tuple, *, dispatches: int,
+                            dispatch_s: float, chunks: int,
+                            device_s: float) -> None:
+    """File one ladder's measured split under its identity ``key``.
+    Totals accumulate; the table is process-local."""
+    if dispatches <= 0 or chunks <= 0:
+        return
+    with _MEGA_LOCK:
+        ev = _MEGA_EVIDENCE.setdefault(key, {
+            "solves": 0, "dispatches": 0, "dispatch_s": 0.0,
+            "chunks": 0, "device_s": 0.0,
+        })
+        ev["solves"] += 1
+        ev["dispatches"] += int(dispatches)
+        ev["dispatch_s"] += float(dispatch_s)
+        ev["chunks"] += int(chunks)
+        ev["device_s"] += float(device_s)
+
+
+def choose_megachunk_k(key: tuple) -> int:
+    """The evidence-driven width for ``key``: with a dispatch's host time
+    ``o`` and a chunk's device time ``d``, the smallest candidate K
+    holding ``o <= MEGA_HOST_FRACTION * (o + K*d)``. 1 until
+    MEGA_MIN_SOLVES solves of evidence exist."""
+    with _MEGA_LOCK:
+        ev = _MEGA_EVIDENCE.get(key)
+        if ev is None or ev["solves"] < MEGA_MIN_SOLVES:
+            return 1
+        o = ev["dispatch_s"] / max(1, ev["dispatches"])
+        d = ev["device_s"] / max(1, ev["chunks"])
+    for k in _MEGA_CANDIDATES:
+        if o <= MEGA_HOST_FRACTION * (o + k * d):
+            return k
+    return _MEGA_CANDIDATES[-1]
+
+
+def megachunk_snapshot() -> dict:
+    """The evidence table for /healthz and tests, with the group graphs
+    this process holds (``sweep.group_graphs_snapshot``)."""
+    from .sweep import group_graphs_snapshot
+
+    with _MEGA_LOCK:
+        keys = list(_MEGA_EVIDENCE)
+        buckets = {repr(k): dict(v) for k, v in _MEGA_EVIDENCE.items()}
+    return {
+        "default": _MEGACHUNK_DEFAULT,
+        "min_solves": MEGA_MIN_SOLVES,
+        "host_fraction": MEGA_HOST_FRACTION,
+        "candidates": list(_MEGA_CANDIDATES),
+        "buckets": buckets,
+        "chosen": {repr(k): choose_megachunk_k(k) for k in keys},
+        "graphs": group_graphs_snapshot(),
+    }
+
+
+def reset_megachunk_adapt() -> None:
+    """Drop the accumulated fusion evidence (tests, chip_smoke)."""
+    with _MEGA_LOCK:
+        _MEGA_EVIDENCE.clear()
+
+
+def _resolve_megachunk(megachunk, engine_mod_supports: bool, multi: bool,
+                       n_chunks: int, evidence_key: tuple) -> tuple:
+    """Resolve the ``megachunk`` knob to ``(K, mode)``: 1 unless the
+    engine fuses and the ladder has more than one chunk. An explicit
+    value beats the process default; "auto" reads the evidence table,
+    but never under a process group (``multi``), where one process's
+    evidence could give the processes different widths."""
+    if not engine_mod_supports or n_chunks <= 1:
         return 1, "off"
-    return max(1, min(req, n_chunks)), "static"
+    v = megachunk if megachunk is not None else _MEGACHUNK_DEFAULT
+    if isinstance(v, bool):
+        v = "auto" if v else None
+    if isinstance(v, str) and v.strip().lower() != "auto":
+        try:
+            v = max(1, int(v))
+        except ValueError:
+            v = None
+    if v is None or v == 1:
+        return 1, "off"
+    if v == "auto":
+        if multi:
+            return 1, "off"
+        k = choose_megachunk_k(evidence_key)
+        return (max(1, min(k, n_chunks)), "auto")
+    return max(1, min(int(v), n_chunks)), "static"
+
+
+def _ladder_width(megachunk, engine: str, multi: bool, chunks: list,
+                  warm_key: tuple, scorer: str, mesh, lanes: int) -> tuple:
+    """``(K, mode, evidence key)`` of a sweep ladder
+    (:func:`_resolve_megachunk` on the engine's ``SUPPORTS_MEGACHUNK``).
+    Where the solve's blocks span several cards a group cannot be one
+    graph: "auto" takes 1 there (an explicit width still fuses, its steps
+    run from the host)."""
+    from . import anneal as _anneal_mod
+    from . import sweep as _sweep_mod
+
+    mod = _sweep_mod if engine == "sweep" else _anneal_mod
+    key = (*warm_key, int(chunks[0].shape[0]) if chunks else 0, scorer)
+    k, mode = _resolve_megachunk(megachunk, mod.SUPPORTS_MEGACHUNK, multi,
+                                 len(chunks), key)
+    if mode == "auto" and not _one_card(mesh, lanes):
+        k = 1
+    return k, mode, key
+
+
+def _one_card(mesh, lanes: int) -> bool:
+    """Whether a solve's state is one block on one device: a fused group
+    can then be one captured graph."""
+    return mesh is None or (not mesh.multi
+                            and len(mesh.blocks(max(lanes, 1))) == 1)
+
+
+def _auto_replays(engine: str, m, mesh) -> bool:
+    """Whether "auto" dispatches a chunk of this ladder as one replay of
+    the step graph: the sweep engine, its state one block on a card."""
+    return (engine == "sweep" and m.a0.device.type == "cuda"
+            and _one_card(mesh, m.num_lanes))
+
+
+def _file_evidence(key: tuple, lad, marks0: dict) -> None:
+    """File a sweep ladder's split under ``key`` from the flight ledger's
+    windows differenced around it (compile time is its own leaf, so the
+    host time a dispatch is compile-free), or from the ladder's own
+    tallies when no accounting is active. Only a ladder whose every
+    dispatch was one chunk dispatched as "auto" dispatches it
+    (``auto_dispatch``, width 1) files: on a card that is one replay of
+    the step graph, so neither the default ladder's eager chunks nor a
+    fused group's K replays enter the host time ``o`` of a dispatch."""
+    if not lad.dispatches or lad.mega_k != 1 or not lad.auto_dispatch:
+        return
+    marks1 = _flight.ledger_marks()
+    ev_n = marks1["dispatches"] - marks0["dispatches"]
+    if ev_n > 0:
+        ev_disp = marks1["dispatch_s"] - marks0["dispatch_s"]
+        ev_dev = marks1["device_s"] - marks0["device_s"]
+    else:
+        ev_n, ev_disp, ev_dev = lad.dispatches, lad.dispatch_s, lad.device_s
+    note_megachunk_evidence(key, dispatches=ev_n, dispatch_s=ev_disp,
+                            chunks=lad.chunks_exec, device_s=ev_dev)
 
 
 _IMIN = int(np.iinfo(np.int32).min)
@@ -381,7 +559,6 @@ def solve_tpu(
     solve lands one record (a retry or a lane inside another recorded
     solve feeds the outer record); a failed solve lands a failure
     record; ``precompile`` solves land none."""
-    megachunk = _resolve_megachunk(megachunk)
     prof_tok = _PROFILE_DIR.set(profile_dir)
     nested = _flight.accounting_active()
     acc_tok = None if nested else _flight.start_accounting()
@@ -1186,6 +1363,10 @@ class _LadderResult:
     dispatches: int = 0  # chunk or group dispatches
     chunks_exec: int = 0  # schedule chunks that executed
     mega_early_exit: bool = False  # a fused group's certificate held
+    # each chunk dispatched as "auto" dispatches a width of 1: one replay
+    # of the step graph where the state is one block on a card, an eager
+    # chunk elsewhere (only such a ladder feeds the chooser's evidence)
+    auto_dispatch: bool = False
 
 
 def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
@@ -1193,7 +1374,8 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                 cert_min_savings_s, budget, warm_key, *, mesh,
                 lanes: int = 0, pipeline: bool = True, mega_k: int = 1,
                 chain_lanes: tuple | None = None,
-                multi: bool = False) -> _LadderResult:
+                multi: bool = False,
+                group_chunks: bool = False) -> _LadderResult:
     """The chunked ladder. Between chunks: adopt a finished certified
     constructor plan; try the optimality certificate on the top winner
     when the ladder left to skip costs more than ``cert_min_savings_s``
@@ -1249,7 +1431,15 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
     ``mega_k`` > 1 fuses K consecutive sweep chunks into one group
     (``mesh.solve_megachunk``): one host round trip retires K chunks,
     and an armed group tests the certificate's device-side precheck
-    after each step, stopping early when a chain qualifies. Any fault
+    after each step, stopping early when a chain qualifies. On the card,
+    with the state on one card, each step of a group is one replay of
+    its bucket's step graph, and ``group_chunks`` (the "auto" width)
+    dispatches even an unfused chunk as one replay (a disarmed group of
+    one step), so the evidence the "auto" chooser reads comes from
+    one-replay dispatches (``auto_dispatch``: only width-1 ladders
+    dispatched so file it); the per-chunk walkers' decisions (the
+    boundary certificate, the deadline) are unchanged. A fused ladder
+    keeps the state's keys on the device from group to group. Any fault
     inside a group that the host fallback would take (``_degradable``:
     the injected kernel fault is one) drains to the per-chunk walkers
     (``megachunk_to_chunked``), which re-enter at the first chunk no
@@ -1257,6 +1447,13 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
     r = _LadderResult(scorer=scorer)
     n = len(chunks)
     reseat_tries = 0
+    replays = _auto_replays(engine, m, mesh)
+    graph_chunks = group_chunks and replays
+    r.auto_dispatch = graph_chunks == replays
+    if engine == "sweep" and (graph_chunks or (mega_k > 1 and n > 1)):
+        # the fused ladder's keys stay on the device: no group waits for
+        # the one before it to hand its keys to the host
+        sweep_state = _device_keys(sweep_state)
     deadline = budget.deadline
     # chunk 0's time includes the first launches' setup and a retried
     # chunk's includes the fault: neither feeds the warm estimate
@@ -1307,11 +1504,18 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         name = r.scorer if engine == "sweep" else "chain"
         fn = steppers.get(name)
         if fn is None:
-            fn = steppers[name] = (
-                (make_lane_stepper_fn if lanes else make_sweep_stepper_fn)(
+            if engine != "sweep":
+                fn = make_solver_fn(batch, steps_per_round, mesh)
+            elif graph_chunks:
+                fn = _replayed_chunk(
+                    (make_mega_lane_stepper_fn if lanes
+                     else make_mega_stepper_fn)(
+                        batch, scorer=r.scorer, mesh=mesh))
+            else:
+                fn = (make_lane_stepper_fn if lanes
+                      else make_sweep_stepper_fn)(
                     batch, scorer=r.scorer, mesh=mesh)
-                if engine == "sweep" else make_solver_fn(
-                    batch, steps_per_round, mesh))
+            steppers[name] = fn
         return fn
 
     def _pool(x):
@@ -1638,7 +1842,8 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         """Enqueue ONE group over ``chunks[i:i+k]`` and start its fetch.
         A group narrower than ``mega_k`` pads with repeats of its last
         chunk under a cleared ``active``. Returns ``((new_state, pop_a,
-        pop_k, fetch, execd), armed, dispatch_s)``."""
+        pop_k, fetch), armed, dispatch_s)``; the fetch copies ``(top_a,
+        top_k, curves, execd, [cert_a, cert_ok, cert_mv])``."""
         _chaos_chunk_hooks()
         _chaos.raise_if("megachunk_fault")
         td = time.perf_counter()
@@ -1656,19 +1861,21 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
                        cert_k=cert_k, cert_mv=cert_mv, scorer=r.scorer,
                        mesh=mesh),
             ("megachunk", i), temps, st)
-        # an armed group also copies its certificate snapshot
+        # the copies include the device's execd; an armed group also
+        # copies its certificate snapshot
         certs = (cert_a, cert_ok, cert_mvs) if arm is not None else ()
-        h = fetch_global_async((top_a, top_k, curves, *certs))
+        h = fetch_global_async((top_a, top_k, curves, execd, *certs))
         r.dispatches += 1
-        return ((new_state, top_a, top_k, h, execd), arm is not None,
+        return ((new_state, top_a, top_k, h), arm is not None,
                 time.perf_counter() - td)
 
-    def _read_exec(execd, k, armed) -> tuple:
-        """How many of the group's ``k`` chunks executed, and whether it
-        exited early. A disarmed group runs all ``k``."""
+    def _read_exec(h, k, armed) -> tuple:
+        """How many of the group's ``k`` chunks executed, from the
+        fetched ``execd``, and whether it exited early. A disarmed group
+        runs all ``k``."""
         if not armed:
             return k, False
-        e = np.asarray(execd)
+        e = h.get()[3]
         n_exec = int(e.reshape(-1, e.shape[-1])[0][:k].sum())
         return n_exec, n_exec < k
 
@@ -1677,7 +1884,7 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         ``boundary`` checks: feasibility, the exact move count, the
         weight, one leader reseat. True when the certificate holds."""
         nonlocal reseat_tries
-        ca, ok, mv = h.get()[3:]
+        ca, ok, mv = h.get()[4:]
         if lanes:
             ok, mv, ca = _pool(ok), _pool(mv), _pool(ca)
         else:
@@ -1716,10 +1923,10 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
         account the chunks that executed and file its per-chunk time
         under the fused width's own key. Returns ``(n_exec, early)``."""
         nonlocal sweep_state, mega_warm_s, last_chunk_s
-        new_state, pop_a, pop_k, h, execd = out
+        new_state, pop_a, pop_k, h = out
         device_s = _retire_wait(h)
         sweep_state = new_state
-        n_exec, early = _read_exec(execd, k, armed)
+        n_exec, early = _read_exec(h, k, armed)
         r.pop_a, r.pop_k, r.fetched = pop_a, pop_k, h
         r.mega_groups += 1
         r.chunks_exec += n_exec
@@ -1901,6 +2108,31 @@ def _run_ladder(inst, m, batch, steps_per_round, engine, scorer, chunks,
     if mega_warm_s is not None:
         _WARM_CHUNKS.update(_wkey(mega_k), mega_warm_s)
     return r
+
+
+def _device_keys(state):
+    """A sweep state with its keys as device keys on their blocks'
+    devices (one copy each, no wait)."""
+    a, best_k, best_mv, best_a, keys = state
+    if isinstance(keys, tuple):  # one leaf a block of a multi-block mesh
+        keys = tuple(prng.to_device_keys(k, x.device)
+                     for k, x in zip(keys, a))
+    else:
+        keys = prng.to_device_keys(keys, a.device)
+    return a, best_k, best_mv, best_a, keys
+
+
+def _replayed_chunk(group):
+    """A chunk stepper ``(m, state, temps) -> (state', top_a, top_k,
+    curve)`` made of a fused-group stepper ``group``: each chunk one
+    disarmed group of one step, one replay of its bucket's graph."""
+    def run(m, st, temps):
+        out = group(m, st, np.asarray(temps, np.float32)[None],
+                    np.ones(1, bool), MEGA_DISARMED_KEY,
+                    MEGA_DISARMED_MOVES)
+        return out[0], out[1], out[2], out[6].select(-2, 0)
+
+    return run
 
 
 def _final_selection(inst, m, pop_a, bounds_fut, lp_fut, budget,
@@ -2139,7 +2371,9 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
             # a sharded ladder's chunks do C times the work: its own
             # estimates, by split
             warm_key = (*warm_key, "%dx%d" % mesh_spec(mesh))
-        mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
+        mega_k, mega_mode, ev_key = _ladder_width(
+            megachunk, engine, multi, chunks, warm_key, scorer, mesh,
+            port_lanes)
         if port_lanes:
             # the racing geometry, on the report even when the ladder's
             # span is the one timed
@@ -2154,6 +2388,7 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                 bounds_fut, cert_min_savings_s, budget, warm_key,
                 lanes=pw if port_lanes else 0, pipeline=pipeline,
                 mega_k=mega_k, mesh=mesh, multi=multi,
+                group_chunks=mega_mode == "auto",
             )
             if _sp is not None:
                 # the funnel's own dispatch and device windows around
@@ -2171,6 +2406,10 @@ def _solve_inner(inst, dev, seed, batch, rounds, sweeps, steps_per_round,
                                            - marks0["dispatches"]),
                         ledger_device_s=round(marks1["device_s"]
                                               - marks0["device_s"], 4))
+        if engine == "sweep":
+            # the "auto" chooser's evidence, under the identity the width
+            # was resolved with and the scorer the ladder ended on
+            _file_evidence((*ev_key[:-1], lad.scorer), lad, marks0)
         t_ladder = _sync(dev)
         scorer = lad.scorer
         if lad.timed_out:
@@ -2415,7 +2654,6 @@ def solve_tpu_batch(
     stats carry its ``trace_id`` and ``solve_report``. Flight records:
     one a lane (kind ``"lane"``), sharing the batch's accounting; none
     for a ``precompile`` batch (the service's warm-up)."""
-    megachunk = _resolve_megachunk(megachunk)
     nested = _flight.accounting_active()
     acc_tok = None if nested else _flight.start_accounting()
     t0 = time.perf_counter()
@@ -2560,7 +2798,8 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
                 int(bkt_parts), int(bkt_rf))
     if n_dev > 1:
         warm_key = (*warm_key, "%dx%d" % mesh_spec(mesh))
-    mega_k, mega_mode = _mega_width(megachunk, engine, len(chunks))
+    mega_k, mega_mode, ev_key = _ladder_width(
+        megachunk, engine, False, chunks, warm_key, scorer, mesh, Lp)
     # the single path's ladder with the certificate off (no bounds): the
     # lanes are independent instances, so no lane retires the others and
     # every fused group runs disarmed
@@ -2575,7 +2814,7 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
             None, None, 0.0, Budget(time_limit_s, t0=t0), warm_key,
             lanes=L, pipeline=pipeline, mega_k=mega_k,
             chain_lanes=None if engine == "sweep" else (lane_seeds, keys),
-            mesh=mesh, multi=multi,
+            mesh=mesh, multi=multi, group_chunks=mega_mode == "auto",
         )
         if _lsp is not None:
             _lsp.set(rounds_run=lad.rounds_run, timed_out=lad.timed_out,
@@ -2584,6 +2823,9 @@ def _solve_batch_body(insts, seeds, engine, batch, rounds, sweeps, t_hi,
     if lad.timed_out:
         _ladder.note_rung("deadline_truncated", rounds_run=lad.rounds_run)
     t_solve = _sync(dev)
+    if engine == "sweep":
+        # the "auto" chooser's evidence (batch groups run disarmed)
+        _file_evidence(ev_key, lad, marks0)
     if engine == "sweep" and lad.dispatches:
         # production batches keep the sharding evidence honest about the
         # split they ran: the ledger's device window over the ladder, or

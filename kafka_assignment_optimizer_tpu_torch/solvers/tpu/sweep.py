@@ -37,10 +37,27 @@ snapshot the best migration over the shards of each lane
 (:func:`_migrate_blocks`, the reference's ``pmax``/``pmin``/``psum`` over
 its mesh axis as tensor selections on the device, ``all_reduce`` across
 processes); one shard is the reference's one-device mesh.
+
+A fused group of K chunk steps (:func:`make_mega_lane_stepper_fn`, the
+reference's megachunk scan) draws nothing on the host: its keys are
+device keys, split on the device a sweep at a time (``prng``), the
+temperatures a device table, the exchange and compound strides device
+scalars (the partner views index gathers), and its ``done`` flag lives
+on the device, each step kept through ``torch.where``. On a card each
+of its steps is one replay of its bucket's step graph: the CUDA graphs
+of the step's pieces (the prologue, one a sweep, the epilogue), captured
+once for the bucket and replayed in turn (:class:`_GroupGraph`, a
+bounded cache of such graphs). The eager ladder
+keeps host keys, and its kernels take the chunk's draws in one copy.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+import weakref
+from collections import OrderedDict
+from dataclasses import fields
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -54,9 +71,12 @@ from .arrays import (
     ModelArrays,
     band_pen,
     lane_model,
+    lane_temps,
     stack_models,
     u01,
 )
+
+_MODEL_FIELDS = [f.name for f in fields(ModelArrays)]
 
 P_LSWAP = 0.15  # leadership-only proposals (zero replica movement)
 P_RESTORE = 0.5  # replace proposals that re-propose the original broker
@@ -71,10 +91,14 @@ _IMAX = int(np.iinfo(np.int32).max)
 _IMIN = int(np.iinfo(np.int32).min)
 
 
-def _temp_div(temp: float, device) -> torch.Tensor:
-    """``max(temp, 1e-6)`` in float32 as a device tensor. Dividing by a
-    device tensor (never a host scalar, which PyTorch's CUDA division
-    turns into a reciprocal multiply) keeps the division IEEE-exact."""
+def _temp_div(temp, device) -> torch.Tensor:
+    """``max(temp, 1e-6)`` in float32 as a device tensor, from a host
+    float or a float32 device scalar (a row of the chunk's temperature
+    table). Dividing by a device tensor (never a host scalar, which
+    PyTorch's CUDA division turns into a reciprocal multiply) keeps the
+    division IEEE-exact."""
+    if isinstance(temp, torch.Tensor):
+        return torch.clamp_min(temp.to(torch.float32), 1e-6)
     t = max(np.float32(temp), np.float32(1e-6))
     return torch.full((), float(t), dtype=torch.float32, device=device)
 
@@ -373,19 +397,23 @@ class ExchangeProposals(NamedTuple):
 
 
 def _pair_stride(key, P: int):
-    """The host half of the pairing: the stride ``d`` (a shift amount,
-    drawn on the host) and the key of the per-chain phases,
-    ``randint(kph, (N, 1), 0, 2 * d)``."""
+    """The stride of the pairing and the key of its per-chain phases,
+    ``randint(kph, (N, 1), 0, 2 * d)``: ``d`` a host int for a host key,
+    an int64 device scalar for a device key (drawn on the card, no host
+    read)."""
     kd, kph = prng.split(key)
-    return int(prng.randint(kd, (), 1, max(P // 2, 2))), kph
+    d = prng.randint(kd, (), 1, max(P // 2, 2))
+    if prng.is_device_key(key):
+        return d.to(torch.int64), kph
+    return int(d), kph
 
 
 def _pair_partners(key, N: int, P: int, device):
     """Involution pairing by random stride ``d`` (shared by all chains)
     with a per-chain random phase: alternating d-blocks pair p with p+d
-    (lower blocks) or p-d (upper blocks). ``d`` is drawn on the host; the
-    phases on the device. Returns (d, is_lower [N, P], pair_valid [N,
-    P])."""
+    (lower blocks) or p-d (upper blocks). The phases are drawn on the
+    device, and ``d`` too for a device key. Returns (d, is_lower [N, P],
+    pair_valid [N, P])."""
     d, kph = _pair_stride(key, P)
     phase = prng.randint(kph, (N, 1), 0, 2 * d, device=device)
     p_idx = torch.arange(P, device=device)[None, :]
@@ -395,15 +423,32 @@ def _pair_partners(key, N: int, P: int, device):
     return d, is_lower, pair_valid
 
 
-def _partner_view(x: torch.Tensor, d: int, is_lower: torch.Tensor):
-    """x[n, partner(p), ...] for partner = p ± d — two rolls + select.
-    Out-of-range partners wrap; callers mask with ``pair_valid``."""
-    up = torch.roll(x, -d, dims=1)    # x[p + d]
-    down = torch.roll(x, d, dims=1)   # x[p - d]
+def _partner_rows(P: int, d, device):
+    """The rows ``(p + d) mod P`` and ``(p - d) mod P`` of every p, for a
+    host or device stride ``d``: the reference's rolls by ``-d`` and
+    ``d`` as index gathers, which give the same values."""
+    p = torch.arange(P, device=device)
+    return (p + d) % P, (p - d) % P
+
+
+def _partner_view(x: torch.Tensor, d, is_lower: torch.Tensor):
+    """x[n, partner(p), ...] for partner = p ± d — two row gathers and a
+    select. Out-of-range partners wrap; callers mask with
+    ``pair_valid``."""
+    up_rows, down_rows = _partner_rows(x.shape[1], d, x.device)
+    up = x.index_select(1, up_rows)      # x[p + d]
+    down = x.index_select(1, down_rows)  # x[p - d]
     sel = is_lower
     while sel.dim() < x.dim():
         sel = sel[..., None]
     return torch.where(sel, up, down)
+
+
+def _partner_rf(m: ModelArrays, d, is_lower: torch.Tensor):
+    """The partner's replication factor ``rf[p ± d]`` of every pair."""
+    up_rows, down_rows = _partner_rows(m.rf.shape[-1], d, m.rf.device)
+    return torch.where(is_lower, m.rf.index_select(0, up_rows)[None, :],
+                       m.rf.index_select(0, down_rows)[None, :])
 
 
 def _slot_value(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -481,8 +526,7 @@ def propose_exchange(m: ModelArrays, a, key, temp: float, halves=None,
     u0 = u01(bits_low[..., 0])
     u1 = u01(bits_low[..., 1])
     rf_own = m.rf[None, :].expand(N, P)
-    rf_other = torch.where(is_lower, torch.roll(m.rf, -d)[None, :],
-                           torch.roll(m.rf, d)[None, :])
+    rf_other = _partner_rf(m, d, is_lower)
     s_own = _rand_idx(torch.where(is_lower, u0, u1), rf_own)
     s_other = _rand_idx(torch.where(is_lower, u1, u0), rf_other)
     lead_other = s_other == 0
@@ -620,8 +664,7 @@ def propose_compound(m: ModelArrays, a, key, temp: float, cnt, lcnt,
     u0 = u01(bits_low[..., 0])
     u1 = u01(bits_low[..., 1])
     rf_own = m.rf[None, :].expand(N, P)
-    rf_other = torch.where(is_lower, torch.roll(m.rf, -d)[None, :],
-                           torch.roll(m.rf, d)[None, :])
+    rf_other = _partner_rf(m, d, is_lower)
     s_own = _rand_idx(torch.where(is_lower, u0, u1), rf_own)
     b_out = _slot_value(a, s_own)
 
@@ -779,12 +822,17 @@ class LaneBundle(NamedTuple):
     - ``full(m, a) -> (out [L, N, 8], cnt, lcnt, rcnt)`` — B1
     - ``site_step / exch_step / comp_step(m, a, cnt, lcnt, rcnt, keys,
       temps) -> (a, cnt, lcnt, rcnt)``
+    - ``kernels``: the sweep kinds whose stage is a kernel, which reads
+      its lanes' keys and temperatures from device memory (the eager
+      ladder hands them the chunk's draws on the card, and the other
+      stages the host's)
     """
 
     full: Callable
     site_step: Callable
     exch_step: Callable
     comp_step: Callable
+    kernels: frozenset = frozenset()
 
 
 def _make_lane_scorer(scorer: str) -> LaneBundle:
@@ -807,7 +855,8 @@ def _make_lane_scorer(scorer: str) -> LaneBundle:
 
     return LaneBundle(_on_card(score_lanes), _on_card(site_step_lanes),
                       _on_card(exchange_step_lanes),
-                      _on_card(compound_lanes_delta))
+                      _on_card(compound_lanes_delta),
+                      frozenset(("site", "exchange")))
 
 
 def first_argmin_rows(x: torch.Tensor) -> torch.Tensor:
@@ -950,39 +999,102 @@ def stage_counts(sweeps: int, snapshot_every: int = 8) -> dict:
     }
 
 
-def _sweeps(sc: LaneBundle, lay: Layout, models, state, temps,
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``: on a card one copy from pinned memory
+    that does not wait for the card (the chunk's draws ride the stream
+    in order, as a launch's parameters did)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _temp_table(temps, m: ModelArrays, device) -> torch.Tensor:
+    """:func:`arrays.lane_temps` (the per-lane float32 temperature of
+    every sweep, ``[..., c, lanes]``) as a table on ``device``."""
+    return _to_device(torch.from_numpy(lane_temps(temps, m)), device)
+
+
+def _upload_draws(subs, temps, device) -> tuple:
+    """Host draws ``(subs uint32 [c, n, 2], temps float32 [c, n])`` on
+    ``device`` in ONE copy (one int64 buffer: the keys' words, then the
+    temperatures' bits): ``(subs int64 [c, n, 2], temps float32 [c,
+    n])``, views of it."""
+    c, n = temps.shape
+    buf = np.zeros(2 * c * n + -(-c * n // 2), np.int64)
+    buf[:2 * c * n] = subs.reshape(-1)
+    buf[2 * c * n:].view(np.float32)[:c * n] = temps.reshape(-1)
+    dev = _to_device(torch.from_numpy(buf), device)
+    return (dev[:2 * c * n].view(c, n, 2),
+            dev[2 * c * n:].view(torch.float32)[:c * n].view(c, n))
+
+
+def _chunk_draws(sc: LaneBundle, models, state, temps) -> list:
+    """The draws of one stepper run of ``len(temps)`` sweeps over each
+    block: the sweep keys ``[sweeps, lanes, 2]`` (each lane's key split
+    once a sweep, ``prng.split_chain``) and the temperatures ``[sweeps,
+    lanes]``, as ``{"host": (subs, temps) or None, "device": (subs,
+    temps) or None}``. Device keys (a fused ladder) split on the device
+    and every stage takes device draws: nothing read by the host. Host
+    keys (the eager ladder) split on the host, the plain stages take the
+    host draws (and draw their strides on the host) and the bundle's
+    kernels one copy of them on the card, made once a run. Each block's
+    keys advance to the keys after the run."""
+    out = []
+    for m, st in zip(models, state):
+        dev = st[0].device
+        subs, st[4] = prng.split_chain(st[4], len(temps))
+        if prng.is_device_key(subs):
+            out.append({"host": None,
+                        "device": (subs, _temp_table(temps, m, dev))})
+            continue
+        host = (subs, lane_temps(temps, m))
+        out.append({"host": host, "device": (
+            _upload_draws(*host, dev) if sc.kernels and dev.type == "cuda"
+            else None)})
+    return out
+
+
+def _sweeps(sc: LaneBundle, lay: Layout, models, state, draws,
             snapshot_every: int) -> list:
-    """One stepper run of ``len(temps)`` sweeps over the blocks' state
-    (updated in place): the chunk-entry rescore, each sweep one launch of
-    its kernel a block, each snapshot one B1 a block and the migration
-    over the mesh. Returns each block's curve ``[C_b*L_b, sweeps]``."""
-    # kao: disable=KAO113 -- host data: the temperature ladder is a numpy array
-    temps = np.asarray(temps, np.float32)
-    sweeps = temps.shape[0]
-    # kao: disable=KAO113 -- host data: lane_scalars() are host floats, cached per model
-    scales = [np.asarray(m.lane_scalars()[2], np.float32) for m in models]
+    """One stepper run over the blocks' state (updated in place): the
+    chunk-entry rescore, each sweep one launch of its kernel a block,
+    each snapshot one B1 a block and the migration over the mesh. The
+    per-sweep values come from ``draws`` (a block's sweep keys and
+    temperatures, :func:`_chunk_draws`); with device draws only the run
+    reads nothing from the host, and a CUDA graph can capture it.
+    Returns each block's curve ``[C_b*L_b, sweeps]``."""
+    sweeps = next(d for d in draws[0].values() if d is not None)[0].shape[0]
     hist = [list(sc.full(m, st[0])[1:]) for m, st in zip(models, state)]
     curves = [[] for _ in state]
-    for i in range(sweeps):
-        step = {"compound": sc.comp_step, "exchange": sc.exch_step,
-                "site": sc.site_step}[sweep_kind(i)]
-        for m, st, h, sc_b in zip(models, state, hist, scales):
-            keys = st[4]
-            subs = []
-            for j in range(keys.shape[0]):
-                keys[j], sub = prng.split(keys[j])
-                subs.append(sub)
-            lane_temps = [float(temps[i] * s) for s in sc_b]
-            st[0], h[0], h[1], h[2] = step(m, st[0], h[0], h[1], h[2], subs,
-                                           lane_temps)
-        if is_snapshot(i, sweeps, snapshot_every):
-            _snapshot_blocks(sc, models, state, hist, lay.blocks, lay.red)
-        for st, c in zip(state, curves):
-            c.append(st[1].max(1).values)
+    _sweep_range(sc, lay, models, state, hist, draws, range(sweeps), sweeps,
+                 snapshot_every, curves)
     return [torch.stack(c, 1) if c
             else torch.zeros(st[0].shape[0], 0, dtype=torch.int32,
                              device=st[0].device)
             for st, c in zip(state, curves)]
+
+
+def _sweep_range(sc: LaneBundle, lay: Layout, models, state, hist, draws,
+                 idx, sweeps: int, snapshot_every: int, curves) -> None:
+    """Sweeps ``idx`` of a stepper run of ``sweeps`` (:func:`_sweeps`)
+    over the blocks' state and histograms ``hist`` (updated in place),
+    each followed by its snapshot where the cadence puts one; appends
+    each sweep's curve column ``[lanes]`` to ``curves``."""
+    for i in idx:
+        kind = sweep_kind(i)
+        step = {"compound": sc.comp_step, "exchange": sc.exch_step,
+                "site": sc.site_step}[kind]
+        for m, st, h, dr in zip(models, state, hist, draws):
+            subs, temps = (dr["device"] if dr["host"] is None
+                           or (kind in sc.kernels and dr["device"])
+                           else dr["host"])
+            st[0], h[0], h[1], h[2] = step(m, st[0], h[0], h[1], h[2],
+                                           subs[i], temps[i])
+        if is_snapshot(i, sweeps, snapshot_every):
+            _snapshot_blocks(sc, models, state, hist, lay.blocks, lay.red)
+        for st, c in zip(state, curves):
+            c.append(st[1].max(1).values)
 
 
 def _tops(state) -> tuple:
@@ -1026,7 +1138,9 @@ def make_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
     def solve(m: ModelArrays, state, temps):
         lay = Layout(mesh, m.num_lanes, solo=False)
         blocks = lay.split(state)
-        curves = _sweeps(sc, lay, lay.models(m), blocks, temps,
+        models = lay.models(m)
+        curves = _sweeps(sc, lay, models, blocks,
+                         _chunk_draws(sc, models, blocks, temps),
                          snapshot_every)
         tas, tks = _tops(blocks)
         return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
@@ -1068,7 +1182,9 @@ def make_sweep_stepper_fn(n_chains: int, snapshot_every: int = 8,
     def solve(m: ModelArrays, state, temps):
         lay = Layout(mesh, 1, solo=True)
         blocks = lay.split(state)
-        curves = _sweeps(sc, lay, lay.models(_one_lane(m)), blocks, temps,
+        models = lay.models(_one_lane(m))
+        curves = _sweeps(sc, lay, models, blocks,
+                         _chunk_draws(sc, models, blocks, temps),
                          snapshot_every)
         tas, tks = _tops(blocks)
         return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
@@ -1098,6 +1214,10 @@ def make_sweep_solver_fn(n_chains: int, snapshot_every: int = 8,
     return solve
 
 
+# megachunk fusion: True here and False in ``anneal.SUPPORTS_MEGACHUNK``;
+# the engine's width resolver reads the flag, as the reference's does
+SUPPORTS_MEGACHUNK = True
+
 # the never-firing early-exit thresholds of a disarmed fused group: a
 # chain qualifies when ``best_k >= cert_k and best_mv <= cert_mv``, and
 # no key reaches int32 max and no move count is negative
@@ -1105,62 +1225,452 @@ MEGA_DISARMED_KEY = _IMAX
 MEGA_DISARMED_MOVES = -1
 
 
-def _mega(sc: LaneBundle, lay: Layout, m: ModelArrays, state, temps,
-          active, cert_k, cert_mv, snapshot_every: int) -> tuple:
-    """A fused group over the blocks of ``lay`` (see
-    :func:`make_mega_lane_stepper_fn`)."""
-    # kao: disable=KAO113 -- host data: the group's temperature ladders are a numpy array
-    temps = np.asarray(temps, np.float32)
-    # kao: disable=KAO113 -- host data: the group's active mask is a numpy array
-    active = np.asarray(active, bool)
-    K, c = temps.shape
-    cert_k, cert_mv = int(cert_k), int(cert_mv)
-    armed = (cert_k, cert_mv) != (MEGA_DISARMED_KEY, MEGA_DISARMED_MOVES)
-    models = lay.models(m)
-    blocks = lay.split(state)
-    done = False
-    curves, execd = [[] for _ in blocks], []
-    for j in range(K):
-        run = bool(active[j]) and not done
-        if run:
-            for c_b, cv in zip(curves, _sweeps(sc, lay, models, blocks,
-                                               temps[j], snapshot_every)):
-                c_b.append(cv)
-            if armed:
-                # one qualifying chain in any lane of any shard stops the
-                # group (the reference's pmax over its shard and lane
-                # axes): one host read a block
-                done = lay.any([((st[1] >= cert_k) & (st[2] <= cert_mv))
-                                .any() for st in blocks])
-        else:
-            for c_b, st in zip(curves, blocks):
-                c_b.append(torch.zeros(st[1].shape[0], c,
-                                       dtype=st[1].dtype,
-                                       device=st[1].device))
-        execd.append(run)
+def _mega_step(sc: LaneBundle, lay: Layout, models, blocks, temps, done,
+               cks, cms, armed: bool, snapshot_every: int) -> tuple:
+    """One step of a fused group over the blocks (updated in place; their
+    keys are device keys): the chunk stepper's sweeps with the
+    temperatures ``temps[b]`` ``[c, lanes]`` and the keys split on the
+    device, kept where ``run = ~done`` (every state leaf, the keys
+    included, through ``torch.where``; a skipped step's curve is zeros).
+    ARMED, ``done`` then takes in whether any chain of any block
+    qualifies (``best_k >= cert_k and best_mv <= cert_mv``); disarmed it
+    stays as it is. Every value lives on the device: no host read, so a
+    CUDA graph can capture the step. Returns ``(curves, runs, done)``, a
+    device tensor a block each."""
+    c = temps[0].shape[0]
+    runs = [~dn for dn in done]
+    new = [list(st) for st in blocks]
+    draws = []
+    for st, tb in zip(new, temps):
+        subs, st[4] = prng.split_chain(st[4], c)
+        draws.append({"host": None, "device": (subs, tb)})
+    cvs = _sweeps(sc, lay, models, new, draws, snapshot_every)
+    curves = []
+    for st, nw, run, cv in zip(blocks, new, runs, cvs):
+        for x in range(5):
+            st[x] = torch.where(run, nw[x], st[x])
+        curves.append(torch.where(run, cv, 0))
+    if armed:
+        hits = lay.any([((st[1] >= ck) & (st[2] <= cm)).any()
+                        for st, ck, cm in zip(blocks, cks, cms)])
+        done = [dn | h for dn, h in zip(done, hits)]
+    return curves, runs, done
+
+
+def _mega_outs(blocks, cks, cms) -> tuple:
+    """A fused group's outputs from its blocks' state: ``(top_a, top_k,
+    cert_a, cert_ok, cert_mv_out)`` a block (lists)."""
     tas, tks = _tops(blocks)
-    cas, oks, cms = [], [], []
-    for st in blocks:
+    cas, oks, cmo = [], [], []
+    for st, ck, cm in zip(blocks, cks, cms):
         best_k, best_mv, best_a = st[1], st[2], st[3]
         lanes = torch.arange(best_k.shape[0], device=best_k.device)
-        qual = (best_k >= cert_k) & (best_mv <= cert_mv)
+        qual = (best_k >= ck) & (best_mv <= cm)
         ok = qual.any(1)
         cidx = first_argmin_rows(torch.where(qual, best_mv, _IMAX))
         cas.append(best_a[lanes, cidx])
         oks.append(ok)
-        cms.append(torch.where(ok, best_mv[lanes, cidx], _IMAX))
+        cmo.append(torch.where(ok, best_mv[lanes, cidx], _IMAX))
+    return tas, tks, cas, oks, cmo
+
+
+def _skipped(st, c: int) -> tuple:
+    """A step the host skips (``active`` false): a zero curve ``[lanes,
+    c]`` and a false ``execd``, on the block's device."""
+    dev = st[0].device
+    return (torch.zeros(st[0].shape[0], c, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def _mega_run(sc: LaneBundle, lay: Layout, models, blocks, tables, active,
+              cks, cms, armed: bool, snapshot_every: int) -> tuple:
+    """A fused group over the blocks, eagerly (updated in place): step j
+    runs (:func:`_mega_step`) where the host's ``active[j]`` holds and
+    the device's ``done`` does not, with the temperatures
+    ``tables[b][j]``; an inactive step (a padded tail) launches nothing.
+    Returns ``(top_a, top_k, cert_a, cert_ok, cert_mv_out, curves)`` a
+    block (lists) and ``execd [K]``."""
+    c = tables[0].shape[1]
+    done = [torch.zeros((), dtype=torch.bool, device=st[0].device)
+            for st in blocks]
+    curves, execd = [[] for _ in blocks], []
+    for j, act in enumerate(active):
+        if not act:
+            for st, cb in zip(blocks, curves):
+                cb.append(_skipped(st, c)[0])
+            execd.append(_skipped(blocks[0], c)[1])
+            continue
+        cvs, runs, done = _mega_step(sc, lay, models, blocks,
+                                     [tb[j] for tb in tables], done, cks,
+                                     cms, armed, snapshot_every)
+        for cb, cv in zip(curves, cvs):
+            cb.append(cv)
+        execd.append(runs[0])
+    return (*_mega_outs(blocks, cks, cms),
+            [torch.stack(cb, 1) for cb in curves], torch.stack(execd))
+
+
+# ---------------------------------------------------------------------------
+# The group graph: one step of a fused group on one card captured as ONE
+# CUDA graph, replayed once an active step of a group (the reference's group
+# is one device-resident ``lax.scan``, one dispatch). One graph serves every
+# width, model and state of a bucket: it reads them from static buffers
+# (the state and ``done`` carried from replay to replay inside them), copied
+# in before a group's first replay, and its outputs are copied out of its
+# pool after each replay.
+
+# the most graphs kept (least recently used first out): a group's static
+# state is ~21 MB at the adversarial bucket and L=8, its model tables up to
+# two [L, P, B+1] int32 weight tables (~84 MB each at L=8, lane stride 0
+# for a portfolio)
+GROUP_GRAPHS_MAX = 8
+_GROUP_LOCK = threading.Lock()
+_GROUP_GRAPHS: OrderedDict = OrderedDict()  # key -> [_GroupGraph, ...]
+# the group graphs of this process: captures, replays (steps replayed,
+# each its pieces' graphs), evictions
+GROUP_STATS = {"captures": 0, "replays": 0, "evicted": 0}
+
+
+def _static_like(t: torch.Tensor):
+    """A static buffer shaped as a block model's table ``t`` (lane axis
+    first): ``(view, base, shared)``; a table the lanes share (lane
+    stride 0) keeps one lane's storage, expanded."""
+    shared = t.dim() > 0 and t.stride(0) == 0
+    base = torch.empty(t.shape[1:] if shared else t.shape, dtype=t.dtype,
+                       device=t.device)
+    return (base.unsqueeze(0).expand(t.shape) if shared else base), base, \
+        shared
+
+
+def _graph_key(scorer: str, lay: Layout, m: ModelArrays, st, c: int,
+               snapshot_every: int) -> tuple:
+    """A group graph's identity: the bucket (the state's and the tables'
+    shapes), the lanes and shards, the chunk length, the cadence, the
+    scorer, the card and which tables the lanes share; never the group's
+    width, the model or the state's values."""
+    return ("group", scorer, str(st[0].device), lay.solo, lay.C, lay.L,
+            tuple(st[0].shape), c, snapshot_every,
+            tuple((tuple(getattr(m, f).shape), getattr(m, f).stride(0) == 0)
+                  for f in _MODEL_FIELDS))
+
+
+class _GroupGraph:
+    """One step of a fused group (:func:`_mega_step`, armed, one block on
+    one card) captured as CUDA graphs over static buffers: the block's
+    model tables, its state (the keys as device keys) and ``done``, the
+    step's temperatures ``[c, lanes]`` and the certificate's thresholds,
+    and the step's own working state, sweep keys, histograms and curve.
+    The step is cut into pieces, each its own graph in one memory pool:
+    the prologue (the keys' split and the chunk-entry rescore), one piece
+    a sweep (with its snapshot where the cadence puts one) and the
+    epilogue (the ``torch.where`` on ``run = ~done``, the exit test and
+    the group's outputs), each writing what the next reads back into the
+    static buffers. A capture holds the process's capture lock for one
+    piece at a time, so another thread's capture or device-wide sync
+    waits for one sweep's capture, not a step's.
+
+    A group copies its values in, then replays the pieces once an active
+    step (the step's temperatures copied in first; an inactive step
+    replays nothing), and clones each step's curve and ``execd`` and the
+    last step's state and outputs out of the pool before anything can
+    overwrite them. One solve at a time holds an instance (``busy``,
+    :func:`_group_graph`); the next group of an instance, on any stream,
+    waits for the last one's copies (``event``). ``launches`` is what one
+    step's replays launch of each kernel (``ops.kernels``), added to
+    their counts at every step.
+
+    Construction makes the buffers and runs the pieces once eagerly on a
+    side stream (it builds the kernels, the model's launch tables and
+    lane views and the allocator's blocks); :meth:`capture` records
+    them."""
+
+    def __init__(self, sc: LaneBundle, lay: Layout, m: ModelArrays, st,
+                 temp, cert, snapshot_every: int):
+        from ...ops import kernels
+
+        dev = st[0].device
+        tabs = {f: _static_like(getattr(m, f)) for f in _MODEL_FIELDS}
+        self.m = ModelArrays(**{f: v[0] for f, v in tabs.items()})
+        self._bases = {f: v[1:] for f, v in tabs.items()}
+        self._copy_model(m)
+        self.st = [x.clone() for x in st]
+        self.new = [x.clone() for x in st]
+        self.temp = temp.clone()
+        self.cert = [x.clone() for x in cert]
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        c = temp.shape[0]
+        self.busy = False
+        self.event = None
+
+        def prologue():
+            subs, key = prng.split_chain(self.st[4], c)
+            for dst, src in zip(self.new[:4], self.st[:4]):
+                dst.copy_(src)
+            self.new[4].copy_(key)
+            hist = sc.full(self.m, self.new[0])[1:]
+            if not hasattr(self, "subs"):  # the eager run sizes them
+                self.subs = torch.empty_like(subs)
+                self.hist = [torch.empty_like(h) for h in hist]
+            self.subs.copy_(subs)
+            for dst, src in zip(self.hist, hist):
+                dst.copy_(src)
+
+        def sweep(i):
+            new, hist, cv = [list(self.new)], [list(self.hist)], [[]]
+            _sweep_range(sc, lay, [self.m], new, hist,
+                         [{"host": None, "device": (self.subs, self.temp)}],
+                         (i,), c, snapshot_every, cv)
+            for dst, src in zip([*self.new[:4], *self.hist],
+                                [*new[0][:4], *hist[0]]):
+                if src is not dst:
+                    dst.copy_(src)
+            self.curve[:, i].copy_(cv[0][0])
+
+        def epilogue():
+            run = ~self.done
+            for x in range(5):
+                self.st[x].copy_(torch.where(run, self.new[x], self.st[x]))
+            ck, cm = self.cert
+            hit = ((self.st[1] >= ck) & (self.st[2] <= cm)).any()
+            self.done.copy_(self.done | hit)
+            return (torch.where(run, self.curve, 0), run,
+                    _mega_outs([self.st], [ck], [cm]))
+
+        self.curve = torch.zeros(st[0].shape[0], c, dtype=torch.int32,
+                                 device=dev)
+        self._pieces = [prologue, *(lambda i=i: sweep(i) for i in range(c)),
+                        epilogue]
+        # its launches and the captures' are no solve's work
+        with kernels.recording():
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for piece in self._pieces:
+                    piece()
+            torch.cuda.current_stream(dev).wait_stream(side)
+
+    def capture(self, lock) -> None:
+        """Record the pieces on a stream of their own, each under
+        ``lock`` (the capture lock). Not through ``torch.cuda.graph``,
+        whose entry synchronizes the card and empties the allocator's and
+        the pinned host memory's caches, each a wait for every stream's
+        work (another thread's solve included) while the lock is held:
+        the static buffers already hold the step's inputs and nothing
+        runs during a capture."""
+        from ...ops import kernels
+
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        with kernels.recording() as rec, \
+                torch.cuda.stream(torch.cuda.Stream(self.st[0].device)):
+            for piece in self._pieces:
+                g = torch.cuda.CUDAGraph()
+                with lock:
+                    g.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                    try:
+                        out = piece()
+                    finally:
+                        g.capture_end()
+                self.graphs.append(g)
+        self.curve_out, self.run, self.outs = out
+        self.launches = dict(rec)
+        del self._pieces  # their closures hold the instance
+
+    def _copy_model(self, m: ModelArrays) -> None:
+        for f, (base, shared) in self._bases.items():
+            src = getattr(m, f)
+            base.copy_(src[0] if shared else src)
+        self._src = weakref.ref(m)
+
+    def group(self, m: ModelArrays, st, table, active, cert) -> tuple:
+        """One group on the current stream from block model ``m``, state
+        ``st``, the temperature table ``table [K, c, lanes]``, the host's
+        ``active [K]`` and ``cert`` (the thresholds, device scalars);
+        returns ``(state, outputs)`` as :func:`_mega_run` leaves and
+        returns them, in fresh tensors. The model is copied in only when
+        it is not the one the buffers hold."""
+        from ...ops import kernels
+
+        cur = torch.cuda.current_stream(st[0].device)
+        if self.event is not None:
+            cur.wait_event(self.event)
+        if self._src() is not m:
+            self._copy_model(m)
+        for dst, src in zip([*self.st, *self.cert], [*st, *cert]):
+            dst.copy_(src)
+        self.done.zero_()
+        c = table.shape[1]
+        curves, execd, steps = [], [], 0
+        for j, act in enumerate(active):
+            if not act:
+                cv, ex = _skipped(self.st, c)
+            else:
+                self.temp.copy_(table[j])
+                for g in self.graphs:
+                    g.replay()
+                kernels.add_launches(self.launches)
+                steps += 1
+                cv, ex = self.curve_out.clone(), self.run.clone()
+            curves.append(cv)
+            execd.append(ex)
+        outs = (tuple([x.clone() for x in o] for o in self.outs) if steps
+                else _mega_outs([self.st], [self.cert[0]], [self.cert[1]]))
+        state = [x.clone() for x in self.st]
+        self.event = torch.cuda.Event()
+        self.event.record(cur)
+        with _GROUP_LOCK:
+            GROUP_STATS["replays"] += steps
+        return state, (*outs, [torch.stack(curves, 1)], torch.stack(execd))
+
+
+def _idle_graph(key):
+    """An idle instance of ``key``'s graphs, checked out; None when there
+    is none. Under ``_GROUP_LOCK``."""
+    insts = _GROUP_GRAPHS.get(key)
+    if insts:
+        _GROUP_GRAPHS.move_to_end(key)
+        for g in insts:
+            if not g.busy:
+                g.busy = True
+                return g
+    return None
+
+
+def _evict() -> None:
+    """Drop idle instances, least recently used first, down to
+    ``GROUP_GRAPHS_MAX``, each after its last group's copies. Under
+    ``_GROUP_LOCK``."""
+    total = sum(len(v) for v in _GROUP_GRAPHS.values())
+    for key in list(_GROUP_GRAPHS):
+        insts = _GROUP_GRAPHS[key]
+        for g in [g for g in insts if not g.busy]:
+            if total <= GROUP_GRAPHS_MAX:
+                return
+            if g.event is not None:
+                g.event.synchronize()
+            insts.remove(g)
+            total -= 1
+            GROUP_STATS["evicted"] += 1
+        if not insts:
+            del _GROUP_GRAPHS[key]
+
+
+def _group_graph(key, build) -> _GroupGraph:
+    """Check out an instance of ``key``'s graph: an idle one, else one
+    made now by ``build()`` (its buffers and eager warm-up step) and
+    captured under the process's capture lock, unless an instance
+    another thread captured meanwhile is idle by then (it is taken
+    instead). A capture counts in ``anneal.GRAPH_CAPTURES``, the solve's
+    compile time (the warm-up's too) and the recompile sentinel
+    (``anneal._note_capture``)."""
+    from .anneal import _CAPTURE_LOCK, _note_capture
+
+    with _GROUP_LOCK:
+        g = _idle_graph(key)
+    if g is not None:
+        return g
+    t0 = time.perf_counter()
+    g = build()
+    with _GROUP_LOCK:
+        other = _idle_graph(key)
+    if other is not None:
+        return other
+    g.capture(_CAPTURE_LOCK)
+    _note_capture(time.perf_counter() - t0, key)
+    with _GROUP_LOCK:
+        GROUP_STATS["captures"] += 1
+        g.busy = True
+        _GROUP_GRAPHS.setdefault(key, []).append(g)
+        _GROUP_GRAPHS.move_to_end(key)
+        _evict()
+    return g
+
+
+def group_graphs_snapshot() -> dict:
+    """The group graphs held (instances, keys) and this process's
+    captures, replays and evictions."""
+    with _GROUP_LOCK:
+        return {"graphs": sum(len(v) for v in _GROUP_GRAPHS.values()),
+                "keys": len(_GROUP_GRAPHS), "max": GROUP_GRAPHS_MAX,
+                **GROUP_STATS}
+
+
+def clear_group_graphs() -> None:
+    """Drop every idle group graph (tests; the next group captures)."""
+    with _GROUP_LOCK:
+        for key in list(_GROUP_GRAPHS):
+            for g in _GROUP_GRAPHS[key]:
+                if g.event is not None:
+                    g.event.synchronize()
+            _GROUP_GRAPHS[key] = [g for g in _GROUP_GRAPHS[key] if g.busy]
+            if not _GROUP_GRAPHS[key]:
+                del _GROUP_GRAPHS[key]
+
+
+def _replay_group(sc: LaneBundle, scorer: str, lay: Layout, m: ModelArrays,
+                  st, table, active, cert, snapshot_every: int) -> tuple:
+    """One fused group of one block as replays of its bucket's step graph
+    (captured at the bucket's first group): ``(state, outputs)`` as
+    :func:`_mega_run` leaves and returns them for that block."""
+    c = table.shape[1]
+    g = _group_graph(_graph_key(scorer, lay, m, st, c, snapshot_every),
+                     lambda: _GroupGraph(sc, lay, m, st, table[0], cert,
+                                         snapshot_every))
+    try:
+        return g.group(m, st, table, active, cert)
+    finally:
+        with _GROUP_LOCK:
+            g.busy = False
+
+
+def _mega(sc: LaneBundle, scorer: str, lay: Layout, m: ModelArrays, state,
+          temps, active, cert_k, cert_mv, snapshot_every: int,
+          graph: bool | None) -> tuple:
+    """A fused group over the blocks of ``lay`` (see
+    :func:`make_mega_lane_stepper_fn`)."""
+    models = lay.models(m)
+    blocks = lay.split(state)
+    host_keys = not prng.is_device_key(blocks[0][4])
+    K = temps.shape[0]
+    active = [bool(x) for x in active]  # host data: the schedule's steps
+    armed = (int(cert_k), int(cert_mv)) != (MEGA_DISARMED_KEY,
+                                            MEGA_DISARMED_MOVES)
+    on_card = blocks[0][0].device.type == "cuda"
+    if graph is None:
+        graph = on_card and lay.whole
+    if graph and not (on_card and lay.whole):
+        raise ValueError("a group graph runs one block on one card")
+    tables, certs = [], []
+    for mb, st in zip(models, blocks):
+        dev = st[0].device
+        st[4] = prng.to_device_keys(st[4], dev)
+        tables.append(_temp_table(temps, mb, dev))
+        certs.append(list(_to_device(torch.tensor(
+            [int(cert_k), int(cert_mv)], dtype=torch.int32), dev)))
+    if graph:
+        blocks[0], outs = _replay_group(sc, scorer, lay, models[0],
+                                        blocks[0], tables[0], active,
+                                        certs[0], snapshot_every)
+    else:
+        outs = _mega_run(sc, lay, models, blocks, tables, active,
+                         [c[0] for c in certs], [c[1] for c in certs],
+                         armed, snapshot_every)
+    tas, tks, cas, oks, cms, curves, execd = outs
+    if host_keys:
+        for st in blocks:
+            st[4] = prng.to_host_keys(st[4])
     lead = (lay.L,) if lay.mesh is None else (lay.C, lay.L)
     if lay.solo:
         lead = lead[:-1]
     return (lay.join(blocks), lay.gather(tas), lay.gather(tks),
             lay.gather(cas), lay.gather(oks), lay.gather(cms),
-            lay.gather([torch.stack(cb, 1) for cb in curves]),
-            # kao: disable=KAO113 -- host data: execd is a list of Python bools
-            np.broadcast_to(np.asarray(execd, bool), (*lead, K)).copy())
+            lay.gather(curves), execd.expand(*lead, K).clone())
 
 
 def make_mega_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                              scorer: str = "torch", mesh=None):
+                              scorer: str = "torch", mesh=None,
+                              graph: bool | None = None):
     """K consecutive chunk steps as one fused group over L lanes (the
     reference's ``make_mega_lane_stepper_fn``): ``(m_stack, state, temps
     [K, c], active [K] bool, cert_k, cert_mv) -> (state', top_a [L, P,
@@ -1169,39 +1679,53 @@ def make_mega_lane_stepper_fn(n_chains: int, snapshot_every: int = 8,
     gains the leading shard axis ``[C, ...]``, as the state does
     (:func:`make_lane_stepper_fn`).
 
-    Each executed step is the UNCHANGED :func:`make_lane_stepper_fn` run
-    on the carried state, so a group replays the chunked ladder bit for
-    bit. A step runs when ``active`` holds (a short tail clears the
-    padding steps) and no chain has qualified yet; a skipped step leaves
-    every state leaf alone, the host-side keys included, and emits a
-    zero curve. After each executed step of an ARMED group, a chain
-    qualifies when ``best_k >= cert_k and best_mv <= cert_mv`` (the
-    boundary certificate's device-side precheck); one qualifying chain in
-    any lane of any shard sets the group's shared ``done`` flag (the
-    reference's ``pmax`` over its shard and lane axes) and the remaining
-    steps are skipped.
+    Each step is the UNCHANGED chunk stepper's run on the carried state,
+    so a group replays the chunked ladder bit for bit. As in the
+    reference's scan, the group carries a ``done`` flag on the device: a
+    step runs where ``active`` holds and ``done`` does not. ``active`` is
+    the host's (a short tail clears its padding steps), so an inactive
+    step launches nothing, as the reference's ``lax.cond`` skips it. The
+    step after an exit (``done`` set) cannot be told from the host
+    without a read: it runs, and its result is dropped through
+    ``torch.where`` for every state leaf, the keys included (a zero
+    curve), which is what the reference's ``lax.cond`` lowers to under
+    ``vmap``; the reference's solo group, not vmapped, skips that work.
+    After each step of an ARMED group a chain qualifies when ``best_k >=
+    cert_k and best_mv <= cert_mv`` (the boundary certificate's
+    device-side precheck); one qualifying chain in any lane of any shard
+    sets ``done`` (the reference's ``pmax`` over its shard and lane
+    axes). DISARMED groups pass the sentinels ``MEGA_DISARMED_KEY`` /
+    ``MEGA_DISARMED_MOVES``, which never qualify, and test nothing.
 
-    The keys live on the host, so a skip is a host decision, not a
-    device-side select: a DISARMED group (the sentinels
-    ``MEGA_DISARMED_KEY``/``MEGA_DISARMED_MOVES``) skips exactly where
-    ``active`` is clear, which the host already knows, and reads nothing
-    from the device; an ARMED group reads its one-element ``done`` flag
-    after each executed step (one small device-to-host copy a block,
-    which waits for that step: the only host read inside a group).
-    ``execd`` is therefore host data (numpy). ``cert_a`` is each lane's
-    qualifying snapshot with the fewest moves (``cert_mv_out`` its
+    Nothing inside a group is read by the host: the keys split on the
+    device (a host key state enters as device keys, and leaves as host
+    keys, read once after the group; device keys stay on the device),
+    the temperatures are a device table ``[K, c, lanes]`` and ``execd``
+    is a device bool tensor. On a card, with every block on it (the
+    default when ``graph`` is None), each active step is one replay of
+    its bucket's step graph (the CUDA graphs of the step's pieces),
+    captured once for its bucket
+    (:class:`_GroupGraph`; one graph per bucket, lanes, shards, c,
+    cadence and scorer, whatever the width, the model and the seed), the
+    state and ``done`` carried on the card from replay to replay;
+    ``graph=False`` runs the steps eagerly, and a group whose blocks
+    span several cards runs its steps from the host, as the migration
+    copies values between cards mid-group. ``cert_a`` is each
+    lane's qualifying snapshot with the fewest moves (``cert_mv_out`` its
     moves, int32 max when none qualifies)."""
     sc = _make_lane_scorer(scorer)
 
     def solve(m: ModelArrays, state, temps, active, cert_k, cert_mv):
-        return _mega(sc, Layout(mesh, m.num_lanes, solo=False), m, state,
-                     temps, active, cert_k, cert_mv, snapshot_every)
+        return _mega(sc, scorer, Layout(mesh, m.num_lanes, solo=False), m,
+                     state, temps, active, cert_k, cert_mv, snapshot_every,
+                     graph)
 
     return solve
 
 
 def make_mega_stepper_fn(n_chains: int, snapshot_every: int = 8,
-                         scorer: str = "torch", mesh=None):
+                         scorer: str = "torch", mesh=None,
+                         graph: bool | None = None):
     """:func:`make_mega_lane_stepper_fn` on one model: ``(m, state,
     temps [K, c], active [K], cert_k, cert_mv) -> (state', top_a [P, R],
     top_k, cert_a [P, R], cert_ok, cert_mv_out, curves [K, c], execd
@@ -1210,7 +1734,8 @@ def make_mega_stepper_fn(n_chains: int, snapshot_every: int = 8,
     sc = _make_lane_scorer(scorer)
 
     def solve(m: ModelArrays, state, temps, active, cert_k, cert_mv):
-        return _mega(sc, Layout(mesh, 1, solo=True), _one_lane(m), state,
-                     temps, active, cert_k, cert_mv, snapshot_every)
+        return _mega(sc, scorer, Layout(mesh, 1, solo=True), _one_lane(m),
+                     state, temps, active, cert_k, cert_mv, snapshot_every,
+                     graph)
 
     return solve

@@ -1034,6 +1034,7 @@ def test_contracts_pass_on_the_real_steppers(report):
     assert report.ok, [f.render() for f in report.findings]
     assert report.checks_run >= 16 and report.ops > 1000
     assert set(report.launches) == {"sweep stepper", "lane stepper",
+                                    "group stepper", "lane group stepper",
                                     "chain round"}
     # the CPU runs the plain versions: no kernel launches
     assert all(n == 0 for v in report.launches.values() for n in v.values())

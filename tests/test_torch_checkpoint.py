@@ -150,8 +150,8 @@ def test_cli_checkpoint_pipeline_and_megachunk_flags(tmp_path, capsys,
                                                      monkeypatch):
     """``--checkpoint`` writes the plan and a second run resumes from it;
     ``--no-pipeline`` and ``--megachunk 2`` reach the engine; a bad
-    ``--megachunk`` exits 2 in both CLIs, and so does ``auto`` in the
-    port's."""
+    ``--megachunk`` exits 2 in both CLIs, and ``auto`` runs in both with
+    the same report."""
     import functools
 
     from kafka_assignment_optimizer_tpu.solvers import base as jbase
@@ -182,7 +182,25 @@ def test_cli_checkpoint_pipeline_and_megachunk_flags(tmp_path, capsys,
         bad = [x if x != "2" else "two" for x in bad]
         rc, _rep, err = _cli_report(main, bad, capsys)
         assert rc == 2 and "--megachunk" in err
-    # the reference's "auto" width is not offered here
-    rc, _rep, err = _cli_report(
-        cli_main, [x if x != "2" else "auto" for x in argv], capsys)
-    assert rc == 2 and "'auto' is not supported" in err
+    # the measured width: "auto" parses in both CLIs and reports alike
+    # (from empty evidence tables: the earlier solves of this process
+    # differ between the packages)
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import (
+        engine as tengine,
+    )
+
+    auto = [x if x != "2" else "auto" for x in argv]
+    for mod in (tengine, jengine):
+        mod.reset_megachunk_adapt()
+    rc, rep3, err = _cli_report(cli_main, auto, capsys)
+    rc_j, ref3, _ = _cli_report(jcli_main, auto[:-2], capsys)
+    for mod in (tengine, jengine):
+        mod.reset_megachunk_adapt()
+    assert rc == rc_j == 0, err
+    # (how many chunks run before the boundary certificate stops the
+    # ladder follows each package's chunk times on this CPU: the
+    # dispatches of an auto width are compared in test_torch_megachunk)
+    same = [k for k in keys if k != "solver_dispatches"]
+    assert {k: rep3.get(k) for k in same} == {k: ref3.get(k) for k in same}
+    assert rep3["solver_megachunk"]["mode"] == \
+        ref3["solver_megachunk"]["mode"] == "auto"

@@ -21,8 +21,10 @@ copy; ``kao-router`` in front of a worker solving on the card; and the
 solve mesh on the card: two chain shards of three lanes as one launch of
 each kernel, and a two-shard solve over ``[cuda:0, cuda:0]`` equal to
 the CPU's two-shard run; and ``kao-check``'s runtime contracts on the
-card, with the kernels' launches of each step. Exact equality
-throughout.
+card, with the kernels' launches of each step; and the fused group as
+replays of its bucket's step graph against the group run eagerly (on
+one model and on three lanes, armed and disarmed, the launch counts
+after the replays), from two threads at once. Exact equality throughout.
 
 These tests need an NVIDIA GPU and skip without one. They import no JAX,
 so they also run where only the port's dependencies exist:
@@ -739,8 +741,9 @@ def test_runtime_contracts_on_the_card(card):
     """``kao-check``'s runtime contracts on the card (the ``cuda``
     scorer): zero findings, the sweep stepper's chunk launching B1, the
     site kernel and the exchange kernel as ``sweep.stage_counts`` says,
-    the lane stepper at L=2 one launch a stage (the same counts), and the
-    eager chain round B1 never."""
+    the lane stepper at L=2 one launch a stage (the same counts), the
+    armed fused groups of two steps (one model, and two lanes) twice
+    those counts, and the eager chain round B1 never."""
     from kafka_assignment_optimizer_tpu_torch.analysis.contracts import (
         run_contracts,
     )
@@ -752,5 +755,124 @@ def test_runtime_contracts_on_the_card(card):
     assert rep.launches["sweep stepper"] == want
     assert rep.launches["lane stepper"] == want
     assert all(n > 0 for n in want.values())
+    for step in ("group stepper", "lane group stepper"):
+        assert rep.launches[step] == {k: 2 * v for k, v in want.items()}
     assert rep.launches["chain round"] == {k.name: 0
                                            for k in kernels.KERNELS}
+
+
+# ------------------------------------------------------ the group graph
+
+def _group_case(dev, L):
+    """A fused group's inputs on the card: ``(stepper factory, model,
+    state with device keys)``, one model (``L`` 0) or ``L`` portfolio
+    lanes."""
+    if L == 0:
+        m, _a, seed = _model(CASES[0], dev)
+        st = init_sweep_state(m, seed, prng.PRNGKey(4), 4)
+        fn = sweep.make_mega_stepper_fn
+    else:
+        m, _a, seeds = _portfolio_lanes(CASES[0], dev, L)
+        st = init_lane_state(m, seeds.cpu().numpy(),
+                             [prng.fold_in(prng.PRNGKey(4), i)
+                              for i in range(L)], 4)
+        fn = sweep.make_mega_lane_stepper_fn
+    return fn, m, (*st[:4], prng.to_device_keys(st[4], dev))
+
+
+# a padded tail (the third step inactive); armed, thresholds every
+# chain meets from its seed (the group exits after its first step)
+GROUP_TEMPS = np.stack([arrays.geometric_temps(2.0, 0.02, 24)[i * 8:
+                                                             (i + 1) * 8]
+                        for i in range(3)])
+GROUP_ACTIVE = np.array([True, True, False])
+GROUP_ARMS = {"disarmed": (sweep.MEGA_DISARMED_KEY,
+                           sweep.MEGA_DISARMED_MOVES),
+              "armed": (-(2 ** 31) + 1, 2 ** 31 - 1)}
+
+
+@pytest.mark.parametrize("L", [0, 3])
+@pytest.mark.parametrize("arm", ["disarmed", "armed"])
+def test_group_graph_replays_the_eager_group(card, L, arm):
+    """A fused group replayed as its bucket's CUDA graph equals the same
+    group run eagerly, bit for bit (every output, the carried state and
+    its device keys), on one model and on three lanes, disarmed with a
+    padded tail and armed with an exit after the first step; the kernels'
+    launch counts after the replays equal the eager group's; a second
+    group from the replays' state equals the eager continuation; and a
+    second seed of the bucket, and a group of another width, replay the
+    step graph without a capture."""
+    fn, m, st = _group_case(card, L)
+    args = (GROUP_TEMPS, GROUP_ACTIVE, *GROUP_ARMS[arm])
+    sweep.clear_group_graphs()
+    kernels.reset_counts()
+    eager = fn(4, scorer="cuda", graph=False)(m, st, *args)
+    want = [k.launches for k in kernels.KERNELS]
+    kernels.reset_counts()
+    got = fn(4, scorer="cuda", graph=True)(m, st, *args)
+    assert [k.launches for k in kernels.KERNELS] == want
+    assert all(n > 0 for n in want)
+    for x, y in zip(eager[0], got[0]):
+        assert torch.equal(x, y)
+    _equal(eager[1:], got[1:])
+    if arm == "armed":
+        assert got[7].reshape(-1, 3)[0].tolist() == [True, False, False]
+    caps = sweep.GROUP_STATS["captures"]
+    again = fn(4, scorer="cuda", graph=True)(m, got[0], *args)
+    cont = fn(4, scorer="cuda", graph=False)(m, eager[0], *args)
+    for x, y in zip(cont[0], again[0]):
+        assert torch.equal(x, y)
+    _equal(cont[1:], again[1:])
+    _fn, _m, st2 = _group_case(card, L)
+    st2 = (*st2[:4], prng.split_rows(st2[4].reshape(-1, 2))[:, 1]
+           .reshape(st2[4].shape))
+    fn(4, scorer="cuda", graph=True)(m, st2, *args)
+    fn(4, scorer="cuda", graph=True)(m, st2, GROUP_TEMPS[:2],
+                                     GROUP_ACTIVE[:2], *GROUP_ARMS[arm])
+    assert sweep.GROUP_STATS["captures"] == caps
+
+
+def test_group_graph_is_not_shared_between_threads(card):
+    """Two threads replay groups of one bucket at once, each from its own
+    seed and on its own stream: each thread's groups equal its groups
+    run alone, eagerly (a checked-out instance serves one group at a
+    time, and the next group on it waits for the last one's copies)."""
+    import threading
+
+    sweep.clear_group_graphs()
+    args = (GROUP_TEMPS[:2], np.ones(2, bool), *GROUP_ARMS["disarmed"])
+    fn, m, _st = _group_case(card, 0)
+    starts = []
+    for i in range(2):
+        _fn, _m, st = _group_case(card, 0)
+        starts.append((*st[:4], prng.split_rows(
+            st[4].reshape(-1, 2))[:, i].reshape(st[4].shape)))
+
+    def run(st, graph, out):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(3):
+                res = fn(4, scorer="cuda", graph=graph)(m, st, *args)
+                st = res[0]
+                out.append(res)
+            torch.cuda.current_stream().synchronize()
+
+    solo = []
+    for st in starts:
+        solo.append([])
+        run(st, False, solo[-1])
+    outs = [[], []]
+    ts = [threading.Thread(target=run, args=(st, True, o))
+          for st, o in zip(starts, outs)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+        assert not t.is_alive()
+    for want, got in zip(solo, outs):
+        assert len(got) == 3
+        for w, g in zip(want, got):
+            for x, y in zip(w[0], g[0]):
+                assert torch.equal(x, y)
+            _equal(w[1:], g[1:])
+    snap = sweep.group_graphs_snapshot()
+    assert 1 <= snap["graphs"] <= 2 and snap["keys"] == 1

@@ -9,10 +9,20 @@ pipelined; at the mesh level a forced certificate retires a group after
 its first step (``execd``) and replays identically; at the engine level
 the armed group's early exit certifies before the group's end, as the
 reference's does; a fault inside a group drains to the per-chunk ladder
-(``megachunk_to_chunked``); the batch ladder fuses disarmed; explicit
-widths resolve as the reference's, its "auto" width is refused, and the
-warm estimates are keyed by width.
+(``megachunk_to_chunked``); the batch ladder fuses disarmed; every width
+resolves as the reference's, "auto" included; the measured width's
+evidence table and chooser equal the reference's, ``KAO_MEGACHUNK``
+resolves alike, and an "auto" solve given the same evidence runs at the
+reference's width with its plan; the group with its ``done`` flag and
+its keys on the device equals the reference's group (disarmed, a padded
+tail, a forced exit), and the chunk step with device keys the
+reference's lane stepper; the warm estimates are keyed by width.
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -234,38 +244,348 @@ def test_batch_megachunk_is_disarmed_and_equal():
             "chunks": 4, "early_exit": False}
 
 
-def test_megachunk_explicit_widths_resolve_as_reference():
-    """Every value short of "auto" resolves to the reference's ``(K,
-    mode)``: None, False, "off" and 1 keep the per-chunk ladder, an int or
-    a numeric string pins K (capped by the chunk count), and a ladder
-    that does not fuse (the chain engine, one chunk) stays off."""
-    for v, sup, n in ((None, True, 4), (2, True, 1), (8, True, 4),
-                      ("3", True, 8), ("off", True, 8), (4, False, 8),
-                      (False, True, 8), (1, True, 8), (0, True, 8),
-                      (-3, True, 8), ("x", True, 8)):
-        got = engine._mega_width(engine._resolve_megachunk(v),
-                                 "sweep" if sup else "chain", n)
-        assert got == jengine._resolve_megachunk(v, sup, False, n, ()), (
-            v, sup, n)
+# (megachunk, engine fuses, multi, chunks): the explicit widths, "auto"
+# and True below quorum, and "auto" under a process group
+RESOLVE_CASES = [
+    (None, True, False, 4), (2, True, False, 1), (8, True, False, 4),
+    ("3", True, False, 8), ("off", True, False, 8), (4, False, False, 8),
+    (False, True, False, 8), (1, True, False, 8), (0, True, False, 8),
+    (-3, True, False, 8), ("x", True, False, 8), ("auto", True, False, 8),
+    (" AUTO ", True, False, 8), (True, True, False, 8),
+    ("auto", True, True, 8), (True, True, True, 8), ("auto", False, False, 8),
+    (4, True, True, 8),
+]
 
 
-@pytest.mark.parametrize("value", ["auto", " AUTO ", True])
-def test_megachunk_auto_is_refused(no_race, monkeypatch, value):
-    """The reference's "auto" width assumes a fused group pays its host
-    time once; a group here is the chunk stepper called K times, so
-    ``megachunk="auto"`` (or True) raises in both entry points before any
-    solve work, and ``KAO_MEGACHUNK`` is not read: a defaulted solve runs
-    the per-chunk ladder whatever it says."""
-    inst = build_instance(*port_cluster(*the_cluster()))
-    with pytest.raises(NotImplementedError, match="megachunk"):
-        engine.solve_tpu(inst, device="cpu", megachunk=value)
-    with pytest.raises(NotImplementedError, match="megachunk"):
-        engine.solve_tpu_batch([inst], device="cpu", megachunk=value)
-    assert not hasattr(engine, "set_megachunk_default")
-    monkeypatch.setenv("KAO_MEGACHUNK", "4")
-    if value == "auto":
-        st = port_solve(the_cluster()).solve.stats
-        assert st["megachunk"]["mode"] == "off" and st["dispatches"] == 4
+@pytest.mark.parametrize("case", RESOLVE_CASES)
+def test_megachunk_explicit_widths_resolve_as_reference(case):
+    """Every value resolves to the reference's ``(K, mode)``: None, False,
+    "off" and 1 keep the per-chunk ladder, an int or a numeric string pins
+    K (capped by the chunk count), "auto" and True read the evidence table
+    (1 below quorum) but never under a process group, and a ladder that
+    does not fuse (the chain engine, one chunk) stays off."""
+    v, sup, multi, n = case
+    key = ("resolve-case",)
+
+    def outcome(mod):
+        try:
+            return mod._resolve_megachunk(v, sup, multi, n, key)
+        except ValueError as e:  # " AUTO ": int() of the unstripped value
+            return ("ValueError", str(e))
+
+    assert outcome(engine) == outcome(jengine), case
+
+
+# (label, evidence notes: (dispatches, dispatch_s, chunks, device_s) a
+# solve): below quorum, and at quorum for each candidate width
+CHOOSER_CASES = {
+    "below quorum": [(8, 0.8, 8, 0.008)] * 15,
+    "K=1": [(8, 0.0008, 8, 0.8)] * 16,
+    "K=2": [(8, 0.008, 8, 0.08)] * 16,
+    "K=4": [(8, 0.008, 8, 0.04)] * 16,
+    "K=8": [(8, 0.8, 8, 0.008)] * 16,
+    "mixed": [(8, 0.008, 8, 0.08)] * 10 + [(2, 0.001, 8, 0.02)] * 8,
+}
+
+
+@pytest.mark.parametrize("label", list(CHOOSER_CASES))
+def test_chooser_matches_reference(label):
+    """After the same ``note_megachunk_evidence`` calls, ``choose_megachunk_k``
+    and ``megachunk_snapshot`` equal the reference's (the port's snapshot
+    adds the group graphs it holds); ``reset_megachunk_adapt`` empties
+    both."""
+    key = ("lanes", 8, "sweep", 8, 1, 10240, 4, 16, "cuda")
+    for mod in (engine, jengine):
+        mod.reset_megachunk_adapt()
+        for d, ds, c, dv in CHOOSER_CASES[label]:
+            mod.note_megachunk_evidence(key, dispatches=d, dispatch_s=ds,
+                                        chunks=c, device_s=dv)
+        mod.note_megachunk_evidence(key, dispatches=0, dispatch_s=1.0,
+                                    chunks=1, device_s=1.0)  # ignored
+    try:
+        got, want = engine.choose_megachunk_k(key), \
+            jengine.choose_megachunk_k(key)
+        assert got == want
+        if label.startswith("K="):
+            assert got == int(label[2:])
+        snap = engine.megachunk_snapshot()
+        assert set(snap.pop("graphs")) >= {"graphs", "captures", "max"}
+        assert snap == jengine.megachunk_snapshot()
+    finally:
+        for mod in (engine, jengine):
+            mod.reset_megachunk_adapt()
+    assert engine.megachunk_snapshot()["buckets"] == {}
+
+
+@pytest.mark.parametrize("value", ["auto", "4", "off", "x", ""])
+def test_kao_megachunk_env_resolves_as_reference(value):
+    """``KAO_MEGACHUNK`` read at import: both packages resolve the same
+    process default (a malformed value is unset), and
+    ``set_megachunk_default`` takes the flag spellings alike."""
+    code = (
+        "import json\n"
+        "from kafka_assignment_optimizer_tpu.solvers.tpu import engine as j\n"
+        "from kafka_assignment_optimizer_tpu_torch.solvers.tpu import "
+        "engine as t\n"
+        "out = [[j.megachunk_default(), t.megachunk_default()]]\n"
+        "for v in ('auto', '2', 'off', True, False, 3, None):\n"
+        "    j.set_megachunk_default(v); t.set_megachunk_default(v)\n"
+        "    out.append([j.megachunk_default(), t.megachunk_default()])\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, KAO_MEGACHUNK=value, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=300,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out[0][0] == out[0][1] == {"auto": "auto", "4": 4}.get(value)
+    for j, t in out[1:]:
+        assert j == t
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_auto_solve_matches_reference(no_race, width):
+    """A CPU solve under ``megachunk="auto"``: each package's first auto
+    solve names its evidence key; the same 16 solves of evidence, chosen
+    to give ``width``, are then filed under it in both, and the next
+    auto solve runs fused at that width, with ``stats["megachunk"]``
+    (mode "auto"), the plan and the curve equal to the reference's and
+    to the unfused ladder's."""
+    cl = the_cluster()
+    ev = {2: (8, 0.008, 8, 0.08), 4: (8, 0.008, 8, 0.04)}[width]
+    base = port_solve(cl, pipeline=True)
+    out = {}
+    for mod, run in ((engine, port_solve), (jengine, ref_solve)):
+        mod.reset_megachunk_adapt()
+        first = run(cl, pipeline=True, megachunk="auto")
+        assert first.solve.stats["megachunk"]["mode"] == "auto"
+        assert first.solve.stats["megachunk"]["k"] == 1
+        (key,) = [eval(k) for k in mod.megachunk_snapshot()["buckets"]]
+        mod.reset_megachunk_adapt()
+        for _ in range(16):
+            d, ds, c, dv = ev
+            mod.note_megachunk_evidence(key, dispatches=d, dispatch_s=ds,
+                                        chunks=c, device_s=dv)
+        out[mod] = run(cl, pipeline=True, megachunk="auto")
+        mod.reset_megachunk_adapt()
+    got, want = out[engine], out[jengine]
+    assert_same(got, want, SEARCH + ("megachunk", "dispatches"))
+    assert_same(got, base, SEARCH)
+    mg = got.solve.stats["megachunk"]
+    assert (mg["k"], mg["mode"], mg["chunks"]) == (width, "auto", 4)
+    assert got.solve.stats["dispatches"] == 4 // width
+
+
+def test_batch_auto_matches_reference():
+    """``solve_tpu_batch(megachunk="auto")``: below quorum the lane
+    ladder runs per chunk in mode "auto", equal to the reference's batch,
+    and files its evidence (one solve) under its lanes key."""
+    rng = np.random.default_rng(1)
+    clusters = [random_cluster(rng, 12, 40 + 4 * i, 3, 3, drop=1)
+                for i in range(2)]
+    jinsts = [jax_build(*c) for c in clusters]
+    tinsts = [build_instance(*port_cluster(*c)) for c in clusters]
+    kw = dict(engine="sweep", rounds=32, time_limit_s=NO_DEADLINE,
+              seeds=0, megachunk="auto")
+    for mod in (engine, jengine):
+        mod.reset_megachunk_adapt()
+    try:
+        want = jengine.solve_tpu_batch(jinsts, n_devices=1, **kw)
+        got = engine.solve_tpu_batch(tinsts, device="cpu", **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.a, w.a)
+            for f in ("score_curve", "moves", "megachunk", "dispatches"):
+                assert g.stats[f] == w.stats[f], f
+        assert got[0].stats["megachunk"]["mode"] == "auto"
+        (ev,) = engine.megachunk_snapshot()["buckets"].values()
+        assert ev["solves"] == 1 and ev["chunks"] == 4
+        assert str(engine.megachunk_snapshot()["buckets"]).count(
+            "'lanes'") == 1
+    finally:
+        for mod in (engine, jengine):
+            mod.reset_megachunk_adapt()
+
+
+@pytest.mark.parametrize("replays", [False, True])
+def test_only_auto_dispatches_file_evidence(no_race, monkeypatch, replays):
+    """The chooser's evidence comes only from ladders whose every
+    dispatch is one chunk dispatched as "auto" dispatches it: a fused
+    ladder (K=2) files nothing; where "auto" replays the step graph (a
+    card, stood in here by ``_auto_replays``: the group then runs
+    eagerly on the CPU) the default ladder's eager chunks file nothing
+    either, and an "auto" solve files one solve of its 4 chunks."""
+    cl = the_cluster()
+    monkeypatch.setattr(engine, "_auto_replays",
+                        lambda *_a, **_k: replays)
+    engine.reset_megachunk_adapt()
+    try:
+        fused = port_solve(cl, pipeline=True, megachunk=2)
+        assert fused.solve.stats["megachunk"]["k"] == 2
+        assert engine.megachunk_snapshot()["buckets"] == {}
+        port_solve(cl, pipeline=True)
+        filed = engine.megachunk_snapshot()["buckets"]
+        assert (filed == {}) is replays
+        engine.reset_megachunk_adapt()
+        auto = port_solve(cl, pipeline=True, megachunk="auto")
+        assert_same(auto, fused, SEARCH)
+        (ev,) = engine.megachunk_snapshot()["buckets"].values()
+        assert (ev["solves"], ev["chunks"], ev["dispatches"]) == (1, 4, 4)
+    finally:
+        engine.reset_megachunk_adapt()
+
+
+# ---------------------------------------- the group with its device done
+
+# (label, active, armed): every step disarmed; a padded tail (the third
+# step inactive); armed with thresholds every chain meets from its seed
+GROUP_CASES = [("disarmed", (True, True, True), False),
+               ("padded tail", (True, True, False), False),
+               ("forced exit", (True, True, True), True)]
+FORCED = dict(cert_k=-(2 ** 31) + 1, cert_mv=2 ** 31 - 1)
+
+
+@pytest.fixture(scope="module")
+def group_case():
+    """One seeded cluster at a padded bucket, both packages' models (one
+    and three lanes) and seeds, and a group of 3 steps of 4 sweeps."""
+    from tests.test_torch_arrays import chains, pair
+    from tests.test_torch_lanes import BUCKET, CFG_LANES, _stacked
+
+    rng = np.random.default_rng(3)
+    inst, mj, mt = pair(rng, bucket=BUCKET)
+    msj, mst = _stacked(mj, mt, CFG_LANES)
+    seed = jarrays.pad_candidate(
+        np.asarray(chains(inst, mj, np.random.default_rng(1), 1)[0]), mj)
+    temps = np.asarray(jarrays.geometric_temps(2.0, 0.02, 12)).reshape(3, 4)
+    return dict(mj=mj, mt=mt, msj=msj, mst=mst, seed=seed, temps=temps,
+                L=len(CFG_LANES))
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("case", GROUP_CASES, ids=[c[0] for c in GROUP_CASES])
+def test_group_with_device_done_matches_reference(group_case, lanes, case):
+    """The fused group with its ``done`` flag on the device and its keys
+    as device keys (``make_mega_stepper_fn`` and, at L=3,
+    ``make_mega_lane_stepper_fn``) equals the reference's group on its
+    mesh of one device: the carried state and keys, the tops, ``cert_*``,
+    the curves (zeros for a skipped step) and ``execd``, disarmed, with a
+    padded tail and armed with an exit after the first step; a host key
+    state comes back with host keys, read once after the group."""
+    g = group_case
+    _label, active, armed = case
+    arm = FORCED if armed else {}
+    N = 2
+    jm = jmesh.make_mesh(n_devices=1)
+    act = np.asarray(active)
+    if lanes:
+        L = g["L"]
+        kj = jnp.stack([jax.random.fold_in(jax.random.PRNGKey(7), i)
+                        for i in range(L)])
+        kt = np.stack([prng.fold_in(prng.PRNGKey(7), i) for i in range(L)])
+        seeds = np.stack([g["seed"]] * L)
+        sj = jmesh.init_lane_state(g["msj"], seeds, kj, jm, N)
+        want = jmesh.solve_lanes_megachunk(
+            g["msj"], jm, N, jnp.asarray(g["temps"]), sj,
+            active=jnp.asarray(act), scorer="xla", **arm)
+        st = mesh.init_lane_state(g["mst"], seeds, kt, N)
+        fn = sweep.make_mega_lane_stepper_fn(N)
+        m = g["mst"]
+    else:
+        sj = jmesh.init_sweep_state(g["mj"], jnp.asarray(g["seed"]),
+                                    jax.random.PRNGKey(7), jm, N)
+        want = jmesh.solve_megachunk(g["mj"], jm, N, jnp.asarray(g["temps"]),
+                                     sj, active=jnp.asarray(act),
+                                     scorer="xla", **arm)
+        st = mesh.init_sweep_state(g["mt"], torch.from_numpy(g["seed"]),
+                                   prng.PRNGKey(7), N)
+        fn = sweep.make_mega_stepper_fn(N)
+        m = g["mt"]
+    args = (g["temps"], act, *(
+        (FORCED["cert_k"], FORCED["cert_mv"]) if armed
+        else (sweep.MEGA_DISARMED_KEY, sweep.MEGA_DISARMED_MOVES)))
+    host = fn(m, st, *args)
+    dst = (*st[:4], prng.to_device_keys(st[4], "cpu"))
+    dev = fn(m, dst, *args)
+    assert isinstance(dev[0][4], torch.Tensor)
+    assert isinstance(host[0][4], np.ndarray)
+    for got in (host, dev):
+        for x, y in zip(want[0], got[0]):
+            np.testing.assert_array_equal(np.asarray(x)[0], np.asarray(y))
+        for name, x, y in zip(("top_a", "top_k", "cert_a", "cert_ok",
+                               "cert_mv", "curves", "execd"),
+                              want[1:], got[1:]):
+            np.testing.assert_array_equal(np.asarray(x)[0], np.asarray(y),
+                                          err_msg=name)
+    execd = np.asarray(dev[7]).reshape(-1, 3)[0].tolist()
+    assert execd == ([True, False, False] if armed else list(active))
+    curves = np.asarray(dev[6]).reshape(-1, 3, 4)
+    assert (curves[:, [j for j in range(3) if not execd[j]]] == 0).all()
+
+
+@pytest.mark.parametrize("case", GROUP_CASES, ids=[c[0] for c in GROUP_CASES])
+def test_eager_group_skips_what_the_host_knows(group_case, monkeypatch, case):
+    """Run eagerly, a group runs a step only where the host's ``active``
+    holds (a padded tail's step runs no sweep at all), and only an armed
+    group combines the exit flags over its blocks (``Layout.any``, a
+    copy between cards and an all_reduce across processes): a disarmed
+    group never calls it (the test above holds the results to the
+    reference's)."""
+    g = group_case
+    _label, active, armed = case
+    calls = {"sweeps": 0, "any": 0}
+    real_sweeps, real_any = sweep._sweeps, mesh.Layout.any
+
+    def counted_sweeps(*a, **k):
+        calls["sweeps"] += 1
+        return real_sweeps(*a, **k)
+
+    def counted_any(self, flags):
+        calls["any"] += 1
+        return real_any(self, flags)
+
+    monkeypatch.setattr(sweep, "_sweeps", counted_sweeps)
+    monkeypatch.setattr(mesh.Layout, "any", counted_any)
+    st = mesh.init_sweep_state(g["mt"], torch.from_numpy(g["seed"]),
+                               prng.PRNGKey(7), 2)
+    out = sweep.make_mega_stepper_fn(2)(
+        g["mt"], st, g["temps"], np.asarray(active), *(
+            (FORCED["cert_k"], FORCED["cert_mv"]) if armed
+            else (sweep.MEGA_DISARMED_KEY, sweep.MEGA_DISARMED_MOVES)))
+    assert calls == {"sweeps": sum(active), "any": sum(active) * armed}
+    assert out[7].tolist() == ([True, False, False] if armed
+                               else list(active))
+
+
+@pytest.mark.parametrize("L", [1, 3])
+def test_device_key_lane_chunk_matches_reference(group_case, L):
+    """One chunk of the lane stepper with device keys (the chunk step as
+    a fused ladder runs it), at L=1 and L=3, equals the reference's
+    ``make_lane_stepper_fn`` on its mesh of one device."""
+    from tests.test_torch_lanes import _J_LANE_STEP, N_STEP
+
+    g = group_case
+    msj, mst = g["msj"], g["mst"]
+    if L == 1:
+        msj = jarrays.stack_models([g["mj"]])
+        mst = arrays.stack_models([g["mt"]])
+    kj = jnp.stack([jax.random.fold_in(jax.random.PRNGKey(8), i)
+                    for i in range(L)])
+    kt = np.stack([prng.fold_in(prng.PRNGKey(8), i) for i in range(L)])
+    seeds = np.stack([g["seed"]] * L)
+    sj = tuple(jnp.asarray(x) for x in jmesh.init_lane_state(
+        msj, seeds, kj, jmesh.make_mesh(n_devices=1), N_STEP))
+    st = mesh.init_lane_state(mst, seeds, kt, N_STEP)
+    st = (*st[:4], prng.to_device_keys(st[4], "cpu"))
+    step = sweep.make_lane_stepper_fn(N_STEP)
+    temps = g["temps"].reshape(-1)
+    for chunk in (temps[:8], temps[8:]):
+        sj, top_aj, top_kj, cv_j = _J_LANE_STEP(msj, sj, jnp.asarray(chunk))
+        st, top_at, top_kt, cv_t = step(mst, st, chunk)
+        for x, y in zip(sj, st):
+            np.testing.assert_array_equal(np.asarray(x)[0], np.asarray(y))
+        np.testing.assert_array_equal(np.asarray(top_aj)[0], top_at)
+        np.testing.assert_array_equal(np.asarray(cv_j)[0], cv_t)
 
 
 def test_megachunk_warm_estimate_is_width_keyed(no_race):

@@ -364,7 +364,8 @@ def test_every_reference_flag_works_or_is_refused(capsys, monkeypatch):
     """Each flag of the JAX service parses in the port's service. The
     flags once refused at startup (``--fleet-peers``, ``--rollout-*``)
     now start it and land where the reference's ``main`` puts them, and
-    a bad value of each stops both services (exit 2). The port's
+    a bad value of each stops both services (exit 2); ``--megachunk
+    auto|K|off`` sets the engine's process default in both. The port's
     service also refuses to start without a card unless ``--device
     cpu``."""
     flags = _reference_flags()
@@ -404,9 +405,28 @@ def test_every_reference_flag_works_or_is_refused(capsys, monkeypatch):
         assert codes == [2, 2], flag
         capsys.readouterr()
     assert "--device" in known
-    with pytest.raises(SystemExit) as ei:
-        serve.main(["--megachunk", "auto", "--device", "cpu"])
-    assert ei.value.code == 2
+    # the measured width: --megachunk auto lands where the reference's
+    # does (the engine's process default), and a bad width stops both
+    from kafka_assignment_optimizer_tpu.solvers.tpu import (
+        engine as jengine,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    for mod in (engine, jengine):
+        monkeypatch.setattr(mod, "_MEGACHUNK_DEFAULT",
+                            mod._MEGACHUNK_DEFAULT)
+    for value, want in (("auto", "auto"), ("4", 4), ("off", None)):
+        assert serve.main(["--megachunk", value, "--device", "cpu"]) == 0
+        # the reference's main hands the flag to the same setter
+        jengine.set_megachunk_default(value)
+        assert engine.megachunk_default() == jengine.megachunk_default() \
+            == want, value
+    for main in (jserve.main, serve.main):
+        with pytest.raises(SystemExit) as ei:
+            main(["--megachunk", "two", "--device", "cpu"]
+                 if main is serve.main else ["--megachunk", "two"])
+        assert ei.value.code == 2
+    capsys.readouterr()
     import torch
 
     if not torch.cuda.is_available():
@@ -539,3 +559,47 @@ def _tree(span):
     yield span
     for child in span.get("spans", ()):
         yield from _tree(child)
+
+
+def test_megachunk_option_and_healthz_match_reference(monkeypatch):
+    """``options.megachunk: true`` opts a solve into the measured width
+    (no 501), false pins the per-chunk ladder; each answer equals the
+    reference service's, ``solver_megachunk`` included; and ``/healthz``'s
+    ``megachunk`` section is the engine's ``megachunk_snapshot()``, equal
+    to the reference's after the same evidence (the port's adds the group
+    graphs it holds). A non-bool value is a 400 in both."""
+    from kafka_assignment_optimizer_tpu.solvers.tpu import (
+        engine as jengine,
+    )
+    from kafka_assignment_optimizer_tpu_torch.solvers.tpu import engine
+
+    for mod in (engine, jengine):
+        mod.reset_megachunk_adapt()
+    try:
+        for flag in (True, False):
+            p = {**DEMO, "solver": "tpu",
+                 "options": {**PINNED, "megachunk": flag}}
+            oj = jserve.handle_submit(dict(p))
+            ot = serve.handle_submit(dict(p))
+            assert_same_response(oj, ot)
+            assert ot["report"].get("solver_megachunk") == \
+                oj["report"].get("solver_megachunk")
+        key = ("single", "sweep", 1, 4, 1, 48, 4, 16, "cuda")
+        for mod in (engine, jengine):
+            mod.reset_megachunk_adapt()
+            for _ in range(16):
+                mod.note_megachunk_evidence(key, dispatches=8,
+                                            dispatch_s=0.008, chunks=8,
+                                            device_s=0.08)
+        got = serve.handle_healthz()["megachunk"]
+        want = jserve.handle_healthz()["megachunk"]
+        assert set(got.pop("graphs")) >= {"graphs", "captures", "max"}
+        assert got == want and got["chosen"][repr(key)] == 2
+        for mod in (serve, jserve):
+            with pytest.raises(mod.ApiError) as ei:
+                mod.handle_submit({**DEMO, "solver": "tpu",
+                                   "options": {**PINNED, "megachunk": 2}})
+            assert ei.value.status == 400
+    finally:
+        for mod in (engine, jengine):
+            mod.reset_megachunk_adapt()

@@ -368,3 +368,101 @@ def test_first_index_reductions():
     x = torch.tensor([3, 1, 4, 1, 5, 5])
     assert int(ts.first_argmin(x)) == 1
     assert int(ts.first_argmax(x)) == 4
+
+
+# ------------------------------------------------ the chunk step's device draws
+
+def _dkey(seed):
+    """``PRNGKey(seed)`` as a device key (int64 words, here on the CPU)."""
+    return prng.to_device_keys(prng.PRNGKey(seed), "cpu")
+
+
+@pytest.mark.parametrize("P", [2, 3, 5, 48])
+def test_device_key_draws_match_reference(P):
+    """The draws a chunk step makes from device keys: a lane's key split
+    once a sweep (``prng.split_chain``), host and device alike, equal
+    ``jax.random.split`` applied in turn; ``randint`` with device bounds
+    and the pairing (``_pair_partners``: the stride as a device scalar,
+    the phases, the lower sides) equal the reference's."""
+    kj = jax.random.PRNGKey(9 * P)
+    keys = np.stack([prng.PRNGKey(9 * P), prng.fold_in(prng.PRNGKey(P), 3)])
+    subs_h, keys_h = prng.split_chain(keys, 5)
+    subs_d, keys_d = prng.split_chain(prng.to_device_keys(keys, "cpu"), 5)
+    assert_same(subs_h, subs_d)
+    assert_same(keys_h, keys_d)
+    k = kj
+    for i in range(5):
+        k, sub = jax.random.split(k)
+        assert_same(sub, subs_d[i, 0])
+    assert_same(k, keys_d[0])
+    span = torch.tensor(2 * P, dtype=torch.int64)
+    assert_same(jax.random.randint(kj, (4, 1), 0, 2 * P),
+                prng.randint(_dkey(9 * P), (4, 1), 0, span))
+    kd_j, _ = jax.random.split(kj)
+    d_j, low_j, valid_j = js._pair_partners(kd_j, 6, P)
+    d_t, low_t, valid_t = ts._pair_partners(prng.split(_dkey(9 * P))[0], 6,
+                                            P, "cpu")
+    assert isinstance(d_t, torch.Tensor) and int(d_t) == int(d_j)
+    assert_same(low_j, low_t)
+    assert_same(valid_j, valid_t)
+
+
+# the stages as the chunk step calls them: a device key and a float32
+# device temperature; at 3 partitions every sweep's stride is 1 and the
+# partners past the end wrap
+@pytest.mark.parametrize("stage", ["site", "exchange", "compound"])
+@pytest.mark.parametrize("shape", [dict(npart=3, bucket=None),
+                                   dict(npart=40, bucket=BUCKET)])
+def test_device_draw_stages_match_reference(rng, stage, shape):
+    """Each sweep stage of the chunk step, given its sweep key as a device
+    key and its temperature as a device scalar (a row of the chunk's
+    temperature table), equals the reference's stage on the same inputs,
+    through the plain version and through the kernel wrapper's CPU
+    path."""
+    inst, mj, mt = pair(rng, nb=10, npart=shape["npart"], rf=3, nr=3,
+                        drop=1, bucket=shape["bucket"])
+    a = chains(inst, mj, rng, 5)
+    aj, at = jnp.asarray(a), torch.from_numpy(a)
+    hj, ht = _hists(mj, mt, aj, at)
+    ref, plain, wrapper = {
+        "site": (_J_SITE, ts._site_sweep_delta, site_cuda.site_step_cuda),
+        "exchange": (_J_EXCH, ts._exchange_sweep_delta,
+                     exchange_cuda.exchange_step_cuda),
+        "compound": (_J_COMP, ts._compound_sweep_delta, None)}[stage]
+    moved = 0
+    for i, temp in enumerate((2.0, 0.3)):
+        t32 = np.float32(temp)
+        tt = torch.tensor(t32)
+        outj = ref(mj, aj, *hj, jax.random.PRNGKey(40 + i), t32)
+        for fn in (plain, wrapper):
+            if fn is None:
+                continue
+            outt = fn(mt, at, *ht, _dkey(40 + i), tt)
+            for x, y in zip(outj, outt):
+                assert_same(x, y)
+        moved += int((outt[0].numpy() != a).any(-1).sum())
+    assert moved > 0
+
+
+@pytest.mark.parametrize("key_seed", [5])
+def test_device_key_stepper_matches_reference(rng, key_seed):
+    """The single-model stepper whose state carries its key as a device
+    key (as a fused ladder's does): two chunks equal the reference's
+    one-device stepper leaf for leaf, the key coming back a device key."""
+    inst, mj, mt, *_ = _setup(rng)
+    state_j = _seed_state(inst, mj, N_STEP, key_seed)
+    temps = np.asarray(jarrays.geometric_temps(2.0, 0.02, 16))
+    sj = jax.tree.map(lambda x: x[None], state_j)
+    stt = ts.make_sweep_stepper_fn(N_STEP, scorer="torch")
+    st = arrays.state_from_numpy(tuple(np.asarray(x) for x in state_j),
+                                 "cpu")
+    st = (*st[:4], prng.to_device_keys(st[4], "cpu"))
+    for chunk in (temps[:8], temps[8:]):
+        sj, top_aj, top_kj, cv_j = _J_STEP(mj, sj, jnp.asarray(chunk))
+        st, top_at, top_kt, cv_t = stt(mt, st, chunk)
+        assert isinstance(st[4], torch.Tensor)
+        for x, y in zip(sj, st):
+            assert_same(np.asarray(x)[0], y)
+        assert_same(np.asarray(top_aj)[0], top_at)
+        assert_same(np.asarray(top_kj)[0], top_kt)
+        assert_same(np.asarray(cv_j)[0], cv_t)
